@@ -1,0 +1,280 @@
+"""Tokenization for the port's local models: a copy of the JAX package's
+``xpacks/llm/_tokenizer.py`` (pure numpy), kept here because the port imports
+nothing of that package. Ids must stay bit-identical to it.
+
+There is no network, so the default is a deterministic hashing tokenizer (stable
+across runs and processes); a local HF-style WordPiece vocab is read by
+``WordPieceTokenizer``. Anything with ``encode_batch`` serves as a tokenizer.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import re
+from typing import Any, Protocol, Sequence
+
+import numpy as np
+
+CLS_ID = 1
+SEP_ID = 2
+
+
+class Tokenizer(Protocol):
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """-> (token_ids [b, t] int32, mask [b, t] bool), t <= max_len."""
+        ...
+
+
+def _is_cjk(ch: str) -> bool:
+    cp = ord(ch)
+    return (
+        0x4E00 <= cp <= 0x9FFF
+        or 0x3400 <= cp <= 0x4DBF
+        or 0x20000 <= cp <= 0x2A6DF
+        or 0x2A700 <= cp <= 0x2CEAF
+        or 0xF900 <= cp <= 0xFAFF
+        or 0x2F800 <= cp <= 0x2FA1F
+    )
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _hash_token(word: str, vocab_size: int) -> int:
+    # word frequencies are Zipfian, so the cache absorbs nearly every
+    # lookup on real text (the blake2s+mod was ~25% of ingest CPU)
+    h = hashlib.blake2s(word.encode(), digest_size=4).digest()
+    # ids 0..3 reserved (pad/cls/sep/unk)
+    return 4 + int.from_bytes(h, "little") % (vocab_size - 4)
+
+
+#: alnum runs become words; any other non-space character is its own token
+#: (C-speed equivalent of the former per-character isalnum() scan, which
+#: dominated ingest profiles at ~0.5 s per 7k docs)
+_WORD_RE = re.compile(r"[^\W_]+|[^\w\s]|_")
+
+
+class HashTokenizer:
+    """Whitespace+punctuation split, blake2s-hashed ids, CLS/SEP framing."""
+
+    #: id 0 is reserved for padding (encode_batch zero-fills)
+    pad_id = 0
+
+    def __init__(self, vocab_size: int = 30522) -> None:
+        self.vocab_size = vocab_size
+
+    def _words(self, text: str) -> list[str]:
+        return _WORD_RE.findall(str(text).lower())
+
+    def encode(self, text: str, max_len: int) -> list[int]:
+        words = self._words(text)[: max_len - 2]
+        return (
+            [CLS_ID]
+            + [_hash_token(w, self.vocab_size) for w in words]
+            + [SEP_ID]
+        )
+
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        encoded = [self.encode(t, max_len) for t in texts]
+        t = max((len(e) for e in encoded), default=2)
+        ids = np.zeros((len(texts), t), np.int32)
+        mask = np.zeros((len(texts), t), bool)
+        for i, e in enumerate(encoded):
+            ids[i, : len(e)] = e
+            mask[i, : len(e)] = True
+        return ids, mask
+
+    def encode_pair_batch(
+        self, left: Sequence[str], right: Sequence[str], max_len: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """[CLS] left [SEP] right [SEP] — the cross-encoder input shape."""
+        texts = []
+        encoded = []
+        for l_txt, r_txt in zip(left, right):
+            lw = self._words(l_txt)
+            rw = self._words(r_txt)
+            budget = max_len - 3
+            lw = lw[: budget // 2]
+            rw = rw[: budget - len(lw)]
+            encoded.append(
+                [CLS_ID]
+                + [_hash_token(w, self.vocab_size) for w in lw]
+                + [SEP_ID]
+                + [_hash_token(w, self.vocab_size) for w in rw]
+                + [SEP_ID]
+            )
+        t = max((len(e) for e in encoded), default=3)
+        ids = np.zeros((len(encoded), t), np.int32)
+        mask = np.zeros((len(encoded), t), bool)
+        for i, e in enumerate(encoded):
+            ids[i, : len(e)] = e
+            mask[i, : len(e)] = True
+        return ids, mask
+
+    def count_tokens(self, text: str) -> int:
+        return len(self._words(text))
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return " ".join(f"<{i}>" for i in ids if i > 3)
+
+
+def pad_to_buckets(
+    ids: np.ndarray,
+    mask: np.ndarray,
+    batch_bucket_min: int = 8,
+    seq_bucket_min: int = 8,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Pad batch and seq dims up to powers of two so the set of shapes the
+    device sees stays small.
+
+    Returns (ids, mask, real_batch). Sequence is padded to the next power of
+    two (min ``seq_bucket_min`` — raise it to trade padding FLOPs for fewer
+    distinct shapes); batch likewise (min ``batch_bucket_min``).
+    """
+    b, t = ids.shape
+    bt = batch_bucket_min
+    while bt < b:
+        bt *= 2
+    tt = seq_bucket_min
+    while tt < t:
+        tt *= 2
+    out_ids = np.zeros((bt, tt), np.int32)
+    out_mask = np.zeros((bt, tt), bool)
+    out_ids[:b, :t] = ids
+    out_mask[:b, :t] = mask
+    return out_ids, out_mask, b
+
+
+class WordPieceTokenizer:
+    """BERT WordPiece over a real vocab (reference models load HF
+    tokenizers, embedders.py:270; this is the native implementation of the
+    same algorithm: basic tokenization, then greedy longest-match-first
+    subwords with ``##`` continuations).
+
+    ``vocab``: path to a vocab.txt (one token per line, HF layout) or a
+    dict token -> id. Special tokens follow BERT conventions.
+    """
+
+    def __init__(
+        self,
+        vocab: "str | dict[str, int]",
+        *,
+        lowercase: bool = True,
+        unk_token: str = "[UNK]",
+        cls_token: str = "[CLS]",
+        sep_token: str = "[SEP]",
+        pad_token: str = "[PAD]",
+        max_chars_per_word: int = 100,
+    ) -> None:
+        if isinstance(vocab, str):
+            with open(vocab, encoding="utf-8") as f:
+                vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+        self.vocab = dict(vocab)
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
+        self.lowercase = lowercase
+        self.unk_id = self.vocab[unk_token]
+        self.cls_id = self.vocab[cls_token]
+        self.sep_id = self.vocab[sep_token]
+        self.pad_id = self.vocab[pad_token]
+        self._special_tokens = {cls_token, sep_token, pad_token}
+        self.max_chars_per_word = max_chars_per_word
+        self.vocab_size = max(self.vocab.values()) + 1
+
+    # -- basic tokenization (BERT BasicTokenizer) ----------------------------
+
+    def _basic_tokens(self, text: str) -> list[str]:
+        import unicodedata
+
+        if self.lowercase:
+            text = text.lower()
+            text = unicodedata.normalize("NFD", text)
+            text = "".join(
+                c for c in text if unicodedata.category(c) != "Mn"
+            )
+        out: list[str] = []
+        word: list[str] = []
+
+        def flush() -> None:
+            if word:
+                out.append("".join(word))
+                word.clear()
+
+        for ch in text:
+            cat = unicodedata.category(ch)
+            if cat in ("Cc", "Cf") and ch not in ("\t", "\n", "\r"):
+                continue  # strip control chars (BERT BasicTokenizer)
+            if ch.isspace():
+                flush()
+            elif _is_cjk(ch):
+                # every CJK character is its own token, as in HF's
+                # BasicTokenizer — multilingual vocabs are built that way
+                flush()
+                out.append(ch)
+            elif cat.startswith("P") or ch in "$+<=>^`|~":
+                flush()
+                out.append(ch)
+            else:
+                word.append(ch)
+        flush()
+        return out
+
+    # -- wordpiece ------------------------------------------------------------
+
+    def _wordpiece(self, word: str) -> list[int]:
+        if len(word) > self.max_chars_per_word:
+            return [self.unk_id]
+        ids: list[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            cur = None
+            while start < end:
+                piece = word[start:end]
+                if start > 0:
+                    piece = "##" + piece
+                if piece in self.vocab:
+                    cur = self.vocab[piece]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_id]
+            ids.append(cur)
+            start = end
+        return ids
+
+    def encode(self, text: str, max_len: int | None = None) -> list[int]:
+        ids = [self.cls_id]
+        for word in self._basic_tokens(str(text)):
+            ids.extend(self._wordpiece(word))
+        budget = (max_len - 1) if max_len is not None else None
+        if budget is not None and len(ids) > budget:
+            ids = ids[:budget]
+        ids.append(self.sep_id)
+        return ids
+
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        encoded = [self.encode(t, max_len) for t in texts]
+        t = max(len(e) for e in encoded) if encoded else 1
+        ids = np.full((len(encoded), t), self.pad_id, np.int32)
+        mask = np.zeros((len(encoded), t), bool)
+        for i, e in enumerate(encoded):
+            ids[i, : len(e)] = e
+            mask[i, : len(e)] = True
+        return ids, mask
+
+    def decode(self, ids: Sequence[int]) -> str:
+        words: list[str] = []
+        for i in ids:
+            tok = self.ids_to_tokens.get(int(i), "")
+            if tok in self._special_tokens:
+                continue
+            if tok.startswith("##") and words:
+                words[-1] += tok[2:]
+            else:
+                words.append(tok)
+        return " ".join(words)

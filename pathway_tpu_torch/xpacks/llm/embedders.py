@@ -1,0 +1,137 @@
+"""Local sentence embedder on the card.
+
+Counterpart of ``TpuEncoderEmbedder`` in ``pathway_tpu/xpacks/llm/embedders.py``: the
+same presets, checkpoint-directory loading, ``max_len``, ``max_batch_size`` chunking,
+``seq_bucket_min`` and power-of-two padding buckets, and the rule that derives the mask
+from the ids on the device when the tokenizer pads with id 0. It is a plain class: the
+engine's ``UDF`` wrapper around it comes with the engine's port.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.models.hf_import import load_sentence_transformer
+from pathway_tpu_torch.models.transformer import (
+    Encoder,
+    EncoderConfig,
+    bge_base,
+    bge_small,
+    embed,
+    minilm_l6,
+)
+from pathway_tpu_torch.xpacks.llm._tokenizer import (
+    HashTokenizer,
+    Tokenizer,
+    pad_to_buckets,
+)
+
+_ENCODER_PRESETS = {
+    "all-MiniLM-L6-v2": "minilm_l6",
+    "sentence-transformers/all-MiniLM-L6-v2": "minilm_l6",
+    "BAAI/bge-base-en": "bge_base",
+    "BAAI/bge-base-en-v1.5": "bge_base",
+    "BAAI/bge-small-en-v1.5": "bge_small",
+}
+_CONFIGS = {"minilm_l6": minilm_l6, "bge_base": bge_base, "bge_small": bge_small}
+
+
+class EncoderEmbedder:
+    """Sentence embedder on the card.
+
+    ``model`` is a preset name, a local sentence-transformers/HF checkpoint directory
+    (real weights and WordPiece vocab), or an ``EncoderConfig``. Weights are seeded
+    random unless they come from a checkpoint directory or ``params`` (an
+    ``Encoder`` state_dict, e.g. from ``params_from_jax``).
+    """
+
+    def __init__(
+        self,
+        model: "str | EncoderConfig" = "all-MiniLM-L6-v2",
+        *,
+        max_len: int = 128,
+        max_batch_size: int = 256,
+        tokenizer: Tokenizer | None = None,
+        params: dict[str, torch.Tensor] | None = None,
+        seed: int = 0,
+        seq_bucket_min: int = 8,
+        device: "str | torch.device | None" = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        if isinstance(model, EncoderConfig):
+            self.config = model
+        elif os.path.isdir(model):
+            if params is not None and tokenizer is not None:
+                # the dir would contribute nothing but a large deserialization
+                raise ValueError(
+                    "pass either a checkpoint dir or explicit "
+                    "params+tokenizer, not both"
+                )
+            loaded, self.config, wp_tokenizer = load_sentence_transformer(model)
+            params = loaded if params is None else params
+            tokenizer = wp_tokenizer if tokenizer is None else tokenizer
+        else:
+            cfg_fn = _CONFIGS.get(_ENCODER_PRESETS.get(model, model))
+            if cfg_fn is None:
+                raise ValueError(
+                    f"unknown encoder preset {model!r}; "
+                    f"known: {sorted(_ENCODER_PRESETS)} + "
+                    f"{sorted(_CONFIGS)}, or a local checkpoint dir"
+                )
+            self.config = cfg_fn()
+        # a checkpoint's positional table caps the usable sequence length
+        self.max_len = min(max_len, self.config.max_len)
+        #: minimum power-of-two sequence bucket: raise it (up to max_len) to trade
+        #: padding FLOPs for fewer distinct shapes
+        self.seq_bucket_min = min(seq_bucket_min, self.max_len)
+        self.max_batch_size = max_batch_size
+        self.tokenizer = tokenizer or HashTokenizer(self.config.vocab_size)
+        self.encoder = Encoder(
+            self.config, device=self.device, seed=None if params is not None else seed
+        )
+        if params is not None:
+            self.encoder.load_state_dict(params)
+        # when the tokenizer pads with id 0 (both built-ins do; bucket padding is
+        # 0 too), the mask is derived on the device as ids != 0, which halves the
+        # host-to-device uploads per chunk
+        pad = getattr(
+            self.tokenizer, "pad_id", getattr(self.tokenizer, "pad_token_id", None)
+        )
+        self._mask_from_ids = pad == 0
+
+    def get_embedding_dimension(self) -> int:
+        return self.config.hidden
+
+    def tokenize(self, texts: Sequence[str]) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """-> (ids ``[B, T]``, mask ``[B, T]`` on the device, real batch size), with
+        batch and sequence padded to the buckets."""
+        ids, mask = self.tokenizer.encode_batch([str(t) for t in texts], self.max_len)
+        ids, mask, real = pad_to_buckets(ids, mask, seq_bucket_min=self.seq_bucket_min)
+        ids_dev = torch.from_numpy(ids).to(self.device)
+        if self._mask_from_ids and np.array_equal(mask, ids != 0):
+            mask_dev = ids_dev != 0
+        else:
+            mask_dev = torch.from_numpy(mask).to(self.device)
+        return ids_dev, mask_dev, real
+
+    def embed_batch(self, texts: Sequence[str]) -> torch.Tensor:
+        """Texts -> L2-normalised embeddings ``[n, hidden]`` f32 on the device, in
+        chunks of at most ``max_batch_size``. The rows stay on the card:
+        ``DeviceKnnIndex.add`` and ``search`` take them there."""
+        texts = list(texts)
+        if not texts:
+            return torch.empty((0, self.config.hidden), device=self.device)
+        out = []
+        for start in range(0, len(texts), self.max_batch_size):
+            ids, mask, real = self.tokenize(texts[start : start + self.max_batch_size])
+            out.append(embed(self.encoder, ids, mask)[:real])
+        return out[0] if len(out) == 1 else torch.cat(out)
+
+
+class SentenceTransformerEmbedder(EncoderEmbedder):
+    """The name the reference's embedder goes by."""

@@ -24,3 +24,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running chaos soak / scale tests excluded from tier-1",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips where there is none",
+    )
