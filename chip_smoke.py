@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's streaming-RAG device path once, on one card.
+"""Drive the PyTorch/CUDA port's two device paths once, on one card: the streaming-RAG
+serving path and the contrastive trainer.
 
     python3 chip_smoke.py
 
@@ -14,19 +15,34 @@ limit):
    tile, multi-tile t, no mask, a fully masked row); then its time against its bound,
    the plain version and ``scaled_dot_product_attention`` (timed here only, as a
    yardstick; the port never calls it).
-4. checkpoint: the committed ``tests/fixtures/tiny_bert`` checkpoint through the port's
+4. train_kernel: the flash-attention backward's two kernels (dQ, dK/dV) against their
+   plain PyTorch version on the card at the train shape and at the edge shapes; then
+   each kernel's time against its bound and its plain version, and the backward of
+   ``scaled_dot_product_attention`` with the same mask (its forward and backward less
+   its forward; timed here only, as a yardstick).
+5. checkpoint: the committed ``tests/fixtures/tiny_bert`` checkpoint through the port's
    importer and the kernel in f32 reproduces its golden embeddings.
-5. main_path: MiniLM-L6 at full width (seeded weights) embeds 20,000 generated docs in
+6. main_path: MiniLM-L6 at full width (seeded weights) embeds 20,000 generated docs in
    256-doc commits into a 1,048,576-slot f32 index on the card, 980,000 seeded unit
    vectors are bulk-added so 1,000,000 rows are live, and 64 queries are embedded and
-   searched one per commit. Reports docs/s, query p50/p95, peak memory and the kernel's
-   launches (which must be 6 per embed call). Checks that every key's slot holds its
+   searched one per commit. Reports docs/s, query p50/p95, peak memory and the kernels'
+   launches (the forward's must be 6 per embed call, the backward's 0). Checks that every key's slot holds its
    input vector bit for bit, and recall@10 against exact f32 search in a host index
    built from the same inputs through its own ``add``; then one 256-doc batch through
    the kernel against the plain attention (cosine, beside the readings of two broken
    attentions), and profiler windows over a few more ingest commits and queries:
    device time by kernel and the device's idle share.
-6. The kernels line, the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+7. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
+   steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
+   3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
+   curve (which must fall and stay finite) and each kernel's launches (which must be
+   12 a step: 6 layers x 2 embed calls); a profiler window over two more steps gives
+   device time by kernel and the device's idle share. Then one parity step at 128
+   pairs from the same initial weights: the loss and each parameter's gradient through
+   the kernels against the plain forward and backward through the same
+   ``autograd.Function``, and the same reading with a deliberately broken backward
+   (delta left out), which must fall below the bar.
+8. The kernels line, the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -46,9 +62,18 @@ import torch
 
 from pathway_tpu_torch import _build
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
-from pathway_tpu_torch.models import Encoder, embed, load_sentence_transformer
+from pathway_tpu_torch.models import (
+    ContrastiveBatch,
+    Encoder,
+    embed,
+    info_nce_loss,
+    load_sentence_transformer,
+    make_train_step,
+    minilm_l6,
+)
 from pathway_tpu_torch.ops import flash_attention as fa
 from pathway_tpu_torch.xpacks.llm import EncoderEmbedder
+from pathway_tpu_torch.xpacks.llm._tokenizer import HashTokenizer, pad_to_buckets
 
 SEED = 0
 N_DOCS = 20_000  # the JAX bench's N_DOCS
@@ -74,6 +99,15 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-4  # relative to max(1, |lse|)
 # min cosine of the main path's embeddings, kernel against plain attention
 EMBED_COS_BAR = 0.999
+# The backward's outputs grow past 1 (a key's dV sums over every query row), so their
+# error is taken relative to max(1, |plain|) elementwise, as lse's, against TOL.
+TRAIN_PAIRS = 1024  # the all-MiniLM-L6-v2 recipe's batch
+TRAIN_STEPS = 20
+PARITY_PAIRS = 128
+# min over parameters (``_grad_cosines``) of the cosine between a gradient through the
+# kernels and through the plain versions; and the bar on the two losses' difference
+GRAD_COS_BAR = 0.99
+LOSS_TOL = 1e-2
 
 _WORDS = (
     "stream table index vector engine commit window join reduce shard "
@@ -137,6 +171,15 @@ def attn_inputs(b, t, h, d, dtype, gen, *, masked: str):
     return q, k, v, fa.mask_bias(mask)
 
 
+def _weighted_keys(bias: torch.Tensor | None, b: int, t: int) -> int:
+    """Keys that carry weight, summed over sequences: the real keys, or all t for a
+    sequence with none (its rows weigh every key)."""
+    if bias is None:
+        return b * t
+    real = (bias > fa.NEG_INF / 2).sum(dim=1)
+    return int(torch.where(real > 0, real, t).sum())
+
+
 def attn_bound_ms(q: torch.Tensor, bias: torch.Tensor | None) -> tuple[float, str]:
     """The least time one call can take on these inputs. Bytes: q read and o written
     for every row, lse written, the bias read, and k and v read only for the keys that
@@ -145,14 +188,36 @@ def attn_bound_ms(q: torch.Tensor, bias: torch.Tensor | None) -> tuple[float, st
     keys. Operations: q.k and p.v over those keys for every query row."""
     b, t, h, d = q.shape
     elt = q.element_size()
-    if bias is None:
-        keys = b * t
-    else:
-        real = (bias > fa.NEG_INF / 2).sum(dim=1)
-        keys = int(torch.where(real > 0, real, t).sum())
+    keys = _weighted_keys(bias, b, t)
     nbytes = 2 * b * t * h * d * elt + 2 * keys * h * d * elt + b * h * t * 4
     nbytes += 0 if bias is None else b * t * 4
     flops = 4 * t * h * d * keys
+    peak = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def attn_bwd_bound_ms(q: torch.Tensor, bias: torch.Tensor | None, kernel: str) -> tuple[float, str]:
+    """The least time one backward kernel can take on these inputs, counted as
+    ``attn_bound_ms`` counts the forward's. dQ: q, dO and O (delta's input) read and dQ
+    written for every row, lse read and delta written, k and v read for the keys that
+    carry weight; 6d operations per (row, weighted key) and 2d per row for delta.
+    dK/dV: q, dO, lse and delta read for every row, k and v for the weighted keys, dK
+    and dV written for every key and dbias per (batch, head, key); 8d operations per
+    (row, weighted key)."""
+    b, t, h, d = q.shape
+    elt = q.element_size()
+    keys = _weighted_keys(bias, b, t)
+    rows = b * t * h * d * elt  # one [b, t, h, d] tensor
+    stats = b * h * t * 4  # one [b, h, t] f32 tensor
+    kv = 2 * keys * h * d * elt
+    nbytes = kv + (0 if bias is None else b * t * 4)
+    if kernel == "dq":
+        nbytes += 4 * rows + 2 * stats
+        flops = 6 * t * h * d * keys + 2 * b * t * h * d
+    else:
+        nbytes += 4 * rows + 3 * stats
+        flops = 8 * t * h * d * keys
     peak = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
@@ -229,6 +294,103 @@ def phase_kernel(card: Card) -> dict:
     }
 
 
+def _rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((a.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+
+
+def phase_train_kernel(card: Card) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    train_shape = (TRAIN_PAIRS, SEQ_LEN, 12, DIM // 12)
+    cases = [
+        ("train", train_shape, torch.bfloat16, "ragged"),
+        ("train_f32", (64, 128, 12, 32), torch.float32, "ragged"),
+        ("head_dim_64", (64, 128, 12, 64), torch.bfloat16, "ragged"),
+        ("t_200", (8, 200, 12, 32), torch.bfloat16, "random"),
+        ("t_200_f32", (8, 200, 12, 32), torch.float32, "random"),
+        ("t_512", (4, 512, 12, 64), torch.bfloat16, "random"),
+        ("mask_none", (16, 128, 12, 32), torch.bfloat16, "none"),
+        ("dead_row_f32", (4, 128, 12, 32), torch.float32, "dead_row"),
+        ("dead_row", (4, 200, 12, 32), torch.bfloat16, "dead_row"),
+    ]
+    names = ("dq", "dk", "dv", "dbias")
+    train_err = {}
+    for name, shape, dtype, masked in cases:
+        q, k, v, bias = attn_inputs(*shape, dtype, gen, masked=masked)
+        do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, bias)
+        ours = fa.flash_attention_bwd(q, k, v, bias, do, o, lse)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_reference(q, k, v, bias, do, o, lse)
+        rel = {n: _rel_err(a, r) for n, a, r in zip(names, ours, ref)}
+        abs_err = {n: (a.float() - r.float()).abs().max().item() for n, a, r in zip(names, ours, ref)}
+        zeros = True
+        if bias is not None:  # masked keys of sequences with a real key: exact zeros
+            masked_keys = (bias < fa.NEG_INF / 2) & (bias > fa.NEG_INF / 2).any(dim=1, keepdim=True)
+            zeros = all(bool((x[masked_keys] == 0).all()) for x in ours[1:])
+        card.emit("train_kernel_parity", case=name, shape=list(shape), dtype=str(dtype),
+                  rel_err=rel, max_abs_err=abs_err, tol=TOL[dtype],
+                  max_abs_plain={n: r.float().abs().max().item() for n, r in zip(names, ref)},
+                  masked_keys_exact_zero=zeros)
+        for n in names:
+            check(math.isfinite(rel[n]) and rel[n] <= TOL[dtype], f"{name}: {n} error {rel[n]}")
+        check(zeros, f"{name}: masked keys' dk, dv, dbias are not exact zeros")
+        if name == "train":
+            train_err = abs_err
+        del q, k, v, bias, do, o, lse, ours, ref
+
+    q, k, v, bias = attn_inputs(*train_shape, torch.bfloat16, gen, masked="ragged")
+    do = torch.randn(train_shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias)
+    _dq, delta = fa.flash_attention_bwd_dq(q, k, v, bias, do, o, lse)
+    times = {
+        "dq": cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, bias, do, o, lse), iters=50),
+        "dkv": cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta), iters=50),
+    }
+    plain = {
+        "dq": cuda_ms(lambda: fa.flash_attention_bwd_dq_reference(q, k, v, bias, do, o, lse),
+                      iters=5, warmup=2),
+        "dkv": cuda_ms(lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, bias, do, lse, delta),
+                       iters=5, warmup=2),
+    }
+    # the yardstick: SDPA's backward with the same additive mask, as its forward and
+    # backward less its forward (it computes dq, dk and dv, not dbias)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    add_mask = bias[:, None, None, :].to(torch.bfloat16)
+    sdpa_fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=add_mask), iters=50)
+    sdpa_fwd_bwd_ms = cuda_ms(
+        lambda: torch.autograd.grad(sdpa(qt, kt, vt, attn_mask=add_mask), (qt, kt, vt), dot), iters=50
+    )
+    library_ms = sdpa_fwd_bwd_ms - sdpa_fwd_ms
+    rows = []
+    for kern, name, replaces in (
+        ("dq", "flash_attention_bwd_dq", "pathway_tpu/ops/flash_attention.py:125"),
+        ("dkv", "flash_attention_bwd_dkv", "pathway_tpu/ops/flash_attention.py:166"),
+    ):
+        bound_ms, bound_by = attn_bwd_bound_ms(q, bias, kern)
+        card.emit("train_kernel_time", kernel=name, shape=list(train_shape), dtype="bfloat16",
+                  ms=times[kern], plain_ms=plain[kern], bound_ms=bound_ms, bound_by=bound_by,
+                  roofline_share=bound_ms / times[kern], library_ms=library_ms,
+                  library="scaled_dot_product_attention backward (fwd+bwd less fwd), dq+dk+dv",
+                  sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
+                  real_keys_per_seq=float((bias == 0).sum()) / train_shape[0])
+        errs = [train_err["dq"]] if kern == "dq" else [train_err[n] for n in ("dk", "dv", "dbias")]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pathway_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": replaces,
+            "max_abs_err": max(errs),
+            "ms": times[kern],
+            "plain_ms": plain[kern],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    return rows
+
+
 def phase_checkpoint(card: Card) -> None:
     data = np.load(os.path.join(FIXTURE, "golden_embeddings.npz"))
     texts = [str(x) for x in data["texts"]]
@@ -254,7 +416,8 @@ def phase_main_path(card: Card) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.KERNEL.launches = 0
+    for kern in (fa.KERNEL, fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL):
+        kern.launches = 0
     embed_calls = 0
     doc_vecs = []  # the embedder's outputs, kept on the card for the checks below
     t0 = time.perf_counter()
@@ -288,6 +451,7 @@ def phase_main_path(card: Card) -> int:
         qvecs.append(q[0].cpu().numpy())
         qdocs.append(doc)
     launches = fa.KERNEL.launches
+    backward_launches = fa.BWD_DQ_KERNEL.launches + fa.BWD_DKV_KERNEL.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # the index's state against its inputs: every key's slot holds its vector bit for
@@ -318,9 +482,11 @@ def phase_main_path(card: Card) -> int:
               docs_per_s=N_DOCS / ingest_s, ingest_s=ingest_s, bulk_add_s=bulk_s,
               query_p50_ms=lat_ms[len(lat_ms) // 2], query_p95_ms=lat_ms[int(0.95 * len(lat_ms))],
               peak_device_gib=peak_gib, embed_calls=embed_calls, flash_launches=launches,
+              backward_launches=backward_launches,
               recall_at_10=recall, self_hit=self_hit)
     check(launches > 0 and launches == LAYERS * embed_calls,
           f"flash launches {launches} != {LAYERS} x {embed_calls} embed calls")
+    check(backward_launches == 0, f"serving launched {backward_launches} backward kernels")
     check(recall >= 0.99, f"recall@10 {recall}")
     check(self_hit, "every query finds its own doc")
 
@@ -412,6 +578,162 @@ def phase_profile(card: Card, embedder: EncoderEmbedder, index: DeviceKnnIndex, 
         )
 
 
+def train_batch(n: int, vocab_size: int) -> ContrastiveBatch:
+    """n (query, positive) pairs on the card, padded to SEQ_LEN: each positive is a
+    generated doc, its query the doc's first 3-8 words."""
+    rng = np.random.default_rng(SEED)
+    docs = [doc_text(i) for i in range(n)]
+    queries = [" ".join(doc.split()[: int(rng.integers(3, 9))]) for doc in docs]
+    tok = HashTokenizer(vocab_size)
+    out = []
+    for texts in (queries, docs):
+        ids, mask = tok.encode_batch(texts, SEQ_LEN)
+        ids, mask, real = pad_to_buckets(ids, mask, batch_bucket_min=n, seq_bucket_min=SEQ_LEN)
+        check(real == n and ids.shape == (n, SEQ_LEN), "train batch shape")
+        out += [torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()]
+    return ContrastiveBatch(*out)
+
+
+def _grad_cosines(a: dict, b: dict, hidden: int) -> dict:
+    """Cosine between two gradients, per parameter. The fused qkv projection counts as
+    its three projections (the q, k and v columns of ``qkv_w`` and ``qkv_b``): the
+    attention's dQ and dK reach only the q and k columns, which the v columns would
+    otherwise outweigh. The k columns of ``qkv_b`` are left out: a key bias adds the
+    same q.b to every score of a row, which the softmax ignores, so their exact
+    gradient is zero and the computed one is rounding noise."""
+    out = {}
+    for name, x in a.items():
+        y = b[name]
+        parts = {name: (x, y)}
+        if name.endswith(("qkv_w", "qkv_b")):
+            parts = {f"{name}[{p}]": (x[..., i * hidden:(i + 1) * hidden], y[..., i * hidden:(i + 1) * hidden])
+                     for i, p in enumerate("qkv") if not (p == "k" and name.endswith("qkv_b"))}
+        for part, (u, w) in parts.items():
+            nu, nw = float(u.norm()), float(w.norm())
+            out[part] = 1.0 if nu == nw == 0.0 else float((u * w).sum()) / max(nu * nw, 1e-30)
+    return out
+
+
+def phase_train(card: Card) -> dict:
+    cfg = minilm_l6()
+    init_fn, step_fn = make_train_step(cfg)
+    state = init_fn(seed=SEED)
+    weights = {n: p.detach().clone() for n, p in state.params.state_dict().items()}
+    batch = train_batch(TRAIN_PAIRS, cfg.vocab_size)
+    real_tokens = [float(m.sum(dim=1).float().mean()) for m in (batch.q_mask, batch.d_mask)]
+    kernels = {"flash_attention_fwd": fa.KERNEL, "flash_attention_bwd_dq": fa.BWD_DQ_KERNEL,
+               "flash_attention_bwd_dkv": fa.BWD_DKV_KERNEL}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for kern in kernels.values():
+        kern.launches = 0
+    events, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step_fn(state, batch)
+        end.record()
+        events.append((start, end))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(x) for x in losses]
+    steady_ms = float(np.median(step_ms[1:]))
+    card.emit("train", model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded, f32 masters, bf16 compute)",
+              pairs=TRAIN_PAIRS, seq_len=SEQ_LEN, steps=TRAIN_STEPS,
+              real_tokens_per_seq={"query": real_tokens[0], "doc": real_tokens[1]},
+              step_ms=step_ms, step_ms_median=steady_ms, pairs_per_s=TRAIN_PAIRS / (steady_ms / 1e3),
+              wall_s=wall_s, peak_device_gib=peak_gib, losses=losses, launches=launches)
+    for name, n in launches.items():
+        check(n == 2 * cfg.layers * TRAIN_STEPS, f"{name}: {n} launches in {TRAIN_STEPS} steps, not 12 a step")
+    check(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
+    check(losses[2] < losses[0] and losses[-1] < losses[0], f"the loss falls: {losses}")
+    phase_train_profile(card, lambda: step_fn(state, batch))
+    del state, batch
+
+    phase_train_parity(card, cfg, weights)
+    return launches
+
+
+def phase_train_profile(card: Card, step, steps: int = 2) -> None:
+    """Where a train step's time goes: a profiler window over a few more steps, with
+    device time by kernel, by group, and the device's idle share."""
+    def run() -> None:
+        for _ in range(steps):
+            step()
+
+    wall_ms, kernels = _profiled(run)
+    busy_ms = sum(k[0] for k in kernels)
+    groups = {"flash kernels (this port)": ("flash_",), "matmuls (cuBLAS)": ("nvjet", "gemm", "cutlass"),
+              "optimizer (AdamW, foreach)": ("multi_tensor_apply",)}
+    by_group = {name: 0.0 for name in (*groups, "other (elementwise, reductions, copies)")}
+    for ms, key, _count in kernels:
+        group = next((g for g, marks in groups.items() if any(m in key for m in marks)),
+                     "other (elementwise, reductions, copies)")
+        by_group[group] += ms / steps
+    card.emit(
+        "train_profile",
+        window=f"{steps} train steps at {TRAIN_PAIRS} pairs",
+        wall_ms_per_step=wall_ms / steps,
+        device_busy_ms_per_step=busy_ms / steps if kernels else "not measured",
+        device_idle_share=(1.0 - busy_ms / wall_ms) if kernels else "not measured",
+        device_ms_per_step_by_group=by_group,
+        top=[{"kernel": k[:80], "device_ms_per_step": ms / steps, "launches": c}
+             for ms, k, c in kernels[:15]],
+    )
+
+
+def phase_train_parity(card: Card, cfg, weights: dict) -> None:
+    """One step's loss and gradients at PARITY_PAIRS pairs from the same initial
+    weights, through the kernels and through the plain versions on the same
+    ``autograd.Function``; and, to show what the bar can see, through the plain
+    versions with a broken backward that leaves delta out (o read as zeros)."""
+    def plain(q, k, v, mask):
+        bias = None if mask is None else fa.mask_bias(mask)
+        return fa.FlashAttention.apply(q, k, v, bias, fa.flash_attention_fwd_reference,
+                                       fa.flash_attention_bwd_reference)
+
+    def no_delta_bwd(q, k, v, bias, do, o, lse):
+        return fa.flash_attention_bwd_reference(q, k, v, bias, do, torch.zeros_like(o), lse)
+
+    def broken(q, k, v, mask):
+        bias = None if mask is None else fa.mask_bias(mask)
+        return fa.FlashAttention.apply(q, k, v, bias, fa.flash_attention_fwd_reference, no_delta_bwd)
+
+    model = Encoder(cfg, device="cuda", seed=None, trainable=True)
+    model.load_state_dict(weights)
+    batch = train_batch(PARITY_PAIRS, cfg.vocab_size)
+
+    def loss_and_grads(attn_fn):
+        model.zero_grad(set_to_none=True)
+        loss = info_nce_loss(model, batch, cfg, 0.05, attn_fn)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    kernel_loss, kernel_grads = loss_and_grads(fa.flash_attention)
+    plain_loss, plain_grads = loss_and_grads(plain)
+    broken_loss, broken_grads = loss_and_grads(broken)
+    cos = _grad_cosines(kernel_grads, plain_grads, cfg.hidden)
+    broken_cos = _grad_cosines(broken_grads, plain_grads, cfg.hidden)
+    worst = min(cos, key=cos.get)
+    broken_worst = min(broken_cos, key=broken_cos.get)
+    card.emit("train_parity", pairs=PARITY_PAIRS, kernel_loss=kernel_loss, plain_loss=plain_loss,
+              loss_tol=LOSS_TOL, min_grad_cosine=cos[worst], min_grad_cosine_param=worst,
+              bar=GRAD_COS_BAR, grad_cosine=cos,
+              broken_no_delta={"loss": broken_loss, "min_grad_cosine": broken_cos[broken_worst],
+                               "min_grad_cosine_param": broken_worst})
+    check(all(math.isfinite(x) for x in (kernel_loss, plain_loss)), "finite parity losses")
+    check(abs(kernel_loss - plain_loss) <= LOSS_TOL, f"parity loss {kernel_loss} vs {plain_loss}")
+    check(cos[worst] >= GRAD_COS_BAR, f"gradient cosine {cos[worst]} ({worst})")
+    check(broken_cos[broken_worst] < GRAD_COS_BAR,
+          f"the bar cannot see a backward without delta: {broken_cos[broken_worst]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -420,10 +742,17 @@ def main() -> int:
     card.emit("device", name=card.name, count=card.count, torch=torch.__version__,
               cuda=torch.version.cuda)
     phase_build(card)
-    kernel = phase_kernel(card)
+    fwd = phase_kernel(card)
+    bwd = phase_train_kernel(card)
     phase_checkpoint(card)
-    kernel["launches"] = phase_main_path(card)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    serving = phase_main_path(card)
+    train = phase_train(card)
+    fwd["launches"] = serving
+    fwd["launches_by_path"] = {"serving": serving, "train": train[fwd["name"]]}
+    for row in bwd:
+        row["launches"] = train[row["name"]]
+        row["launches_by_path"] = {"train": train[row["name"]]}
+    print(json.dumps({"kernels": [fwd, *bwd]}), flush=True)
     print(card.smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

@@ -1,4 +1,5 @@
-"""The BERT-family encoder (MiniLM/BGE configs) and its checkpoint import."""
+"""The BERT-family encoder (MiniLM/BGE configs), its checkpoint import, and its
+contrastive train step."""
 
 from pathway_tpu_torch.models.hf_import import (
     import_hf_encoder,
@@ -17,10 +18,20 @@ from pathway_tpu_torch.models.transformer import (
     params_from_jax,
     pool,
 )
+from pathway_tpu_torch.models.train import (
+    ContrastiveBatch,
+    TrainState,
+    adamw,
+    info_nce_loss,
+    make_train_step,
+)
 
 __all__ = [
+    "ContrastiveBatch",
     "Encoder",
     "EncoderConfig",
+    "TrainState",
+    "adamw",
     "bge_base",
     "bge_small",
     "default_attn_fn",
@@ -28,7 +39,9 @@ __all__ = [
     "embed",
     "encoder_forward",
     "import_hf_encoder",
+    "info_nce_loss",
     "load_sentence_transformer",
+    "make_train_step",
     "minilm_l6",
     "params_from_jax",
     "pool",

@@ -12,8 +12,10 @@ the spec:
 
 ``Encoder`` is an ``nn.Module`` whose parameter names follow the JAX param pytree
 (``tok_emb``, ``emb_ln.scale``, ``layers.0.qkv_w``, ...), so ``params_from_jax`` carries
-weights over leaf by leaf. Inference only: the backward attention kernels are not
-ported yet.
+weights over leaf by leaf. A serving encoder holds its matmul weights in the compute
+dtype, with no gradients; a trainable one (``trainable=True``, as ``models/train.py``
+builds it) holds every leaf as an f32 master with a gradient, and the forward casts the
+matmul weights to the compute dtype at each matmul, as the JAX forward does.
 """
 
 from __future__ import annotations
@@ -69,43 +71,46 @@ AttnFn = Callable[
 ]
 
 
-def _param(shape, dtype, device, fill: float | None = None) -> nn.Parameter:
+def _param(shape, dtype, device, trainable: bool, fill: float | None = None) -> nn.Parameter:
     data = torch.empty(shape, dtype=dtype, device=device)
     if fill is not None:
         data.fill_(fill)
-    return nn.Parameter(data, requires_grad=False)
+    return nn.Parameter(data, requires_grad=trainable)
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int, device) -> None:
+    def __init__(self, dim: int, device, trainable: bool) -> None:
         super().__init__()
-        self.scale = _param((dim,), torch.float32, device, 1.0)
-        self.bias = _param((dim,), torch.float32, device, 0.0)
+        self.scale = _param((dim,), torch.float32, device, trainable, 1.0)
+        self.bias = _param((dim,), torch.float32, device, trainable, 0.0)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: EncoderConfig, device) -> None:
+    def __init__(self, cfg: EncoderConfig, device, trainable: bool) -> None:
         super().__init__()
-        hid, inter, dt = cfg.hidden, cfg.intermediate, cfg.dtype
-        # The matmul weights and biases are held in the compute dtype: one cast at
+        hid, inter, tr = cfg.hidden, cfg.intermediate, trainable
+        # Serving holds the matmul weights and biases in the compute dtype: one cast at
         # load gives the same numbers as the JAX forward's ``.astype(cfg.dtype)`` at
-        # every matmul, and each forward then reads half the bytes.
-        self.qkv_w = _param((hid, 3 * hid), dt, device)
-        self.qkv_b = _param((3 * hid,), dt, device, 0.0)
-        self.out_w = _param((hid, hid), dt, device)
-        self.out_b = _param((hid,), dt, device, 0.0)
-        self.attn_ln = LayerNorm(hid, device)
-        self.fc1_w = _param((hid, inter), dt, device)
-        self.fc1_b = _param((inter,), dt, device, 0.0)
-        self.fc2_w = _param((inter, hid), dt, device)
-        self.fc2_b = _param((hid,), dt, device, 0.0)
-        self.mlp_ln = LayerNorm(hid, device)
+        # every matmul, and each forward then reads half the bytes. Training holds f32
+        # masters, since AdamW steps of ~1e-4 would mostly round away on bf16 weights.
+        dt = torch.float32 if trainable else cfg.dtype
+        self.qkv_w = _param((hid, 3 * hid), dt, device, tr)
+        self.qkv_b = _param((3 * hid,), dt, device, tr, 0.0)
+        self.out_w = _param((hid, hid), dt, device, tr)
+        self.out_b = _param((hid,), dt, device, tr, 0.0)
+        self.attn_ln = LayerNorm(hid, device, tr)
+        self.fc1_w = _param((hid, inter), dt, device, tr)
+        self.fc1_b = _param((inter,), dt, device, tr, 0.0)
+        self.fc2_w = _param((inter, hid), dt, device, tr)
+        self.fc2_b = _param((hid,), dt, device, tr, 0.0)
+        self.mlp_ln = LayerNorm(hid, device, tr)
 
 
 class Encoder(nn.Module):
     """MiniLM/BGE-style encoder. Embedding tables and layer norms stay f32 (the
-    embedding sum and the normalisation are f32 in the spec); the rest is in
-    ``cfg.dtype``. Weights are seeded random unless loaded (``load_state_dict``)."""
+    embedding sum and the normalisation are f32 in the spec); the matmul weights are
+    held in ``cfg.dtype``, or as f32 masters with gradients when ``trainable``. Weights
+    are seeded random unless loaded (``load_state_dict``)."""
 
     def __init__(
         self,
@@ -113,15 +118,19 @@ class Encoder(nn.Module):
         *,
         device: "str | torch.device | None" = None,
         seed: int | None = 0,
+        trainable: bool = False,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.tok_emb = _param((cfg.vocab_size, cfg.hidden), torch.float32, device)
-        self.pos_emb = _param((cfg.max_len, cfg.hidden), torch.float32, device)
-        self.type_emb = _param((cfg.type_vocab, cfg.hidden), torch.float32, device)
-        self.emb_ln = LayerNorm(cfg.hidden, device)
-        self.layers = nn.ModuleList(EncoderLayer(cfg, device) for _ in range(cfg.layers))
+        f32, tr = torch.float32, trainable
+        self.tok_emb = _param((cfg.vocab_size, cfg.hidden), f32, device, tr)
+        self.pos_emb = _param((cfg.max_len, cfg.hidden), f32, device, tr)
+        self.type_emb = _param((cfg.type_vocab, cfg.hidden), f32, device, tr)
+        self.emb_ln = LayerNorm(cfg.hidden, device, tr)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, device, trainable) for _ in range(cfg.layers)
+        )
         if seed is not None:
             self.init_weights(seed)
 
@@ -186,25 +195,30 @@ def encoder_forward(
     if attn_fn is None:
         attn_fn = default_attn_fn(token_ids.device)
     b, t = token_ids.shape
+    # ``embedding`` and not ``tok_emb[ids]``: the same gather, but its backward sums
+    # the rows of repeated ids (padding repeats id 0) with a sort, not one by one.
     x = (
-        model.tok_emb[token_ids.long()]
+        nn.functional.embedding(token_ids.long(), model.tok_emb)
         + model.pos_emb[None, :t]
         + model.type_emb[0][None, None]
     ).to(cfg.dtype)
     x = layer_norm(x, model.emb_ln, cfg.layer_norm_eps)
+    dt = cfg.dtype
     for lp in model.layers:
         # ``x @ w + b`` and not ``F.linear``: the bias is added after the product
-        # is rounded to the compute dtype, as in the JAX forward.
-        qkv = x @ lp.qkv_w + lp.qkv_b
+        # is rounded to the compute dtype, as in the JAX forward. ``.to(dt)`` casts a
+        # trainable encoder's f32 masters and returns a serving encoder's weights as
+        # they are, with no kernel.
+        qkv = x @ lp.qkv_w.to(dt) + lp.qkv_b.to(dt)
         q, k, v = (
             y.reshape(b, t, cfg.heads, cfg.head_dim) for y in qkv.split(cfg.hidden, dim=-1)
         )
         a = attn_fn(q, k, v, mask).reshape(b, t, cfg.hidden)
-        a = a @ lp.out_w + lp.out_b
+        a = a @ lp.out_w.to(dt) + lp.out_b.to(dt)
         x = layer_norm(x + a, lp.attn_ln, cfg.layer_norm_eps)
-        h = x @ lp.fc1_w + lp.fc1_b
+        h = x @ lp.fc1_w.to(dt) + lp.fc1_b.to(dt)
         h = nn.functional.gelu(h, approximate="tanh")
-        h = h @ lp.fc2_w + lp.fc2_b
+        h = h @ lp.fc2_w.to(dt) + lp.fc2_b.to(dt)
         x = layer_norm(x + h, lp.mlp_ln, cfg.layer_norm_eps)
     return x
 
@@ -240,7 +254,8 @@ def params_from_jax(tree: Any) -> dict[str, torch.Tensor]:
     """The JAX package's encoder param pytree (nested dicts and lists, leaves as
     numpy arrays) -> a ``state_dict`` for ``Encoder``, leaf by leaf: ``{"layers":
     [{"qkv_w": ...}]}`` becomes ``"layers.0.qkv_w"``. Leaves come over as f32;
-    ``Encoder.load_state_dict`` casts the matmul weights to the compute dtype."""
+    ``Encoder.load_state_dict`` casts the matmul weights to the compute dtype of a
+    serving encoder and keeps them f32 in a trainable one."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node: Any) -> None:

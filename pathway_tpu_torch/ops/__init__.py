@@ -1,9 +1,12 @@
-"""Device operators: the flash-attention kernel and the KNN index's operators.
+"""Device operators: the flash-attention kernels and the KNN index's operators.
 
 The function ``flash_attention`` is not re-exported here, so that
 ``pathway_tpu_torch.ops.flash_attention`` stays the module."""
 
 from pathway_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
@@ -18,6 +21,9 @@ from pathway_tpu_torch.ops.knn import (
 __all__ = [
     "METRICS",
     "DeviceKnnState",
+    "FlashAttention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_reference",
     "flash_attention_fwd",
     "flash_attention_fwd_reference",
     "knn_init",

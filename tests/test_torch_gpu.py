@@ -1,11 +1,15 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version, and the
-index and encoder on the card against their CPU runs. Marked ``gpu``; each skips where
-there is no card (decided inside the fixture, never at import). Run on the card with
+"""Card-only tests of the port: the CUDA kernels against their plain versions, and the
+index, encoder and train step on the card against their CPU runs. Marked ``gpu``; each
+skips where there is no card (decided inside the fixture, never at import). Run on the
+card with
 
     python -m pytest -m gpu tests/test_torch_*.py
 
 Tolerances: bf16 outputs 2e-2 (outputs rounded to bf16 may differ by an ulp near 1),
-f32 1e-4 (only the order of the f32 sums differs), lse 1e-4 relative.
+f32 1e-4 (only the order of the f32 sums differs), lse 1e-4 relative. The backward's
+gradients grow past 1 (a key's dV sums over every query row), so their error is taken
+relative to max(1, |plain|) elementwise, as lse's: an ulp of bf16 there is 2^-7
+relative at most.
 """
 
 import numpy as np
@@ -14,7 +18,14 @@ import torch
 
 import pathway_tpu_torch.ops.flash_attention as tfa
 from pathway_tpu_torch.engine import DeviceKnnIndex
-from pathway_tpu_torch.models import Encoder, EncoderConfig, embed
+from pathway_tpu_torch.models import (
+    ContrastiveBatch,
+    Encoder,
+    EncoderConfig,
+    embed,
+    make_train_step,
+    minilm_l6,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -129,3 +140,77 @@ def test_index_scores_stay_full_f32_with_tf32_on(cuda):
         keys = [key for key, _ in row]
         assert keys == list(np.argsort(-ref[i], kind="stable")[:10])
         assert max(abs(s - ref[i, key]) for key, s in row) < 1e-4
+
+
+def _rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((a.float() - ref.float()).abs() / ref.float().abs().clamp(min=1)).max().item()
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,masked",
+    [
+        ((64, 128, 12, 32), torch.bfloat16, "ragged"),
+        ((8, 128, 12, 32), torch.float32, "ragged"),
+        ((8, 200, 4, 64), torch.bfloat16, "ragged"),
+        ((2, 512, 3, 32), torch.float32, "ragged"),
+        ((4, 77, 2, 16), torch.float32, "none"),
+        ((4, 200, 2, 32), torch.bfloat16, "dead_row"),
+    ],
+)
+def test_backward_kernels_match_plain_version(cuda, shape, dtype, masked):
+    b, t, h, d = shape
+    rng = np.random.default_rng(14)
+    q, k, v, do = (
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype) for _ in range(4)
+    )
+    bias = None
+    if masked != "none":
+        mask = torch.from_numpy(np.arange(t)[None, :] < rng.integers(10, 35, b)[:, None]).to(cuda)
+        if masked == "dead_row":
+            mask[0] = False
+        bias = tfa.mask_bias(mask)
+    o, lse = tfa.flash_attention_fwd(q, k, v, bias)
+    before = (tfa.BWD_DQ_KERNEL.launches, tfa.BWD_DKV_KERNEL.launches)
+    ours = tfa.flash_attention_bwd(q, k, v, bias, do, o, lse)
+    torch.cuda.synchronize()
+    assert (tfa.BWD_DQ_KERNEL.launches, tfa.BWD_DKV_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    ref = tfa.flash_attention_bwd_reference(q, k, v, bias, do, o, lse)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), ours, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert _rel_err(a, r) <= tol, name
+    if bias is not None:  # masked keys: exact zeros
+        dead = ~mask
+        dead[0] = False
+        assert (ours[1][dead] == 0).all() and (ours[2][dead] == 0).all() and (ours[3][dead] == 0).all()
+
+
+def test_backward_kernels_raise_on_what_they_do_not_take(cuda):
+    for d, dtype in ((24, torch.float32), (32, torch.float16)):
+        x = torch.zeros((1, 8, 2, d), device=cuda, dtype=dtype)
+        lse = torch.zeros((1, 2, 8), device=cuda)
+        with pytest.raises(ValueError):
+            tfa.flash_attention_bwd(x, x, x, None, x, x, lse)
+        with pytest.raises(ValueError):
+            tfa.flash_attention_bwd_dkv(x, x, x, None, x, lse, lse)
+
+
+def test_train_step_launches_each_kernel_twelve_times(cuda):
+    cfg = minilm_l6()
+    init_fn, step_fn = make_train_step(cfg, device=cuda)
+    state = init_fn(seed=0)
+    rng = np.random.default_rng(3)
+    b, t = 16, 32
+    ids, masks = [], []
+    for _side in range(2):
+        mask = np.arange(t)[None, :] < rng.integers(3, t + 1, b)[:, None]
+        ids.append(torch.from_numpy(np.where(mask, rng.integers(4, cfg.vocab_size, (b, t)), 0)).to(cuda))
+        masks.append(torch.from_numpy(mask).to(cuda))
+    batch = ContrastiveBatch(ids[0], masks[0], ids[1], masks[1])
+    kernels = (tfa.KERNEL, tfa.BWD_DQ_KERNEL, tfa.BWD_DKV_KERNEL)
+    before = [kern.launches for kern in kernels]
+    state, loss = step_fn(state, batch)
+    torch.cuda.synchronize()
+    assert [kern.launches - n for kern, n in zip(kernels, before)] == [2 * cfg.layers] * 3
+    assert state.step == 1 and torch.isfinite(loss)
+    assert all(torch.isfinite(p).all() for p in state.params.parameters())

@@ -28,6 +28,7 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.ops.knn",
         "pathway_tpu_torch.models.transformer",
         "pathway_tpu_torch.models.hf_import",
+        "pathway_tpu_torch.models.train",
         "pathway_tpu_torch.engine.external_index",
         "pathway_tpu_torch.xpacks.llm.embedders",
         "pathway_tpu_torch.xpacks.llm._tokenizer",
@@ -47,6 +48,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "assert not bad, bad",
             "from pathway_tpu_torch.ops.flash_attention import KERNEL",
             "assert KERNEL._fn is None and KERNEL.launches == 0",
+            "from pathway_tpu_torch.ops.flash_attention import BWD_DQ_KERNEL, BWD_DKV_KERNEL",
+            "assert BWD_DQ_KERNEL._fn is None and BWD_DKV_KERNEL._fn is None",
             "print('clean')",
         ]
     )
