@@ -9,14 +9,20 @@ limit):
 
 1. device: the card's name, count and power limit; no CUDA means exit 1.
 2. build: every ``pathway_tpu_torch/csrc/*.cu`` compiled with ``nvcc`` for ``sm_90a``,
-   with its build time and ``-Xptxas -v`` register, shared-memory and spill lines.
+   with its build time and ``-Xptxas -v`` register, shared-memory and spill lines; any
+   spill fails. sass: the tensor-core instructions (HMMA, HGMMA) of each kernel's bf16
+   instances, counted in ``cuobjdump -sass``; the forward and dK/dV must have some.
 3. kernel: the flash-attention kernel against its plain PyTorch version on the card at
    the main path's shape and at the edge shapes (head dim 64, t not a multiple of the
-   tile, multi-tile t, no mask, a fully masked row); then its time against its bound,
-   the plain version and ``scaled_dot_product_attention`` (timed here only, as a
-   yardstick; the port never calls it).
+   tile, multi-tile t, no mask, a fully masked row) and the tile-skipping patterns
+   (real keys only in the last 16-key tile or past position 128, live and masked tiles
+   in turn, a dead sequence among live ones); then its time at the serving and the
+   train shape against its bound, the plain version and
+   ``scaled_dot_product_attention`` (timed here only, as a yardstick; the port never
+   calls it).
 4. train_kernel: the flash-attention backward's two kernels (dQ, dK/dV) against their
-   plain PyTorch version on the card at the train shape and at the edge shapes; then
+   plain PyTorch version on the card at the train shape, the edge shapes and the
+   tile-skipping patterns (masked keys' dK, dV and dbias exact zeros); then
    each kernel's time against its bound and its plain version, and the backward of
    ``scaled_dot_product_attention`` with the same mask (its forward and backward less
    its forward; timed here only, as a yardstick).
@@ -53,6 +59,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -108,6 +115,18 @@ PARITY_PAIRS = 128
 # kernels and through the plain versions; and the bar on the two losses' difference
 GRAD_COS_BAR = 0.99
 LOSS_TOL = 1e-2
+TILE = 16  # keys per tile that the kernels skip when all of its keys are masked
+# the tile-skipping parity cases, forward and backward, each in bf16 and f32
+TILE_CASES = [
+    ("late_keys", (64, 128, 12, 32), torch.bfloat16, "late_keys"),
+    ("late_keys_f32", (16, 128, 12, 32), torch.float32, "late_keys"),
+    ("gappy", (64, 128, 12, 32), torch.bfloat16, "gappy"),
+    ("gappy_f32", (16, 128, 12, 64), torch.float32, "gappy"),
+    ("late_keys_t200", (32, 200, 12, 32), torch.bfloat16, "late_keys_t200"),
+    ("late_keys_t200_f32", (8, 200, 12, 32), torch.float32, "late_keys_t200"),
+    ("mixed_dead", (64, 128, 12, 32), torch.bfloat16, "mixed_dead"),
+    ("mixed_dead_f32", (16, 128, 12, 32), torch.float32, "mixed_dead"),
+]
 
 _WORDS = (
     "stream table index vector engine commit window join reduce shard "
@@ -152,22 +171,39 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the sequence with no real key in the ``dead_row`` and ``mixed_dead`` patterns
+def dead_sequence(masked: str, b: int) -> int | None:
+    return {"dead_row": 0, "mixed_dead": b // 2}.get(masked)
+
+
 def attn_inputs(b, t, h, d, dtype, gen, *, masked: str):
     """q, k, v as views of one fused [b, t, 3*h*d] projection (the encoder's layout)
-    and a key bias: ``ragged`` (10-34 real tokens, as the bench's docs),
-    ``random``, ``none``, or ``ragged`` with row 0 fully masked (``dead_row``)."""
+    and a key bias: ``ragged`` (10-34 real tokens, as the bench's docs), ``random``,
+    ``none``, ``ragged`` with sequence 0 fully masked (``dead_row``), and the patterns
+    that exercise the kernels' skipping of fully masked 16-key tiles: ``late_keys``
+    (real keys only in the last tile), ``gappy`` (live and fully masked tiles in
+    turn), ``late_keys_t200`` (real keys only past position 128) and ``mixed_dead``
+    (ragged, with the middle sequence fully masked)."""
     qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
     q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    pos = torch.arange(t, device="cuda")[None, :]
     if masked == "none":
         return q, k, v, None
     if masked == "random":
         mask = torch.rand((b, t), generator=gen, device="cuda") > 0.3
         mask[:, 0] = True
+    elif masked == "late_keys":
+        mask = (pos >= t - TILE).expand(b, t)
+    elif masked == "gappy":
+        mask = ((pos // TILE) % 2 == 0).expand(b, t)
+    elif masked == "late_keys_t200":
+        mask = (pos >= 128).expand(b, t)
     else:
         real = torch.randint(10, 35, (b,), generator=gen, device="cuda")
-        mask = torch.arange(t, device="cuda")[None, :] < real[:, None]
-        if masked == "dead_row":
-            mask[0] = False
+        mask = pos < real[:, None]
+        dead = dead_sequence(masked, b)
+        if dead is not None:
+            mask[dead] = False
     return q, k, v, fa.mask_bias(mask)
 
 
@@ -228,9 +264,46 @@ def phase_build(card: Card) -> None:
     results = _build.build()
     for r in results.values():
         lines = [ln.strip() for ln in r.log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
+                 if "Compiling entry" in ln or "registers" in ln or "spill" in ln or "smem" in ln]
         card.emit("build", kernel=r.name, seconds=r.seconds, ptxas=lines)
+        spills = [ln for ln in lines if "spill" in ln]
+        check(bool(spills) and all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+              f"{r.name}: ptxas reports spills: {spills}")
     card.emit("build_total", seconds=time.perf_counter() - t0, kernels=sorted(results))
+
+
+# kernel -> (its library, the marks of its bf16 instances' mangled names)
+SASS_KERNELS = {
+    "flash_attention_fwd": ("flash_attention_fwd", ("flash_fwd_mma_kernel",)),
+    "flash_attention_bwd_dq": ("flash_attention_bwd", ("flash_bwd_dq_kernel", "__nv_bfloat16")),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd", ("flash_bwd_dkv_mma_kernel",)),
+}
+
+
+def phase_sass(card: Card) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the built libraries' bf16 instances,
+    from ``cuobjdump -sass``: the forward's and dK/dV's must use them; dQ's count is
+    reported."""
+    texts = {lib: _build.sass(lib) for lib in {lib for lib, _ in SASS_KERNELS.values()}}
+    totals = {}
+    for name, (lib, marks) in SASS_KERNELS.items():
+        per_head_dim, instance = {}, None  # "d=32" -> count
+        for line in texts[lib].splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                instance = None
+                if all(m in found.group(1) for m in marks):
+                    instance = "d=" + re.search(r"Li(\d+)E", found.group(1)).group(1)
+                    per_head_dim[instance] = 0
+            elif instance and re.search(r"\bH(G)?MMA\b", line):
+                per_head_dim[instance] += 1
+        totals[name] = sum(per_head_dim.values())
+        card.emit("sass", kernel=name, library=lib, bf16_instances=per_head_dim,
+                  tensor_core_instructions=totals[name])
+        check(len(per_head_dim) == len(fa.HEAD_DIMS), f"{name}: bf16 instances {per_head_dim}")
+        if name != "flash_attention_bwd_dq":
+            check(all(n > 0 for n in per_head_dim.values()), f"{name}: no tensor-core instructions {per_head_dim}")
+    return totals
 
 
 def phase_kernel(card: Card) -> dict:
@@ -245,6 +318,7 @@ def phase_kernel(card: Card) -> dict:
         ("mask_none", (16, 128, 12, 32), torch.bfloat16, "none"),
         ("dead_row_f32", (4, 128, 12, 32), torch.float32, "dead_row"),
         ("dead_row", (4, 200, 12, 32), torch.bfloat16, "dead_row"),
+        *TILE_CASES,
     ]
     main_err = None
     for name, shape, dtype, masked in cases:
@@ -258,39 +332,49 @@ def phase_kernel(card: Card) -> dict:
                   max_abs_err=err, tol=TOL[dtype], lse_rel_err=lse_err, lse_tol=LSE_TOL)
         check(math.isfinite(err) and err <= TOL[dtype], f"{name}: o error {err}")
         check(math.isfinite(lse_err) and lse_err <= LSE_TOL, f"{name}: lse error {lse_err}")
-        if masked == "dead_row":
-            uniform = v[0].float().mean(dim=0)  # [h, d]: the uniform average over t keys
-            dead_err = (o[0].float() - uniform[None]).abs().max().item()
+        dead = dead_sequence(masked, shape[0])
+        if dead is not None:
+            uniform = v[dead].float().mean(dim=0)  # [h, d]: the uniform average over t keys
+            dead_err = (o[dead].float() - uniform[None]).abs().max().item()
             check(dead_err <= TOL[dtype], f"{name}: fully masked row is not the mean of v ({dead_err})")
         if name == "main":
             main_err = err
 
-    b, t, h, d = 256, 128, 12, 32
-    q, k, v, bias = attn_inputs(b, t, h, d, torch.bfloat16, gen, masked="ragged")
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), iters=200)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, bias), iters=20)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    add_mask = bias[:, None, None, :].to(torch.bfloat16)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=add_mask), iters=200)
-    bound_ms, bound_by = attn_bound_ms(q, bias)
-    # label only: the bound if every key were real (k and v read in full)
-    dense_bound_ms, _ = attn_bound_ms(q, None)
-    card.emit("kernel_time", shape=[b, t, h, d], dtype="bfloat16", ms=ms, plain_ms=plain_ms,
-              library_ms=library_ms, library="scaled_dot_product_attention",
-              bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
-              real_keys_per_seq=float((bias == 0).sum()) / b, dense_bound_ms=dense_bound_ms)
+    # the serving shape (one embed call of 256 docs) and the train shape (one embed call
+    # of the trainer's 1,024 sequences)
+    times = {}
+    for path, b in (("serving", CHUNK), ("train", TRAIN_PAIRS)):
+        t, h, d = SEQ_LEN, 12, DIM // 12
+        q, k, v, bias = attn_inputs(b, t, h, d, torch.bfloat16, gen, masked="ragged")
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), iters=200)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, bias), iters=10, warmup=2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        add_mask = bias[:, None, None, :].to(torch.bfloat16)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=add_mask), iters=200)
+        bound_ms, bound_by = attn_bound_ms(q, bias)
+        # labels only: the bound if every key were real (k and v read in full), and
+        # one PyTorch copy of q's strided view into a contiguous o, the bulk of the
+        # call's bytes moved with the same access pattern and no arithmetic
+        dense_bound_ms, _ = attn_bound_ms(q, None)
+        o_like = torch.empty_like(q, memory_format=torch.contiguous_format)
+        copy_ms = cuda_ms(lambda: o_like.copy_(q), iters=200)
+        card.emit("kernel_time", path=path, shape=[b, t, h, d], dtype="bfloat16", ms=ms,
+                  plain_ms=plain_ms, library_ms=library_ms, library="scaled_dot_product_attention",
+                  bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
+                  real_keys_per_seq=float((bias == 0).sum()) / b, dense_bound_ms=dense_bound_ms,
+                  q_to_o_copy_ms=copy_ms)
+        times[path] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": library_ms}
+        del q, k, v, bias, qt, kt, vt, add_mask, o_like
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "pathway_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "pathway_tpu/ops/flash_attention.py:47",
         "max_abs_err": main_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        **times["serving"],
+        "train_shape": times["train"],
     }
 
 
@@ -311,6 +395,7 @@ def phase_train_kernel(card: Card) -> list[dict]:
         ("mask_none", (16, 128, 12, 32), torch.bfloat16, "none"),
         ("dead_row_f32", (4, 128, 12, 32), torch.float32, "dead_row"),
         ("dead_row", (4, 200, 12, 32), torch.bfloat16, "dead_row"),
+        *TILE_CASES,
     ]
     names = ("dq", "dk", "dv", "dbias")
     train_err = {}
@@ -742,6 +827,7 @@ def main() -> int:
     card.emit("device", name=card.name, count=card.count, torch=torch.__version__,
               cuda=torch.version.cuda)
     phase_build(card)
+    sass = phase_sass(card)
     fwd = phase_kernel(card)
     bwd = phase_train_kernel(card)
     phase_checkpoint(card)
@@ -752,6 +838,8 @@ def main() -> int:
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
+    for row in (fwd, *bwd):
+        row["tensor_core_instructions"] = sass[row["name"]]
     print(json.dumps({"kernels": [fwd, *bwd]}), flush=True)
     print(card.smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

@@ -1,9 +1,10 @@
 """Build the hand-written CUDA kernels under ``csrc/`` and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into its own
-shared library with a plain C interface, at first use, into ``_build/`` beside this
-file (listed in ``.gitignore``). A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a built one is reused. Nothing is compiled
+shared library with a plain C interface (headers shared between sources are
+``csrc/*.cuh``), at first use, into ``_build/`` beside this file (listed in
+``.gitignore``). A library's file name carries a hash of its source, the shared headers
+and the flags, so an edited source is rebuilt and a built one is reused. Nothing is compiled
 when the package is imported: the CPU tests import every module on machines with no
 ``nvcc``.
 """
@@ -51,7 +52,11 @@ def _nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
+    """The library's path, named by a hash of its source, the shared headers it may
+    include (``csrc/*.cuh``) and the flags."""
     digest = hashlib.blake2s(source.read_bytes() + " ".join(NVCC_FLAGS).encode(), digest_size=8)
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()}.so"
 
 
@@ -91,6 +96,14 @@ def build(names: list[str] | None = None) -> dict[str, BuildResult]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return results
+
+
+def sass(name: str) -> str:
+    """The SASS of the built library of ``csrc/<name>.cu``, from ``cuobjdump -sass``
+    beside ``nvcc``: what the card runs, to count its tensor-core instructions."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    library = build([name])[name].library
+    return subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True).stdout
 
 
 def load(name: str) -> ctypes.CDLL:

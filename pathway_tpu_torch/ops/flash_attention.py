@@ -7,10 +7,14 @@ with mask ``[b, t]`` bool (True = real token) or None, and is differentiable thr
 tensors the work runs in hand-written Hopper kernels: the forward in
 ``csrc/flash_attention_fwd.cu``, the backward's dQ and dK/dV kernels in
 ``csrc/flash_attention_bwd.cu``. On CPU tensors it runs in their plain PyTorch versions
-(``flash_attention_fwd_reference``, ``flash_attention_bwd_reference``), the same
-arithmetic: f32 scores, the softmax recomputed from the saved per-row logsumexp in the
-backward, f32 products, one cast of each output. There is no fallback: a CUDA input a
-kernel does not take raises.
+(``flash_attention_fwd_reference``, ``flash_attention_bwd_reference``): the same
+formulas with f32 scores, the softmax recomputed from the saved per-row logsumexp in
+the backward, f32 products and one cast of each output, the yardstick the kernels are
+held to. The kernels' bf16 instances run their products on the tensor cores: the
+forward rounds P to bf16 before P.V, the dK/dV kernel carries P and dS as two bf16
+terms each (hi + lo) into its products, and both skip 16-key tiles whose keys are all
+masked (exact: such keys weigh exactly 0 in f32). The dQ kernel and the f32 instances
+keep f32 products. There is no fallback: a CUDA input a kernel does not take raises.
 
 Two rules for a query row whose keys are all masked:
 

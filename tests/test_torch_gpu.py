@@ -42,21 +42,54 @@ def _qkv(b, t, h, d, seed):
     return [rng.normal(size=(b, t, h, d)).astype(np.float32) for _ in range(3)]
 
 
+def _mask(pattern: str, b: int, t: int, rng) -> np.ndarray:
+    """``random`` keys with sequence 0 fully masked, ``ragged`` 10-34 real keys, or
+    ``dead_row`` (ragged, sequence 0 fully masked); and the patterns that exercise the
+    kernels' skipping of fully masked 16-key tiles: ``late_keys`` (real keys only in
+    the last tile), ``gappy`` (live and masked tiles in turn), ``late_keys_t200`` (real
+    keys only past position 128) and ``mixed_dead`` (ragged, the middle sequence fully
+    masked)."""
+    pos = np.arange(t)[None, :]
+    if pattern == "random":
+        mask = rng.random((b, t)) > 0.3
+        mask[:, 0] = True
+        mask[0] = False
+    elif pattern == "late_keys":
+        mask = np.broadcast_to(pos >= t - 16, (b, t)).copy()
+    elif pattern == "gappy":
+        mask = np.broadcast_to((pos // 16) % 2 == 0, (b, t)).copy()
+    elif pattern == "late_keys_t200":
+        mask = np.broadcast_to(pos >= 128, (b, t)).copy()
+    else:
+        mask = pos < rng.integers(10, 35, b)[:, None]
+        if pattern == "dead_row":
+            mask[0] = False
+        elif pattern == "mixed_dead":
+            mask[b // 2] = False
+    return mask
+
+
 @pytest.mark.parametrize(
-    "shape,dtype",
+    "shape,dtype,pattern",
     [
-        ((256, 128, 12, 32), torch.bfloat16),
-        ((8, 200, 4, 64), torch.bfloat16),
-        ((4, 77, 2, 16), torch.float32),
-        ((2, 300, 3, 32), torch.float32),
+        ((256, 128, 12, 32), torch.bfloat16, "random"),
+        ((8, 200, 4, 64), torch.bfloat16, "random"),
+        ((4, 77, 2, 16), torch.float32, "random"),
+        ((2, 300, 3, 32), torch.float32, "random"),
+        ((64, 128, 12, 32), torch.bfloat16, "late_keys"),
+        ((8, 128, 4, 32), torch.float32, "late_keys"),
+        ((64, 128, 12, 32), torch.bfloat16, "gappy"),
+        ((8, 128, 4, 64), torch.float32, "gappy"),
+        ((16, 200, 12, 32), torch.bfloat16, "late_keys_t200"),
+        ((4, 200, 4, 32), torch.float32, "late_keys_t200"),
+        ((64, 128, 12, 32), torch.bfloat16, "mixed_dead"),
+        ((8, 128, 4, 32), torch.float32, "mixed_dead"),
     ],
 )
-def test_kernel_matches_plain_version(cuda, shape, dtype):
+def test_kernel_matches_plain_version(cuda, shape, dtype, pattern):
     b, t, h, d = shape
     q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(b, t, h, d, seed=12))
-    mask = torch.from_numpy(np.random.default_rng(13).random((b, t)) > 0.3).to(cuda)
-    mask[:, 0] = True
-    mask[0] = False  # one fully masked row
+    mask = torch.from_numpy(_mask(pattern, b, t, np.random.default_rng(13))).to(cuda)
     bias = tfa.mask_bias(mask)
     before = tfa.KERNEL.launches
     o, lse = tfa.flash_attention_fwd(q, k, v, bias)
@@ -155,6 +188,14 @@ def _rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
         ((2, 512, 3, 32), torch.float32, "ragged"),
         ((4, 77, 2, 16), torch.float32, "none"),
         ((4, 200, 2, 32), torch.bfloat16, "dead_row"),
+        ((64, 128, 12, 32), torch.bfloat16, "late_keys"),
+        ((8, 128, 4, 32), torch.float32, "late_keys"),
+        ((64, 128, 12, 32), torch.bfloat16, "gappy"),
+        ((8, 128, 4, 64), torch.float32, "gappy"),
+        ((16, 200, 12, 32), torch.bfloat16, "late_keys_t200"),
+        ((4, 200, 4, 32), torch.float32, "late_keys_t200"),
+        ((64, 128, 12, 32), torch.bfloat16, "mixed_dead"),
+        ((8, 128, 4, 32), torch.float32, "mixed_dead"),
     ],
 )
 def test_backward_kernels_match_plain_version(cuda, shape, dtype, masked):
@@ -165,9 +206,7 @@ def test_backward_kernels_match_plain_version(cuda, shape, dtype, masked):
     )
     bias = None
     if masked != "none":
-        mask = torch.from_numpy(np.arange(t)[None, :] < rng.integers(10, 35, b)[:, None]).to(cuda)
-        if masked == "dead_row":
-            mask[0] = False
+        mask = torch.from_numpy(_mask(masked, b, t, rng)).to(cuda)
         bias = tfa.mask_bias(mask)
     o, lse = tfa.flash_attention_fwd(q, k, v, bias)
     before = (tfa.BWD_DQ_KERNEL.launches, tfa.BWD_DKV_KERNEL.launches)
@@ -179,9 +218,8 @@ def test_backward_kernels_match_plain_version(cuda, shape, dtype, masked):
     for name, a, r in zip(("dq", "dk", "dv", "dbias"), ours, ref):
         assert a.shape == r.shape and a.dtype == r.dtype, name
         assert _rel_err(a, r) <= tol, name
-    if bias is not None:  # masked keys: exact zeros
-        dead = ~mask
-        dead[0] = False
+    if bias is not None:  # masked keys of sequences with a real key: exact zeros
+        dead = ~mask & mask.any(dim=1, keepdim=True)
         assert (ours[1][dead] == 0).all() and (ours[2][dead] == 0).all() and (ours[3][dead] == 0).all()
 
 

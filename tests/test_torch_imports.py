@@ -125,3 +125,18 @@ def test_library_name_follows_the_source(tmp_path, monkeypatch):
     src.write_text("// two")
     assert _build._library_path(src) != first
     assert first.parent == tmp_path and first.name.startswith("libk-")
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a ``csrc/*.cuh`` header rebuilds every library that may include it."""
+    from pathway_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text('#include "common.cuh"')
+    header = tmp_path / "common.cuh"
+    header.write_text("// one")
+    first = _build._library_path(src)
+    header.write_text("// two")
+    assert _build._library_path(src) != first
