@@ -11,7 +11,8 @@ limit):
 2. build: every ``pathway_tpu_torch/csrc/*.cu`` compiled with ``nvcc`` for ``sm_90a``,
    with its build time and ``-Xptxas -v`` register, shared-memory and spill lines; any
    spill fails. sass: the tensor-core instructions (HMMA, HGMMA) of each kernel's bf16
-   instances, counted in ``cuobjdump -sass``; the forward and dK/dV must have some.
+   instances, counted in ``cuobjdump -sass``; every bf16 instance of the forward, dQ and
+   dK/dV must have some.
 3. kernel: the flash-attention kernel against its plain PyTorch version on the card at
    the main path's shape and at the edge shapes (head dim 64, t not a multiple of the
    tile, multi-tile t, no mask, a fully masked row) and the tile-skipping patterns
@@ -22,10 +23,12 @@ limit):
    calls it).
 4. train_kernel: the flash-attention backward's two kernels (dQ, dK/dV) against their
    plain PyTorch version on the card at the train shape, the edge shapes and the
-   tile-skipping patterns (masked keys' dK, dV and dbias exact zeros); then
-   each kernel's time against its bound and its plain version, and the backward of
-   ``scaled_dot_product_attention`` with the same mask (its forward and backward less
-   its forward; timed here only, as a yardstick).
+   tile-skipping patterns (masked keys' dK, dV and dbias exact zeros); the fused route
+   (``flash_attention_qkv``, whose backward writes dq, dk and dv into one dqkv buffer)
+   against the split route's dq, dk and dv at the train shape, bit for bit, and against
+   the plain versions; then each kernel's time against its bound and its plain version,
+   and the backward of ``scaled_dot_product_attention`` with the same mask (its forward
+   and backward less its forward; timed here only, as a yardstick).
 5. checkpoint: the committed ``tests/fixtures/tiny_bert`` checkpoint through the port's
    importer and the kernel in f32 reproduces its golden embeddings.
 6. main_path: MiniLM-L6 at full width (seeded weights) embeds 20,000 generated docs in
@@ -43,7 +46,8 @@ limit):
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
    curve (which must fall and stay finite) and each kernel's launches (which must be
    12 a step: 6 layers x 2 embed calls); a profiler window over two more steps gives
-   device time by kernel and the device's idle share. Then one parity step at 128
+   device time by kernel and the device's idle share, and shows that no concatenation
+   of dq, dk and dv (autograd of the qkv split) runs. Then one parity step at 128
    pairs from the same initial weights: the loss and each parameter's gradient through
    the kernels against the plain forward and backward through the same
    ``autograd.Function``, and the same reading with a deliberately broken backward
@@ -178,17 +182,22 @@ def dead_sequence(masked: str, b: int) -> int | None:
 
 def attn_inputs(b, t, h, d, dtype, gen, *, masked: str):
     """q, k, v as views of one fused [b, t, 3*h*d] projection (the encoder's layout)
-    and a key bias: ``ragged`` (10-34 real tokens, as the bench's docs), ``random``,
+    and a key bias, as ``attn_qkv`` makes them."""
+    qkv, bias = attn_qkv(b, t, h, d, dtype, gen, masked=masked)
+    return (*fa.split_heads(qkv, h), bias)
+
+
+def attn_qkv(b, t, h, d, dtype, gen, *, masked: str):
+    """One fused [b, t, 3*h*d] projection (the encoder's layout) and a key bias: ``ragged`` (10-34 real tokens, as the bench's docs), ``random``,
     ``none``, ``ragged`` with sequence 0 fully masked (``dead_row``), and the patterns
     that exercise the kernels' skipping of fully masked 16-key tiles: ``late_keys``
     (real keys only in the last tile), ``gappy`` (live and fully masked tiles in
     turn), ``late_keys_t200`` (real keys only past position 128) and ``mixed_dead``
     (ragged, with the middle sequence fully masked)."""
     qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
-    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
     pos = torch.arange(t, device="cuda")[None, :]
     if masked == "none":
-        return q, k, v, None
+        return qkv, None
     if masked == "random":
         mask = torch.rand((b, t), generator=gen, device="cuda") > 0.3
         mask[:, 0] = True
@@ -204,7 +213,7 @@ def attn_inputs(b, t, h, d, dtype, gen, *, masked: str):
         dead = dead_sequence(masked, b)
         if dead is not None:
             mask[dead] = False
-    return q, k, v, fa.mask_bias(mask)
+    return qkv, fa.mask_bias(mask)
 
 
 def _weighted_keys(bias: torch.Tensor | None, b: int, t: int) -> int:
@@ -275,15 +284,14 @@ def phase_build(card: Card) -> None:
 # kernel -> (its library, the marks of its bf16 instances' mangled names)
 SASS_KERNELS = {
     "flash_attention_fwd": ("flash_attention_fwd", ("flash_fwd_mma_kernel",)),
-    "flash_attention_bwd_dq": ("flash_attention_bwd", ("flash_bwd_dq_kernel", "__nv_bfloat16")),
+    "flash_attention_bwd_dq": ("flash_attention_bwd", ("flash_bwd_dq_mma_kernel",)),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", ("flash_bwd_dkv_mma_kernel",)),
 }
 
 
 def phase_sass(card: Card) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) in the built libraries' bf16 instances,
-    from ``cuobjdump -sass``: the forward's and dK/dV's must use them; dQ's count is
-    reported."""
+    from ``cuobjdump -sass``: every bf16 instance of every kernel must use them."""
     texts = {lib: _build.sass(lib) for lib in {lib for lib, _ in SASS_KERNELS.values()}}
     totals = {}
     for name, (lib, marks) in SASS_KERNELS.items():
@@ -301,8 +309,7 @@ def phase_sass(card: Card) -> dict:
         card.emit("sass", kernel=name, library=lib, bf16_instances=per_head_dim,
                   tensor_core_instructions=totals[name])
         check(len(per_head_dim) == len(fa.HEAD_DIMS), f"{name}: bf16 instances {per_head_dim}")
-        if name != "flash_attention_bwd_dq":
-            check(all(n > 0 for n in per_head_dim.values()), f"{name}: no tensor-core instructions {per_head_dim}")
+        check(all(n > 0 for n in per_head_dim.values()), f"{name}: no tensor-core instructions {per_head_dim}")
     return totals
 
 
@@ -423,6 +430,7 @@ def phase_train_kernel(card: Card) -> list[dict]:
             train_err = abs_err
         del q, k, v, bias, do, o, lse, ours, ref
 
+    phase_fused_vs_split(card, gen, train_shape)
     q, k, v, bias = attn_inputs(*train_shape, torch.bfloat16, gen, masked="ragged")
     do = torch.randn(train_shape, generator=gen, device="cuda").to(torch.bfloat16)
     o, lse = fa.flash_attention_fwd(q, k, v, bias)
@@ -474,6 +482,34 @@ def phase_train_kernel(card: Card) -> list[dict]:
             "library_ms": library_ms,
         })
     return rows
+
+
+def phase_fused_vs_split(card: Card, gen: torch.Generator, shape) -> None:
+    """The fused route at the train shape: ``flash_attention_qkv``'s gradient (the
+    kernels writing into the three thirds of one dqkv buffer) against the split route's
+    dq, dk and dv from the same kernels on the same inputs, concatenated, which must
+    agree bit for bit (the kernels use no atomics; only the output addresses differ);
+    and each third against the plain versions, within the bars."""
+    b, t, h, d = shape
+    qkv, bias = attn_qkv(b, t, h, d, torch.bfloat16, gen, masked="ragged")
+    do = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x = qkv.detach().requires_grad_()
+    o = fa.flash_attention_qkv(x, bias == 0, h)
+    (dqkv,) = torch.autograd.grad(o, x, do)
+    q, k, v = fa.split_heads(qkv, h)
+    o_split, lse = fa.flash_attention_fwd(q, k, v, bias)
+    dq, dk, dv, _ = fa.flash_attention_bwd(q, k, v, bias, do, o_split, lse)
+    split = torch.cat([g.reshape(b, t, h * d) for g in (dq, dk, dv)], dim=-1)
+    torch.cuda.synchronize()
+    identical = torch.equal(o, o_split) and torch.equal(dqkv, split)
+    ref = fa.flash_attention_bwd_reference(q, k, v, bias, do, o_split, lse)
+    rel = {n: _rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), fa.split_heads(dqkv, h), ref)}
+    card.emit("fused_vs_split", shape=list(shape), dtype="bfloat16", bit_identical=identical,
+              rel_err_vs_plain=rel, tol=TOL[torch.bfloat16],
+              dqkv_strides=list(dqkv.stride()), dqkv_contiguous=dqkv.is_contiguous())
+    check(identical, "the fused route's dqkv differs from the split route's dq, dk, dv")
+    for n, err in rel.items():
+        check(math.isfinite(err) and err <= TOL[torch.bfloat16], f"fused route: {n} error {err}")
 
 
 def phase_checkpoint(card: Card) -> None:
@@ -613,9 +649,10 @@ def phase_embed_parity(card: Card, embedder: EncoderEmbedder, corpus) -> None:
     check(broken["mask_ignored"] < EMBED_COS_BAR, f"the bar cannot see an ignored mask: {broken}")
 
 
-def _profiled(fn) -> tuple[float, list[tuple[float, str, int]]]:
-    """Run ``fn`` under the profiler -> (wall ms, [(device ms, kernel, count)]),
-    counting only device-side events, so no kernel is counted twice."""
+def _profiled(fn) -> tuple[float, list[tuple[float, str, int]], dict[str, int]]:
+    """Run ``fn`` under the profiler -> (wall ms, [(device ms, kernel, count)], {host
+    op or autograd node: count}), counting only device-side events as kernels, so no
+    kernel is counted twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -630,7 +667,8 @@ def _profiled(fn) -> tuple[float, list[tuple[float, str, int]]]:
         for evt in prof.key_averages()
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
     ]
-    return wall_ms, sorted(kernels, reverse=True)
+    ops = {evt.key: evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CPU}
+    return wall_ms, sorted(kernels, reverse=True), ops
 
 
 def phase_profile(card: Card, embedder: EncoderEmbedder, index: DeviceKnnIndex, corpus) -> None:
@@ -650,7 +688,7 @@ def phase_profile(card: Card, embedder: EncoderEmbedder, index: DeviceKnnIndex, 
             index.search(embedder.embed_batch([corpus[i]]), k=K)
 
     for name, fn, n in (("ingest", ingest, commits), ("query", query, queries)):
-        wall_ms, kernels = _profiled(fn)
+        wall_ms, kernels, _ops = _profiled(fn)
         busy_ms = sum(k[0] for k in kernels)
         card.emit(
             "profile",
@@ -733,7 +771,8 @@ def phase_train(card: Card) -> dict:
               pairs=TRAIN_PAIRS, seq_len=SEQ_LEN, steps=TRAIN_STEPS,
               real_tokens_per_seq={"query": real_tokens[0], "doc": real_tokens[1]},
               step_ms=step_ms, step_ms_median=steady_ms, pairs_per_s=TRAIN_PAIRS / (steady_ms / 1e3),
-              wall_s=wall_s, peak_device_gib=peak_gib, losses=losses, launches=launches)
+              wall_s=wall_s, peak_device_gib=peak_gib, losses=losses, launches=launches,
+              launches_per_step={name: n / TRAIN_STEPS for name, n in launches.items()})
     for name, n in launches.items():
         check(n == 2 * cfg.layers * TRAIN_STEPS, f"{name}: {n} launches in {TRAIN_STEPS} steps, not 12 a step")
     check(all(math.isfinite(x) for x in losses), f"finite losses {losses}")
@@ -747,12 +786,14 @@ def phase_train(card: Card) -> dict:
 
 def phase_train_profile(card: Card, step, steps: int = 2) -> None:
     """Where a train step's time goes: a profiler window over a few more steps, with
-    device time by kernel, by group, and the device's idle share."""
+    device time by kernel, by group, and the device's idle share; and whether dq, dk and
+    dv are still concatenated (autograd of a split of the qkv projection, ``cat`` on the
+    host and its copy kernel on the card): the fused route leaves no split to undo."""
     def run() -> None:
         for _ in range(steps):
             step()
 
-    wall_ms, kernels = _profiled(run)
+    wall_ms, kernels, ops = _profiled(run)
     busy_ms = sum(k[0] for k in kernels)
     groups = {"flash kernels (this port)": ("flash_",), "matmuls (cuBLAS)": ("nvjet", "gemm", "cutlass"),
               "optimizer (AdamW, foreach)": ("multi_tensor_apply",)}
@@ -771,6 +812,13 @@ def phase_train_profile(card: Card, step, steps: int = 2) -> None:
         top=[{"kernel": k[:80], "device_ms_per_step": ms / steps, "launches": c}
              for ms, k, c in kernels[:15]],
     )
+    split_nodes = {k: n for k, n in ops.items() if k.startswith(("SplitBackward", "SplitWithSizesBackward"))}
+    cat_kernels = [{"kernel": k[:80], "device_ms_per_step": ms / steps, "launches": c}
+                   for ms, k, c in kernels if "CatArray" in k]  # at::cat's copy kernels
+    card.emit("qkv_grad_concat", window=f"{steps} train steps at {TRAIN_PAIRS} pairs",
+              split_backward_nodes=split_nodes, aten_cat_calls=ops.get("aten::cat", 0),
+              cat_kernels=cat_kernels)
+    check(not split_nodes, f"a split's backward still concatenates gradients: {split_nodes}")
 
 
 def phase_train_parity(card: Card, cfg, weights: dict) -> None:

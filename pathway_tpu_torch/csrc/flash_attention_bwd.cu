@@ -19,9 +19,11 @@
 // dK/dV kernel, which runs after it on the same stream; the TPU glue's separate
 // elementwise pass and its f32 copy of dO * O are gone. q, k, v, O and dO are
 // [b, t, h, d] in bf16 or f32, read with their own strides (q, k, v are views of the
-// encoder's fused qkv projection). dQ, dK and dV come out [b, t, h, d] contiguous in
-// the input type; dbias comes out per (batch, head) as [b, h, t] f32, and the wrapper
-// sums it over heads with a torch op, so no atomics and the same result every run.
+// encoder's fused qkv projection). dQ, dK and dV come out [b, t, h, d] in the input type,
+// written with their own strides: the encoder's fused route hands over the three thirds
+// of one [b, t, 3 h d] dqkv buffer, so no concatenation follows. dbias comes out per
+// (batch, head) as [b, h, t] f32, and the wrapper sums it over heads with a torch op, so
+// no atomics and the same result every run.
 // Masked keys get P = 0 exactly for every row with a real key, so their dK, dV and
 // dbias are exact zeros. A fully masked query row has lse = -1e30 + log t, which rounds
 // to -1e30 in f32, so its P is 1 for every key (not 1/t): the TPU kernel's rule, kept;
@@ -36,54 +38,67 @@
 // far below the bf16 ridge of ~295): on the tensor cores the products are nearly free
 // (chip_smoke.py computes the exact bounds from its run's mask).
 //
-// The dQ kernel: one block per (128 query rows, head, batch), one thread per query row
-// with its row's operands and f32 accumulator in registers (two neighbouring threads
-// share a row at d = 64 and add their partial dot products with one shuffle); k and v
-// staged through shared memory as f32 in tiles of 32 keys and read back as broadcasts.
-// Its products run on the FP32 pipes and it walks every key tile; its redesign (tensor
-// cores, tile skipping, writing dq, dk and dv into one buffer) is the next step.
+// Both kernels use warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulators) with
+// ldmatrix (.trans for the operands read along the other axis) in their bf16 instances.
+// mma.sync and not wgmma: at ~13 flop per byte the products are not the limit, and
+// wgmma's 64-row tiles fit a sequence's one to three live 16-key tiles badly. Both visit
+// only the 16-key tiles that hold a key with bias > -5e29: warp 0 of each block orders
+// the sequence's tiles, those first (flash_common.cuh). A dead sequence (no real key)
+// counts every tile as live, which keeps the P = 1 rule over exactly the t keys given.
+// Query rows are never skipped: rows past t get P = 0 in dK/dV and are neither computed
+// into dQ nor written; padded rows inside t are rows like any other. Nothing uses
+// atomics: each output row is written by one warp, the same bits every run.
 //
-// The dK/dV kernel, redesigned for this card; what it does about the earlier design's
-// limits (one thread per key row on the FP32 pipes, every key block walking every query
-// tile, 217 registers a thread):
-// - Tensor cores. The bf16 instances use warp-level mma.sync.m16n8k16 (bf16 in, f32
-//   accumulators) with ldmatrix (.trans for the operands read along the query axis).
-//   Keys are the M dimension: each warp owns 16 keys and, per tile of 16 query rows,
-//   computes S^T = K.Q^T and dP^T = V.dO^T, then P^T = exp(S^T scale +
-//   bias - lse) and dS^T = P^T (dP^T - delta) on the f32 accumulator fragments,
-//   dbias += the row sums of dS^T (f32, unrounded), dV += P^T.dO and dK += dS^T.Q
-//   with P^T and dS^T moved from the accumulator layout straight into the A operand,
-//   each as two bf16 terms (below); the scale is applied to the f32 dK accumulator at
-//   the end. mma.sync and not wgmma: at ~13 flop per byte the products are not the
-//   limit, and wgmma's 64-row tiles fit a sequence's one to three live 16-key tiles
-//   badly.
-// - Masked key tiles. Warp 0 orders the sequence's 16-key tiles, those holding a key
-//   with bias > -5e29 first (flash_common.cuh), and block x takes tiles 2x and 2x+1 of
-//   that order, one per warp. A warp whose 16 keys are all masked, in a sequence with
-//   a real key, writes exact zeros for their dK, dV and dbias and does no products; a
-//   block with no live tile writes its zeros and ends. A dead sequence keeps the P = 1
-//   rule over all t keys (all its tiles are live). Query rows are never skipped: rows
-//   past t get P = 0, padded rows inside t attend as any other.
-// - Registers and latency. The warp's K and V fragments and its f32 dK and dV
-//   accumulators are spread over 32 lanes (at d=32: 8 + 8 + 16 + 16 registers a
-//   thread, 95 in all); q, dO, lse and delta tiles come in through a four-stage
-//   cp.async ring (16 bytes a thread for q and dO, neighbouring threads on neighbouring
-//   addresses, rows padded by 16 bytes so ldmatrix reads hit distinct banks), so three
-//   query tiles are in flight while a fourth is used; dK and dV leave as 16-byte stores
-//   through the warp's own K and V rows in shared memory. Blocks of two warps (32
-//   keys) measured faster than four or one at the train shape. Nothing uses atomics:
-//   the same bits every run.
-// Rounding points of the bf16 instances: P^T and dS^T enter the dV and dK products as
-// two bf16 terms each, hi = bf16(x) and lo = bf16(x - hi) (about 16 significant bits,
-// two products instead of one), and dK, dV are rounded once at the end; scores, P, dP,
-// dS, dbias and the accumulators stay f32. One bf16 term is not enough: on a dead
-// sequence P is 1 for every key and dS is t times a live row's, and a single rounding
-// of dS^T moves dK past the 2e-2 bar relative to max(1, |plain|)
-// (tests/test_torch_flash_tiles.py pins both readings); with two terms the products
-// lose no more than the f32 sums do, and what is left is the outputs' own rounding.
+// The dQ kernel: one block of 4 warps per (64 query rows, head, batch); query rows are
+// the M dimension, each warp owns 16 of them.
+// - Rows and delta. The block's q, dO and O rows come in through cp.async (16 bytes a
+//   thread, neighbouring threads on neighbouring addresses, rows padded by 16 bytes so
+//   ldmatrix reads hit distinct banks). Each warp takes its Q and dO A fragments once
+//   and keeps them in registers; it takes O's fragments in the same layout, so delta of
+//   each row is the sum of products of matching fragment entries (f32, exact products
+//   of bf16 pairs) over the row's quad, written once per row: no extra pass over O.
+// - Per live 16-key tile: S = Q.K^T and dP = dO.V^T (K and V rows as B fragments), then
+//   P = exp(S scale + bias - lse) and dS = P (dP - delta) on the f32 accumulator
+//   fragments (the scale applied to the f32 S, not to a rounded Q), and dQ += dS.K with
+//   dS moved from the accumulator layout straight into the A operand (K rows through
+//   ldmatrix.trans). dQ stays in f32 accumulators, is scaled once at the end and leaves
+//   as 16-byte stores through the warp's own O rows in shared memory.
+// - Latency and registers. K and V tiles come in through a two-stage cp.async ring
+//   shared by the block's warps: the first live tile is in flight beside the q, dO and
+//   O rows, and each later one while the one before it is used. At d=32 a thread holds
+//   8 + 8 registers of Q and dO fragments and 16 of dQ accumulators; __launch_bounds__
+//   caps it at 128 registers (four blocks of 128 threads an SM), without spills. Blocks
+//   of four warps and a two-stage ring were kept after timing two, four and eight warps
+//   and two to four stages at the train shape (probe_dq_block.py; PERF.md): eight warps
+//   were slowest, and deeper rings were no faster.
+//
+// The dK/dV kernel: keys are the M dimension. Each warp owns 16 keys and, per tile of 16
+// query rows, computes S^T = K.Q^T and dP^T = V.dO^T, then P^T = exp(S^T scale + bias -
+// lse) and dS^T = P^T (dP^T - delta) on the f32 accumulator fragments, dbias += the row
+// sums of dS^T (f32, unrounded), dV += P^T.dO and dK += dS^T.Q with P^T and dS^T moved
+// from the accumulator layout straight into the A operand; the scale is applied to the
+// f32 dK accumulator at the end. Block x takes tiles 2x and 2x+1 of the sequence's tile
+// order, one per warp. A warp whose 16 keys are all masked, in a sequence with a real
+// key, writes exact zeros for their dK, dV and dbias and does no products; a block with
+// no live tile writes its zeros and ends. The warp's K and V fragments and its f32 dK
+// and dV accumulators are spread over 32 lanes (at d=32: 8 + 8 + 16 + 16 registers a
+// thread); q, dO, lse and delta tiles come in through a four-stage cp.async ring, so
+// three query tiles are in flight while a fourth is used; dK and dV leave as 16-byte
+// stores through the warp's own K and V rows in shared memory. Blocks of two warps (32
+// keys) measured faster than four or one at the train shape.
+//
+// Rounding points of the bf16 instances: the factors P^T and dS^T (dK/dV) and dS (dQ)
+// enter their products as two bf16 terms each, hi = bf16(x) and lo = bf16(x - hi)
+// (about 16 significant bits, two products instead of one), and dQ, dK, dV are rounded
+// once at the end; scores, P, dP, dS, delta, dbias and the accumulators stay f32. One
+// bf16 term is not enough: on a dead sequence P is 1 for every key and dS is t times a
+// live row's, and a single rounding moves dK and dQ past the 2e-2 bar relative to
+// max(1, |plain|) (tests/test_torch_flash_tiles.py pins both readings); with two terms
+// the products lose no more than the f32 sums do, and what is left is the outputs' own
+// rounding.
 // The f32 instances (no main path runs them; they are held to the 1e-4 bar, which TF32
-// products cannot meet) keep FP32-pipe arithmetic with the same tile order and staging:
-// two lanes a key, each holding half of its k, v, dK and dV rows.
+// products cannot meet) keep FP32-pipe arithmetic with the same tile order and the same
+// staging: two lanes a query row (dQ) or a key (dK/dV), each holding half of its rows.
 
 #include <type_traits>
 
@@ -93,200 +108,305 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlockRows = 128;  // query rows per dQ block
-constexpr int kTile = 32;        // keys per shared-memory tile of the dQ kernel
-
 using flash::Strides;
 
-// Threads per row: one for d <= 32, d / 32 for larger d, each holding kDims dims.
-template <int D>
-struct Split {
-  static constexpr int kThreads = D > 32 ? D / 32 : 1;
-  static constexpr int kDims = D / kThreads;
-  static constexpr int kRow = D + kThreads - 1;  // shared row: one pad float per part
+// The dQ kernels' block: 4 warps of 16 query rows. Shared memory holds the block's q,
+// dO and O rows, then kStages stages of a K tile and a V tile (16 keys each), rows
+// padded by 16 bytes, then the tile order. The O rows, once delta is taken, hold each
+// warp's dQ rows on their way out.
+template <typename T, int D>
+struct Dq {
+  static constexpr int kD = D;
+  static constexpr int kWarps = 4;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kMinBlocks = 16 / kWarps;  // resident blocks an SM: <= 128 registers a thread
+  static constexpr int kLd = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kRowElems = kRows * kLd;         // the block's q (or dO, or O) rows
+  static constexpr int kKvElems = flash::kKeyTile * kLd;  // one K (or V) tile
+  static constexpr int kStages = 2;  // K/V ring depth: the next live tile in flight
+  static constexpr int kBytes = (3 * kRowElems + kStages * 2 * kKvElems) * static_cast<int>(sizeof(T));
 };
 
-// One 16-byte chunk: 4 floats or 8 bf16 values, widened to float.
-__device__ __forceinline__ void load_chunk(const float* p, float* out) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x;
-  out[1] = x.y;
-  out[2] = x.z;
-  out[3] = x.w;
-}
-
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* out) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store_chunk(float* p, const float* in) {
-  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-}
-
-__device__ __forceinline__ void store_chunk(__nv_bfloat16* p, const float* in) {
-  uint4 x;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = x;
-}
-
-// This thread's kDims dims of one row (p points at the row's first element).
-template <typename T, int D>
-__device__ __forceinline__ void load_part(const T* p, int part, float* out) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kDims = Split<D>::kDims;
-#pragma unroll
-  for (int c = 0; c < kDims; c += kVec) load_chunk(p + part * kDims + c, out + c);
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void store_part(T* p, int part, const float* in) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kDims = Split<D>::kDims;
-#pragma unroll
-  for (int c = 0; c < kDims; c += kVec) store_chunk(p + part * kDims + c, in + c);
-}
-
-// Sum over the kThreads neighbouring lanes that share a row.
 template <int D>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < Split<D>::kThreads; off <<= 1) x += __shfl_xor_sync(flash::kFullMask, x, off);
-  return x;
-}
+using DqMma = Dq<bf16, D>;
+template <int D>
+using DqF32 = Dq<float, D>;
 
-// Rows r0 .. r0+n-1 of a [b, t, h, d] operand (base already at its batch and head)
-// into a shared tile as f32, by all threads of the block; rows past n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(const T* base, long long row_stride, int r0, int n,
-                                           float (*tile)[Split<D>::kRow]) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  constexpr int kDims = Split<D>::kDims;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += blockDim.x) {
-    const int j = i / kChunks;
-    const int c = (i % kChunks) * kVec;
-    float* dst = &tile[j][c + c / kDims];  // a chunk never crosses a part
-    float x[kVec];
-    if (j < n) {
-      load_chunk(base + (r0 + j) * row_stride + c, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) dst[e] = x[e];
+// What both dQ kernels share: the block's q, dO and O rows, the tile order, and the ring
+// of K/V tiles over the live tiles. `prologue(q_s, do_s, o_s)` runs once when the rows
+// are in; `compute(k_s, v_s, k0)` once per live tile, k0 its first key.
+template <typename C, typename T, typename Prologue, typename Compute>
+__device__ __forceinline__ void dq_walk(const T* qp, const T* kp, const T* vp, const T* op,
+                                        const T* dop, const float* bp, int t, int q0,
+                                        long long q_st, long long k_st, long long v_st,
+                                        long long o_st, long long do_st, Prologue prologue,
+                                        Compute compute) {
+  constexpr int kLd = C::kLd;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = q_s + C::kRowElems;
+  T* o_s = do_s + C::kRowElems;
+  T* kv_s = o_s + C::kRowElems;  // [kStages][k, v][16][kLd]
+  int* order = reinterpret_cast<int*>(smem + C::kBytes);
+  __shared__ int n_live_s;
+
+  const int tid = threadIdx.x;
+  flash::load_rows<T, C::kD, C::kRows, kLd>(q_s, qp, q_st, q0, t, tid, blockDim.x);
+  flash::load_rows<T, C::kD, C::kRows, kLd>(do_s, dop, do_st, q0, t, tid, blockDim.x);
+  flash::load_rows<T, C::kD, C::kRows, kLd>(o_s, op, o_st, q0, t, tid, blockDim.x);
+  flash::cp_async_commit();
+  if (tid / 32 == 0) {
+    const int n = flash::order_key_tiles(bp, t, order);
+    if (tid == 0) n_live_s = n;
+  }
+  __syncthreads();
+  const int n_live = n_live_s;
+
+  for (int i = 0; i < C::kStages - 1; ++i) {  // the first tiles, one commit group each
+    if (i < n_live)
+      flash::load_kv_tile<T, C::kD, kLd>(kv_s + i * 2 * C::kKvElems, kp, k_st, vp, v_st, order[i], t);
+    flash::cp_async_commit();
+  }
+  flash::cp_async_wait<C::kStages - 1>();  // the q, dO and O rows are in
+  __syncthreads();
+  prologue(q_s, do_s, o_s);
+
+  for (int i = 0; i < n_live; ++i) {
+    const int next = i + C::kStages - 1;
+    if (next < n_live)
+      flash::load_kv_tile<T, C::kD, kLd>(kv_s + (next % C::kStages) * 2 * C::kKvElems, kp, k_st,
+                                         vp, v_st, order[next], t);
+    flash::cp_async_commit();
+    flash::cp_async_wait<C::kStages - 1>();  // tile i is in
+    __syncthreads();
+    const T* k_s = kv_s + (i % C::kStages) * 2 * C::kKvElems;
+    compute(k_s, k_s + C::kKvElems, order[i] * flash::kKeyTile);
+    __syncthreads();  // every warp is done with this stage
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlockRows * Split<D>::kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ bias,
-                        const T* __restrict__ o, const T* __restrict__ dout,
-                        const float* __restrict__ lse, float* __restrict__ delta,
-                        T* __restrict__ dq, int t, int h, Strides qs, Strides ks, Strides vs,
-                        Strides os, Strides dos, float scale) {
-  constexpr int kSplit = Split<D>::kThreads;
-  constexpr int kDims = Split<D>::kDims;
-  constexpr int kRow = Split<D>::kRow;
-  __shared__ __align__(16) float k_tile[kTile][kRow];
-  __shared__ __align__(16) float v_tile[kTile][kRow];
-  __shared__ float b_tile[kTile];
-
+// dQ on the tensor cores (bf16). Each warp owns 16 query rows: Q and dO A fragments in
+// registers, S = Q.K^T and dP = dO.V^T per live 16-key tile, P and dS on the f32
+// accumulator fragments, dQ += dS.K with dS as two bf16 terms.
+template <int D>
+__global__ void __launch_bounds__(DqMma<D>::kWarps * 32, DqMma<D>::kMinBlocks)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const float* __restrict__ bias,
+                            const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                            const float* __restrict__ lse, float* __restrict__ delta,
+                            bf16* __restrict__ dq, int t, int h, Strides qs, Strides ks,
+                            Strides vs, Strides os, Strides dos, Strides dqs, float scale) {
+  using C = DqMma<D>;
+  constexpr int kLd = C::kLd;
   const int bi = blockIdx.z;
   const int hi = blockIdx.y;
-  const int part = threadIdx.x % kSplit;
-  const int row = blockIdx.x * kBlockRows + threadIdx.x / kSplit;
-  const bool active = row < t;
-  const int col = part * (kDims + 1);  // this thread's dims in a shared row
-  const long long stat = (static_cast<long long>(bi) * h + hi) * t + row;  // lse, delta
-
-  float qr[kDims];
-  float dor[kDims];
-  float acc[kDims];
-  float row_delta = 0.f;
-  float row_lse = 0.f;
-  if (active) {
-    load_part<T, D>(q + bi * qs.b + row * qs.t + hi * qs.h, part, qr);
-    load_part<T, D>(dout + bi * dos.b + row * dos.t + hi * dos.h, part, dor);
-    load_part<T, D>(o + bi * os.b + row * os.t + hi * os.h, part, acc);  // O, for delta
-#pragma unroll
-    for (int d = 0; d < kDims; ++d) row_delta = fmaf(dor[d], acc[d], row_delta);
-    row_lse = lse[stat];
-  }
-  row_delta = row_sum<D>(row_delta);  // every lane takes part, active or not
-  if (active && part == 0) delta[stat] = row_delta;
-#pragma unroll
-  for (int d = 0; d < kDims; ++d) {
-    qr[d] = active ? qr[d] * scale : 0.f;
-    dor[d] = active ? dor[d] : 0.f;
-    acc[d] = 0.f;
-  }
-
-  const T* kp = k + bi * ks.b + hi * ks.h;
-  const T* vp = v + bi * vs.b + hi * vs.h;
+  const int q0 = blockIdx.x * C::kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;         // fragment row: query rows g and g + 8 of the warp's 16
+  const int j2 = 2 * (lane % 4);  // fragment column pair: keys
+  const int row0 = q0 + warp * 16 + g;
   const float* bp = bias ? bias + static_cast<long long>(bi) * t : nullptr;
+  const long long stat0 = (static_cast<long long>(bi) * h + hi) * t;
 
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    const int nk = min(kTile, t - k0);
-    __syncthreads();  // every thread is done with the previous tile
-    stage_rows<T, D>(kp, ks.t, k0, nk, k_tile);
-    stage_rows<T, D>(vp, vs.t, k0, nk, v_tile);
-    if (threadIdx.x < kTile) {
-      const int j = threadIdx.x;
-      b_tile[j] = (bp != nullptr && j < nk) ? bp[k0 + j] : 0.f;
-    }
-    __syncthreads();
+  uint32_t qf[D / 16][4];
+  uint32_t dof[D / 16][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float row_lse[2];
+  float row_delta[2];
 
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      if (j < nk) {  // the same for every thread of the block
-        float s = 0.f;
-        float dp = 0.f;
+  auto prologue = [&](const bf16* q_s, const bf16* do_s, const bf16* o_s) {
+    // fragment entry e holds row g (e even) or g + 8 (e odd), two columns each
+    float dsum[2] = {0.f, 0.f};
 #pragma unroll
-        for (int d = 0; d < kDims; ++d) {
-          s = fmaf(qr[d], k_tile[j][col + d], s);
-          dp = fmaf(dor[d], v_tile[j][col + d], dp);
-        }
-        s = row_sum<D>(s) + b_tile[j];
-        dp = row_sum<D>(dp);
-        const float ds = expf(s - row_lse) * (dp - row_delta);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = (warp * 16 + lane % 16) * kLd + kk * 16 + (lane / 16) * 8;
+      uint32_t of[4];
+      flash::ldsm_x4(qf[kk], q_s + at);
+      flash::ldsm_x4(dof[kk], do_s + at);
+      flash::ldsm_x4(of, o_s + at);
 #pragma unroll
-        for (int d = 0; d < kDims; ++d) acc[d] = fmaf(ds, k_tile[j][col + d], acc[d]);
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = flash::unpack_bf16(dof[kk][e]);
+        const float2 y = flash::unpack_bf16(of[e]);
+        dsum[e & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, dsum[e & 1]));
       }
     }
-  }
-
-  if (active) {
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) acc[d] *= scale;
-    store_part<T, D>(dq + ((static_cast<long long>(bi) * t + row) * h + hi) * D, part, acc);
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      row_delta[r] = flash::quad_sum(dsum[r]);
+      row_lse[r] = row < t ? __ldg(lse + stat0 + row) : 0.f;
+      if (lane % 4 == 0 && row < t) delta[stat0 + row] = row_delta[r];
+    }
+  };
+
+  auto compute = [&](const bf16* k_s, const bf16* v_s, int k0) {
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    // S = Q.K^T and dP = dO.V^T: K and V rows are the B operands, not transposed
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = ((lane / 16) * 8 + lane % 8) * kLd + kk * 16 + ((lane / 8) % 2) * 8;
+      uint32_t b[4];
+      flash::ldsm_x4(b, k_s + at);
+      flash::mma(s[0], qf[kk], b[0], b[1]);
+      flash::mma(s[1], qf[kk], b[2], b[3]);
+      flash::ldsm_x4(b, v_s + at);
+      flash::mma(dp[0], dof[kk], b[0], b[1]);
+      flash::mma(dp[1], dof[kk], b[2], b[3]);
+    }
+    // P and dS in f32 (dS over S's fragments); keys past t get P = 0
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + n * 8 + j2 + c;
+        const float kb = (bp != nullptr && key < t) ? __ldg(bp + key) : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          const float p = key < t ? expf(s[n][e] * scale + kb - row_lse[r]) : 0.f;
+          s[n][e] = p * (dp[n][e] - row_delta[r]);
+        }
+      }
+    // dQ += dS.K, dS as two bf16 terms (hi + lo); K rows through ldmatrix.trans
+    uint32_t da[4], da_lo[4];
+    flash::acc_to_a_split(da, da_lo, s[0], s[1]);
+#pragma unroll
+    for (int n2 = 0; n2 < D / 16; ++n2) {
+      uint32_t b[4];
+      flash::ldsm_x4_t(b, k_s + (lane % 16) * kLd + n2 * 16 + (lane / 16) * 8);
+      flash::mma(acc[2 * n2], da, b[0], b[1]);
+      flash::mma(acc[2 * n2], da_lo, b[0], b[1]);
+      flash::mma(acc[2 * n2 + 1], da, b[2], b[3]);
+      flash::mma(acc[2 * n2 + 1], da_lo, b[2], b[3]);
+    }
+  };
+
+  dq_walk<C>(q + bi * qs.b + hi * qs.h, k + bi * ks.b + hi * ks.h, v + bi * vs.b + hi * vs.h,
+             o + bi * os.b + hi * os.h, dout + bi * dos.b + hi * dos.h, bp, t, q0, qs.t, ks.t,
+             vs.t, os.t, dos.t, prologue, compute);
+
+  // dQ (scaled here, in f32) through the warp's own O rows in shared memory (only this
+  // warp read them), then 16-byte stores
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* dq_s = reinterpret_cast<bf16*>(smem) + 2 * C::kRowElems + warp * 16 * kLd;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(dq_s + (g + 8 * r) * kLd + n * 8 + j2) =
+          flash::pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+  bf16* dqp = dq + bi * dqs.b + hi * dqs.h;
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks;
+    const int row = q0 + warp * 16 + r;
+    if (row < t)
+      reinterpret_cast<uint4*>(dqp + row * dqs.t)[c % kChunks] =
+          reinterpret_cast<const uint4*>(dq_s + r * kLd)[c % kChunks];
+  }
+}
+
+// dQ in f32 on the FP32 pipes, with the same tile order and staging: each warp owns 16
+// query rows, two lanes a row, each holding half of its q, dO and dQ rows.
+template <int D>
+__global__ void __launch_bounds__(DqF32<D>::kWarps * 32)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ bias,
+                            const float* __restrict__ o, const float* __restrict__ dout,
+                            const float* __restrict__ lse, float* __restrict__ delta,
+                            float* __restrict__ dq, int t, int h, Strides qs, Strides ks,
+                            Strides vs, Strides os, Strides dos, Strides dqs, float scale) {
+  using C = DqF32<D>;
+  constexpr int kLd = C::kLd;
+  constexpr int kHalf = D / 2;
+  const int bi = blockIdx.z;
+  const int hi = blockIdx.y;
+  const int q0 = blockIdx.x * C::kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int half = lane % 2;
+  const int row = q0 + warp * 16 + lane / 2;
+  const float* bp = bias ? bias + static_cast<long long>(bi) * t : nullptr;
+  const long long stat0 = (static_cast<long long>(bi) * h + hi) * t;
+
+  float qr[kHalf];
+  float dor[kHalf];
+  float acc[kHalf];
+  float row_lse = 0.f;
+  float row_delta = 0.f;
+
+  auto prologue = [&](const float* q_s, const float* do_s, const float* o_s) {
+    const int at = (warp * 16 + lane / 2) * kLd + half * kHalf;
+    float dsum = 0.f;
+#pragma unroll
+    for (int e = 0; e < kHalf; ++e) {
+      qr[e] = q_s[at + e];
+      dor[e] = do_s[at + e];
+      dsum = fmaf(dor[e], o_s[at + e], dsum);
+      acc[e] = 0.f;
+    }
+    row_delta = dsum + __shfl_xor_sync(flash::kFullMask, dsum, 1);
+    row_lse = row < t ? __ldg(lse + stat0 + row) : 0.f;
+    if (half == 0 && row < t) delta[stat0 + row] = row_delta;
+  };
+
+  auto compute = [&](const float* k_s, const float* v_s, int k0) {
+#pragma unroll 4
+    for (int j = 0; j < flash::kKeyTile; ++j) {
+      const float* kr = k_s + j * kLd + half * kHalf;
+      const float* vr = v_s + j * kLd + half * kHalf;
+      float s = 0.f;
+      float dp = 0.f;
+#pragma unroll
+      for (int e = 0; e < kHalf; ++e) {
+        s = fmaf(qr[e], kr[e], s);
+        dp = fmaf(dor[e], vr[e], dp);
+      }
+      s += __shfl_xor_sync(flash::kFullMask, s, 1);
+      dp += __shfl_xor_sync(flash::kFullMask, dp, 1);
+      const int key = k0 + j;
+      const float kb = (bp != nullptr && key < t) ? __ldg(bp + key) : 0.f;
+      const float p = key < t ? expf(s * scale + kb - row_lse) : 0.f;
+      const float ds = p * (dp - row_delta);
+#pragma unroll
+      for (int e = 0; e < kHalf; ++e) acc[e] = fmaf(ds, kr[e], acc[e]);
+    }
+  };
+
+  dq_walk<C>(q + bi * qs.b + hi * qs.h, k + bi * ks.b + hi * ks.h, v + bi * vs.b + hi * vs.h,
+             o + bi * os.b + hi * os.h, dout + bi * dos.b + hi * dos.h, bp, t, q0, qs.t, ks.t,
+             vs.t, os.t, dos.t, prologue, compute);
+
+  if (row < t) {
+    float* out = dq + bi * dqs.b + row * dqs.t + hi * dqs.h + half * kHalf;
+#pragma unroll
+    for (int e = 0; e < kHalf; e += 4)
+      *reinterpret_cast<float4*>(out + e) =
+          make_float4(acc[e] * scale, acc[e + 1] * scale, acc[e + 2] * scale, acc[e + 3] * scale);
   }
 }
 
 // Zeros for the dK and dV rows and the dbias entries of one 16-key tile, by one warp:
 // the tile's keys are all masked in a sequence with a real key, so P is exactly 0 for
-// each of them from every query row.
+// each of them from every query row. dkp and dvp point at the (batch, head)'s key 0.
 template <typename T, int D>
-__device__ __forceinline__ void zero_key_tile(T* dk, T* dv, float* dbias, long long row0,
-                                              long long stat0, int key0, int t, int h,
+__device__ __forceinline__ void zero_key_tile(T* dkp, long long dk_st, T* dvp, long long dv_st,
+                                              float* dbias, long long stat0, int key0, int t,
                                               int lane) {
   constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;
   for (int c = lane; c < flash::kKeyTile * kChunks; c += 32) {
     const int key = key0 + c / kChunks;
     if (key < t) {
-      const long long at = (row0 + static_cast<long long>(key) * h) * D;
-      reinterpret_cast<uint4*>(dk + at)[c % kChunks] = make_uint4(0, 0, 0, 0);
-      reinterpret_cast<uint4*>(dv + at)[c % kChunks] = make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(dkp + key * dk_st)[c % kChunks] = make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(dvp + key * dv_st)[c % kChunks] = make_uint4(0, 0, 0, 0);
     }
   }
   if (lane < flash::kKeyTile && key0 + lane < t) dbias[stat0 + key0 + lane] = 0.f;
@@ -323,8 +443,8 @@ using DkvF32 = Dkv<float, D, 16>;
 template <typename C, typename T, typename Prologue, typename Compute>
 __device__ __forceinline__ bool dkv_walk(const T* qp, const T* kp, const T* vp,
                                          const T* dop, const float* bp, const float* lse,
-                                         const float* delta, T* dk, T* dv, float* dbias,
-                                         int t, int h, long long row0, long long stat0,
+                                         const float* delta, T* dkp, long long dk_st, T* dvp,
+                                         long long dv_st, float* dbias, int t, long long stat0,
                                          const Strides& qs, const Strides& ks,
                                          const Strides& dos, long long v_st, int& tile,
                                          Prologue prologue, Compute compute) {
@@ -350,7 +470,7 @@ __device__ __forceinline__ bool dkv_walk(const T* qp, const T* kp, const T* vp,
   tile = slot < tiles ? order[slot] : -1;
   const bool live = slot < n_live;
   if (tile >= 0 && !live)
-    zero_key_tile<T, C::kD>(dk, dv, dbias, row0, stat0, tile * flash::kKeyTile, t, h, lane);
+    zero_key_tile<T, C::kD>(dkp, dk_st, dvp, dv_st, dbias, stat0, tile * flash::kKeyTile, t, lane);
   if (static_cast<int>(blockIdx.x) * C::kWarps >= n_live) return false;  // the whole block
 
   if (live) {
@@ -402,7 +522,8 @@ __global__ void __launch_bounds__(DkvMma<D>::kWarps * 32)
                              const bf16* __restrict__ dout, const float* __restrict__ lse,
                              const float* __restrict__ delta, bf16* __restrict__ dk,
                              bf16* __restrict__ dv, float* __restrict__ dbias, int t, int h,
-                             Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
+                             Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
+                             Strides dvs, float scale) {
   using C = DkvMma<D>;
   constexpr int kLd = C::kLd;
   constexpr int kQt = C::kQt;
@@ -414,8 +535,9 @@ __global__ void __launch_bounds__(DkvMma<D>::kWarps * 32)
   const int g = lane / 4;         // fragment row: keys g and g + 8 of the warp's tile
   const int j2 = 2 * (lane % 4);  // fragment column pair: query rows
   const float* bp = bias ? bias + static_cast<long long>(bi) * t : nullptr;
-  const long long row0 = static_cast<long long>(bi) * t * h + hi;  // [b, t, h, d] row of key 0
   const long long stat0 = (static_cast<long long>(bi) * h + hi) * t;
+  bf16* dkp = dk + bi * dks.b + hi * dks.h;  // key 0 of this (batch, head)
+  bf16* dvp = dv + bi * dvs.b + hi * dvs.h;
 
   uint32_t kf[D / 16][4];
   uint32_t vf[D / 16][4];
@@ -505,8 +627,8 @@ __global__ void __launch_bounds__(DkvMma<D>::kWarps * 32)
   };
 
   if (!dkv_walk<C>(q + bi * qs.b + hi * qs.h, k + bi * ks.b + hi * ks.h, v + bi * vs.b + hi * vs.h,
-                   dout + bi * dos.b + hi * dos.h, bp, lse, delta, dk, dv, dbias, t, h, row0,
-                   stat0, qs, ks, dos, vs.t, tile, prologue, compute))
+                   dout + bi * dos.b + hi * dos.h, bp, lse, delta, dkp, dks.t, dvp, dvs.t, dbias,
+                   t, stat0, qs, ks, dos, vs.t, tile, prologue, compute))
     return;
 
   // dK (scaled here, in f32) and dV through the warp's own K and V rows in shared
@@ -531,9 +653,8 @@ __global__ void __launch_bounds__(DkvMma<D>::kWarps * 32)
     const int r = c / kChunks;
     const int key = tile * flash::kKeyTile + r;
     if (key < t) {
-      const long long at = (row0 + static_cast<long long>(key) * h) * D;
-      reinterpret_cast<uint4*>(dk + at)[c % kChunks] = reinterpret_cast<const uint4*>(dk_s + r * kLd)[c % kChunks];
-      reinterpret_cast<uint4*>(dv + at)[c % kChunks] = reinterpret_cast<const uint4*>(dv_s + r * kLd)[c % kChunks];
+      reinterpret_cast<uint4*>(dkp + key * dks.t)[c % kChunks] = reinterpret_cast<const uint4*>(dk_s + r * kLd)[c % kChunks];
+      reinterpret_cast<uint4*>(dvp + key * dvs.t)[c % kChunks] = reinterpret_cast<const uint4*>(dv_s + r * kLd)[c % kChunks];
     }
   }
   if (lane % 4 == 0) {
@@ -554,7 +675,8 @@ __global__ void __launch_bounds__(DkvF32<D>::kWarps * 32)
                              const float* __restrict__ dout, const float* __restrict__ lse,
                              const float* __restrict__ delta, float* __restrict__ dk,
                              float* __restrict__ dv, float* __restrict__ dbias, int t, int h,
-                             Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
+                             Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
+                             Strides dvs, float scale) {
   using C = DkvF32<D>;
   constexpr int kLd = C::kLd;
   constexpr int kQt = C::kQt;
@@ -564,8 +686,9 @@ __global__ void __launch_bounds__(DkvF32<D>::kWarps * 32)
   const int lane = threadIdx.x % 32;
   const int half = lane % 2;
   const float* bp = bias ? bias + static_cast<long long>(bi) * t : nullptr;
-  const long long row0 = static_cast<long long>(bi) * t * h + hi;
   const long long stat0 = (static_cast<long long>(bi) * h + hi) * t;
+  float* dkp = dk + bi * dks.b + hi * dks.h;
+  float* dvp = dv + bi * dvs.b + hi * dvs.h;
 
   float kr[kHalf];
   float vr[kHalf];
@@ -615,18 +738,19 @@ __global__ void __launch_bounds__(DkvF32<D>::kWarps * 32)
   };
 
   if (!dkv_walk<C>(q + bi * qs.b + hi * qs.h, k + bi * ks.b + hi * ks.h, v + bi * vs.b + hi * vs.h,
-                   dout + bi * dos.b + hi * dos.h, bp, lse, delta, dk, dv, dbias, t, h, row0,
-                   stat0, qs, ks, dos, vs.t, tile, prologue, compute))
+                   dout + bi * dos.b + hi * dos.h, bp, lse, delta, dkp, dks.t, dvp, dvs.t, dbias,
+                   t, stat0, qs, ks, dos, vs.t, tile, prologue, compute))
     return;
 
   const int key = tile * flash::kKeyTile + lane / 2;
   if (key < t) {
-    const long long at = (row0 + static_cast<long long>(key) * h) * D + half * kHalf;
+    float* dk_row = dkp + key * dks.t + half * kHalf;
+    float* dv_row = dvp + key * dvs.t + half * kHalf;
 #pragma unroll
     for (int e = 0; e < kHalf; e += 4) {
-      *reinterpret_cast<float4*>(dk + at + e) =
+      *reinterpret_cast<float4*>(dk_row + e) =
           make_float4(dkr[e] * scale, dkr[e + 1] * scale, dkr[e + 2] * scale, dkr[e + 3] * scale);
-      *reinterpret_cast<float4*>(dv + at + e) = make_float4(dvr[e], dvr[e + 1], dvr[e + 2], dvr[e + 3]);
+      *reinterpret_cast<float4*>(dv_row + e) = make_float4(dvr[e], dvr[e + 1], dvr[e + 2], dvr[e + 3]);
     }
     if (half == 0) dbias[stat0 + key] = db;
   }
@@ -655,18 +779,31 @@ struct DqArgs {
   void *delta, *dq;
 };
 
+template <typename C, typename T, typename Kernel>
+cudaError_t launch_dq(Kernel kernel, const DqArgs& a, int b, int t, int h, const Strides* st,
+                      float scale, cudaStream_t stream) {
+  const int tiles = (t + flash::kKeyTile - 1) / flash::kKeyTile;
+  const int smem = C::kBytes + tiles * static_cast<int>(sizeof(int));
+  const cudaError_t err = flash::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + C::kRows - 1) / C::kRows, h, b);
+  kernel<<<grid, C::kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const float*>(a.bias), static_cast<const T*>(a.o),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<T*>(a.dq), t, h, st[0], st[1], st[2], st[3],
+      st[4], st[5], scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
-struct Dq {
+struct DqLaunch {
   static cudaError_t run(const DqArgs& a, int b, int t, int h, const Strides* st, float scale,
                          cudaStream_t stream) {
-    const dim3 grid((t + kBlockRows - 1) / kBlockRows, h, b);
-    flash_bwd_dq_kernel<T, D><<<grid, kBlockRows * Split<D>::kThreads, 0, stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const float*>(a.bias), static_cast<const T*>(a.o),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<float*>(a.delta), static_cast<T*>(a.dq), t, h, st[0], st[1], st[2],
-        st[3], st[4], scale);
-    return cudaGetLastError();
+    if constexpr (std::is_same_v<T, float>)
+      return launch_dq<DqF32<D>, float>(flash_bwd_dq_f32_kernel<D>, a, b, t, h, st, scale, stream);
+    else
+      return launch_dq<DqMma<D>, bf16>(flash_bwd_dq_mma_kernel<D>, a, b, t, h, st, scale, stream);
   }
 };
 
@@ -688,7 +825,7 @@ cudaError_t launch_dkv(Kernel kernel, const DkvArgs& a, int b, int t, int h, con
       static_cast<const float*>(a.bias), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), static_cast<float*>(a.dbias), t, h, st[0],
-      st[1], st[2], st[3], scale);
+      st[1], st[2], st[3], st[4], st[5], scale);
   return cudaGetLastError();
 }
 
@@ -706,20 +843,21 @@ struct DkvLaunch {
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16. `strides` is a
-// host array of (b, t, h) strides in elements, one triple per strided operand in the
-// order of the pointers (dQ: q, k, v, o, dout; dK/dV: q, k, v, dout). bias is [b, t] f32
-// contiguous, or null for no mask; lse and delta are [b, h, t] f32 contiguous; dq, dk,
-// dv are [b, t, h, d] contiguous; dbias is [b, h, t] f32. Each launches on `stream` and
-// returns cudaGetLastError().
+// host array of (b, t, h) strides in elements, one triple per strided tensor in the
+// order of the pointers, inputs then outputs (dQ: q, k, v, o, dout, dq; dK/dV: q, k, v,
+// dout, dk, dv); every [b, t, h, d] tensor has unit stride along d, a 16-byte aligned
+// base and strides in multiples of 16 bytes. bias is [b, t] f32 contiguous, or null for
+// no mask; lse and delta are [b, h, t] f32 contiguous; dbias is [b, h, t] f32. Each
+// launches on `stream` and returns cudaGetLastError().
 extern "C" int pt_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* bias, const void* o, const void* dout,
                                          const void* lse, void* delta, void* dq, int dtype,
                                          int b, int t, int h, int d, const long long* strides,
                                          float scale, void* stream) {
-  Strides st[5];
-  for (int i = 0; i < 5; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  Strides st[6];
+  for (int i = 0; i < 6; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const DqArgs a{q, k, v, bias, o, dout, lse, delta, dq};
-  return dispatch<Dq>(dtype, d, a, b, t, h, st, scale, static_cast<cudaStream_t>(stream));
+  return dispatch<DqLaunch>(dtype, d, a, b, t, h, st, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pt_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -728,8 +866,8 @@ extern "C" int pt_flash_attention_bwd_dkv(const void* q, const void* k, const vo
                                           int dtype, int b, int t, int h, int d,
                                           const long long* strides, float scale,
                                           void* stream) {
-  Strides st[4];
-  for (int i = 0; i < 4; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  Strides st[6];
+  for (int i = 0; i < 6; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const DkvArgs a{q, k, v, bias, dout, lse, delta, dk, dv, dbias};
   return dispatch<DkvLaunch>(dtype, d, a, b, t, h, st, scale, static_cast<cudaStream_t>(stream));
 }

@@ -68,16 +68,7 @@ using flash::Strides;
 using bf16 = __nv_bfloat16;
 
 constexpr int kStages = 4;  // K/V ring depth: a sequence's one to three live tiles all in flight
-
-// The K rows, then the V rows, of one 16-key tile into a stage of the ring.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_kv_tile(T* stage, const T* kp, long long k_st, const T* vp,
-                                             long long v_st, int tile, int t) {
-  const int k0 = tile * flash::kKeyTile;
-  flash::load_rows<T, D, flash::kKeyTile, LD>(stage, kp, k_st, k0, t, threadIdx.x, blockDim.x);
-  flash::load_rows<T, D, flash::kKeyTile, LD>(stage + flash::kKeyTile * LD, vp, v_st, k0, t,
-                                              threadIdx.x, blockDim.x);
-}
+using flash::load_kv_tile;
 
 // The bf16 kernel's block: 4 warps of 16 query rows; shared memory holds the Q tile
 // and kStages stages of K and V tiles, rows padded by 8 elements, then the tile order.

@@ -1,7 +1,8 @@
-// Building blocks shared by the flash-attention kernels (flash_attention_fwd.cu and the
-// dK/dV kernel of flash_attention_bwd.cu), for Hopper (sm_90a):
+// Building blocks shared by the flash-attention kernels (the forward of
+// flash_attention_fwd.cu, the dQ and dK/dV kernels of flash_attention_bwd.cu), for Hopper
+// (sm_90a):
 //
-// - cp.async copies of 16 bytes (tiles of q, k, v, dO) and 4 bytes (lse, delta) from
+// - cp.async copies of 16 bytes (tiles of q, k, v, O, dO) and 4 bytes (lse, delta) from
 //   device memory into shared memory, zero-filling what lies past the sequence;
 // - ldmatrix and the warp-level bf16 tensor-core product mma.sync.m16n8k16 (f32
 //   accumulators), with the fragment layouts the kernels rely on;
@@ -65,6 +66,16 @@ __device__ __forceinline__ void load_rows(T* tile, const T* base, long long stri
   }
 }
 
+// The K rows, then the V rows, of one 16-key tile into a stage of a ring, by every thread
+// of the block (the forward's and the dQ kernel's K/V rings).
+template <typename T, int D, int LD>
+__device__ __forceinline__ void load_kv_tile(T* stage, const T* kp, long long k_st, const T* vp,
+                                             long long v_st, int tile, int t) {
+  const int k0 = tile * kKeyTile;
+  load_rows<T, D, kKeyTile, LD>(stage, kp, k_st, k0, t, threadIdx.x, blockDim.x);
+  load_rows<T, D, kKeyTile, LD>(stage + kKeyTile * LD, vp, v_st, k0, t, threadIdx.x, blockDim.x);
+}
+
 // Entries i0 .. i0+R-1 of an f32 row (lse or delta) into shared memory; past t, zeros.
 template <int R>
 __device__ __forceinline__ void load_stats(float* dst, const float* row, int i0, int t, int tid,
@@ -107,6 +118,11 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// The two bf16 values of a packed pair (as pack_bf16 packs them), widened to f32.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
 // The A fragment of a 16x16 product from the accumulators of two 16x8 products that

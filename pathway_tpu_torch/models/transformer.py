@@ -29,7 +29,12 @@ import torch
 from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
+from pathway_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_attention,
+    flash_attention_qkv,
+    split_heads,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,10 +215,15 @@ def encoder_forward(
         # trainable encoder's f32 masters and returns a serving encoder's weights as
         # they are, with no kernel.
         qkv = x @ lp.qkv_w.to(dt) + lp.qkv_b.to(dt)
-        q, k, v = (
-            y.reshape(b, t, cfg.heads, cfg.head_dim) for y in qkv.split(cfg.hidden, dim=-1)
-        )
-        a = attn_fn(q, k, v, mask).reshape(b, t, cfg.hidden)
+        if attn_fn is flash_attention:
+            # The one place the route is chosen: the flash kernels take the fused
+            # projection as it is, and their backward writes dq, dk and dv into one
+            # dqkv buffer instead of autograd concatenating them. Any other attention
+            # function, including a wrapper of flash_attention, gets q, k, v views.
+            a = flash_attention_qkv(qkv, mask, cfg.heads)
+        else:
+            a = attn_fn(*split_heads(qkv, cfg.heads), mask)
+        a = a.reshape(b, t, cfg.hidden)
         a = a @ lp.out_w.to(dt) + lp.out_b.to(dt)
         x = layer_norm(x + a, lp.attn_ln, cfg.layer_norm_eps)
         h = x @ lp.fc1_w.to(dt) + lp.fc1_b.to(dt)

@@ -3,18 +3,22 @@
 Counterpart of ``pathway_tpu/ops/flash_attention.py``: ``flash_attention`` keeps the
 ``[b, t, h, d]`` contract of the JAX ``flash_attention`` (:350) and ``dense_attention``,
 with mask ``[b, t]`` bool (True = real token) or None, and is differentiable through
-``FlashAttention``, the counterpart of the JAX ``_flash_diff`` custom_vjp. On CUDA
-tensors the work runs in hand-written Hopper kernels: the forward in
-``csrc/flash_attention_fwd.cu``, the backward's dQ and dK/dV kernels in
+``FlashAttention``, the counterpart of the JAX ``_flash_diff`` custom_vjp.
+``flash_attention_qkv`` is the same attention on the encoder's fused ``[b, t, 3 h d]``
+projection, through ``FlashAttentionQKV``: its backward has the kernels write dq, dk
+and dv straight into the three thirds of one dqkv buffer, where autograd of a split
+would concatenate them. On CUDA tensors the work runs in hand-written Hopper kernels:
+the forward in ``csrc/flash_attention_fwd.cu``, the backward's dQ and dK/dV kernels in
 ``csrc/flash_attention_bwd.cu``. On CPU tensors it runs in their plain PyTorch versions
 (``flash_attention_fwd_reference``, ``flash_attention_bwd_reference``): the same
 formulas with f32 scores, the softmax recomputed from the saved per-row logsumexp in
 the backward, f32 products and one cast of each output, the yardstick the kernels are
 held to. The kernels' bf16 instances run their products on the tensor cores: the
-forward rounds P to bf16 before P.V, the dK/dV kernel carries P and dS as two bf16
-terms each (hi + lo) into its products, and both skip 16-key tiles whose keys are all
-masked (exact: such keys weigh exactly 0 in f32). The dQ kernel and the f32 instances
-keep f32 products. There is no fallback: a CUDA input a kernel does not take raises.
+forward rounds P to bf16 before P.V, the dQ kernel carries dS and the dK/dV kernel P
+and dS as two bf16 terms each (hi + lo) into their products, and all three skip 16-key
+tiles whose keys are all masked (exact: such keys weigh exactly 0 in f32). The f32
+instances keep f32 products. There is no fallback: a CUDA input a kernel does not take
+raises.
 
 Two rules for a query row whose keys are all masked:
 
@@ -210,22 +214,33 @@ def _strides(*xs: torch.Tensor):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def flash_attention_bwd_dq(q, k, v, bias, do, o, lse) -> tuple[torch.Tensor, torch.Tensor]:
+def _into(out: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
+    """x, or x copied into ``out`` where the caller gave one."""
+    if out is None:
+        return x
+    return out.copy_(x)
+
+
+def flash_attention_bwd_dq(q, k, v, bias, do, o, lse, dq=None) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (dq ``[b, t, h, d]`` in q's dtype, delta ``[b, h, t]`` f32). The dQ kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors. dq is written into ``dq`` where one
+    is given (any ``[b, t, h, d]`` view the kernel can write, such as a third of a
+    dqkv buffer), else into a new contiguous tensor."""
     if not _on_cuda("flash_attention_bwd_dq", q):
-        return flash_attention_bwd_dq_reference(q, k, v, bias, do, o, lse)
-    _check_cuda_inputs(q, k, v, bias, o=o, do=do)
+        ref, delta = flash_attention_bwd_dq_reference(q, k, v, bias, do, o, lse)
+        return _into(dq, ref), delta
+    if dq is None:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _check_cuda_inputs(q, k, v, bias, o=o, do=do, dq=dq)
     _check_stats("lse", lse, q)
     b, t, h, d = q.shape
-    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         BWD_DQ_KERNEL(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, t, h, d, _strides(q, k, v, o, do),
+            _DTYPE_CODES[q.dtype], b, t, h, d, _strides(q, k, v, o, do, dq),
             1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -233,18 +248,23 @@ def flash_attention_bwd_dq(q, k, v, bias, do, o, lse) -> tuple[torch.Tensor, tor
 
 
 def flash_attention_bwd_dkv(
-    q, k, v, bias, do, lse, delta
+    q, k, v, bias, do, lse, delta, dk=None, dv=None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (dk, dv ``[b, t, h, d]`` in the inputs' dtype, dbias per head ``[b, h, t]``
-    f32). The dK/dV kernel on CUDA tensors, the plain version on CPU tensors."""
+    f32). The dK/dV kernel on CUDA tensors, the plain version on CPU tensors. dk and dv
+    are written into ``dk`` and ``dv`` where given, as dq is by
+    ``flash_attention_bwd_dq``."""
     if not _on_cuda("flash_attention_bwd_dkv", q):
-        return flash_attention_bwd_dkv_reference(q, k, v, bias, do, lse, delta)
-    _check_cuda_inputs(q, k, v, bias, do=do)
+        rk, rv, dbias = flash_attention_bwd_dkv_reference(q, k, v, bias, do, lse, delta)
+        return _into(dk, rk), _into(dv, rv), dbias
+    if dk is None:
+        dk = torch.empty(q.shape, dtype=k.dtype, device=q.device)
+    if dv is None:
+        dv = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    _check_cuda_inputs(q, k, v, bias, do=do, dk=dk, dv=dv)
     _check_stats("lse", lse, q)
     _check_stats("delta", delta, q)
     b, t, h, d = q.shape
-    dk = torch.empty((b, t, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, t, h, d), dtype=v.dtype, device=q.device)
     dbias = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         BWD_DKV_KERNEL(
@@ -252,7 +272,7 @@ def flash_attention_bwd_dkv(
             None if bias is None else bias.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, t, h, d, _strides(q, k, v, do),
+            _DTYPE_CODES[q.dtype], b, t, h, d, _strides(q, k, v, do, dk, dv),
             1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -267,13 +287,16 @@ def flash_attention_bwd(
     do: torch.Tensor,
     o: torch.Tensor,
     lse: torch.Tensor,
+    out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``flash_attention_fwd`` -> (dq, dk, dv ``[b, t, h, d]``, dbias
     ``[b, t]`` f32): the dQ kernel (which also computes delta), then the dK/dV kernel,
-    on CUDA tensors; the plain versions on CPU tensors. dbias is summed over heads here,
-    with a torch op, so the result is the same from run to run."""
-    dq, delta = flash_attention_bwd_dq(q, k, v, bias, do, o, lse)
-    dk, dv, dbias = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta)
+    on CUDA tensors; the plain versions on CPU tensors. ``out`` = (dq, dk, dv) views to
+    write the three gradients into, or None for new tensors. dbias is summed over heads
+    here, with a torch op, so the result is the same from run to run."""
+    dq_out, dk_out, dv_out = (None, None, None) if out is None else out
+    dq, delta = flash_attention_bwd_dq(q, k, v, bias, do, o, lse, dq=dq_out)
+    dk, dv, dbias = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, dk=dk_out, dv=dv_out)
     return dq, dk, dv, dbias.sum(dim=1)
 
 
@@ -299,6 +322,37 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, dbias if ctx.needs_input_grad[3] else None, None, None
 
 
+def split_heads(qkv: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused ``[b, t, 3 h d]`` projection -> q, k, v ``[b, t, h, d]``, as views."""
+    b, t, width = qkv.shape
+    return tuple(x.view(b, t, heads, width // (3 * heads)) for x in qkv.split(width // 3, dim=-1))
+
+
+class FlashAttentionQKV(torch.autograd.Function):
+    """``FlashAttention`` on the fused projection: ``FlashAttentionQKV.apply(qkv, bias,
+    heads)`` -> o ``[b, t, h, d]``. Its backward allocates one dqkv buffer shaped as
+    qkv and has the dQ kernel write its q third and the dK/dV kernel its k and v thirds
+    (on CPU tensors the plain versions' results are copied there), so autograd hands
+    the projection its gradient with no concatenation."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, heads):
+        o, lse = flash_attention_fwd(*split_heads(qkv, heads), bias)
+        ctx.save_for_backward(qkv, bias, o, lse)
+        ctx.heads = heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, bias, o, lse = ctx.saved_tensors
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        # the kernels read do with its own strides but need unit stride along d
+        *_, dbias = flash_attention_bwd(
+            *split_heads(qkv, ctx.heads), bias, do.contiguous(), o, lse, out=split_heads(dqkv, ctx.heads)
+        )
+        return dqkv, dbias if ctx.needs_input_grad[1] else None, None
+
+
 def mask_bias(mask: torch.Tensor) -> torch.Tensor:
     """``[b, t]`` bool mask -> f32 additive key bias (0 real, -1e30 masked)."""
     zero = torch.zeros((), dtype=torch.float32, device=mask.device)
@@ -318,3 +372,15 @@ def flash_attention(
     tensors."""
     bias = None if mask is None else mask_bias(mask)
     return FlashAttention.apply(q, k, v, bias, flash_attention_fwd, flash_attention_bwd)
+
+
+def flash_attention_qkv(
+    qkv: torch.Tensor,  # [b, t, 3 * h * d]: q, k, v side by side, as the encoder projects them
+    mask: torch.Tensor | None,  # [b, t] bool
+    heads: int,
+) -> torch.Tensor:
+    """``flash_attention`` on the fused projection -> ``[b, t, h, d]``, differentiable
+    with respect to ``qkv``: the same kernels, with the backward's dq, dk and dv written
+    into one dqkv buffer."""
+    bias = None if mask is None else mask_bias(mask)
+    return FlashAttentionQKV.apply(qkv, bias, heads)

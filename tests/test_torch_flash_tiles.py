@@ -8,11 +8,13 @@
     bar of tests/test_torch_flash_attention.py).
 (c) The kernels' rounding points stay inside the 2e-2 bar against the plain versions:
     the forward rounds P to bf16 before P.V; the dK/dV kernel carries P^T and dS^T as
-    two bf16 terms each (hi + lo) into the dV and dK products; everything else is f32.
-    The bar: bf16 outputs 2e-2 absolute, gradients 2e-2 relative to max(1, |plain|),
-    as chip_smoke.py and tests/test_torch_gpu.py hold the kernels. A single bf16
-    rounding of dS^T does not hold it on a dead sequence (P = 1 for every key), which is
-    why the kernel carries two terms.
+    two bf16 terms each (hi + lo) into the dV and dK products; the dQ kernel visits only
+    the live 16-key tiles (all of them for a dead sequence) and carries dS as two bf16
+    terms into dS.K; everything else is f32. The bar: bf16 outputs 2e-2 absolute,
+    gradients 2e-2 relative to max(1, |plain|), as chip_smoke.py and
+    tests/test_torch_gpu.py hold the kernels. A single bf16 rounding of dS^T (dK/dV) or
+    dS (dQ) does not hold it on a dead sequence (P = 1 for every key), which is why the
+    kernels carry two terms.
 """
 
 import importlib
@@ -164,6 +166,28 @@ def _emulated_dkv(q, k, v, bias, do, lse, delta, operand):
     return dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=2)
 
 
+def _emulated_dq(q, k, v, bias, do, o, lse, operand):
+    """The dQ kernel's arithmetic: S, P, dP and dS in f32 over the 16-key tiles holding
+    a real key (every tile for a dead sequence), delta from dO and O in f32, dS through
+    ``operand`` before the dS.K product, the scale applied to the f32 dQ, one cast."""
+    b, t, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale + bias[:, None, None, :]
+    p = torch.exp(s - lse[..., None])
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    live = bias > tfa.NEG_INF / 2
+    tiles = -(-t // TILE)
+    padded = torch.zeros((b, tiles * TILE), dtype=torch.bool)
+    padded[:, :t] = live
+    visit = padded.view(b, tiles, TILE).any(dim=-1) | ~live.any(dim=1, keepdim=True)
+    visit = visit.repeat_interleave(TILE, dim=1)[:, :t]
+    ds = torch.where(visit[:, None, None, :], ds, torch.zeros(()))
+    dq = torch.einsum("bhts,bshd->bthd", operand(ds), k.float()) * scale
+    return dq.to(q.dtype), delta.contiguous()
+
+
 def _main_path_inputs(dead: bool):
     """b=8 sequences of 128 tokens with 10-34 real keys (the serving and train batches'
     range), h=12, d=32, bf16; with ``dead``, sequence 3 has no real key."""
@@ -195,3 +219,22 @@ def test_backward_rounding_points_stay_inside_the_bar(dead):
     single = _emulated_dkv(q, k, v, bias, do, lse, delta, _bf16)
     if dead:  # P = 1 for every key of the dead sequence: one bf16 term is not enough
         assert _rel(single[0], ref[0]) > BF16_TOL
+
+
+@pytest.mark.parametrize("dead", [False, True])
+def test_dq_rounding_points_stay_inside_the_bar(dead):
+    """The dQ kernel's emulated arithmetic against its plain version: dq within 2e-2
+    relative to max(1, |plain|), delta within 1e-5 (f32 sums in another order). One bf16
+    term for dS reads 0.0078 on live sequences but 0.066 on the dead one (t times a live
+    row's dS), past the bar, which is why the kernel carries two."""
+    q, k, v, do, bias = _main_path_inputs(dead)
+    o, lse = tfa.flash_attention_fwd_reference(q, k, v, bias)
+    ref, ref_delta = tfa.flash_attention_bwd_dq_reference(q, k, v, bias, do, o, lse)
+    dq, delta = _emulated_dq(q, k, v, bias, do, o, lse, _split)
+    assert _rel(dq, ref) <= BF16_TOL
+    assert (delta - ref_delta).abs().max().item() <= 1e-5
+    single, _ = _emulated_dq(q, k, v, bias, do, o, lse, _bf16)
+    if dead:
+        assert _rel(single, ref) > BF16_TOL
+    else:
+        assert _rel(single, ref) <= BF16_TOL

@@ -223,6 +223,37 @@ def test_backward_kernels_match_plain_version(cuda, shape, dtype, masked):
         assert (ours[1][dead] == 0).all() and (ours[2][dead] == 0).all() and (ours[3][dead] == 0).all()
 
 
+@pytest.mark.parametrize(
+    "shape,dtype,pattern",
+    [
+        ((64, 128, 12, 32), torch.bfloat16, "ragged"),
+        ((8, 200, 4, 64), torch.bfloat16, "mixed_dead"),
+        ((4, 77, 2, 16), torch.float32, "random"),
+    ],
+)
+def test_fused_route_matches_split_route_bit_for_bit(cuda, shape, dtype, pattern):
+    """``flash_attention_qkv``'s gradient (the kernels writing dq, dk and dv into the
+    thirds of one dqkv buffer) equals the split route's dq, dk and dv concatenated, bit
+    for bit: the same kernels on the same inputs, no atomics, only the output addresses
+    differ."""
+    b, t, h, d = shape
+    rng = np.random.default_rng(15)
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3 * h * d)).astype(np.float32)).to(cuda, dtype)
+    do = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
+    mask = torch.from_numpy(_mask(pattern, b, t, rng)).to(cuda)
+    x = qkv.clone().requires_grad_()
+    before = (tfa.BWD_DQ_KERNEL.launches, tfa.BWD_DKV_KERNEL.launches)
+    o = tfa.flash_attention_qkv(x, mask, h)
+    (dqkv,) = torch.autograd.grad(o, x, do)
+    assert (tfa.BWD_DQ_KERNEL.launches, tfa.BWD_DKV_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    xs = [y.clone().requires_grad_() for y in tfa.split_heads(qkv, h)]
+    o_split = tfa.flash_attention(*xs, mask)
+    grads = torch.autograd.grad(o_split, xs, do)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_split)
+    assert torch.equal(dqkv, torch.cat([g.reshape(b, t, h * d) for g in grads], dim=-1))
+
+
 def test_backward_kernels_raise_on_what_they_do_not_take(cuda):
     for d, dtype in ((24, torch.float32), (32, torch.float16)):
         x = torch.zeros((1, 8, 2, d), device=cuda, dtype=dtype)
@@ -231,6 +262,14 @@ def test_backward_kernels_raise_on_what_they_do_not_take(cuda):
             tfa.flash_attention_bwd(x, x, x, None, x, x, lse)
         with pytest.raises(ValueError):
             tfa.flash_attention_bwd_dkv(x, x, x, None, x, lse, lse)
+    # outputs are held to the inputs' rules: here a view off the 16-byte grid
+    x = torch.zeros((1, 8, 2, 32), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    bad = torch.zeros((1, 8, 2, 33), device=cuda, dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_dq(x, x, x, None, x, x, lse, dq=bad)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_dkv(x, x, x, None, x, lse, lse, dk=bad)
 
 
 def test_train_step_launches_each_kernel_twelve_times(cuda):
