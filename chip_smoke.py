@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two device paths once, on one card: the streaming-RAG
-serving path and the contrastive trainer.
+"""Drive the PyTorch/CUDA port's device paths once, on one card: the streaming-RAG
+serving path, the same pipeline through the port's own engine (``pw.run``), and the
+contrastive trainer.
 
     python3 chip_smoke.py
 
@@ -41,7 +42,19 @@ limit):
    the kernel against the plain attention (cosine, beside the readings of two broken
    attentions), and profiler windows over a few more ingest commits and queries:
    device time by kernel and the device's idle share.
-7. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
+7. engine_pipeline: ``bench.py::pipeline_leg``'s program through the port's engine:
+   20,000 docs through ``pw.io.python`` (100 ms autocommit), the embedder UDF (lazy
+   device rows, 256-doc chunks) and ``DataIndex`` into a 1,048,576-slot index, 64
+   as-of-now queries once every doc has reached the doc subscriber, two subscribe
+   sinks. Reports docs/s (beside main_path's), query p50/p95, recall@10 against exact
+   f32 search over the streamed embeddings, the kernels' launches, the rows the index
+   took by its device and host routes, and device memory; checks that every doc
+   arrives and takes the device route, every query is answered and finds its own doc,
+   no device batch outlives the run, and the subscriber's rows equal the index's
+   stored vectors bit for bit. engine_host_cost: a profiled ``pw.run`` of 2,048 docs
+   beside the device-path loop over the same docs (wall and device-busy ms, idle
+   share).
+8. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
    steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
    curve (which must fall and stay finite) and each kernel's launches (which must be
@@ -52,7 +65,7 @@ limit):
    the kernels against the plain forward and backward through the same
    ``autograd.Function``, and the same reading with a deliberately broken backward
    (delta left out), which must fall below the bar.
-8. The kernels line, the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+9. The kernels line, the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -60,19 +73,24 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
+import pathway_tpu_torch as pw
 from pathway_tpu_torch import _build
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
+from pathway_tpu_torch.engine.device import TRANSFERS, device_batches_held
+from pathway_tpu_torch.engine.graph import Scheduler
 from pathway_tpu_torch.models import (
     ContrastiveBatch,
     Encoder,
@@ -83,6 +101,7 @@ from pathway_tpu_torch.models import (
     minilm_l6,
 )
 from pathway_tpu_torch.ops import flash_attention as fa
+from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory
 from pathway_tpu_torch.xpacks.llm import EncoderEmbedder
 from pathway_tpu_torch.xpacks.llm._tokenizer import HashTokenizer, pad_to_buckets
 
@@ -613,7 +632,7 @@ def phase_main_path(card: Card) -> int:
 
     phase_embed_parity(card, embedder, corpus)
     phase_profile(card, embedder, index, corpus)
-    return launches
+    return {"launches": launches, "docs_per_s": N_DOCS / ingest_s}
 
 
 def phase_embed_parity(card: Card, embedder: EncoderEmbedder, corpus) -> None:
@@ -699,6 +718,249 @@ def phase_profile(card: Card, embedder: EncoderEmbedder, index: DeviceKnnIndex, 
             top=[{"kernel": k[:80], "device_ms_per_commit": ms / n, "launches": c}
                  for ms, k, c in kernels[:12]],
         )
+
+
+class _KeptKnnFactory(DeviceKnnFactory):
+    """The pipeline's index factory, keeping the index it builds so the script can read
+    its routes' row counts and its stored vectors after the run."""
+
+    def build(self) -> DeviceKnnIndex:
+        self.built = super().build()
+        return self.built
+
+
+def _engine_program(embedder: EncoderEmbedder, corpus, n_docs: int, n_queries: int,
+                    factory: DeviceKnnFactory, wait_s: float):
+    """``bench.py::pipeline_leg``'s program against the port: the python connector ->
+    the embedder UDF -> DataIndex -> as-of-now query -> two subscribe sinks. Queries
+    start once every doc has reached the doc subscriber. Returns the observations
+    (filled in while ``pw.run`` runs) and the function that runs it."""
+    obs = {"docs": {}, "doc_times": set(), "answers": {}, "latencies": [], "timeouts": [],
+           "failures": [], "run_start": 0.0, "first_doc_seen": 0.0, "ingest_end": 0.0}
+    ingest_done, answer_seen = threading.Event(), threading.Event()
+
+    class DocFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            obs["run_start"] = time.perf_counter()
+            for i in range(n_docs):
+                self.next(doc_id=i, text=corpus[i])
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            if not ingest_done.wait(timeout=wait_s):
+                obs["failures"].append(f"{len(obs['docs'])} of {n_docs} docs arrived")
+                return
+            for i in range(n_queries):
+                answer_seen.clear()
+                t0 = time.perf_counter()
+                self.next(query_id=i, text=doc_text(i * 37 % N_DOCS))
+                if answer_seen.wait(timeout=wait_s):
+                    obs["latencies"].append(time.perf_counter() - t0)
+                else:
+                    obs["timeouts"].append(i)
+
+    docs = pw.io.python.read(DocFeed(), schema=pw.schema_from_types(doc_id=int, text=str),
+                             autocommit_duration_ms=100)
+    docs = docs.select(doc_id=pw.this.doc_id, emb=embedder(pw.this.text))
+    queries = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(query_id=int, text=str),
+                                autocommit_duration_ms=None)
+    queries = queries.select(query_id=pw.this.query_id, qemb=embedder(pw.this.text))
+    res = DataIndex(docs, factory, docs.emb).query_as_of_now(queries, queries.qemb,
+                                                             number_of_matches=K)
+
+    def on_doc(key, row, time, is_addition):
+        if is_addition:
+            if not obs["docs"]:
+                obs["first_doc_seen"] = perf_counter()
+            obs["docs"][key] = (row["doc_id"], np.asarray(row["emb"], np.float32))
+            obs["doc_times"].add(time)
+            if len(obs["docs"]) == n_docs:
+                obs["ingest_end"] = perf_counter()
+                ingest_done.set()
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            obs["answers"][row["query_id"]] = (tuple(row["_pw_index_reply_ids"]),
+                                               np.asarray(row["qemb"], np.float32))
+            answer_seen.set()
+
+    perf_counter = time.perf_counter  # the callbacks' ``time`` argument shadows the module
+    pw.io.subscribe(docs, on_change=on_doc)
+    pw.io.subscribe(res, on_change=on_answer)
+    return obs, pw.run
+
+
+def _count_embed_calls(embedder: EncoderEmbedder) -> list[int]:
+    """Count the embed calls the UDF makes (one per chunk of at most CHUNK texts)."""
+    calls = [0]
+    embed_batch = embedder.embed_batch
+
+    def counted(texts):
+        calls[0] += math.ceil(len(texts) / CHUNK)
+        return embed_batch(texts)
+
+    embedder.embed_batch = counted
+    return calls
+
+
+def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
+    """The streaming-RAG pipeline through the port's own engine, as ``bench.py::
+    pipeline_leg`` drives the JAX package: 20,000 docs through the python connector
+    (100 ms autocommit), the embedder UDF (256-doc chunks, lazy device rows) and
+    DataIndex into a 1,048,576-slot index on the card; 64 queries, one commit each,
+    once every doc has reached the doc subscriber. Then the engine's host cost: a
+    profiled pw.run of 2,048 docs beside the device-path loop over the same docs."""
+    corpus = [doc_text(i) for i in range(N_DOCS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    embed_calls = _count_embed_calls(embedder)
+    factory = _KeptKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    obs, run = _engine_program(embedder, corpus, N_DOCS, N_QUERIES, factory, wait_s=300.0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_bytes = torch.cuda.memory_allocated()
+    d2h_before = TRANSFERS["d2h_copies"]
+    for kern in (fa.KERNEL, fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL):
+        kern.launches = 0
+    t0 = time.perf_counter()
+    run()
+    run_s = time.perf_counter() - t0
+    launches = fa.KERNEL.launches
+    backward_launches = fa.BWD_DQ_KERNEL.launches + fa.BWD_DKV_KERNEL.launches
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    index = factory.built
+    held = device_batches_held()
+    index_bytes = sum(x.numel() * x.element_size() for x in index.state)
+    weight_bytes = sum(p.numel() * p.element_size() for p in embedder.encoder.parameters())
+    after_bytes = torch.cuda.memory_allocated()
+
+    # recall@10 of the streamed index against exact search over the same vectors,
+    # computed as pipeline_leg computes it
+    docs, answers = obs["docs"], obs["answers"]
+    keys = list(docs)
+    mat = np.stack([docs[k][1] for k in keys])
+    norms = np.linalg.norm(mat, axis=1)
+    recalls, self_hit = [], True
+    key_of = {doc_id: key for key, (doc_id, _emb) in docs.items()}
+    for qid, (hit_keys, qvec) in answers.items():
+        scores = mat @ qvec / np.maximum(norms * np.linalg.norm(qvec), 1e-30)
+        exact = {keys[j] for j in np.argsort(-scores)[:K]}
+        recalls.append(len(exact & set(hit_keys)) / len(exact))
+        self_hit &= key_of.get(qid * 37 % N_DOCS) in hit_keys
+    recall = float(np.mean(recalls)) if recalls else float("nan")
+    # a sample of the subscriber's rows (host twins) against the index's stored rows
+    rng = np.random.default_rng(SEED)
+    sample = [keys[i] for i in rng.choice(len(keys), 256, replace=False)]
+    slots = torch.tensor([index.key_to_slot[k] for k in sample], device="cuda")
+    stored = index.state.vectors.index_select(0, slots).cpu().numpy()
+    bit_equal = bool(np.array_equal(stored, np.stack([docs[k][1] for k in sample])))
+
+    lat_ms = sorted(1e3 * x for x in obs["latencies"])
+    ingest_s = obs["ingest_end"] - obs["run_start"]
+    docs_per_s = N_DOCS / ingest_s if ingest_s > 0 else float("nan")
+    card.emit(
+        "engine_pipeline",
+        model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded)",
+        n_docs=len(docs), n_queries=len(lat_ms), query_timeouts=len(obs["timeouts"]),
+        capacity=index.capacity, docs_per_s=docs_per_s, ingest_s=ingest_s,
+        first_doc_seen_s=obs["first_doc_seen"] - obs["run_start"] if docs else None,
+        doc_commits=len(obs["doc_times"]), run_s=run_s,
+        docs_per_s_over_main_path=docs_per_s / main_path_docs_per_s,
+        main_path_docs_per_s=main_path_docs_per_s,
+        query_p50_ms=lat_ms[len(lat_ms) // 2] if lat_ms else None,
+        query_p95_ms=lat_ms[int(0.95 * len(lat_ms))] if lat_ms else None,
+        recall_at_10=recall, self_hit=self_hit, embed_calls=embed_calls[0],
+        flash_launches=launches, backward_launches=backward_launches,
+        index_rows_device_route=index.rows_device, index_rows_host_route=index.rows_host,
+        live_device_batches_after_run=held, peak_device_gib=peak_gib,
+        device_gib_after_run=after_bytes / 2**30, device_gib_before_run=before_bytes / 2**30,
+        index_gib=index_bytes / 2**30, weights_gib=weight_bytes / 2**30,
+        after_run_beyond_index_and_weights_mib=(after_bytes - index_bytes - weight_bytes) / 2**20,
+        host_twin_copies=TRANSFERS["d2h_copies"] - d2h_before,
+        subscriber_rows_bit_equal_to_index=bit_equal,
+        failures=obs["failures"],
+    )
+    check(not obs["failures"], f"engine pipeline: {obs['failures']}")
+    check(len(docs) == N_DOCS, f"{len(docs)} of {N_DOCS} docs arrived")
+    check(len(lat_ms) == N_QUERIES and not obs["timeouts"],
+          f"{len(lat_ms)} answers, timeouts {obs['timeouts']}")
+    check(recall >= 0.99, f"engine recall@10 {recall}")
+    check(self_hit, "engine: every query finds its own doc")
+    check(launches > 0 and launches == LAYERS * embed_calls[0],
+          f"engine: flash launches {launches} != {LAYERS} x {embed_calls[0]} embed calls")
+    check(backward_launches == 0, f"engine launched {backward_launches} backward kernels")
+    check(index.rows_device == N_DOCS and index.rows_host == 0,
+          f"index routes: {index.rows_device} device, {index.rows_host} host")
+    check(held == 0, f"{held} device batches still hold a tensor after pw.run")
+    check(bit_equal, "the subscriber's rows differ from the index's stored vectors")
+    del factory, index, obs, docs, answers, mat
+    phase_engine_host_cost(card, embedder, corpus)
+    return launches
+
+
+def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> None:
+    """The engine's host cost: a pw.run of 2,048 docs (no queries) under the profiler,
+    and the device-path loop (embed_batch + index.add per 256 docs) over the same docs,
+    in the same call. Wall and device-busy ms per commit, per 256 docs, and the
+    device's idle share: over the whole run and over the time spent inside commits
+    (the run's wall also holds the 100 ms autocommit window and the pump's idle
+    polls)."""
+    n = 8 * CHUNK
+    inside = []  # seconds inside each commit of the profiled run
+    commit = Scheduler.commit
+
+    def timed_commit(self):
+        t0 = time.perf_counter()
+        try:
+            return commit(self)
+        finally:
+            inside.append(time.perf_counter() - t0)
+
+    factory = DeviceKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    obs, run = _engine_program(embedder, corpus, n, 0, factory, wait_s=120.0)
+    Scheduler.commit = timed_commit
+    try:
+        wall_ms, kernels, _ops = _profiled(run)
+    finally:
+        Scheduler.commit = commit
+    check(len(obs["docs"]) == n and not obs["failures"], f"profiled engine run: {obs['failures']}")
+    busy_ms = sum(k[0] for k in kernels)
+    doc_commits = len(obs["doc_times"])
+    commit_ms = 1e3 * sum(inside)
+    engine = {
+        "docs": n, "commits_with_docs": doc_commits, "commits": len(inside),
+        "wall_ms": wall_ms, "in_commit_wall_ms": commit_ms,
+        "device_busy_ms": busy_ms if kernels else "not measured",
+        "wall_ms_per_doc_commit": wall_ms / doc_commits,
+        "device_busy_ms_per_doc_commit": busy_ms / doc_commits if kernels else "not measured",
+        "wall_ms_per_256_docs": wall_ms / (n / CHUNK),
+        "in_commit_wall_ms_per_256_docs": commit_ms / (n / CHUNK),
+        "device_busy_ms_per_256_docs": busy_ms / (n / CHUNK) if kernels else "not measured",
+        "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else "not measured",
+        "device_idle_share_in_commits": (1.0 - busy_ms / commit_ms) if kernels else "not measured",
+    }
+    index = DeviceKnnIndex(dim=DIM, capacity=CAPACITY)
+
+    def loop() -> None:
+        for c in range(n // CHUNK):
+            keys = range(c * CHUNK, (c + 1) * CHUNK)
+            index.add(keys, embedder.embed_batch(corpus[c * CHUNK:(c + 1) * CHUNK]))
+
+    loop_wall_ms, loop_kernels, _ops = _profiled(loop)
+    loop_busy_ms = sum(k[0] for k in loop_kernels)
+    device_path = {
+        "docs": n, "commits": n // CHUNK, "wall_ms": loop_wall_ms,
+        "device_busy_ms": loop_busy_ms if loop_kernels else "not measured",
+        "wall_ms_per_commit": loop_wall_ms / (n // CHUNK),
+        "device_busy_ms_per_commit": loop_busy_ms / (n // CHUNK) if loop_kernels else "not measured",
+        "device_idle_share": (1.0 - loop_busy_ms / loop_wall_ms) if loop_kernels else "not measured",
+    }
+    card.emit("engine_host_cost", window=f"{n} docs through pw.run and through the device-path loop",
+              engine=engine, device_path_loop=device_path,
+              engine_top=[{"kernel": k[:80], "device_ms": ms, "launches": c} for ms, k, c in kernels[:8]])
+    del index
 
 
 def train_batch(n: int, vocab_size: int) -> ContrastiveBatch:
@@ -880,9 +1142,11 @@ def main() -> int:
     bwd = phase_train_kernel(card)
     phase_checkpoint(card)
     serving = phase_main_path(card)
+    engine = phase_engine_pipeline(card, serving["docs_per_s"])
     train = phase_train(card)
-    fwd["launches"] = serving
-    fwd["launches_by_path"] = {"serving": serving, "train": train[fwd["name"]]}
+    fwd["launches"] = serving["launches"]
+    fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
+                               "train": train[fwd["name"]]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}

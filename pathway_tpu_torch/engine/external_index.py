@@ -1,6 +1,7 @@
-"""As-of-now KNN index against device-resident state.
+"""As-of-now KNN index against device-resident state, and the engine operator that
+runs it.
 
-Counterpart of ``DeviceKnnIndex`` and ``HostKnnIndex`` in
+Counterpart of ``DeviceKnnIndex``, ``HostKnnIndex`` and ``ExternalIndexNode`` in
 ``pathway_tpu/engine/external_index.py``. The index lives on the card (``ops/knn.py``):
 adds and removes are bucket-padded scatter batches, searches are bucket-padded masked
 matmuls with a top-k. The host keeps only the key <-> slot mapping and the free list,
@@ -8,10 +9,11 @@ which decide slot ids and so the order of tied hits; they follow the JAX version
 for step. Keys are any hashables.
 
 Vectors and queries may be host vectors, a ``[n, dim]`` tensor on the index's device,
-or a sequence of row views of such tensors (an embedder's output, ``list(emb)``). Rows
-already on the card are gathered and scattered there, with no host round trip, and a
-search comes back in one packed device-to-host copy. The engine operator around the
-index (``ExternalIndexNode``) and its lazy device rows come with the engine's port.
+the engine's lazy device rows (``engine.device.LazyDeviceVector``, the embedder UDF's
+output), or row views of such tensors. Rows already on the card are gathered and
+scattered there, with no host round trip, one gather and scatter per parent batch; a
+search comes back in one packed device-to-host copy. ``rows_device`` and ``rows_host``
+count the rows each add took through the two routes.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.engine.batch import DeltaBatch
+from pathway_tpu_torch.engine.device import LazyDeviceVector
+from pathway_tpu_torch.engine.graph import Node, Scope
+from pathway_tpu_torch.engine.value import is_error
 from pathway_tpu_torch.ops.knn import DeviceKnnState, knn_init, knn_search, knn_update
 
 
@@ -102,6 +108,8 @@ class DeviceKnnIndex:
         self.key_to_slot: dict[Hashable, int] = {}
         self.slot_to_key: dict[int, Hashable] = {}
         self._free: list[int] = list(range(capacity - 1, -1, -1))
+        self.rows_device = 0  # rows added through _add_device_run
+        self.rows_host = 0  # rows added through _add_host
 
     def __len__(self) -> int:
         return len(self.key_to_slot)
@@ -111,23 +119,39 @@ class DeviceKnnIndex:
 
     def _device_groups(
         self, vectors: Any
-    ) -> tuple[list[tuple[torch.Tensor, list[int], list[int]]], list[int]]:
-        """Split ``vectors`` into runs of rows of one device tensor ->
-        ([(base, row indices, positions)], host positions)."""
+    ) -> tuple[list[tuple[torch.Tensor, list[int], list[int], Any]], list[int]]:
+        """Split ``vectors`` into the rows of each parent tensor on the index's device
+        -> ([(parent, row indices, positions, lazy batch or None)], host positions).
+        Rows group by parent, not by contiguous runs, so rows whose order upstream
+        operators scrambled still take one gather and scatter per parent."""
         if isinstance(vectors, torch.Tensor) and vectors.dim() == 2:
             if vectors.device == self.device and vectors.shape[1] == self.dim:
                 n = vectors.shape[0]
-                return [(vectors, list(range(n)), list(range(n)))], []
+                return [(vectors, list(range(n)), list(range(n)), None)], []
             return [], list(range(vectors.shape[0]))
-        groups: dict[int, tuple[torch.Tensor, list[int], list[int]]] = {}
+        groups: dict[int, tuple[torch.Tensor, list[int], list[int], Any]] = {}
         host: list[int] = []
         for pos, vec in enumerate(vectors):
+            if isinstance(vec, LazyDeviceVector):
+                handle = vec.batch
+                dev = handle.dev
+                if (
+                    dev is None
+                    or dev.device != self.device
+                    or tuple(dev.shape[1:]) != (self.dim,)
+                ):
+                    host.append(pos)
+                    continue
+                _, rows, positions, _ = groups.setdefault(id(handle), (dev, [], [], handle))
+                rows.append(vec.index)
+                positions.append(pos)
+                continue
             found = _row_of(vec, self.dim, self.device)
             if found is None:
                 host.append(pos)
                 continue
             base, row = found
-            _, rows, positions = groups.setdefault(id(base), (base, [], []))
+            _, rows, positions, _ = groups.setdefault(id(base), (base, [], [], None))
             rows.append(row)
             positions.append(pos)
         return list(groups.values()), host
@@ -176,17 +200,22 @@ class DeviceKnnIndex:
         host_keys = [keys[p] for p in host_pos]
         host_vecs = [vectors[p] for p in host_pos]
         # one gather+scatter per parent tensor keeps the device queue short
-        for base, rows, positions in groups:
+        for base, rows, positions, lazy in groups:
             gkeys = [keys[p] for p in positions]
             if not self._add_device_run(gkeys, base, rows):
-                # replacements take the general path, through one host copy
-                idx = torch.tensor(rows, device=base.device)
-                host = base.index_select(0, idx).float().cpu().numpy()
+                # replacements take the general path: lazy rows through their host
+                # twin (already on its way), other rows through one host copy
+                if lazy is not None:
+                    host = lazy.host()[rows]
+                else:
+                    idx = torch.tensor(rows, device=base.device)
+                    host = base.index_select(0, idx).float().cpu().numpy()
                 self._add_host(gkeys, list(host))
         if host_keys:
             self._add_host(host_keys, host_vecs)
 
     def _add_host(self, keys: Sequence[Hashable], vectors: Sequence[Any]) -> None:
+        self.rows_host += len(keys)
         slots, vecs, valid = [], [], []
         deferred_free: list[int] = []  # freed only after the batch lands, so
         # a replaced key's old slot can't be reused (= written twice) in it
@@ -225,6 +254,7 @@ class DeviceKnnIndex:
         while len(self._free) < len(keys):
             self._grow()
         n = len(keys)
+        self.rows_device += n
         slots = []
         for key in keys:
             slot = self._free.pop()
@@ -316,7 +346,7 @@ class DeviceKnnIndex:
         if not host_pos and len(groups) == 1:
             # the queries still live on the card (embedder output): gather there
             # and fetch only the top-k
-            dev, rows, _ = groups[0]
+            dev, rows, _, _ = groups[0]
             idx_pad = np.zeros((b,), np.int64)
             idx_pad[:n] = rows
             enabled = np.zeros((b,), bool)
@@ -386,6 +416,8 @@ class HostKnnIndex(DeviceKnnIndex):
         self.slot_to_key = {}
         self._free = list(range(capacity - 1, -1, -1))
         self._cow_shared = False
+        self.rows_device = 0
+        self.rows_host = 0
 
     def _grow(self) -> None:
         old = self.state
@@ -497,3 +529,96 @@ class HostKnnIndex(DeviceKnnIndex):
         # lax.top_k's tie rule: highest score first, lowest slot among equals
         order = np.argsort(-scores, axis=1, kind="stable")[:, :k_eff]
         return self._hits(np.take_along_axis(scores, order, axis=1), order)
+
+
+class ExternalIndexNode(Node):
+    """As-of-now index operator: port 0 is the indexed data, port 1 the queries.
+
+    Output: keyed by query id, row = (result ids: tuple of keys, result scores: tuple
+    of floats). Index-side updates of a commit are applied (removes before adds)
+    before the queries of the same commit are answered. Answers stick until their
+    query row is deleted; a query of a live key again replaces its answer. An error or
+    ``None`` vector is reported, not indexed.
+    """
+
+    def __init__(
+        self,
+        scope: Scope,
+        index_table: Node,
+        query_table: Node,
+        index: Any,
+        index_col: int,
+        query_col: int,
+        k: int,
+        limit_col: int | None = None,
+    ) -> None:
+        super().__init__(scope, [index_table, query_table], 2)
+        # not ``self.index``: that is the node's position in its scope
+        self.ext_index = index
+        self.index_col = index_col
+        self.query_col = query_col
+        self.k = k
+        self.limit_col = limit_col
+
+    def process(self, time: int) -> DeltaBatch:
+        index_batch = self.take(0)
+        query_batch = self.take(1)
+
+        # 1. fold the index side's deltas into the device state
+        add_keys: list[Hashable] = []
+        add_vecs: list[Any] = []
+        rm_keys: list[Hashable] = []
+        for key, row, diff in index_batch:
+            vec = row[self.index_col]
+            if diff > 0:
+                if is_error(vec) or vec is None:
+                    self.report(key, "error/None vector in index input")
+                    continue
+                add_keys.append(key)
+                add_vecs.append(vec)
+            else:
+                rm_keys.append(key)
+        # removes first, so a delete and insert of a key in one commit nets to an add
+        if rm_keys:
+            add_set = set(add_keys)
+            self.ext_index.remove([k_ for k_ in rm_keys if k_ not in add_set])
+        if add_keys:
+            self.ext_index.add(add_keys, add_vecs)
+
+        # 2. answer new queries as of now; retract the answers of deleted queries
+        out = DeltaBatch()
+        pending: list[tuple[Hashable, Any, int]] = []
+        retracted: set = set()
+        for key, row, diff in query_batch:
+            if diff < 0:
+                prev = self.current.get(key)
+                if prev is not None and key not in retracted:
+                    out.append(key, prev, -1)
+                    retracted.add(key)
+                continue
+            vec = row[self.query_col]
+            if is_error(vec) or vec is None:
+                self.report(key, "error/None vector in query input")
+                continue
+            limit = self.k
+            if self.limit_col is not None:
+                lv = row[self.limit_col]
+                if lv is not None and not is_error(lv):
+                    limit = int(lv)
+            pending.append((key, vec, limit))
+        if pending:
+            max_k = max(limit for _k, _v, limit in pending)
+            results = self.ext_index.search([v for _k, v, _l in pending], max_k)
+            for (key, _vec, limit), hits in zip(pending, results):
+                hits = hits[:limit]
+                # a query of a live key again replaces its previous answer (unless
+                # this commit's deletion pass already retracted it)
+                prev = self.current.get(key)
+                if prev is not None and key not in retracted:
+                    out.append(key, prev, -1)
+                out.append(
+                    key,
+                    (tuple(hk for hk, _s in hits), tuple(s for _hk, s in hits)),
+                    1,
+                )
+        return out.consolidate()

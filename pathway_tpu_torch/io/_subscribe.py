@@ -1,0 +1,39 @@
+"""``pw.io.subscribe`` (counterpart of ``pathway_tpu/io/_subscribe.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+from pathway_tpu_torch.engine.graph import Node, Scope
+from pathway_tpu_torch.engine.value import Pointer
+from pathway_tpu_torch.internals.parse_graph import G
+from pathway_tpu_torch.internals.table import Table
+
+
+def subscribe(
+    table: Table,
+    on_change: Callable[..., Any] | None = None,
+    on_end: Callable[[], Any] | None = None,
+    on_time_end: Callable[[int], Any] | None = None,
+    *,
+    skip_errors: bool = True,
+) -> None:
+    """Call ``on_change(key, row: dict, time, is_addition)`` for every update."""
+    column_names = table.column_names()
+
+    def attach(scope: Scope, node: Node):
+        def _on_change(key: Pointer, values: tuple, time: int, diff: int) -> None:
+            if on_change is not None:
+                row = dict(zip(column_names, values))
+                on_change(key=key, row=row, time=time, is_addition=diff > 0)
+
+        scope.subscribe_table(
+            node,
+            on_change=_on_change,
+            on_time_end=on_time_end,
+            on_end=on_end,
+            skip_errors=skip_errors,
+        )
+        return None
+
+    G.add_sink(table, attach)

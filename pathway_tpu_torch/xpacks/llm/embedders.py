@@ -1,14 +1,18 @@
-"""Local sentence embedder on the card.
+"""Local sentence embedder on the card, a UDF of the engine.
 
 Counterpart of ``TpuEncoderEmbedder`` in ``pathway_tpu/xpacks/llm/embedders.py``: the
-same presets, checkpoint-directory loading, ``max_len``, ``max_batch_size`` chunking,
-``seq_bucket_min`` and power-of-two padding buckets, and the rule that derives the mask
-from the ids on the device when the tokenizer pads with id 0. It is a plain class: the
-engine's ``UDF`` wrapper around it comes with the engine's port.
+same presets, checkpoint-directory loading, ``max_len``, ``max_batch_size`` chunking (by
+the UDF's batch executor), ``seq_bucket_min`` and power-of-two padding buckets, and the
+rule that derives the mask from the ids on the device when the tokenizer pads with id
+0. Used in ``select`` (``embedder(pw.this.text)``), each chunk of a commit is one embed
+call whose rows enter the engine as lazy device rows: the KNN index reads them on the
+card, and a host reader gets their host twin. ``embed_batch`` returns the tensor to
+direct callers.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Sequence
 
@@ -16,6 +20,8 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.engine.device import lazy_rows
+from pathway_tpu_torch.internals.udfs import UDF, batch_executor
 from pathway_tpu_torch.models.hf_import import load_sentence_transformer
 from pathway_tpu_torch.models.transformer import (
     Encoder,
@@ -41,7 +47,17 @@ _ENCODER_PRESETS = {
 _CONFIGS = {"minilm_l6": minilm_l6, "bge_base": bge_base, "bge_small": bge_small}
 
 
-class EncoderEmbedder:
+def _weights_tag(path: str) -> str:
+    """Identifies a checkpoint directory's weights, not its name: two checkpoints can
+    share a basename."""
+    h = hashlib.blake2s(digest_size=8)
+    for entry in sorted(os.listdir(path)):
+        st = os.stat(os.path.join(path, entry))
+        h.update(f"{entry}:{st.st_size}:{st.st_mtime_ns}".encode())
+    return h.hexdigest()
+
+
+class EncoderEmbedder(UDF):
     """Sentence embedder on the card.
 
     ``model`` is a preset name, a local sentence-transformers/HF checkpoint directory
@@ -63,8 +79,10 @@ class EncoderEmbedder:
         device: "str | torch.device | None" = None,
     ) -> None:
         self.device = resolve_device(device)
+        weights_tag = None
         if isinstance(model, EncoderConfig):
             self.config = model
+            preset = "config"
         elif os.path.isdir(model):
             if params is not None and tokenizer is not None:
                 # the dir would contribute nothing but a large deserialization
@@ -75,8 +93,11 @@ class EncoderEmbedder:
             loaded, self.config, wp_tokenizer = load_sentence_transformer(model)
             params = loaded if params is None else params
             tokenizer = wp_tokenizer if tokenizer is None else tokenizer
+            weights_tag = _weights_tag(model)
+            preset = os.path.basename(os.path.normpath(model))
         else:
-            cfg_fn = _CONFIGS.get(_ENCODER_PRESETS.get(model, model))
+            preset = _ENCODER_PRESETS.get(model, model)
+            cfg_fn = _CONFIGS.get(preset)
             if cfg_fn is None:
                 raise ValueError(
                     f"unknown encoder preset {model!r}; "
@@ -103,6 +124,20 @@ class EncoderEmbedder:
             self.tokenizer, "pad_id", getattr(self.tokenizer, "pad_token_id", None)
         )
         self._mask_from_ids = pad == 0
+        super().__init__(
+            self._embed_rows,
+            executor=batch_executor(max_batch_size=max_batch_size),
+            deterministic=True,
+            cache_name=(
+                f"EncoderEmbedder:{preset}:{max_len}:"
+                + (f"ckpt{weights_tag}" if weights_tag else f"seed{seed}")
+            ),
+        )
+
+    def _embed_rows(self, texts: list) -> list:
+        """The UDF's body: one executor chunk of texts -> one lazy device row per
+        text, all of one batch, whose host copy starts at once."""
+        return lazy_rows(self.embed_batch(texts), len(texts))
 
     def get_embedding_dimension(self) -> int:
         return self.config.hidden

@@ -291,3 +291,46 @@ def test_train_step_launches_each_kernel_twelve_times(cuda):
     assert [kern.launches - n for kern, n in zip(kernels, before)] == [2 * cfg.layers] * 3
     assert state.step == 1 and torch.isfinite(loss)
     assert all(torch.isfinite(p).all() for p in state.params.parameters())
+
+
+def test_pinned_prefetch_waits_for_the_copy(cuda):
+    """The host twin is copied into pinned memory behind the kernels that make the
+    batch; ``host()`` is called while the card is still busy with them (the copy not
+    yet landed) and must still return the device rows bit for bit."""
+    from pathway_tpu_torch.engine import device as tdev
+
+    base = torch.randn((4096, 384), device=cuda)
+    # The first pinned allocation of a process, and the first launch of a kernel (its
+    # module loads lazily), can wait for the card: make both here with the same ops and
+    # sizes (decay returns the pinned buffer to the cache), so that below the host
+    # reaches host() while the card is still busy.
+    tdev.lazy_rows(base * 3.0 + 1.0, 1)[0].batch.decay()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)  # keep the stream busy ahead of the copy (~0.5 s)
+    dev = base * 3.0 + 1.0
+    rows = tdev.lazy_rows(dev, 4000)
+    handle = rows[0].batch
+    in_flight = not handle._copied.query()
+    host = handle.host()
+    assert in_flight, "the copy had landed before host() was called"
+    assert np.array_equal(host, dev.cpu().numpy())
+    assert np.array_equal(np.asarray(rows[3999]), dev[3999].cpu().numpy())
+    assert host.dtype == np.float32
+    handle.decay()
+    assert handle.dev is None and tdev.device_batches_held() == 0
+
+
+def test_lazy_rows_reach_the_index_with_no_host_copy(cuda):
+    from pathway_tpu_torch.engine import device as tdev
+
+    dev = torch.randn((64, 32), device=cuda)
+    rows = tdev.lazy_rows(dev, 50, prefetch=False)
+    before = dict(tdev.TRANSFERS)
+    index = DeviceKnnIndex(dim=32, capacity=128, device=cuda)
+    index.add(range(50), rows[::-1])
+    torch.cuda.synchronize()
+    assert index.rows_device == 50 and index.rows_host == 0
+    assert tdev.TRANSFERS == before and rows[0].batch._host is None
+    slots = torch.tensor([index.key_to_slot[k] for k in range(50)], device=cuda)
+    assert torch.equal(index.state.vectors[slots], dev[:50].flip(0))
+    rows[0].batch.decay()

@@ -33,8 +33,59 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.xpacks.llm.embedders",
         "pathway_tpu_torch.xpacks.llm._tokenizer",
         "pathway_tpu_torch._build",
+        "pathway_tpu_torch.engine.value",
+        "pathway_tpu_torch.engine.batch",
+        "pathway_tpu_torch.engine.expression",
+        "pathway_tpu_torch.engine.device",
+        "pathway_tpu_torch.engine.graph",
+        "pathway_tpu_torch.engine.connectors",
+        "pathway_tpu_torch.internals.dtype",
+        "pathway_tpu_torch.internals.schema",
+        "pathway_tpu_torch.internals.expression",
+        "pathway_tpu_torch.internals.thisclass",
+        "pathway_tpu_torch.internals.desugaring",
+        "pathway_tpu_torch.internals.universe",
+        "pathway_tpu_torch.internals.errors",
+        "pathway_tpu_torch.internals.config",
+        "pathway_tpu_torch.internals.trace",
+        "pathway_tpu_torch.internals.table",
+        "pathway_tpu_torch.internals.udfs",
+        "pathway_tpu_torch.internals.udfs.executors",
+        "pathway_tpu_torch.internals.parse_graph",
+        "pathway_tpu_torch.internals.runner",
+        "pathway_tpu_torch.io.python",
+        "pathway_tpu_torch.io._subscribe",
+        "pathway_tpu_torch.io._utils",
+        "pathway_tpu_torch.stdlib.indexing.data_index",
     ):
         assert expected in names
+
+
+def test_engine_api_imports_no_jax_and_touches_no_card():
+    """``import pathway_tpu_torch as pw`` with the names a pipeline uses loads neither
+    JAX nor the JAX package, and initialises no CUDA context."""
+    code = "\n".join(
+        [
+            "import sys",
+            f"sys.path.insert(0, {REPO!r})",
+            "import pathway_tpu_torch as pw",
+            "from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory",
+            "names = [pw.run, pw.io.python.read, pw.io.python.ConnectorSubject,",
+            "         pw.io.subscribe, pw.this.x, pw.schema_from_types, pw.Table, pw.udf, pw.UDF]",
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))",
+            "assert not bad, bad",
+            "import torch",
+            "assert not torch.cuda.is_initialized()",
+            "print('clean')",
+        ]
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -93,10 +144,17 @@ def test_default_device_raises_where_there_is_no_card():
 
     from pathway_tpu_torch.models import Encoder, minilm_l6
     from pathway_tpu_torch.ops.knn import knn_init
+    from pathway_tpu_torch.stdlib.indexing import DeviceKnnFactory
+    from pathway_tpu_torch.xpacks.llm import EncoderEmbedder
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
-    for entry in (lambda: Encoder(minilm_l6()), lambda: knn_init(8, 4)):
+    for entry in (
+        lambda: Encoder(minilm_l6()),
+        lambda: knn_init(8, 4),
+        lambda: DeviceKnnFactory(dimensions=4).build(),
+        lambda: EncoderEmbedder(),
+    ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
 
