@@ -46,14 +46,25 @@ limit):
    20,000 docs through ``pw.io.python`` (100 ms autocommit), the embedder UDF (lazy
    device rows, 256-doc chunks) and ``DataIndex`` into a 1,048,576-slot index, 64
    as-of-now queries once every doc has reached the doc subscriber, two subscribe
-   sinks. Reports docs/s (beside main_path's), query p50/p95, recall@10 against exact
-   f32 search over the streamed embeddings, the kernels' launches, the rows the index
-   took by its device and host routes, and device memory; checks that every doc
-   arrives and takes the device route, every query is answered and finds its own doc,
-   no device batch outlives the run, and the subscriber's rows equal the index's
-   stored vectors bit for bit. engine_host_cost: a profiled ``pw.run`` of 2,048 docs
-   beside the device-path loop over the same docs (wall and device-busy ms, idle
-   share).
+   sinks, with the async device pipeline on (``configure()`` before every ``pw.run``:
+   its controller persists across runs in a process). Reports docs/s (beside
+   main_path's), query p50/p95, recall@10 against exact f32 search over the streamed
+   embeddings, the kernels' launches, the rows the index took by its device and host
+   routes, device memory and the pipeline's stats; checks that every doc arrives and
+   takes the device route, every query is answered and finds its own doc, no device
+   batch outlives the run, the subscriber's rows equal the index's stored vectors bit
+   for bit, the pipeline completed commits, has none in flight after the run and left
+   no completion thread. engine_async_parity: 2,048 docs fed as 8 commits of 256,
+   once with the synchronous commit boundary (``PATHWAY_TPU_ASYNC_DEVICE=0``) and once
+   with the async pipeline; the doc subscriber's events and the index's stored rows
+   must be the same bits; per mode docs/s, commits, embed chunk sizes, launches, the
+   controller's stats, occupancy, the deepest in-flight count and the dispatch-to-
+   completion p50/p99; then a GIL check (two commits in flight while the completion
+   thread waits on a copy held behind card work, and the scheduler thread keeps
+   running). engine_host_cost: a profiled ``pw.run`` of 2,048 docs with the scheduler's
+   probe on, beside the device-path loop over the same docs (wall and device-busy ms,
+   idle share, per-node batches, insertions, deletions and time, and the engine's own
+   host time per 256 docs: in-commit wall less the batch-apply node's time).
 8. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
    steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
@@ -89,7 +100,8 @@ import torch
 import pathway_tpu_torch as pw
 from pathway_tpu_torch import _build
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
-from pathway_tpu_torch.engine.device import TRANSFERS, device_batches_held
+from pathway_tpu_torch.engine import device_pipeline
+from pathway_tpu_torch.engine.device import TRANSFERS, device_batches_held, lazy_rows
 from pathway_tpu_torch.engine.graph import Scheduler
 from pathway_tpu_torch.models import (
     ContrastiveBatch,
@@ -730,20 +742,28 @@ class _KeptKnnFactory(DeviceKnnFactory):
 
 
 def _engine_program(embedder: EncoderEmbedder, corpus, n_docs: int, n_queries: int,
-                    factory: DeviceKnnFactory, wait_s: float):
+                    factory: DeviceKnnFactory, wait_s: float, pace: int | None = None):
     """``bench.py::pipeline_leg``'s program against the port: the python connector ->
     the embedder UDF -> DataIndex -> as-of-now query -> two subscribe sinks. Queries
-    start once every doc has reached the doc subscriber. Returns the observations
-    (filled in while ``pw.run`` runs) and the function that runs it."""
+    start once every doc has reached the doc subscriber. With ``pace`` the feed pushes
+    the docs in batches of ``pace``, each once the one before has reached the doc
+    subscriber, so each batch is a commit of its own. Returns the observations (filled
+    in while ``pw.run`` runs) and the function that runs it."""
     obs = {"docs": {}, "doc_times": set(), "answers": {}, "latencies": [], "timeouts": [],
            "failures": [], "run_start": 0.0, "first_doc_seen": 0.0, "ingest_end": 0.0}
-    ingest_done, answer_seen = threading.Event(), threading.Event()
+    ingest_done, answer_seen, batch_seen = threading.Event(), threading.Event(), threading.Event()
 
     class DocFeed(pw.io.python.ConnectorSubject):
         def run(self) -> None:
             obs["run_start"] = time.perf_counter()
-            for i in range(n_docs):
-                self.next(doc_id=i, text=corpus[i])
+            step = pace or n_docs
+            for start in range(0, n_docs, step):
+                batch_seen.clear()
+                for i in range(start, min(n_docs, start + step)):
+                    self.next(doc_id=i, text=corpus[i])
+                if pace and not batch_seen.wait(timeout=wait_s):
+                    obs["failures"].append(f"docs {start}.. never reached the subscriber")
+                    return
 
     class QueryFeed(pw.io.python.ConnectorSubject):
         def run(self) -> None:
@@ -774,6 +794,8 @@ def _engine_program(embedder: EncoderEmbedder, corpus, n_docs: int, n_queries: i
                 obs["first_doc_seen"] = perf_counter()
             obs["docs"][key] = (row["doc_id"], np.asarray(row["emb"], np.float32))
             obs["doc_times"].add(time)
+            if pace and len(obs["docs"]) % pace == 0:
+                batch_seen.set()
             if len(obs["docs"]) == n_docs:
                 obs["ingest_end"] = perf_counter()
                 ingest_done.set()
@@ -790,17 +812,62 @@ def _engine_program(embedder: EncoderEmbedder, corpus, n_docs: int, n_queries: i
     return obs, pw.run
 
 
-def _count_embed_calls(embedder: EncoderEmbedder) -> list[int]:
-    """Count the embed calls the UDF makes (one per chunk of at most CHUNK texts)."""
-    calls = [0]
+def _count_embed_calls(embedder: EncoderEmbedder) -> tuple[list[int], list[int]]:
+    """Count the embed calls the UDF makes (one per chunk of at most CHUNK texts; the
+    device pipeline's controller may narrow the chunks) -> ([calls], the texts handed
+    over per call)."""
+    calls, sizes = [0], []
     embed_batch = embedder.embed_batch
 
     def counted(texts):
         calls[0] += math.ceil(len(texts) / CHUNK)
+        sizes.append(len(texts))
         return embed_batch(texts)
 
     embedder.embed_batch = counted
-    return calls
+    return calls, sizes
+
+
+def _pipeline_threads() -> list[str]:
+    return [t.name for t in threading.enumerate()
+            if t.is_alive() and t.name == "pw-device-pipeline"]
+
+
+def _track_inflight() -> list[int]:
+    """Record the device pipeline's in-flight commits just after each staging (its
+    deepest point) -> the list it fills; ``_untrack_inflight`` restores the pipe."""
+    seen = []
+    boundary = device_pipeline.PIPELINE.commit_boundary
+
+    def tracked(time_: int) -> None:
+        boundary(time_)
+        seen.append(device_pipeline.PIPELINE.inflight())
+
+    device_pipeline.PIPELINE.commit_boundary = tracked
+    return seen
+
+
+def _untrack_inflight() -> None:
+    device_pipeline.PIPELINE.__dict__.pop("commit_boundary", None)
+
+
+def _pipe_mark() -> tuple[float, list[int]]:
+    """The pipeline's commit counter and latency histogram, which count for the whole
+    process, read before a run so that ``_pipe_since`` can give the run's own."""
+    pipe = device_pipeline.PIPELINE
+    return pipe._c_commits.value, list(pipe._h_latency.counts)
+
+
+def _pipe_since(mark: tuple[float, list[int]]) -> dict:
+    from pathway_tpu_torch.internals.metrics import Histogram
+
+    pipe = device_pipeline.PIPELINE
+    hist = Histogram(device_pipeline.DISPATCH_BUCKETS)
+    hist.counts = [a - b for a, b in zip(pipe._h_latency.counts, mark[1])]
+    hist.count = sum(hist.counts)
+    return {"completed_commits_in_run": int(pipe._c_commits.value - mark[0]),
+            "dispatch_complete_p50_ms_in_run": 1e3 * hist.quantile(0.5),
+            "dispatch_complete_p99_ms_in_run": 1e3 * hist.quantile(0.99)}
 
 
 def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
@@ -813,7 +880,7 @@ def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
     corpus = [doc_text(i) for i in range(N_DOCS)]
     embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
                                seq_bucket_min=SEQ_LEN, seed=SEED)
-    embed_calls = _count_embed_calls(embedder)
+    embed_calls, _sizes = _count_embed_calls(embedder)
     factory = _KeptKnnFactory(dimensions=DIM, capacity=CAPACITY)
     obs, run = _engine_program(embedder, corpus, N_DOCS, N_QUERIES, factory, wait_s=300.0)
     gc.collect()
@@ -821,12 +888,18 @@ def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
     torch.cuda.reset_peak_memory_stats()
     before_bytes = torch.cuda.memory_allocated()
     d2h_before = TRANSFERS["d2h_copies"]
+    # the controller persists across runs in a process: start each run from its knobs
+    device_pipeline.PIPELINE.configure()
+    check(device_pipeline.async_enabled(), "the device pipeline must run async here")
+    mark = _pipe_mark()
     for kern in (fa.KERNEL, fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL):
         kern.launches = 0
     t0 = time.perf_counter()
     run()
     run_s = time.perf_counter() - t0
     launches = fa.KERNEL.launches
+    pipe = {**device_pipeline.PIPELINE.stats(), **_pipe_since(mark)}
+    threads_after = _pipeline_threads()
     backward_launches = fa.BWD_DQ_KERNEL.launches + fa.BWD_DKV_KERNEL.launches
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -880,6 +953,7 @@ def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
         after_run_beyond_index_and_weights_mib=(after_bytes - index_bytes - weight_bytes) / 2**20,
         host_twin_copies=TRANSFERS["d2h_copies"] - d2h_before,
         subscriber_rows_bit_equal_to_index=bit_equal,
+        device_pipeline=pipe, pipeline_threads_after_run=threads_after,
         failures=obs["failures"],
     )
     check(not obs["failures"], f"engine pipeline: {obs['failures']}")
@@ -895,9 +969,144 @@ def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
           f"index routes: {index.rows_device} device, {index.rows_host} host")
     check(held == 0, f"{held} device batches still hold a tensor after pw.run")
     check(bit_equal, "the subscriber's rows differ from the index's stored vectors")
+    check(pipe["completed_commits_in_run"] > 0, f"device pipeline: {pipe}")
+    check(pipe["inflight"] == 0, f"{pipe['inflight']} commits in flight after pw.run")
+    check(not threads_after, f"completion threads alive after pw.run: {threads_after}")
     del factory, index, obs, docs, answers, mat
+    parity = phase_engine_async_parity(card, embedder, corpus)
     phase_engine_host_cost(card, embedder, corpus)
-    return launches
+    return launches, parity
+
+
+def _gil_check() -> dict:
+    """The completion thread's wait on a copy event releases the GIL: a commit whose
+    copy sits behind ~0.2 s of card work is staged, then a second one, so two commits
+    are in flight while the first one's wait runs; meanwhile the scheduler thread
+    counts loop turns, against the same count just before."""
+
+    def turns(seconds: float) -> int:
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            n += 1
+        return n
+
+    device_pipeline.PIPELINE.configure()
+    base = torch.randn((CHUNK, DIM), device="cuda")
+    torch.cuda.synchronize()
+    baseline = turns(0.05)
+    torch.cuda._sleep(400_000_000)  # ~0.2 s of card time ahead of the first copy
+    first = lazy_rows(base * 2.0, CHUNK)
+    device_pipeline.commit_boundary(0)
+    second = lazy_rows(base * 3.0, CHUNK)
+    device_pipeline.commit_boundary(1)
+    depth = device_pipeline.PIPELINE.inflight()
+    during = turns(0.05)
+    still_waiting = first[0].batch.dev is not None
+    device_pipeline.drain()
+    ok_bits = (np.array_equal(first[0].batch.host(), (base * 2.0).cpu().numpy())
+               and np.array_equal(second[0].batch.host(), (base * 3.0).cpu().numpy()))
+    out = {"inflight_after_second_staging": depth, "first_commit_still_waiting": still_waiting,
+           "scheduler_turns_during_wait_over_before": during / baseline,
+           "host_twins_bit_equal": ok_bits}
+    device_pipeline.PIPELINE.configure()
+    return out
+
+
+def phase_engine_async_parity(card: Card, embedder: EncoderEmbedder, corpus) -> int:
+    """The same program on 2,048 docs fed as 8 commits of 256 (the feed waits for each
+    batch at the doc subscriber before it pushes the next), run twice in this call:
+    with the synchronous commit boundary (``PATHWAY_TPU_ASYNC_DEVICE=0``) and with the
+    async pipeline, ``configure()`` before each. The doc subscriber's events (keys,
+    doc ids, embeddings) and the index's stored row of every key must be the same bits
+    in both modes. Then the GIL check of the completion thread's wait."""
+    n = 8 * CHUNK
+    modes, runs = {}, {}
+    prior = os.environ.get("PATHWAY_TPU_ASYNC_DEVICE")
+    try:
+        for mode in ("0", "1"):
+            os.environ["PATHWAY_TPU_ASYNC_DEVICE"] = mode
+            embed_calls, sizes = _count_embed_calls(embedder)
+            factory = _KeptKnnFactory(dimensions=DIM, capacity=CAPACITY)
+            obs, run = _engine_program(embedder, corpus, n, 0, factory, wait_s=120.0,
+                                       pace=CHUNK)
+            device_pipeline.PIPELINE.configure()
+            mark = _pipe_mark()
+            inflight = _track_inflight()
+            for kern in (fa.KERNEL, fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL):
+                kern.launches = 0
+            try:
+                run()
+            finally:
+                _untrack_inflight()
+                del embedder.embed_batch  # back to the class's method
+            launches = fa.KERNEL.launches
+            backward_launches = fa.BWD_DQ_KERNEL.launches + fa.BWD_DKV_KERNEL.launches
+            pipe = {**device_pipeline.PIPELINE.stats(), **_pipe_since(mark)}
+            check(not obs["failures"] and len(obs["docs"]) == n,
+                  f"parity run (async={mode}): {len(obs['docs'])} docs, {obs['failures']}")
+            index = factory.built
+            keys = sorted(obs["docs"], key=int)
+            slots = torch.tensor([index.key_to_slot[k] for k in keys], device="cuda")
+            runs[mode] = {
+                "keys": [int(k) for k in keys],
+                "doc_ids": [obs["docs"][k][0] for k in keys],
+                "emb": np.stack([obs["docs"][k][1] for k in keys]),
+                "stored": index.state.vectors.index_select(0, slots).cpu().numpy(),
+            }
+            ingest_s = obs["ingest_end"] - obs["run_start"]
+            modes["async" if mode == "1" else "sync"] = {
+                "docs_per_s": n / ingest_s, "ingest_s": ingest_s,
+                "doc_commits": len(obs["doc_times"]),
+                "embed_chunk_sizes": sizes, "embed_calls": embed_calls[0],
+                "flash_launches": launches, "backward_launches": backward_launches,
+                "index_rows_device_route": index.rows_device,
+                "index_rows_host_route": index.rows_host,
+                "max_inflight_after_staging": max(inflight, default=0),
+                "live_device_batches_after_run": device_batches_held(),
+                "device_pipeline": pipe,
+                "subscriber_rows_bit_equal_to_index": bool(
+                    np.array_equal(runs[mode]["emb"], runs[mode]["stored"])),
+            }
+            check(launches == LAYERS * embed_calls[0] and backward_launches == 0,
+                  f"parity: flash launches {launches} != {LAYERS} x {embed_calls[0]}, "
+                  f"or {backward_launches} backward launches")
+            del factory, index, obs
+    finally:
+        if prior is None:
+            os.environ.pop("PATHWAY_TPU_ASYNC_DEVICE", None)
+        else:
+            os.environ["PATHWAY_TPU_ASYNC_DEVICE"] = prior
+    sync, asy = runs["0"], runs["1"]
+    same = {
+        "keys": sync["keys"] == asy["keys"],
+        "doc_ids": sync["doc_ids"] == asy["doc_ids"],
+        "embeddings": bool(np.array_equal(sync["emb"], asy["emb"])),
+        "index_rows": bool(np.array_equal(sync["stored"], asy["stored"])),
+    }
+    gil = _gil_check()
+    card.emit("engine_async_parity",
+              window=f"{n} docs in {n // CHUNK} paced batches of {CHUNK}, pw.run with the "
+                     "sync boundary and with the async pipeline",
+              modes=modes, bit_identical=same, gil_check=gil)
+    check(all(same.values()), f"async against sync: {same}")
+    for name, m in modes.items():
+        check(m["doc_commits"] >= n // CHUNK, f"{name}: {m['doc_commits']} doc commits")
+        check(m["index_rows_device_route"] == n and m["index_rows_host_route"] == 0,
+              f"{name}: index routes {m['index_rows_device_route']} / {m['index_rows_host_route']}")
+        check(m["live_device_batches_after_run"] == 0, f"{name}: batches held after the run")
+        check(m["subscriber_rows_bit_equal_to_index"], f"{name}: subscriber rows != index rows")
+        check(m["device_pipeline"]["inflight"] == 0, f"{name}: commits in flight after pw.run")
+    check(modes["sync"]["device_pipeline"]["completed_commits_in_run"] == 0,
+          "the sync boundary must not go through the completion thread")
+    check(modes["async"]["device_pipeline"]["completed_commits_in_run"] >= n // CHUNK,
+          f"async: {modes['async']['device_pipeline']}")
+    check(gil["inflight_after_second_staging"] == 2 and gil["first_commit_still_waiting"],
+          f"GIL check: two commits must be in flight during the wait: {gil}")
+    check(gil["scheduler_turns_during_wait_over_before"] > 0.5,
+          f"GIL check: the scheduler thread stalled during the completion wait: {gil}")
+    check(gil["host_twins_bit_equal"], "GIL check: host twins differ from the device rows")
+    device_pipeline.stop_worker()
+    return modes["async"]["flash_launches"]
 
 
 def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> None:
@@ -909,9 +1118,12 @@ def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> Non
     polls)."""
     n = 8 * CHUNK
     inside = []  # seconds inside each commit of the profiled run
+    schedulers = []
     commit = Scheduler.commit
 
     def timed_commit(self):
+        if not schedulers:
+            schedulers.append(self)
         t0 = time.perf_counter()
         try:
             return commit(self)
@@ -920,12 +1132,32 @@ def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> Non
 
     factory = DeviceKnnFactory(dimensions=DIM, capacity=CAPACITY)
     obs, run = _engine_program(embedder, corpus, n, 0, factory, wait_s=120.0)
+    device_pipeline.PIPELINE.configure()
+    mark = _pipe_mark()
+    prior = os.environ.get("PATHWAY_PROCESS_METRICS")
+    os.environ["PATHWAY_PROCESS_METRICS"] = "1"  # pw.run turns the scheduler's probe on
     Scheduler.commit = timed_commit
     try:
         wall_ms, kernels, _ops = _profiled(run)
     finally:
         Scheduler.commit = commit
+        if prior is None:
+            os.environ.pop("PATHWAY_PROCESS_METRICS", None)
+        else:
+            os.environ["PATHWAY_PROCESS_METRICS"] = prior
     check(len(obs["docs"]) == n and not obs["failures"], f"profiled engine run: {obs['failures']}")
+    sched = schedulers[0]
+    check(sched.probe and sched.stats, "the probe kept no per-node stats")
+    nodes = []
+    for node in sched.scope.nodes:
+        st = sched.stats.get(node.index)
+        if st is not None:
+            nodes.append({"node": node.index, "type": type(node).__name__,
+                          "name": getattr(node, "name", None), "batches": st.batches,
+                          "insertions": st.insertions, "deletions": st.deletions,
+                          "time_spent_ms": 1e3 * st.time_spent})
+    udf_ms = sum(x["time_spent_ms"] for x in nodes if x["type"] == "BatchApplyNode")
+    probed_ms = sum(x["time_spent_ms"] for x in nodes)
     busy_ms = sum(k[0] for k in kernels)
     doc_commits = len(obs["doc_times"])
     commit_ms = 1e3 * sum(inside)
@@ -940,6 +1172,12 @@ def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> Non
         "device_busy_ms_per_256_docs": busy_ms / (n / CHUNK) if kernels else "not measured",
         "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else "not measured",
         "device_idle_share_in_commits": (1.0 - busy_ms / commit_ms) if kernels else "not measured",
+        "batch_apply_ms": udf_ms, "probed_nodes_ms": probed_ms,
+        # the engine's own host time: in-commit wall less the batch-apply node's
+        # time, which holds the embed calls
+        "engine_own_ms_per_256_docs": (commit_ms - udf_ms) / (n / CHUNK),
+        "outside_nodes_ms_per_256_docs": (commit_ms - probed_ms) / (n / CHUNK),
+        "device_pipeline": {**device_pipeline.PIPELINE.stats(), **_pipe_since(mark)},
     }
     index = DeviceKnnIndex(dim=DIM, capacity=CAPACITY)
 
@@ -958,7 +1196,7 @@ def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> Non
         "device_idle_share": (1.0 - loop_busy_ms / loop_wall_ms) if loop_kernels else "not measured",
     }
     card.emit("engine_host_cost", window=f"{n} docs through pw.run and through the device-path loop",
-              engine=engine, device_path_loop=device_path,
+              engine=engine, device_path_loop=device_path, nodes=nodes,
               engine_top=[{"kernel": k[:80], "device_ms": ms, "launches": c} for ms, k, c in kernels[:8]])
     del index
 
@@ -1142,10 +1380,11 @@ def main() -> int:
     bwd = phase_train_kernel(card)
     phase_checkpoint(card)
     serving = phase_main_path(card)
-    engine = phase_engine_pipeline(card, serving["docs_per_s"])
+    engine, parity = phase_engine_pipeline(card, serving["docs_per_s"])
     train = phase_train(card)
     fwd["launches"] = serving["launches"]
     fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
+                               "engine_async_parity": parity,
                                "train": train[fwd["name"]]}
     for row in bwd:
         row["launches"] = train[row["name"]]

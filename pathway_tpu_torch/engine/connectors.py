@@ -17,6 +17,7 @@ from __future__ import annotations
 import queue
 from typing import Any, Sequence
 
+from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine.graph import InputSession
 from pathway_tpu_torch.engine.value import Pointer, hash_values, ref_scalar
 
@@ -100,9 +101,14 @@ class InputDriver:
         self.done = False
 
     def effective_autocommit_s(self) -> float:
-        """The autocommit window. The JAX package widens it under its async device
-        pipeline's pressure, which is not ported; here it is the configured window."""
-        return self.autocommit_s
+        """The autocommit window scaled by the device pipeline's pressure: a congested
+        device stage wants fewer, fatter commits, so the adaptive controller widens the
+        window (up to 4x) while commits are in flight. Host-only programs and the
+        synchronous boundary (``PATHWAY_TPU_ASYNC_DEVICE=0``) see the configured
+        window; a 0-window connector (queries) stays immediate."""
+        if self.autocommit_s <= 0.0:
+            return self.autocommit_s
+        return self.autocommit_s * device_pipeline.ingest_window_scale()
 
     def _key_for(self, values: tuple, source_id: str, index: int) -> Pointer:
         if self.pk is not None:

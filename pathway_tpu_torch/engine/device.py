@@ -11,15 +11,26 @@ was started when the batch was made.
 The host twin is copied into pinned memory with ``non_blocking=True`` and an event is
 recorded behind the copy: ``host()`` waits on that event before it reads the buffer, so
 no reader sees the bytes before the copy has landed. At each commit boundary the
-scheduler calls :func:`decay_device_batches`, which completes every live batch's host
-twin and drops its device tensor: device memory holds at most one commit of batches,
-and rows kept in table state hold only host arrays.
+scheduler hands the commit's live batches (:func:`stage_device_batches`) to the device
+pipeline (``engine/device_pipeline.py``), which completes each batch's host twin and
+drops its device tensor, inline or on its completion thread: device memory holds at
+most ``depth`` commits of batches, and rows kept in table state end up holding only
+host arrays.
+
+A handle is shared by two threads under the async pipeline: the completion thread
+decays it while the scheduler thread may still read its host twin or its device
+tensor (a row of commit N kept in state and read in commit N+1). ``host()`` and
+``decay()`` take the handle's lock, and a reader of ``dev`` reads it once into a local,
+which keeps the tensor alive for as long as the reader uses it. The completion thread
+only waits on events and drops references; every copy is enqueued on the scheduler
+thread, whose stream produced the batch.
 
 The JAX package's columnar evaluator (the rest of its ``device.py``) is not ported yet.
 """
 
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Any, Sequence
 
@@ -34,6 +45,7 @@ _ALL_HANDLES: "weakref.WeakSet" = weakref.WeakSet()
 
 #: device-to-host copies of host twins, counted where ``host()`` completes one
 TRANSFERS = {"d2h_copies": 0, "d2h_bytes": 0}
+_TRANSFERS_LOCK = threading.Lock()  # host() runs on the scheduler and completion threads
 
 _NUMPY_DTYPES = {
     torch.float32: np.dtype(np.float32),
@@ -65,11 +77,13 @@ class DeviceBatchHandle:
 
     Within the commit that made it, both copies may exist: a subscribe callback that
     reads the host twin must not take the device copy from an index operator later in
-    the same sweep. At the commit boundary :func:`decay_device_batches` completes the
-    host twin and drops the device tensor.
+    the same sweep. At the commit boundary the device pipeline completes the host twin
+    and drops the device tensor (``decay``), inline or on its completion thread.
     """
 
-    __slots__ = ("dev", "_host", "_pinned", "_copied", "_prefetched", "__weakref__")
+    __slots__ = (
+        "dev", "_host", "_pinned", "_copied", "_prefetched", "_lock", "__weakref__"
+    )
 
     def __init__(self, dev: torch.Tensor) -> None:
         self.dev: torch.Tensor | None = dev
@@ -77,6 +91,8 @@ class DeviceBatchHandle:
         self._pinned: torch.Tensor | None = None
         self._copied: "torch.cuda.Event | None" = None
         self._prefetched = False
+        # reentrant: decay() completes the host twin through host()
+        self._lock = threading.RLock()
         _LIVE_HANDLES.add(self)
         _ALL_HANDLES.add(self)
 
@@ -84,7 +100,8 @@ class DeviceBatchHandle:
         """Start the device-to-host copy without blocking. On the card the copy goes
         into pinned memory on the current stream, behind the kernels that produce the
         batch, and an event marks its end; ``host()`` later waits on that event
-        instead of paying a synchronous copy."""
+        instead of paying a synchronous copy. Called on the scheduler thread: when the
+        batch is made and at the commit boundary, before the batch is staged."""
         if self._host is not None or self._prefetched:
             return
         self._prefetched = True
@@ -99,39 +116,37 @@ class DeviceBatchHandle:
 
     def host(self) -> np.ndarray:
         """The batch as a host array, the same bits as the device tensor."""
-        if self._host is None:
-            if self._copied is not None:
-                # the copy may still be in flight: wait for it before reading
-                self._copied.synchronize()
-                # out of the pinned buffer, so pinned memory is held for one commit
-                self._host = self._pinned.numpy().copy()
-                self._pinned = self._copied = None
-            elif self.dev.device.type == "cuda":
-                self._host = self.dev.detach().cpu().numpy()
-            else:
-                self._host = self.dev.detach().numpy()
-            if self.dev is not None and self.dev.device.type == "cuda":
-                TRANSFERS["d2h_copies"] += 1
-                TRANSFERS["d2h_bytes"] += int(self._host.nbytes)
-        return self._host
+        host = self._host
+        if host is not None:
+            return host
+        with self._lock:
+            if self._host is None:
+                dev = self.dev
+                if self._copied is not None:
+                    # the copy may still be in flight: wait for it before reading
+                    # (the wait releases the GIL)
+                    self._copied.synchronize()
+                    # out of the pinned buffer, so pinned memory is held for one commit
+                    host = self._pinned.numpy().copy()
+                    self._pinned = self._copied = None
+                elif dev.device.type == "cuda":
+                    host = dev.detach().cpu().numpy()
+                else:
+                    host = dev.detach().numpy()
+                if dev is not None and dev.device.type == "cuda":
+                    with _TRANSFERS_LOCK:
+                        TRANSFERS["d2h_copies"] += 1
+                        TRANSFERS["d2h_bytes"] += int(host.nbytes)
+                self._host = host
+            return self._host
 
     def decay(self) -> None:
         """Complete the host twin and release the device copy."""
-        if self.dev is not None:
-            self.prefetch()
-            self.host()
-            self.dev = None
-
-
-def decay_device_batches() -> None:
-    """The commit boundary: complete the host twin of every device batch produced this
-    commit and release its device memory. Any device operator of the commit reads the
-    batch on the card whatever the sweep order; device memory stays bounded by one
-    commit of batches."""
-    if _LIVE_HANDLES:
-        for handle in list(_LIVE_HANDLES):
-            handle.decay()
-        _LIVE_HANDLES.clear()
+        with self._lock:
+            if self.dev is not None:
+                self.prefetch()
+                self.host()
+                self.dev = None
 
 
 def stage_device_batches() -> list:
@@ -221,8 +236,9 @@ def lazy_rows(dev_batch: torch.Tensor, n: int, prefetch: bool = True) -> list:
     return [LazyDeviceVector(handle, i) for i in range(n)]
 
 
-def _live_lazy(v: Any) -> bool:
-    return isinstance(v, LazyDeviceVector) and v.batch.dev is not None
+def _live_dev(v: Any) -> "torch.Tensor | None":
+    """The device tensor of a lazy row's batch, read once, or None."""
+    return v.batch.dev if isinstance(v, LazyDeviceVector) else None
 
 
 def device_runs(
@@ -231,12 +247,14 @@ def device_runs(
     """Partition ``vectors`` into maximal contiguous runs of ``(start, stop,
     device tensor or None, row indices or None)``. A run with a tensor holds lazy rows
     of that one live batch, which a device operator gathers with no transfer; a
-    ``None`` run is host data."""
+    ``None`` run is host data. Each batch's tensor is read once: the run keeps it
+    alive even if the completion thread decays the batch meanwhile."""
     runs: list[tuple[int, int, Any, list[int] | None]] = []
     i, n = 0, len(vectors)
     while i < n:
         v = vectors[i]
-        if _live_lazy(v):
+        dev = _live_dev(v)
+        if dev is not None:
             parent = v.batch
             indices = [v.index]
             j = i + 1
@@ -247,10 +265,10 @@ def device_runs(
             ):
                 indices.append(vectors[j].index)
                 j += 1
-            runs.append((i, j, parent.dev, indices))
+            runs.append((i, j, dev, indices))
         else:
             j = i + 1
-            while j < n and not _live_lazy(vectors[j]):
+            while j < n and _live_dev(vectors[j]) is None:
                 j += 1
             runs.append((i, j, None, None))
         i = j

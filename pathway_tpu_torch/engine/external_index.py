@@ -131,10 +131,15 @@ class DeviceKnnIndex:
             return [], list(range(vectors.shape[0]))
         groups: dict[int, tuple[torch.Tensor, list[int], list[int], Any]] = {}
         host: list[int] = []
+        # each batch's tensor is read once, so all of its rows take one route even if
+        # the device pipeline's completion thread decays the batch meanwhile
+        devs: dict[int, "torch.Tensor | None"] = {}
         for pos, vec in enumerate(vectors):
             if isinstance(vec, LazyDeviceVector):
                 handle = vec.batch
-                dev = handle.dev
+                if id(handle) not in devs:
+                    devs[id(handle)] = handle.dev
+                dev = devs[id(handle)]
                 if (
                     dev is None
                     or dev.device != self.device

@@ -6,10 +6,12 @@ pipeline runs: input sessions, per-row expressions, batched UDF application, key
 filters (restrict), zips of same-universe tables, subscribe sinks, error logs and error
 removal. Tables are keyed update streams processed per commit: every operator consumes
 consolidated delta batches at time ``t`` and emits output deltas at ``t``; the device
-work (UDF micro-batches, vector search) happens inside the operators. The scheduler's
-commit boundary completes and releases the commit's device batches
-(``engine.device.decay_device_batches``), the synchronous rule the JAX package's async
-device pipeline is held to.
+work (UDF micro-batches, vector search) happens inside the operators. The scheduler
+ends each commit in the device pipeline's commit boundary
+(``engine.device_pipeline.commit_boundary``), which stages the commit's device batches
+for completion on its own thread, or completes them inline under
+``PATHWAY_TPU_ASYNC_DEVICE=0``. ``Scheduler(probe=True)`` keeps per-operator counts
+and times (:class:`OperatorStats`).
 
 Joins, groupby, sort, flatten, deduplicate, ix, update rows and cells, iterate and the
 temporal operators are not ported yet (ROADMAP queue 1, "the other node types").
@@ -18,10 +20,11 @@ temporal operators are not ported yet (ROADMAP queue 1, "the other node types").
 from __future__ import annotations
 
 import itertools
+import time as _walltime
 from typing import Any, Callable, Sequence
 
+from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine.batch import DeltaBatch, apply_batch_to_state
-from pathway_tpu_torch.engine.device import decay_device_batches
 from pathway_tpu_torch.engine.expression import EngineExpression, EvalContext
 from pathway_tpu_torch.engine.value import (
     ERROR,
@@ -30,6 +33,7 @@ from pathway_tpu_torch.engine.value import (
     is_error,
     rows_differ,
 )
+from pathway_tpu_torch.internals import metrics as _metrics
 
 
 class Node:
@@ -516,19 +520,66 @@ class Scope:
         return _RemoveErrorsNode(self, table)
 
 
+class OperatorStats:
+    """Per-operator probe counters: rows inserted and deleted by the operator's
+    output, its batches, the seconds inside ``process()`` and the last commit that
+    touched it."""
+
+    __slots__ = ("insertions", "deletions", "batches", "time_spent", "last_time")
+
+    def __init__(self) -> None:
+        self.insertions = 0
+        self.deletions = 0
+        self.batches = 0
+        self.time_spent = 0.0  # seconds inside process()
+        self.last_time: int | None = None
+
+    def snapshot(self) -> dict:
+        return {
+            "insertions": self.insertions,
+            "deletions": self.deletions,
+            "batches": self.batches,
+            "time_spent": self.time_spent,
+            "last_time": self.last_time,
+        }
+
+
 class Scheduler:
     """Topological commit-batch pump. All deltas at one logical time are processed as
     a unit; ``propagate`` loops until quiescent, so same-time feedback (error logs)
-    settles within the commit, and then completes the commit's device batches."""
+    settles within the commit, and then hands the commit's device batches to the
+    device pipeline.
 
-    def __init__(self, scope: Scope) -> None:
+    ``probe=True`` collects per-operator stats into ``self.stats`` (node index ->
+    :class:`OperatorStats`) and sets the ``pathway_queue_depth`` gauge to the number of
+    operators with pending batches on each sweep.
+    """
+
+    def __init__(self, scope: Scope, probe: bool = False) -> None:
         self.scope = scope
         self.time = 0
+        self.probe = probe
+        self.stats: dict[int, OperatorStats] = {}
+        if probe:
+            self._queue_gauge = _metrics.REGISTRY.gauge(
+                "pathway_queue_depth",
+                "operators with pending delta batches (backpressure)",
+            )
+
+    def _stats_of(self, node: Node) -> OperatorStats:
+        st = self.stats.get(node.index)
+        if st is None:
+            st = self.stats[node.index] = OperatorStats()
+        return st
 
     def propagate(self, time: int) -> None:
         scope = self.scope
+        probe = self.probe
         while True:
-            if not any(n.has_pending() for n in scope.nodes):
+            dirty = [n for n in scope.nodes if n.has_pending()]
+            if probe:
+                self._queue_gauge.value = float(len(dirty))
+            if not dirty:
                 # flush error-log buffers; may create new pending work
                 flushed = False
                 for node in scope.nodes:
@@ -543,17 +594,30 @@ class Scheduler:
             for node in scope.nodes:
                 if not node.has_pending():
                     continue
+                if probe:
+                    t0 = _walltime.perf_counter()
                 out = node.process(time)
                 if out is None:
                     out = DeltaBatch()
                 # consumers consolidate in take(); state applies lazily
                 node._defer_state(out)
+                if probe:
+                    st = self._stats_of(node)
+                    st.time_spent += _walltime.perf_counter() - t0
+                    st.batches += 1
+                    st.last_time = time
+                    # consolidate for counting: a raw batch may carry net-zero churn
+                    for _k, _r, d in out.consolidate():
+                        if d > 0:
+                            st.insertions += 1
+                        else:
+                            st.deletions += 1
                 if out:
                     for consumer, port in node.consumers:
                         consumer.push(port, out)
         for node in scope.nodes:
             node.on_time_end(time)
-        decay_device_batches()
+        device_pipeline.commit_boundary(time)
 
     def _end_nodes(self) -> None:
         """Run the on_end hooks; they may inject final batches, propagated as one more
@@ -563,6 +627,7 @@ class Scheduler:
         if any(n.has_pending() for n in self.scope.nodes):
             self.propagate(self.time)
             self.time += 1
+        device_pipeline.drain()
         for node in self.scope.nodes:
             node.close()
 

@@ -9,6 +9,7 @@ are not ported yet, and a configuration that asks for them raises.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Callable
 
@@ -40,8 +41,11 @@ G = ParseGraph()
 
 def run(**kwargs: Any) -> None:
     """Execute the captured graph: build every sink's table, attach the sinks, and
-    pump the connectors through commits until all of them are done. The graph is
-    cleared afterwards, whether the run ends or raises."""
+    pump the connectors through commits until all of them are done. With
+    ``PATHWAY_PROCESS_METRICS`` set, the scheduler keeps per-operator probe stats
+    (``GraphRunner.scheduler.stats``). The device pipeline's completion thread is
+    reaped and the graph cleared afterwards, whether the run ends or raises."""
+    from pathway_tpu_torch.engine import device_pipeline
     from pathway_tpu_torch.internals.config import get_pathway_config
     from pathway_tpu_torch.internals.runner import GraphRunner
 
@@ -70,6 +74,8 @@ def run(**kwargs: Any) -> None:
         )
     try:
         runner = GraphRunner()
+        if os.environ.get("PATHWAY_PROCESS_METRICS"):
+            runner.probe_stats = True
         for sink in G.sinks:
             node = runner.build(sink.table)
             driver = sink.attach(runner.scope, node)
@@ -77,4 +83,6 @@ def run(**kwargs: Any) -> None:
                 runner.drivers.append(driver)
         runner.run()
     finally:
+        # a raising run must not leave the completion thread behind
+        device_pipeline.stop_worker()
         G.clear()

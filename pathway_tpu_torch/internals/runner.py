@@ -101,6 +101,10 @@ class GraphRunner:
         self.nodes: dict[int, Node] = {}
         self.drivers: list[Any] = []  # connector drivers (streaming mode)
         self._local_logs: dict[int, Node] = {}  # local error logs by id
+        #: run the scheduler with per-operator probe stats (``pw.run`` sets it when
+        #: process metrics are asked for)
+        self.probe_stats = False
+        self.scheduler: Scheduler | None = None
 
     # -- expression compilation --------------------------------------------
 
@@ -370,8 +374,9 @@ class GraphRunner:
 
     def run(self) -> Scheduler:
         """Run to completion: the streaming loop (poll the drivers, commit, until all
-        of them report done), then the final commit and the sinks' end hooks."""
-        sched = Scheduler(self.scope)
+        of them report done), then the final commit and the sinks' end hooks. The
+        scheduler stays on ``self.scheduler``, where its probe stats are read."""
+        sched = Scheduler(self.scope, probe=self.probe_stats)
         self.scheduler = sched
         _pump_drivers(self.drivers, sched.commit)
         sched.finish()

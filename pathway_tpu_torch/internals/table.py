@@ -1,12 +1,14 @@
 """`pw.Table`: the declarative table API.
 
 Counterpart of ``pathway_tpu/internals/table.py`` for the operations of the
-streaming-RAG pipeline: column access, ``select``, ``restrict``, ``remove_errors`` and
-the as-of-now external index. Tables are lazy: each holds a :class:`TableSpec`
-describing the operator that produces it, and :mod:`pathway_tpu_torch.internals.runner`
-lowers the reachable specs onto the engine scope at run time. Filter, joins, groupby,
-concat, update, flatten, sort, ix and the temporal operations are not ported yet
-(ROADMAP queue 1, "the other node types").
+streaming-RAG pipeline: column access, ``select`` and the operations that are selects
+(``with_columns``, ``without``, ``rename*``, ``with_prefix``, ``with_suffix``, ``copy``,
+``cast_to_types``, ``update_types``), ``restrict``, the universe promises,
+``remove_errors`` and the as-of-now external index. Tables are lazy: each holds a
+:class:`TableSpec` describing the operator that produces it, and
+:mod:`pathway_tpu_torch.internals.runner` lowers the reachable specs onto the engine
+scope at run time. The reference's other public methods are here by name and raise
+``NotImplementedError`` naming the ROADMAP item that ports them (:data:`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from dataclasses import dataclass, field
 from typing import Any, Iterable, Mapping, Sequence
 
 from pathway_tpu_torch.internals import dtype as dt
+from pathway_tpu_torch.internals import expression as expr_mod
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.desugaring import resolve_this
 from pathway_tpu_torch.internals.expression import (
@@ -24,7 +27,7 @@ from pathway_tpu_torch.internals.expression import (
     PointerExpression,
 )
 from pathway_tpu_torch.internals.trace import current_trace
-from pathway_tpu_torch.internals.universe import Universe
+from pathway_tpu_torch.internals.universe import Universe, solver
 
 _table_counter = itertools.count()
 
@@ -180,12 +183,105 @@ class Table:
             universe=self._universe,
         )
 
+    def _select_all(self, exprs: Mapping[str, ColumnExpression]) -> "Table":
+        return self._derived(
+            TableSpec("select", [self], {"exprs": dict(exprs)}),
+            {n: e._dtype for n, e in exprs.items()},
+            universe=self._universe,
+        )
+
+    def with_columns(self, *args: Any, **kwargs: Any) -> "Table":
+        combined: dict[str, ColumnExpression] = {
+            n: ColumnReference(self, n) for n in self._column_names
+        }
+        combined.update(self._resolve_kwargs(args, kwargs))
+        return self._select_all(combined)
+
+    def without(self, *columns: Any) -> "Table":
+        names = set()
+        for col in columns:
+            if isinstance(col, str):
+                names.add(col)
+            else:
+                resolved = resolve_this(col, self)
+                if not isinstance(resolved, ColumnReference):
+                    raise ValueError(f"without() takes columns, got {col!r}")
+                names.add(resolved.name)
+        return self._select_all(
+            {n: ColumnReference(self, n) for n in self._column_names if n not in names}
+        )
+
+    def rename(
+        self, names_mapping: Mapping[Any, str] | None = None, **kwargs: Any
+    ) -> "Table":
+        """``names_mapping`` maps old columns to new names; keyword arguments read
+        ``new_name=old_column``, as in the reference."""
+
+        def colname(ref: Any) -> str:
+            name = getattr(ref, "name", None)  # a column reference or pw.this.x
+            return name if isinstance(name, str) else str(ref)
+
+        mapping: dict[str, str] = {}
+        for old, new in (names_mapping or {}).items():
+            mapping[colname(old)] = new
+        for new, old in kwargs.items():
+            mapping[colname(old)] = new
+        return self._select_all(
+            {mapping.get(n, n): ColumnReference(self, n) for n in self._column_names}
+        )
+
+    rename_columns = rename
+
+    def rename_by_dict(self, names_mapping: Mapping[Any, str]) -> "Table":
+        return self.rename(names_mapping)
+
+    def with_prefix(self, prefix: str) -> "Table":
+        return self.rename({n: prefix + n for n in self._column_names})
+
+    def with_suffix(self, suffix: str) -> "Table":
+        return self.rename({n: n + suffix for n in self._column_names})
+
+    def copy(self) -> "Table":
+        return self.select(**{n: ColumnReference(self, n) for n in self._column_names})
+
+    def _retyped(self, kind: type, types: Mapping[str, Any]) -> "Table":
+        return self._select_all(
+            {
+                n: kind(ColumnReference(self, n), types[n])
+                if n in types
+                else ColumnReference(self, n)
+                for n in self._column_names
+            }
+        )
+
+    def cast_to_types(self, **kwargs: Any) -> "Table":
+        return self._retyped(expr_mod.CastExpression, kwargs)
+
+    def update_types(self, **kwargs: Any) -> "Table":
+        return self._retyped(expr_mod.DeclareTypeExpression, kwargs)
+
     def restrict(self, other: "Table") -> "Table":
         return self._derived(
             TableSpec("restrict", [self, other], {}),
             {n: self._dtypes[n] for n in self._column_names},
             universe=other._universe,
         )
+
+    def promise_universes_are_equal(self, other: "Table") -> "Table":
+        solver.register_equal(self._universe, other._universe)
+        return self
+
+    def promise_universe_is_subset_of(self, other: "Table") -> "Table":
+        solver.register_subset(self._universe, other._universe)
+        return self
+
+    def promise_universe_is_equal_to(self, other: "Table") -> "Table":
+        return self.promise_universes_are_equal(other)
+
+    @property
+    def slice(self) -> "Table":
+        """A column-access view; tables take ``t[...]`` directly."""
+        return self
 
     def _external_index_as_of_now(
         self,
@@ -237,3 +333,39 @@ class Table:
             {n: self._dtypes[n] for n in self._column_names},
             universe=self._universe.subset(),
         )
+
+
+#: the reference ``Table``'s public methods that are not ported yet -> the ROADMAP
+#: queue 1 item that ports them
+UNPORTED = {
+    **dict.fromkeys(
+        (
+            "asof_join", "asof_now_join", "await_futures", "concat", "concat_reindex",
+            "deduplicate", "difference", "empty", "filter", "flatten", "from_rows",
+            "groupby", "having", "intersect", "interval_join", "ix", "ix_ref", "join",
+            "join_inner", "join_left", "join_outer", "join_right", "reduce", "sort",
+            "split", "update_cells", "update_rows", "window_join", "windowby",
+            "with_id", "with_id_from", "with_universe_of",
+        ),
+        "11: the other node types and table operations",
+    ),
+    "show": "8: the rest of the package (the stdlib's viz)",
+}
+
+
+def _unported(name: str, item: str) -> Any:
+    def method(*_args: Any, **_kwargs: Any) -> Any:
+        raise NotImplementedError(
+            f"Table.{name} is not ported yet (ROADMAP queue 1 item {item})"
+        )
+
+    method.__name__ = name
+    method.__qualname__ = f"Table.{name}"
+    return method
+
+
+for _name, _item in UNPORTED.items():
+    _fn = _unported(_name, _item)
+    # the reference's constructors are static methods
+    setattr(Table, _name, staticmethod(_fn) if _name in ("empty", "from_rows") else _fn)
+del _name, _item, _fn

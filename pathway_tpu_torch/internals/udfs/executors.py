@@ -4,7 +4,8 @@ Counterpart of ``SyncExecutor`` and ``BatchExecutor`` in
 ``pathway_tpu/internals/udfs/executors.py``. The engine hands executors whole
 commit-batches of rows (``engine.graph.BatchApplyNode``); a :class:`BatchExecutor`
 receives them at once, in chunks of at most ``max_batch_size`` in row order, which is
-the micro-batching seam of device UDFs such as the embedder. The async executor, its
+the micro-batching seam of device UDFs such as the embedder, whose ``sizer`` lets the
+device pipeline's adaptive controller narrow the chunks. The async executor, its
 event-loop thread and the retry strategies are not ported yet.
 """
 
@@ -53,16 +54,27 @@ class BatchExecutor(Executor):
     """Whole-batch execution: ``fn`` receives parallel lists (one per argument) and
     returns a list of results. ``max_batch_size`` splits oversized commits into
     chunks, in row order, so padded device buffers stay bounded; a chunk that fails
-    or returns the wrong number of results fails each of its rows."""
+    or returns the wrong number of results fails each of its rows. ``sizer`` (a
+    callable -> int or None, read once per run) narrows the chunk below the cap, never
+    above it; a falsy value leaves the cap."""
 
     kind = "batch"
 
-    def __init__(self, max_batch_size: int | None = None) -> None:
+    def __init__(
+        self,
+        max_batch_size: int | None = None,
+        sizer: Callable[[], int | None] | None = None,
+    ) -> None:
         self.max_batch_size = max_batch_size
+        self.sizer = sizer
 
     def run(self, fn, rows):
         out: list[RowResult] = []
         step = self.max_batch_size or len(rows) or 1
+        if self.sizer is not None:
+            suggested = self.sizer()
+            if suggested:
+                step = max(1, min(step, int(suggested)))
         for start in range(0, len(rows), step):
             chunk = rows[start : start + step]
             cols = tuple(list(c) for c in zip(*chunk))
@@ -92,5 +104,8 @@ def auto_executor(fn: Callable[..., Any]) -> Executor:
     return SyncExecutor()
 
 
-def batch_executor(max_batch_size: int | None = None) -> BatchExecutor:
-    return BatchExecutor(max_batch_size=max_batch_size)
+def batch_executor(
+    max_batch_size: int | None = None,
+    sizer: Callable[[], int | None] | None = None,
+) -> BatchExecutor:
+    return BatchExecutor(max_batch_size=max_batch_size, sizer=sizer)

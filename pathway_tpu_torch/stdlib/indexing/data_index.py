@@ -3,9 +3,9 @@
 Counterpart of ``pathway_tpu/stdlib/indexing/data_index.py``. ``query_as_of_now``
 answers each query row from the index as it stands when the row arrives, and revises
 an answer only when the query row itself changes. The factories name what they build:
-:class:`DeviceKnnFactory` the brute-force KNN index on the card (``BruteForceKnnFactory``
-and ``TpuKnnFactory`` in the JAX package), :class:`HostKnnFactory` its exact f32 host
-twin.
+:class:`DeviceKnnFactory` the brute-force KNN index on the card (``TpuKnnFactory`` in
+the JAX package; :class:`BruteForceKnnFactory` is the reference-compatible name),
+:class:`HostKnnFactory` its exact f32 host twin.
 """
 
 from __future__ import annotations
@@ -46,6 +46,10 @@ class DeviceKnnFactory(InnerIndexFactory):
         )
 
 
+class BruteForceKnnFactory(DeviceKnnFactory):
+    """The reference-compatible name of :class:`DeviceKnnFactory`; the same index."""
+
+
 @dataclasses.dataclass
 class HostKnnFactory(InnerIndexFactory):
     """The exact f32 host twin of :class:`DeviceKnnFactory` (``HostKnnIndex``)."""
@@ -61,17 +65,21 @@ class HostKnnFactory(InnerIndexFactory):
 class DataIndex:
     """An index over ``data_table`` with retrieval as engine dataflow.
     ``data_column`` holds the embedding vectors; query results arrive as new columns
-    on the query table."""
+    on the query table. ``metadata_column`` is kept, as the reference keeps it; its one
+    reader there, the LSH query path of ``stdlib/indexing/nearest_neighbors.py``, is not
+    ported yet (ROADMAP queue 1 item 8)."""
 
     def __init__(
         self,
         data_table: Table,
         inner_index_factory: InnerIndexFactory,
         data_column: ColumnReference,
+        metadata_column: ColumnReference | None = None,
     ) -> None:
         self.data_table = data_table
         self.factory = inner_index_factory
         self.data_column = data_column
+        self.metadata_column = metadata_column
 
     def query_as_of_now(
         self,
@@ -79,11 +87,14 @@ class DataIndex:
         query_column: ColumnReference,
         number_of_matches: int | ColumnExpression = 3,
         collapse_rows: bool = True,
+        with_scores: bool = True,
     ) -> Table:
         """Retrieve for each query row, as of its arrival: a table keyed by query id
         with the query columns plus ``_pw_index_reply_ids`` (tuple of data-row keys)
-        and ``_pw_index_reply_scores``. ``collapse_rows=False`` (one row per hit)
-        needs the flatten operator, which is not ported yet."""
+        and ``_pw_index_reply_scores``. The scores column is there whatever
+        ``with_scores`` says, as in the reference, which accepts the argument and
+        always answers with scores. ``collapse_rows=False`` (one row per hit) needs the
+        flatten operator, which is not ported yet."""
         if not collapse_rows:
             raise NotImplementedError(
                 "collapse_rows=False needs the flatten operator, which is not ported "

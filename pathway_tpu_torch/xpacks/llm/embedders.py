@@ -5,21 +5,25 @@ same presets, checkpoint-directory loading, ``max_len``, ``max_batch_size`` chun
 the UDF's batch executor), ``seq_bucket_min`` and power-of-two padding buckets, and the
 rule that derives the mask from the ids on the device when the tokenizer pads with id
 0. Used in ``select`` (``embedder(pw.this.text)``), each chunk of a commit is one embed
-call whose rows enter the engine as lazy device rows: the KNN index reads them on the
-card, and a host reader gets their host twin. ``embed_batch`` returns the tensor to
-direct callers.
+call whose rows enter the engine as lazy device rows (``device_resident``, on unless
+``PATHWAY_DEVICE_RESIDENT_UDF=0``; off, host arrays): the KNN index reads them on the
+card, and a host reader gets their host twin. The device pipeline's adaptive controller
+narrows the chunks below ``max_batch_size`` (the executor's sizer). ``embed_batch``
+returns the tensor to direct callers. The UDF result caches (``cache_strategy``) are not
+ported yet (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine.device import lazy_rows
 from pathway_tpu_torch.internals.udfs import UDF, batch_executor
 from pathway_tpu_torch.models.hf_import import load_sentence_transformer
@@ -45,6 +49,19 @@ _ENCODER_PRESETS = {
     "BAAI/bge-small-en-v1.5": "bge_small",
 }
 _CONFIGS = {"minilm_l6": minilm_l6, "bge_base": bge_base, "bge_small": bge_small}
+
+
+def _resolve_device_resident(device_resident: "bool | None") -> bool:
+    """The device-resident lazy-row mode: the argument, else
+    ``PATHWAY_DEVICE_RESIDENT_UDF`` (on by default)."""
+    if device_resident is not None:
+        return device_resident
+    return os.environ.get("PATHWAY_DEVICE_RESIDENT_UDF", "1").lower() in (
+        "1",
+        "true",
+        "yes",
+        "on",
+    )
 
 
 def _weights_tag(path: str) -> str:
@@ -77,8 +94,16 @@ class EncoderEmbedder(UDF):
         seed: int = 0,
         seq_bucket_min: int = 8,
         device: "str | torch.device | None" = None,
+        cache_strategy: Any = None,
+        device_resident: bool | None = None,
     ) -> None:
+        if cache_strategy is not None:
+            raise NotImplementedError(
+                "UDF result caches (cache_strategy) are not ported yet "
+                "(ROADMAP queue 1 item 11)"
+            )
         self.device = resolve_device(device)
+        self.device_resident = _resolve_device_resident(device_resident)
         weights_tag = None
         if isinstance(model, EncoderConfig):
             self.config = model
@@ -126,7 +151,10 @@ class EncoderEmbedder(UDF):
         self._mask_from_ids = pad == 0
         super().__init__(
             self._embed_rows,
-            executor=batch_executor(max_batch_size=max_batch_size),
+            # the device pipeline's controller can only narrow ``max_batch_size``
+            executor=batch_executor(
+                max_batch_size=max_batch_size, sizer=device_pipeline.suggested_batch_size
+            ),
             deterministic=True,
             cache_name=(
                 f"EncoderEmbedder:{preset}:{max_len}:"
@@ -136,8 +164,13 @@ class EncoderEmbedder(UDF):
 
     def _embed_rows(self, texts: list) -> list:
         """The UDF's body: one executor chunk of texts -> one lazy device row per
-        text, all of one batch, whose host copy starts at once."""
-        return lazy_rows(self.embed_batch(texts), len(texts))
+        text, all of one batch, whose host copy starts at once; or, with
+        ``device_resident`` off, one f32 host array per text."""
+        vecs = self.embed_batch(texts)
+        if self.device_resident:
+            return lazy_rows(vecs, len(texts))
+        host = vecs.detach().float().cpu().numpy()
+        return [host[i] for i in range(len(texts))]
 
     def get_embedding_dimension(self) -> int:
         return self.config.hidden

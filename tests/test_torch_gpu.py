@@ -12,6 +12,8 @@ relative to max(1, |plain|) elementwise, as lse's: an ulp of bf16 there is 2^-7
 relative at most.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -318,6 +320,46 @@ def test_pinned_prefetch_waits_for_the_copy(cuda):
     assert host.dtype == np.float32
     handle.decay()
     assert handle.dev is None and tdev.device_batches_held() == 0
+
+
+def test_staged_handle_read_while_the_worker_waits_on_its_copy(cuda, monkeypatch):
+    """A commit staged on the async pipeline: the completion thread waits on the
+    handle's copy event (the card is kept busy ahead of the copy) while the scheduler
+    thread calls ``host()`` on the same handle; the read waits its turn and returns
+    the device rows bit for bit, and the drain leaves no tensor behind."""
+    from pathway_tpu_torch.engine import device as tdev
+    from pathway_tpu_torch.engine import device_pipeline as dp
+
+    monkeypatch.setenv("PATHWAY_TPU_ASYNC_DEVICE", "1")
+    tdev._LIVE_HANDLES.clear()
+    dp.PIPELINE.configure()
+    base = torch.randn((4096, 384), device=cuda)
+    # warm the first pinned allocation and the kernels' first launch (see above)
+    tdev.lazy_rows(base * 3.0 + 1.0, 1)[0].batch.decay()
+    tdev._LIVE_HANDLES.clear()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)  # keep the stream busy ahead of the copy (~0.5 s)
+    dev = base * 3.0 + 1.0
+    rows = tdev.lazy_rows(dev, 4096)
+    handle = rows[0].batch
+    event = handle._copied
+    try:
+        dp.commit_boundary(0)
+        for _ in range(2000):  # the completion thread takes the commit
+            if dp.PIPELINE._active_time == 0:
+                break
+            time.sleep(0.0005)
+        waiting = dp.PIPELINE._active_time == 0 and not event.query()
+        host = handle.host()
+        assert waiting, "the copy had landed before the completion thread waited on it"
+        assert np.array_equal(host, dev.cpu().numpy())
+        assert np.array_equal(np.asarray(rows[4095]), dev[4095].cpu().numpy())
+        dp.drain()
+        assert handle.dev is None and dp.PIPELINE.inflight() == 0
+        assert dp.PIPELINE.stats()["completed_commits"] >= 1
+    finally:
+        dp.PIPELINE.configure()
+        dp.PIPELINE.stop_worker()
 
 
 def test_lazy_rows_reach_the_index_with_no_host_copy(cuda):

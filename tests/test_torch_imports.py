@@ -37,6 +37,8 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.engine.batch",
         "pathway_tpu_torch.engine.expression",
         "pathway_tpu_torch.engine.device",
+        "pathway_tpu_torch.engine.device_pipeline",
+        "pathway_tpu_torch.internals.metrics",
         "pathway_tpu_torch.engine.graph",
         "pathway_tpu_torch.engine.connectors",
         "pathway_tpu_torch.internals.dtype",

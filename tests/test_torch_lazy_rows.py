@@ -1,8 +1,11 @@
 """Lazy device rows on CPU tensors: ``device_runs`` partitions mixed sequences as the
 JAX package's does; the host twin equals the tensor; ``decay`` drops the device copy
-and keeps the host twin; the commit boundary decays every batch of the commit; and
+and keeps the host twin; the synchronous commit boundary decays every batch of the
+commit, and the async one defers that to its completion thread until ``drain()``; and
 ``DeviceKnnIndex.add`` of lazy rows takes the device route and leaves the state an add
 of the same rows as numpy arrays leaves, bit for bit."""
+
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,8 +14,21 @@ import torch
 
 from pathway_tpu.engine import device as jdev
 from pathway_tpu_torch.engine import device as tdev
+from pathway_tpu_torch.engine import device_pipeline as dp
 from pathway_tpu_torch.engine.external_index import DeviceKnnIndex
 from pathway_tpu_torch.engine.graph import Scheduler, Scope
+
+
+class _GatedEvent:
+    """Stands in for the CUDA event behind a host twin's copy: ``synchronize`` blocks
+    until the test opens the gate."""
+
+    def __init__(self, gate: threading.Event) -> None:
+        self._gate = gate
+
+    def synchronize(self) -> None:
+        if not self._gate.wait(timeout=30):
+            raise TimeoutError("test gate never opened")
 
 
 def _batches(side, rng, sizes):
@@ -87,21 +103,77 @@ def test_lazy_rows_behave_like_arrays():
     assert row.reshape(2, 1).shape == (2, 1)
 
 
-def test_commit_boundary_decays_every_batch_of_the_commit():
+@pytest.fixture
+def fresh_pipeline():
+    """The device pipeline is a process-wide singleton: drain and reconfigure it
+    around the test, so no staged commit leaks in or out."""
+    tdev._LIVE_HANDLES.clear()
+    dp.PIPELINE.configure()
+    yield
+    tdev._LIVE_HANDLES.clear()
+    dp.PIPELINE.configure()
+    dp.PIPELINE.stop_worker()
+
+
+def _one_device_commit() -> tuple[list, list]:
+    """One commit of five rows through a batch UDF making lazy rows -> (the rows in
+    state after the commit, the UDF's host copies of its outputs)."""
     scope = Scope()
     sess = scope.input_session(arity=1)
-    applied = scope.batch_apply_table(
-        sess, lambda rows: [(True, r) for r in tdev.lazy_rows(torch.randn(len(rows), 2), len(rows))],
-        [0],
-    )
+    made = []
+
+    def rows_fn(rows):
+        mat = torch.randn(len(rows), 2)
+        made.append(mat.numpy().copy())
+        return [(True, r) for r in tdev.lazy_rows(mat, len(rows))]
+
+    applied = scope.batch_apply_table(sess, rows_fn, [0])
     sched = Scheduler(scope)
     for i in range(5):
         sess.insert(i, (i,))
     sched.commit()
     rows = [r[0] for r in applied.current.values()]
     assert len(rows) == 5 and all(isinstance(r, tdev.LazyDeviceVector) for r in rows)
+    return rows, made
+
+
+def test_commit_boundary_decays_every_batch_of_the_commit(fresh_pipeline, monkeypatch):
+    """The synchronous boundary (``PATHWAY_TPU_ASYNC_DEVICE=0``) decays inline."""
+    monkeypatch.setenv("PATHWAY_TPU_ASYNC_DEVICE", "0")
+    rows, _made = _one_device_commit()
     assert all(r.batch.dev is None for r in rows)  # state holds host twins only
     assert tdev.device_batches_held() == 0
+    assert dp.PIPELINE.inflight() == 0
+
+
+def test_async_commit_boundary_defers_the_decay_until_drain(fresh_pipeline, monkeypatch):
+    """The async boundary stages the commit: it returns while the completion thread
+    still waits on the batch's copy, and after ``drain()`` the state holds host twins
+    with the UDF's bits."""
+    monkeypatch.setenv("PATHWAY_TPU_ASYNC_DEVICE", "1")
+    gate = threading.Event()
+    staged = []
+    stage = tdev.stage_device_batches
+
+    def stage_gated():
+        # the copy of the commit's batch is held open, as a slow copy on the card is
+        handles = stage()
+        for handle in handles:
+            handle._copied = _GatedEvent(gate)
+            handle._pinned = handle.dev.clone()
+        staged.extend(handles)
+        return handles
+
+    monkeypatch.setattr(tdev, "stage_device_batches", stage_gated)
+    rows, made = _one_device_commit()
+    assert staged and all(h.dev is not None for h in staged)  # deferred
+    assert dp.PIPELINE.inflight() == 1
+    gate.set()
+    dp.drain()
+    assert dp.PIPELINE.inflight() == 0 and dp.PIPELINE.completed_time() == 0
+    assert all(r.batch.dev is None for r in rows)
+    assert tdev.device_batches_held() == 0
+    assert np.array_equal(np.stack([np.asarray(r) for r in rows]), made[0])
 
 
 def test_numpy_dtype_reads_torch_dtypes():
