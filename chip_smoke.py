@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's device paths once, on one card: the streaming-RAG
-serving path, the same pipeline through the port's own engine (``pw.run``), and the
-contrastive trainer.
+serving path, the same pipeline through the port's own engine (``pw.run``), the
+contrastive trainer, and the other model families: the ViT image embedder
+(multimodal RAG), the cross-encoder reranker and the local decoder chat.
 
     python3 chip_smoke.py
 
@@ -16,10 +17,11 @@ limit):
    dK/dV must have some.
 3. kernel: the flash-attention kernel against its plain PyTorch version on the card at
    the main path's shape and at the edge shapes (head dim 64, t not a multiple of the
-   tile, multi-tile t, no mask, a fully masked row) and the tile-skipping patterns
-   (real keys only in the last 16-key tile or past position 128, live and masked tiles
-   in turn, a dead sequence among live ones); then its time at the serving and the
-   train shape against its bound, the plain version and
+   tile, multi-tile t, no mask, a fully masked row, the ViT-B/16 call: t = 197, d = 64,
+   no mask) and the tile-skipping patterns (real keys only in the last 16-key tile or
+   past position 128, live and masked tiles in turn, a dead sequence among live ones);
+   then its time at the serving, the train and the vision shape against its bound, the
+   plain version and
    ``scaled_dot_product_attention`` (timed here only, as a yardstick; the port never
    calls it).
 4. train_kernel: the flash-attention backward's two kernels (dQ, dK/dV) against their
@@ -76,7 +78,30 @@ limit):
    the kernels against the plain forward and backward through the same
    ``autograd.Function``, and the same reading with a deliberately broken backward
    (delta left out), which must fall below the bar.
-9. The kernels line, the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+9. vision_parity: one 64-image batch of 224-px pixels through ``ImageEmbedder``'s
+   CLIP ViT-B/16 tower (seeded, full width) with the kernel (12 launches) and with the
+   plain attention, the embeddings within the bf16 bar; ``normalize_u8`` on the card
+   against the host's ``preprocess_image`` within 1e-6; the forward's time against
+   its FLOP bound. multimodal_pipeline: ``bench.py::multimodal_leg`` through
+   ``pw.run`` (512 PNG images of 64x64, 16 noisy queries, top-1 from a 1,024-slot
+   index): images/s, the noisy-query top-1, launches (12 per embed call); every
+   answer must be the top-1 of an exact f32 host search over the embeddings the
+   subscriber received; a second, profiled run gives the device's idle share inside
+   commits.
+10. rerank: ``bench.py::reranker_leg``, the MiniLM-L6 cross-encoder reranker over 256
+   pairs in a 3 s loop: pairs/s, launches per call (6), a profiler window; one batch's
+   scores with the kernel against the plain attention; one ``pw.run`` of the same pairs
+   as a two-column UDF, whose scores must be the direct call's on the same chunks.
+11. decode: ``bench.py::decode_leg``, the Mistral-7B shape with seeded bf16 weights
+   (after the earlier phases' index and models are freed): greedy decode of a
+   128-token prompt of ones, prefill ms, per-step ms, tokens/s, HBM utilisation
+   against the 4.24 ms byte bound of a step, peak memory, a profiler window over decode
+   steps; checks: two greedy runs agree, ``top_k=1`` sampling gives the greedy tokens
+   (up to a tie of the top logits), sampled rows are independent of the batch.
+12. chat_engine: eight prompts through ``PipelineChat("mistral-7b")`` in ``pw.run`` with
+   the decode phase's weights; every reply must be the tokenizer's decode of a direct
+   ``greedy_generate`` on the same left-padded batch.
+13. The kernels line, the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -85,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -106,15 +132,31 @@ from pathway_tpu_torch.engine.graph import Scheduler
 from pathway_tpu_torch.models import (
     ContrastiveBatch,
     Encoder,
+    cross_encode,
+    decoder_forward,
     embed,
+    greedy_generate,
     info_nce_loss,
+    init_cache,
     load_sentence_transformer,
     make_train_step,
     minilm_l6,
+    normalize_u8,
+    preprocess_image,
+    preprocess_image_u8,
+    sample_generate,
+    vision_forward,
 )
 from pathway_tpu_torch.ops import flash_attention as fa
 from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory
-from pathway_tpu_torch.xpacks.llm import EncoderEmbedder
+from pathway_tpu_torch.xpacks.llm import (
+    CrossEncoderReranker,
+    EncoderEmbedder,
+    ImageEmbedder,
+    PipelineChat,
+    prompt_chat_single_qa,
+)
+from pathway_tpu_torch.xpacks.llm.llms import EOS_ID
 from pathway_tpu_torch.xpacks.llm._tokenizer import HashTokenizer, pad_to_buckets
 
 SEED = 0
@@ -150,6 +192,7 @@ PARITY_PAIRS = 128
 # kernels and through the plain versions; and the bar on the two losses' difference
 GRAD_COS_BAR = 0.99
 LOSS_TOL = 1e-2
+VIT_ATTN_SHAPE = (64, 197, 12, 64)  # ViT-B/16 at 224 px: 196 patches + CLS, 12 heads of 64
 TILE = 16  # keys per tile that the kernels skip when all of its keys are masked
 # the tile-skipping parity cases, forward and backward, each in bf16 and f32
 TILE_CASES = [
@@ -356,6 +399,8 @@ def phase_kernel(card: Card) -> dict:
         ("mask_none", (16, 128, 12, 32), torch.bfloat16, "none"),
         ("dead_row_f32", (4, 128, 12, 32), torch.float32, "dead_row"),
         ("dead_row", (4, 200, 12, 32), torch.bfloat16, "dead_row"),
+        # the vision path's call: t = 197 (not a multiple of the tile), d = 64, no mask
+        ("vit_b16", VIT_ATTN_SHAPE, torch.bfloat16, "none"),
         *TILE_CASES,
     ]
     main_err = None
@@ -378,16 +423,18 @@ def phase_kernel(card: Card) -> dict:
         if name == "main":
             main_err = err
 
-    # the serving shape (one embed call of 256 docs) and the train shape (one embed call
-    # of the trainer's 1,024 sequences)
+    # the serving shape (one embed call of 256 docs), the train shape (one embed call
+    # of the trainer's 1,024 sequences) and the vision shape (one ViT-B/16 forward call
+    # of 64 images, no mask)
     times = {}
-    for path, b in (("serving", CHUNK), ("train", TRAIN_PAIRS)):
-        t, h, d = SEQ_LEN, 12, DIM // 12
-        q, k, v, bias = attn_inputs(b, t, h, d, torch.bfloat16, gen, masked="ragged")
+    for path, (b, t, h, d), masked in (("serving", (CHUNK, SEQ_LEN, 12, DIM // 12), "ragged"),
+                                       ("train", (TRAIN_PAIRS, SEQ_LEN, 12, DIM // 12), "ragged"),
+                                       ("vision", VIT_ATTN_SHAPE, "none")):
+        q, k, v, bias = attn_inputs(b, t, h, d, torch.bfloat16, gen, masked=masked)
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), iters=200)
         plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, bias), iters=10, warmup=2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        add_mask = bias[:, None, None, :].to(torch.bfloat16)
+        add_mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=add_mask), iters=200)
         bound_ms, bound_by = attn_bound_ms(q, bias)
@@ -400,7 +447,7 @@ def phase_kernel(card: Card) -> dict:
         card.emit("kernel_time", path=path, shape=[b, t, h, d], dtype="bfloat16", ms=ms,
                   plain_ms=plain_ms, library_ms=library_ms, library="scaled_dot_product_attention",
                   bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
-                  real_keys_per_seq=float((bias == 0).sum()) / b, dense_bound_ms=dense_bound_ms,
+                  real_keys_per_seq=_weighted_keys(bias, b, t) / b, dense_bound_ms=dense_bound_ms,
                   q_to_o_copy_ms=copy_ms)
         times[path] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": library_ms}
@@ -413,6 +460,7 @@ def phase_kernel(card: Card) -> dict:
         "max_abs_err": main_err,
         **times["serving"],
         "train_shape": times["train"],
+        "vision_shape": times["vision"],
     }
 
 
@@ -647,6 +695,12 @@ def phase_main_path(card: Card) -> int:
     return {"launches": launches, "docs_per_s": N_DOCS / ingest_s}
 
 
+def plain_attention(q, k, v, mask):
+    """The forward kernel's plain PyTorch version as an attention function: the
+    kernel's arithmetic with no kernel, on the same card."""
+    return fa.flash_attention_fwd_reference(q, k, v, None if mask is None else fa.mask_bias(mask))[0]
+
+
 def phase_embed_parity(card: Card, embedder: EncoderEmbedder, corpus) -> None:
     """One 256-doc batch through the kernel against the same encoder on the plain
     attention, on the card (min cosine over the batch). To show what the bar can see,
@@ -655,17 +709,14 @@ def phase_embed_parity(card: Card, embedder: EncoderEmbedder, corpus) -> None:
     the attention's scores are small, so the second fault passes the bar: this check
     guards the mask and the sum over v (an ignored mask must fall below the bar, or
     the script fails), and the kernel-level parity guards the scores."""
-    def plain(q, k, v, mask):
-        return fa.flash_attention_fwd_reference(q, k, v, None if mask is None else fa.mask_bias(mask))[0]
-
     def mask_ignored(q, k, v, mask):
         return fa.flash_attention_fwd_reference(q, k, v, None)[0]
 
     def uniform(q, k, v, mask):
-        return plain(torch.zeros_like(q), k, v, mask)
+        return plain_attention(torch.zeros_like(q), k, v, mask)
 
     ids, mask, real = embedder.tokenize(corpus[:CHUNK])
-    ref = embed(embedder.encoder, ids, mask, attn_fn=plain)[:real]
+    ref = embed(embedder.encoder, ids, mask, attn_fn=plain_attention)[:real]
 
     def min_cos(attn_fn=None) -> float:
         out = embed(embedder.encoder, ids, mask, attn_fn=attn_fn)[:real]
@@ -1109,16 +1160,11 @@ def phase_engine_async_parity(card: Card, embedder: EncoderEmbedder, corpus) -> 
     return modes["async"]["flash_launches"]
 
 
-def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> None:
-    """The engine's host cost: a pw.run of 2,048 docs (no queries) under the profiler,
-    and the device-path loop (embed_batch + index.add per 256 docs) over the same docs,
-    in the same call. Wall and device-busy ms per commit, per 256 docs, and the
-    device's idle share: over the whole run and over the time spent inside commits
-    (the run's wall also holds the 100 ms autocommit window and the pump's idle
-    polls)."""
-    n = 8 * CHUNK
-    inside = []  # seconds inside each commit of the profiled run
-    schedulers = []
+def _profiled_commits(run) -> tuple[float, list, list[float], Scheduler]:
+    """``_profiled(run)`` for a ``pw.run``, timing each commit of its scheduler -> (wall
+    ms, device kernels as ``_profiled`` gives them, seconds inside each commit, the
+    scheduler)."""
+    inside, schedulers = [], []
     commit = Scheduler.commit
 
     def timed_commit(self):
@@ -1130,23 +1176,36 @@ def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> Non
         finally:
             inside.append(time.perf_counter() - t0)
 
+    Scheduler.commit = timed_commit
+    try:
+        wall_ms, kernels, _ops = _profiled(run)
+    finally:
+        Scheduler.commit = commit
+    return wall_ms, kernels, inside, schedulers[0]
+
+
+def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> None:
+    """The engine's host cost: a pw.run of 2,048 docs (no queries) under the profiler,
+    and the device-path loop (embed_batch + index.add per 256 docs) over the same docs,
+    in the same call. Wall and device-busy ms per commit, per 256 docs, and the
+    device's idle share: over the whole run and over the time spent inside commits
+    (the run's wall also holds the 100 ms autocommit window and the pump's idle
+    polls)."""
+    n = 8 * CHUNK
     factory = DeviceKnnFactory(dimensions=DIM, capacity=CAPACITY)
     obs, run = _engine_program(embedder, corpus, n, 0, factory, wait_s=120.0)
     device_pipeline.PIPELINE.configure()
     mark = _pipe_mark()
     prior = os.environ.get("PATHWAY_PROCESS_METRICS")
     os.environ["PATHWAY_PROCESS_METRICS"] = "1"  # pw.run turns the scheduler's probe on
-    Scheduler.commit = timed_commit
     try:
-        wall_ms, kernels, _ops = _profiled(run)
+        wall_ms, kernels, inside, sched = _profiled_commits(run)
     finally:
-        Scheduler.commit = commit
         if prior is None:
             os.environ.pop("PATHWAY_PROCESS_METRICS", None)
         else:
             os.environ["PATHWAY_PROCESS_METRICS"] = prior
     check(len(obs["docs"]) == n and not obs["failures"], f"profiled engine run: {obs['failures']}")
-    sched = schedulers[0]
     check(sched.probe and sched.stats, "the probe kept no per-node stats")
     nodes = []
     for node in sched.scope.nodes:
@@ -1367,6 +1426,538 @@ def phase_train_parity(card: Card, cfg, weights: dict) -> None:
           f"the bar cannot see a backward without delta: {broken_cos[broken_worst]}")
 
 
+# -- the other model families: vision (BASELINE config #5), the reranker (#3), the
+# decoder and its chat (#4) --------------------------------------------------------
+
+N_IMAGES = 512  # bench.py multimodal_leg's BENCH_MM_IMAGES
+N_IMAGE_QUERIES = 16  # and its BENCH_MM_QUERIES
+IMAGE_BATCH = 64  # the embedder's max_batch_size in multimodal_leg
+RERANK_BATCH = 256  # reranker_leg's BENCH_RERANK_BATCH
+RERANK_SECONDS = 3.0  # reranker_leg's timed loop
+DECODE_PROMPT = 128  # decode_leg's prompt of ones (bench.py SEQ_LEN)
+SAMPLE_TOKENS = 16
+CHAT_PROMPTS = 8
+CHAT_NEW_TOKENS = 32
+# Mistral-7B shape: every parameter of DecoderConfig() (embedding and lm_head untied)
+MISTRAL_7B_PARAMS = 7_241_732_096
+
+
+def make_png(i: int, noisy_rng: "np.random.Generator | None" = None) -> bytes:
+    """bench.py multimodal_leg's ``make_png``: a 64x64 RGB image seeded by ``i``, with
+    noise of +-12 levels from ``noisy_rng`` (the bench's one generator of seed 0, drawn
+    in query order) when given."""
+    from PIL import Image
+
+    arr = np.random.default_rng(i).integers(0, 255, (64, 64, 3), np.uint8)
+    if noisy_rng is not None:
+        noise = noisy_rng.integers(-12, 12, arr.shape)
+        arr = np.clip(arr.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr, "RGB").save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def vit_flops(cfg, b: int) -> float:
+    """Multiply-adds x 2 of one ViT forward over b images: the patch embed, per layer
+    the qkv, attention, output and MLP products, the projection."""
+    t, hid = cfg.n_patches + 1, cfg.hidden
+    per_layer = 2 * t * hid * (3 * hid + hid + 2 * cfg.intermediate) + 4 * t * t * hid
+    return b * (2 * cfg.n_patches * cfg.patch * cfg.patch * 3 * hid
+                + cfg.layers * per_layer + 2 * hid * cfg.out_dim)
+
+
+def _count_calls(obj, name: str) -> list[int]:
+    """Count the calls of ``obj.name`` (an instance attribute shadowing the method)
+    -> the list of each call's row count; ``del obj.name`` restores the method."""
+    sizes = []
+    method = getattr(obj, name)
+
+    def counted(rows, *args):
+        sizes.append(len(rows))
+        return method(rows, *args)
+
+    setattr(obj, name, counted)
+    return sizes
+
+
+def phase_vision_parity(card: Card, embedder) -> int:
+    """One 64-image batch of 224-px pixels (the bench's PNGs, resized on the host)
+    through ``ImageEmbedder``'s forward with the kernel, and through the same weights
+    with the plain attention on the card; and ``normalize_u8`` on the card against the
+    host's ``preprocess_image``. Then the forward's time against its FLOP bound."""
+    from PIL import Image
+
+    cfg = embedder.config
+    images = [Image.open(io.BytesIO(make_png(i))) for i in range(IMAGE_BATCH)]
+    pixels = np.stack([preprocess_image_u8(img, cfg) for img in images])
+    host = np.stack([preprocess_image(img, cfg) for img in images])
+    dev = torch.from_numpy(pixels).cuda()
+    norm_err = float(np.abs(normalize_u8(dev).cpu().numpy() - host).max())
+    fa.KERNEL.launches = 0
+    ours = embedder.forward_u8(pixels)
+    torch.cuda.synchronize()
+    launches = fa.KERNEL.launches
+    ref = vision_forward(embedder.encoder, normalize_u8(dev), attn_fn=plain_attention)
+    err = (ours - ref).abs().max().item()
+    cos_min = float((ours * ref).sum(dim=1).min())
+    finite = bool(torch.isfinite(ours).all()) and ours.shape == (IMAGE_BATCH, cfg.out_dim)
+    norms = torch.linalg.vector_norm(ours, dim=1)
+    forward_ms = cuda_ms(lambda: embedder.forward_u8(pixels), iters=20)
+    flops = vit_flops(cfg, IMAGE_BATCH)
+    card.emit("vision_parity", model="CLIP ViT-B/16 image tower (224 px, patch 16, hidden 768, "
+              "12 layers, 12 heads, seeded)", batch=IMAGE_BATCH, max_abs_err=err,
+              tol=TOL[torch.bfloat16], min_cosine=cos_min, normalize_u8_max_abs_err=norm_err,
+              normalize_tol=1e-6, flash_launches=launches,
+              unit_norm_max_dev=float((norms - 1).abs().max()),
+              forward_ms=forward_ms, forward_gflop=flops / 1e9,
+              forward_bound_ms=1e3 * flops / BF16_FLOP_PER_S,
+              forward_roofline_share=1e3 * flops / BF16_FLOP_PER_S / forward_ms,
+              note="forward_ms includes the uint8 upload and normalize_u8")
+    check(finite, "vision embeddings: shape and finiteness")
+    check(float((norms - 1).abs().max()) < 1e-3, "vision embeddings are unit vectors")
+    check(math.isfinite(err) and err <= TOL[torch.bfloat16], f"vision kernel vs plain: {err}")
+    check(norm_err <= 1e-6, f"normalize_u8 on the card vs the host: {norm_err}")
+    check(launches == cfg.layers, f"vision: {launches} forward launches, not {cfg.layers}")
+    return launches
+
+
+def _multimodal_program(embedder, blobs: list, query_blobs: list, factory):
+    """``bench.py::multimodal_leg``'s program against the port: PNG bytes through the
+    python connector (100 ms autocommit), the image embedder UDF and DataIndex; one
+    noisy query per commit once every image has reached the subscriber, top-1."""
+    obs = {"imgs": {}, "answers": {}, "failures": [], "run_start": 0.0, "ingest_end": 0.0}
+    ingest_done, answer_seen = threading.Event(), threading.Event()
+
+    class ImgFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            obs["run_start"] = time.perf_counter()
+            for i, blob in enumerate(blobs):
+                self.next(img_id=i, data=blob)
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            if not ingest_done.wait(timeout=300.0):
+                obs["failures"].append(f"{len(obs['imgs'])} of {len(blobs)} images arrived")
+                return
+            for i, blob in enumerate(query_blobs):
+                answer_seen.clear()
+                self.next(qid=i, data=blob)
+                if not answer_seen.wait(timeout=120.0):
+                    obs["failures"].append(f"no answer to query {i}")
+                    return
+
+    imgs = pw.io.python.read(ImgFeed(), schema=pw.schema_from_types(img_id=int, data=bytes),
+                             autocommit_duration_ms=100)
+    imgs = imgs.select(img_id=pw.this.img_id, emb=embedder(pw.this.data))
+    queries = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(qid=int, data=bytes),
+                                autocommit_duration_ms=None)
+    queries = queries.select(qid=pw.this.qid, qemb=embedder(pw.this.data))
+    res = DataIndex(imgs, factory, imgs.emb).query_as_of_now(queries, queries.qemb,
+                                                             number_of_matches=1)
+
+    def on_img(key, row, time, is_addition):
+        if is_addition:
+            obs["imgs"][key] = (row["img_id"], np.asarray(row["emb"], np.float32))
+            if len(obs["imgs"]) == len(blobs):
+                obs["ingest_end"] = perf_counter()
+                ingest_done.set()
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            obs["answers"][row["qid"]] = (tuple(row["_pw_index_reply_ids"]),
+                                          np.asarray(row["qemb"], np.float32))
+            answer_seen.set()
+
+    perf_counter = time.perf_counter  # the callbacks' ``time`` argument shadows the module
+    pw.io.subscribe(imgs, on_change=on_img)
+    pw.io.subscribe(res, on_change=on_answer)
+    return obs, pw.run
+
+
+def phase_multimodal_pipeline(card: Card, embedder) -> int:
+    """``bench.py::multimodal_leg`` (BASELINE config #5) through the port's ``pw.run``:
+    512 PNG images of 64x64 and 16 noisy queries, ViT-B/16 at full width, a 1,024-slot
+    index. Reports images/s, the noisy-query top-1 and the forward's launches; checks
+    that every query is answered with the top-1 of an exact f32 host search over the
+    embeddings the subscriber received. Then the same program under the profiler, for
+    the device's idle share inside commits."""
+    blobs = [make_png(i) for i in range(N_IMAGES)]
+    noise = np.random.default_rng(0)
+    query_blobs = [make_png((i * 31) % N_IMAGES, noise) for i in range(N_IMAGE_QUERIES)]
+    for b in (8, IMAGE_BATCH):
+        embedder._fn(blobs[:b])  # warm, as the bench does
+    dim = embedder.get_embedding_dimension()
+    sizes = _count_calls(embedder, "forward_u8")
+    factory = _KeptKnnFactory(dimensions=dim, capacity=1024)
+    obs, run = _multimodal_program(embedder, blobs, query_blobs, factory)
+    device_pipeline.PIPELINE.configure()
+    fa.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    try:
+        run()
+    finally:
+        del embedder.forward_u8
+    run_s = time.perf_counter() - t0
+    launches = fa.KERNEL.launches
+    imgs, answers = obs["imgs"], obs["answers"]
+    keys = list(imgs)
+    mat = np.stack([imgs[k][1] for k in keys])
+    norms = np.linalg.norm(mat, axis=1)
+    exact_ok, top1 = [], []
+    for qid, (hits, qvec) in sorted(answers.items()):
+        scores = mat @ qvec / np.maximum(norms * np.linalg.norm(qvec), 1e-30)
+        exact_ok.append(len(hits) == 1 and hits[0] == keys[int(np.argmax(scores))])
+        top1.append(bool(hits) and imgs[hits[0]][0] == (qid * 31) % N_IMAGES)
+    ingest_s = obs["ingest_end"] - obs["run_start"]
+    index = factory.built
+
+    # the same program under the profiler: the device's idle share inside commits
+    factory2 = DeviceKnnFactory(dimensions=dim, capacity=1024)
+    obs2, run2 = _multimodal_program(embedder, blobs, query_blobs, factory2)
+    device_pipeline.PIPELINE.configure()
+    wall_ms, kernels, inside, _sched = _profiled_commits(run2)
+    busy_ms = sum(k[0] for k in kernels)
+    commit_ms = 1e3 * sum(inside)
+    card.emit(
+        "multimodal_pipeline",
+        model="CLIP ViT-B/16 image tower (224 px, hidden 768, 12 layers, seeded)",
+        n_images=len(imgs), n_queries=len(answers), images_per_s=N_IMAGES / ingest_s if ingest_s > 0 else None,
+        ingest_s=ingest_s, run_s=run_s, noisy_query_top1=float(np.mean(top1)) if top1 else None,
+        answers_equal_exact_f32_search=all(exact_ok) and len(exact_ok) == N_IMAGE_QUERIES,
+        embed_calls=len(sizes), embed_chunk_sizes=sizes, flash_launches=launches,
+        index_rows_device_route=index.rows_device, index_rows_host_route=index.rows_host,
+        live_device_batches_after_run=device_batches_held(),
+        profiled_run={"wall_ms": wall_ms, "in_commit_wall_ms": commit_ms, "commits": len(inside),
+                      "device_busy_ms": busy_ms if kernels else "not measured",
+                      "device_idle_share": (1 - busy_ms / wall_ms) if kernels else "not measured",
+                      "device_idle_share_in_commits": (1 - busy_ms / commit_ms) if kernels else "not measured",
+                      "images": len(obs2["imgs"]), "answers": len(obs2["answers"]),
+                      "top": [{"kernel": k[:80], "device_ms": ms, "launches": c} for ms, k, c in kernels[:8]]},
+        failures=obs["failures"] + obs2["failures"],
+    )
+    check(not obs["failures"] and not obs2["failures"], f"multimodal: {obs['failures'] + obs2['failures']}")
+    check(len(imgs) == N_IMAGES and len(obs2["imgs"]) == N_IMAGES, f"{len(imgs)} of {N_IMAGES} images arrived")
+    check(len(answers) == N_IMAGE_QUERIES and len(obs2["answers"]) == N_IMAGE_QUERIES,
+          f"{len(answers)} of {N_IMAGE_QUERIES} queries answered")
+    check(all(exact_ok), "multimodal: an answer differs from the exact f32 search")
+    check(launches > 0 and launches == embedder.config.layers * len(sizes),
+          f"multimodal: {launches} forward launches for {len(sizes)} embed calls")
+    check(index.rows_device == N_IMAGES and index.rows_host == 0,
+          f"multimodal index routes: {index.rows_device} device, {index.rows_host} host")
+    check(device_batches_held() == 0, "device batches held after the multimodal run")
+    return launches
+
+
+def phase_rerank(card: Card) -> int:
+    """``bench.py::reranker_leg`` (BASELINE config #3): the cross-encoder reranker over
+    256 (doc, query) pairs in a 3 s loop, pairs/s; the forward's launches per call; a
+    profiler window over a few calls; one batch's scores with the kernel against the
+    plain attention; and one ``pw.run`` of the same pairs as a two-column UDF, whose
+    scores must be the direct call's on the same chunks."""
+    rr = CrossEncoderReranker(max_batch_size=RERANK_BATCH, seed=SEED)
+    docs = [doc_text(i) for i in range(RERANK_BATCH)]
+    queries = [doc_text(i * 7) for i in range(RERANK_BATCH)]
+    direct = rr._fn(docs, queries)  # warm
+    fa.KERNEL.launches = 0
+    calls, pairs = 0, 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < RERANK_SECONDS:
+        scores = rr._fn(docs, queries)
+        calls += 1
+        pairs += len(scores)
+    loop_s = time.perf_counter() - t0
+    launches = fa.KERNEL.launches
+    wall_ms, kernels, _ops = _profiled(lambda: [rr._fn(docs, queries) for _ in range(4)])
+    busy_ms = sum(k[0] for k in kernels)
+
+    ids, mask, real = rr.tokenize(docs, queries)
+    ours = cross_encode(rr.model, ids, mask)[:real]
+    ref = cross_encode(rr.model, ids, mask, attn_fn=plain_attention)[:real]
+    rel = _rel_err(ours, ref)
+
+    # the same pairs through pw.run, select(score=rr(doc, query))
+    chunks, score_batch = [], rr._fn
+
+    def recorded(d, q):
+        chunks.append((list(d), list(q)))
+        return score_batch(d, q)
+
+    rr._fn = recorded
+    got, done = {}, threading.Event()
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            for i, (d, q) in enumerate(zip(docs, queries)):
+                self.next(pair_id=i, doc=d, query=q)
+
+    rows = pw.io.python.read(Feed(), schema=pw.schema_from_types(pair_id=int, doc=str, query=str),
+                             autocommit_duration_ms=100)
+    scored = rows.select(pair_id=pw.this.pair_id, score=rr(pw.this.doc, pw.this.query))
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            got[row["pair_id"]] = row["score"]
+            if len(got) == RERANK_BATCH:
+                done.set()
+
+    pw.io.subscribe(scored, on_change=on_change)
+    device_pipeline.PIPELINE.configure()
+    try:
+        pw.run()
+    finally:
+        rr._fn = score_batch
+    same_chunks = {}
+    for d, q in chunks:
+        same_chunks.update(zip(d, score_batch(d, q)))
+    engine_scores = [got.get(i) for i in range(RERANK_BATCH)]
+    equal_chunks = engine_scores == [same_chunks.get(d) for d in docs]
+    card.emit("rerank", model="MiniLM-L6 cross-encoder (hidden 384, 6 layers, 12 heads, seeded)",
+              batch=RERANK_BATCH, padded_shape=list(ids.shape), pairs_per_s=pairs / loop_s,
+              calls=calls, loop_s=loop_s, flash_launches=launches,
+              launches_per_call=launches / calls if calls else None,
+              profile={"window": "4 calls of 256 pairs", "wall_ms_per_call": wall_ms / 4,
+                       "device_busy_ms_per_call": busy_ms / 4 if kernels else "not measured",
+                       "device_idle_share": (1 - busy_ms / wall_ms) if kernels else "not measured",
+                       "top": [{"kernel": k[:80], "device_ms_per_call": ms / 4, "launches": c}
+                               for ms, k, c in kernels[:8]]},
+              kernel_vs_plain_rel_err=rel, tol=TOL[torch.bfloat16],
+              engine={"answered": len(got), "chunks": [len(d) for d, _q in chunks],
+                      "scores_equal_direct_on_same_chunks": equal_chunks,
+                      "scores_equal_one_direct_call": engine_scores == direct})
+    check(launches == LAYERS * calls, f"rerank: {launches} forward launches for {calls} calls")
+    check(all(math.isfinite(x) for x in direct), "rerank scores are finite")
+    check(math.isfinite(rel) and rel <= TOL[torch.bfloat16], f"rerank kernel vs plain: {rel}")
+    check(len(got) == RERANK_BATCH, f"rerank pw.run answered {len(got)} of {RERANK_BATCH}")
+    check(equal_chunks, "rerank: pw.run scores differ from the direct call's")
+    return launches
+
+
+def _step_logits(model, prompt: torch.Tensor, max_new: int, prefix: torch.Tensor) -> torch.Tensor:
+    """The logits greedy decode sees at step ``len(prefix)``: the prompt's prefill and
+    one cached step per prefix token, at the shapes ``greedy_generate`` uses (its cache
+    length), so the logits are the same bits."""
+    cache = init_cache(model.cfg, prompt.shape[0], prompt.shape[1] + max_new)
+    offset = torch.zeros((prompt.shape[0],), dtype=torch.int64, device=prompt.device)
+    logits, cache = decoder_forward(model, prompt, cache, pos_offset=offset)
+    for j in range(prefix.shape[1]):
+        logits, cache = decoder_forward(model, prefix[:, j:j + 1], cache, pos_offset=offset)
+    return logits[:, -1]
+
+
+def phase_decode(card: Card) -> "PipelineChat":
+    """``bench.py::decode_leg`` (BASELINE config #4): the Mistral-7B shape with seeded
+    bf16 weights on one card (built by ``PipelineChat``, whose decoder the chat phase
+    reuses), greedy decode of a 128-token prompt of ones for 4 and for 36 new tokens:
+    per-step ms by the bench's formula ((t36 - t4) / 32), tokens/s, HBM utilisation by
+    the bench's formula and the step against its byte bound; the prefill and 32 steps
+    after it timed alone; a profiler window over decode steps; and the checks:
+    two greedy runs give the same tokens, ``top_k=1`` sampling gives the greedy tokens
+    (up to a tie of the top logits, which top-k keeps as JAX's filter does), two rows of
+    one prompt and one seed in a batch of 3 give the same tokens, and a sampled row
+    gives the batch's tokens alone up to the first step where its logits differ (cuBLAS
+    may round a product of another shape apart)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chat = PipelineChat("mistral-7b", max_new_tokens=CHAT_NEW_TOKENS, max_batch_size=CHAT_PROMPTS,
+                        seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dec = chat.decoder
+    cfg = dec.cfg
+    n_params = sum(p.numel() for p in dec.parameters())
+    weight_gib = sum(p.numel() * p.element_size() for p in dec.parameters()) / 2**30
+    prompt = torch.ones((1, DECODE_PROMPT), dtype=torch.int64, device="cuda")
+
+    def timed(n_new: int) -> tuple[torch.Tensor, float]:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        toks = greedy_generate(dec, prompt, n_new)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - start
+
+    first4, _ = timed(4)  # warm
+    first36, _ = timed(36)
+    toks4, t4 = timed(4)
+    toks36, t36 = timed(36)
+    # the bench's per-step time: 36 new tokens less 4, over the 32 steps between
+    per_step = (t36 - t4) / 32.0
+    tok_s = 1.0 / per_step
+    # the prefill alone (cache, 128-token forward, first token), and 32 decode steps
+    # after it, each ended by a synchronise: the median of three
+    offset = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    prefills, step_runs = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        cache = init_cache(cfg, 1, DECODE_PROMPT + 36)
+        logits, cache = decoder_forward(dec, prompt, cache, pos_offset=offset)
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        prefills.append(time.perf_counter() - start)
+        start = time.perf_counter()
+        for _ in range(32):
+            logits, cache = decoder_forward(dec, tok[:, None], cache, pos_offset=offset)
+            tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        step_runs.append((time.perf_counter() - start) / 32)
+    prefill = float(np.median(prefills))
+    per_step_direct = float(np.median(step_runs))
+    del cache
+    step_bytes = 2 * (n_params - cfg.vocab_size * cfg.hidden)  # every weight but tok_emb
+    bound_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # a profiler window over decode steps alone, after a prefill
+    cache = init_cache(cfg, 1, DECODE_PROMPT + 16)
+    logits, cache = decoder_forward(dec, prompt, cache, pos_offset=offset)
+    state = {"tok": logits[:, -1].argmax(-1)}
+    n_steps = 8
+
+    def steps() -> None:
+        for _ in range(n_steps):
+            out, _cache = decoder_forward(dec, state["tok"][:, None], cache, pos_offset=offset)
+            state["tok"] = out[:, -1].argmax(-1)
+
+    wall_ms, kernels, _ops = _profiled(steps)
+    busy_ms = sum(k[0] for k in kernels)
+    device_ops = sum(k[2] for k in kernels)
+    del cache
+
+    # top_k=1 sampling against greedy
+    sampled = sample_generate(dec, prompt, 36, [SEED], top_k=1)
+    diverge = (sampled[0] != toks36[0]).nonzero()
+    tie = None
+    if len(diverge):
+        j = int(diverge[0])
+        step_logits = _step_logits(dec, prompt, 36, toks36[:, :j])[0]
+        g, s_ = int(toks36[0, j]), int(sampled[0, j])
+        tie = {"step": j, "greedy_token": g, "sampled_token": s_,
+               "tied_at_the_max": bool(step_logits[g] == step_logits[s_] == step_logits.max())}
+    # a sampled row alone and inside a batch of 3. Rows 0 and 2 are one prompt with one
+    # seed: inside one batch they meet the same products, so their tokens must be the
+    # same. Alone, a row meets products of another shape, which cuBLAS may round apart
+    # in bf16: its tokens must be the batch's up to the first step where its logits
+    # differ between the two runs.
+    rng = np.random.default_rng(SEED)
+    other = torch.from_numpy(rng.integers(4, cfg.vocab_size, (1, DECODE_PROMPT))).cuda()
+    batch_prompts = torch.cat([prompt, other, prompt])
+    seeds = [11, 12, 11]
+    knobs = dict(temperature=0.8, top_k=50, top_p=0.9, eos_id=EOS_ID)
+    batch = sample_generate(dec, batch_prompts, SAMPLE_TOKENS, seeds, **knobs)
+    alone_rows = []
+    for r in range(2):
+        alone = sample_generate(dec, batch_prompts[r:r + 1], SAMPLE_TOKENS, [seeds[r]], **knobs)
+        diverge = (alone[0] != batch[r]).nonzero()
+        row = {"row": r, "steps_equal": int(diverge[0]) if len(diverge) else SAMPLE_TOKENS}
+        if len(diverge):
+            j = row["steps_equal"]
+            in_batch = _step_logits(dec, batch_prompts, SAMPLE_TOKENS, batch[:, :j])[r]
+            by_itself = _step_logits(dec, batch_prompts[r:r + 1], SAMPLE_TOKENS, alone[:, :j])[0]
+            row["logits_differ_at_divergence"] = not torch.equal(in_batch, by_itself)
+            row["logits_max_abs_diff"] = (in_batch - by_itself).abs().max().item()
+        alone_rows.append(row)
+    duplicate_rows_equal = bool(torch.equal(batch[0], batch[2]))
+
+    card.emit(
+        "decode",
+        model=f"Mistral-7B shape (hidden {cfg.hidden}, {cfg.layers} layers, {cfg.heads} heads / "
+              f"{cfg.kv_heads} kv heads, intermediate {cfg.intermediate}, vocab {cfg.vocab_size}; "
+              "seeded bf16 weights)",
+        n_params=n_params, weights_gib=weight_gib, init_s=init_s, prompt_len=DECODE_PROMPT,
+        device_gib_before_phase=before_gib, peak_device_gib=peak_gib,
+        t4_s=t4, t36_s=t36, prefill_ms=1e3 * prefill, prefill_ms_runs=[1e3 * x for x in prefills],
+        per_step_ms=1e3 * per_step, per_step_ms_direct=1e3 * per_step_direct,
+        per_step_ms_direct_runs=[1e3 * x for x in step_runs], decode_tokens_per_s=tok_s,
+        hbm_utilization=2.0 * n_params * tok_s / HBM_BYTES_PER_S,
+        step_bound_ms=bound_ms, step_bound_by="bytes (every bf16 weight but tok_emb, once a step)",
+        step_roofline_share=bound_ms / (1e3 * per_step),
+        profile={"window": f"{n_steps} decode steps at batch 1 after a {DECODE_PROMPT}-token prefill",
+                 "wall_ms_per_step": wall_ms / n_steps,
+                 "device_busy_ms_per_step": busy_ms / n_steps if kernels else "not measured",
+                 "device_idle_share": (1 - busy_ms / wall_ms) if kernels else "not measured",
+                 "device_ops_per_step": device_ops / n_steps,
+                 "top": [{"kernel": k[:80], "device_ms_per_step": ms / n_steps, "launches": c}
+                         for ms, k, c in kernels[:10]]},
+        greedy_tokens=toks36[0].tolist(),
+        greedy_runs_equal=bool(torch.equal(first36, toks36) and torch.equal(first4, toks4)),
+        top_k_1_equals_greedy=tie is None, top_k_1_tie=tie,
+        sampled_duplicate_rows_equal_in_batch=duplicate_rows_equal,
+        sampled_row_alone_against_batch=alone_rows,
+    )
+    check(n_params == MISTRAL_7B_PARAMS, f"Mistral-7B shape: {n_params} parameters")
+    check(toks36.shape == (1, 36) and bool(((toks36 >= 0) & (toks36 < cfg.vocab_size)).all()),
+          "greedy tokens: shape and range")
+    check(torch.equal(first36, toks36) and torch.equal(first4, toks4), "two greedy runs differ")
+    check(tie is None or tie["tied_at_the_max"],
+          f"top_k=1 sampling left greedy decode without a tie of the top logits: {tie}")
+    check(duplicate_rows_equal, "two rows of one prompt and one seed sampled apart in a batch")
+    check(all(row["steps_equal"] == SAMPLE_TOKENS or row["logits_differ_at_divergence"]
+              for row in alone_rows),
+          f"a sampled row left the batch's tokens with the same logits: {alone_rows}")
+    check(per_step > 0 and per_step_direct > 0 and prefill > 0,
+          f"decode timing: step {per_step} / {per_step_direct}, prefill {prefill}")
+    return chat
+
+
+def phase_chat_engine(card: Card, chat) -> dict:
+    """Eight prompts through ``PipelineChat("mistral-7b", max_new_tokens=32)`` in
+    ``pw.run``, with the decode phase's weights. Every prompt must be answered, and each
+    reply must be the tokenizer's decode of a direct ``greedy_generate`` on the same
+    left-padded batch (the chunk the UDF was handed)."""
+    prompts = [prompt_chat_single_qa(doc_text(i)) if i % 2 else doc_text(i)
+               for i in range(CHAT_PROMPTS)]
+    chunks, generate = [], chat._fn
+
+    def recorded(batch):
+        chunks.append(list(batch))
+        return generate(batch)
+
+    chat._fn = recorded
+    replies, done = {}, threading.Event()
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            for i, p in enumerate(prompts):
+                self.next(prompt_id=i, prompt=p)
+
+    rows = pw.io.python.read(Feed(), schema=pw.schema_from_types(prompt_id=int, prompt=str),
+                             autocommit_duration_ms=100)
+    answered = rows.select(prompt_id=pw.this.prompt_id, reply=chat(pw.this.prompt))
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            replies[row["prompt_id"]] = row["reply"]
+            if len(replies) == CHAT_PROMPTS:
+                done.set()
+
+    pw.io.subscribe(answered, on_change=on_change)
+    device_pipeline.PIPELINE.configure()
+    t0 = time.perf_counter()
+    try:
+        pw.run()
+    finally:
+        chat._fn = generate
+    run_s = time.perf_counter() - t0
+    direct = {}
+    for batch in chunks:
+        ids, mask, _texts = chat.encode_prompts(batch)
+        toks = greedy_generate(chat.decoder, ids, CHAT_NEW_TOKENS, eos_id=EOS_ID, prompt_mask=mask)
+        direct.update(zip(batch, (chat.tokenizer.decode(list(r)) for r in toks.cpu().numpy())))
+    equal = [replies.get(i) == direct.get(p) for i, p in enumerate(prompts)]
+    card.emit("chat_engine", model="Mistral-7B shape (the decode phase's weights)",
+              prompts=CHAT_PROMPTS, max_new_tokens=CHAT_NEW_TOKENS, answered=len(replies),
+              chunks=[len(c) for c in chunks], run_s=run_s,
+              generated_tokens_per_s=CHAT_PROMPTS * CHAT_NEW_TOKENS / run_s,
+              replies_equal_direct_greedy=equal,
+              reply_words=[len(replies.get(i, "").split()) for i in range(CHAT_PROMPTS)])
+    check(len(replies) == CHAT_PROMPTS, f"chat: {len(replies)} of {CHAT_PROMPTS} prompts answered")
+    check(all(equal), f"chat replies differ from the direct greedy decode: {equal}")
+    return {"replies": len(replies)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1382,10 +1973,19 @@ def main() -> int:
     serving = phase_main_path(card)
     engine, parity = phase_engine_pipeline(card, serving["docs_per_s"])
     train = phase_train(card)
+    image_embedder = ImageEmbedder("vit-b16", max_batch_size=IMAGE_BATCH, seed=SEED)
+    vision = phase_vision_parity(card, image_embedder)
+    multimodal = phase_multimodal_pipeline(card, image_embedder)
+    del image_embedder
+    rerank = phase_rerank(card)
+    chat = phase_decode(card)
+    phase_chat_engine(card, chat)
+    del chat
     fwd["launches"] = serving["launches"]
     fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
                                "engine_async_parity": parity,
-                               "train": train[fwd["name"]]}
+                               "train": train[fwd["name"]], "vision": vision,
+                               "multimodal": multimodal, "rerank": rerank}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}

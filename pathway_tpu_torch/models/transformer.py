@@ -260,6 +260,38 @@ def embed(
     return pool(encoder_forward(model, token_ids, mask, attn_fn), mask, model.cfg)
 
 
+class CrossEncoder(Encoder):
+    """The reranker's cross-encoder: an ``Encoder`` with a relevance head, ``head_w``
+    ``[hidden, 1]`` and ``head_b`` ``[1]``, both f32 (the JAX head takes them
+    uncast). Seeded init draws ``head_w`` as the matrices, N(0, 0.02)."""
+
+    def __init__(
+        self,
+        cfg: EncoderConfig,
+        *,
+        device: "str | torch.device | None" = None,
+        seed: int | None = 0,
+    ) -> None:
+        super().__init__(cfg, device=device, seed=None)
+        self.head_w = _param((cfg.hidden, 1), torch.float32, self.device, False)
+        self.head_b = _param((1,), torch.float32, self.device, False, 0.0)
+        if seed is not None:
+            self.init_weights(seed)
+
+
+@torch.inference_mode()
+def cross_encode(
+    model: CrossEncoder,
+    token_ids: torch.Tensor,  # [b, t]: [CLS] doc [SEP] query [SEP] pairs
+    mask: torch.Tensor | None,
+    attn_fn: AttnFn | None = None,
+) -> torch.Tensor:
+    """Relevance score per pair ``[b]`` f32 (the pre-sigmoid logit): the f32 CLS state
+    through the head."""
+    cls = encoder_forward(model, token_ids, mask, attn_fn)[:, 0].float()
+    return (cls @ model.head_w + model.head_b)[:, 0]
+
+
 def params_from_jax(tree: Any) -> dict[str, torch.Tensor]:
     """The JAX package's encoder param pytree (nested dicts and lists, leaves as
     numpy arrays) -> a ``state_dict`` for ``Encoder``, leaf by leaf: ``{"layers":

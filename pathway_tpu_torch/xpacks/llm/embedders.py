@@ -1,4 +1,5 @@
-"""Local sentence embedder on the card, a UDF of the engine.
+"""Local embedders on the card, UDFs of the engine: sentences (``EncoderEmbedder``)
+and images (``ImageEmbedder``, the vision leg of multimodal RAG).
 
 Counterpart of ``TpuEncoderEmbedder`` in ``pathway_tpu/xpacks/llm/embedders.py``: the
 same presets, checkpoint-directory loading, ``max_len``, ``max_batch_size`` chunking (by
@@ -11,11 +12,18 @@ card, and a host reader gets their host twin. The device pipeline's adaptive con
 narrows the chunks below ``max_batch_size`` (the executor's sizer). ``embed_batch``
 returns the tensor to direct callers. The UDF result caches (``cache_strategy``) are not
 ported yet (ROADMAP queue 1 item 11).
+
+``ImageEmbedder`` is the counterpart of ``TpuImageEmbedder``: image bytes are decoded
+and resized on the host, sent to the card as uint8 ``[b, 224, 224, 3]`` (a quarter of
+f32 pixels' bytes), normalised there (``normalize_u8``, where the JAX package fuses it
+into the jitted forward) and embedded by the ViT of ``models/vision.py``, the batch
+padded to a power of two of at least 8.
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import os
 from typing import Any, Sequence
 
@@ -35,11 +43,20 @@ from pathway_tpu_torch.models.transformer import (
     embed,
     minilm_l6,
 )
+from pathway_tpu_torch.models.vision import (
+    VisionEncoder,
+    clip_vit_b16,
+    normalize_u8,
+    preprocess_image_u8,
+    vision_forward,
+    vit_tiny,
+)
 from pathway_tpu_torch.xpacks.llm._tokenizer import (
     HashTokenizer,
     Tokenizer,
     pad_to_buckets,
 )
+from pathway_tpu_torch.xpacks.llm.llms import _checkpoint_digest
 
 _ENCODER_PRESETS = {
     "all-MiniLM-L6-v2": "minilm_l6",
@@ -49,6 +66,18 @@ _ENCODER_PRESETS = {
     "BAAI/bge-small-en-v1.5": "bge_small",
 }
 _CONFIGS = {"minilm_l6": minilm_l6, "bge_base": bge_base, "bge_small": bge_small}
+
+
+_VISION_PRESETS = {
+    "vit-b16": "clip_vit_b16",
+    "clip-vit-b16": "clip_vit_b16",
+    "openai/clip-vit-base-patch16": "clip_vit_b16",
+    "vit-tiny": "vit_tiny",
+}
+_VISION_CONFIGS = {"clip_vit_b16": clip_vit_b16, "vit_tiny": vit_tiny}
+_NO_CACHES = (
+    "UDF result caches (cache_strategy) are not ported yet (ROADMAP queue 1 item 11)"
+)
 
 
 def _resolve_device_resident(device_resident: "bool | None") -> bool:
@@ -62,6 +91,16 @@ def _resolve_device_resident(device_resident: "bool | None") -> bool:
         "yes",
         "on",
     )
+
+
+def _rows_from_device(vecs: torch.Tensor, device_resident: bool) -> list:
+    """A batch of embeddings ``[n, dim]`` -> one row cell each: lazy device rows, all
+    of one batch, whose host copy starts at once; or, with ``device_resident`` off, f32
+    host arrays."""
+    if device_resident:
+        return lazy_rows(vecs, vecs.shape[0])
+    host = vecs.detach().float().cpu().numpy()
+    return [host[i] for i in range(host.shape[0])]
 
 
 def _weights_tag(path: str) -> str:
@@ -98,10 +137,7 @@ class EncoderEmbedder(UDF):
         device_resident: bool | None = None,
     ) -> None:
         if cache_strategy is not None:
-            raise NotImplementedError(
-                "UDF result caches (cache_strategy) are not ported yet "
-                "(ROADMAP queue 1 item 11)"
-            )
+            raise NotImplementedError(_NO_CACHES)
         self.device = resolve_device(device)
         self.device_resident = _resolve_device_resident(device_resident)
         weights_tag = None
@@ -163,14 +199,8 @@ class EncoderEmbedder(UDF):
         )
 
     def _embed_rows(self, texts: list) -> list:
-        """The UDF's body: one executor chunk of texts -> one lazy device row per
-        text, all of one batch, whose host copy starts at once; or, with
-        ``device_resident`` off, one f32 host array per text."""
-        vecs = self.embed_batch(texts)
-        if self.device_resident:
-            return lazy_rows(vecs, len(texts))
-        host = vecs.detach().float().cpu().numpy()
-        return [host[i] for i in range(len(texts))]
+        """The UDF's body: one executor chunk of texts -> one row per text."""
+        return _rows_from_device(self.embed_batch(texts), self.device_resident)
 
     def get_embedding_dimension(self) -> int:
         return self.config.hidden
@@ -203,3 +233,92 @@ class EncoderEmbedder(UDF):
 
 class SentenceTransformerEmbedder(EncoderEmbedder):
     """The name the reference's embedder goes by."""
+
+
+class ImageEmbedder(UDF):
+    """Image bytes (or PIL images) -> L2-normalised vectors on the card, by the ViT of
+    ``models/vision.py``.
+
+    ``model`` is a preset name (``"vit-b16"``, the CLIP ViT-B/16 image tower, or
+    ``"vit-tiny"``). Weights are seeded random unless ``params`` (a ``VisionEncoder``
+    state_dict, e.g. from ``params_from_jax``) is given: a random ViT still maps
+    nearby images to nearby vectors, so retrieval pipelines keep their true shape."""
+
+    def __init__(
+        self,
+        model: str = "vit-b16",
+        *,
+        params: dict[str, torch.Tensor] | None = None,
+        seed: int = 0,
+        max_batch_size: int = 64,
+        cache_strategy: Any = None,
+        device_resident: bool | None = None,
+        device: "str | torch.device | None" = None,
+    ) -> None:
+        if cache_strategy is not None:
+            raise NotImplementedError(_NO_CACHES)
+        preset = _VISION_PRESETS.get(model, model)
+        cfg_fn = _VISION_CONFIGS.get(preset)
+        if cfg_fn is None:
+            raise ValueError(
+                f"unknown vision preset {model!r}; known: {sorted(_VISION_PRESETS)}"
+            )
+        self.config = cfg_fn()
+        self.device = resolve_device(device)
+        self.device_resident = _resolve_device_resident(device_resident)
+        self.encoder = VisionEncoder(
+            self.config, device=self.device, seed=None if params is not None else seed
+        )
+        if params is not None:
+            self.encoder.load_state_dict(params)
+            # the namespace names the weights, so two checkpoints never share one
+            weights_part = f"ckpt{_checkpoint_digest(params, None)}"
+        else:
+            weights_part = f"seed{seed}"
+        super().__init__(
+            self._embed_blobs,
+            executor=batch_executor(
+                max_batch_size=max_batch_size, sizer=device_pipeline.suggested_batch_size
+            ),
+            deterministic=True,
+            cache_name=f"ImageEmbedder:{preset}:{weights_part}",
+        )
+
+    def _embed_blobs(self, blobs: list) -> list:
+        """The UDF's body: one executor chunk of images -> one row per image."""
+        from PIL import Image
+
+        pixels = np.stack([
+            preprocess_image_u8(
+                Image.open(io.BytesIO(b)) if isinstance(b, (bytes, bytearray)) else b,
+                self.config,
+            )
+            for b in blobs
+        ])
+        return self.embed_pixels(pixels)
+
+    def embed_pixels(self, pixels: np.ndarray) -> list:
+        """``[b, H, W, 3]`` uint8 pixels -> one row per image: lazy device rows, or host
+        arrays with ``device_resident`` off."""
+        return _rows_from_device(self.forward_u8(pixels), self.device_resident)
+
+    def forward_u8(self, pixels: np.ndarray) -> torch.Tensor:
+        """``[b, H, W, 3]`` uint8 pixels -> embeddings ``[b, out_dim]`` f32 on the
+        device: the batch padded to a power of two of at least 8, uploaded as uint8,
+        normalised and embedded on the card."""
+        real = pixels.shape[0]
+        b = 8
+        while b < real:
+            b *= 2
+        if b != real:
+            pad = np.zeros((b - real,) + pixels.shape[1:], pixels.dtype)
+            pixels = np.concatenate([pixels, pad])
+        dev = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
+        return vision_forward(self.encoder, normalize_u8(dev))[:real]
+
+    def embed_images(self, images: list) -> np.ndarray:
+        """PIL images -> ``[n, out_dim]`` f32 host array, for direct callers."""
+        return np.stack([np.asarray(v, np.float32) for v in self._fn(list(images))])
+
+    def get_embedding_dimension(self) -> int:
+        return self.config.out_dim

@@ -106,6 +106,47 @@ def test_kernel_matches_plain_version(cuda, shape, dtype, pattern):
     assert (o2.float() - r2.float()).abs().max().item() <= tol
 
 
+def test_kernel_matches_plain_version_at_the_vit_shape_with_no_mask(cuda):
+    """The vision path's call: t = 197 (not a multiple of the tile), head dim 64, no
+    key bias, so the last key tile's tail is read with nothing to mask it."""
+    b, t, h, d = 8, 197, 12, 64
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _qkv(b, t, h, d, seed=21))
+    before = tfa.KERNEL.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, None)
+    torch.cuda.synchronize()
+    assert tfa.KERNEL.launches == before + 1
+    ro, rlse = tfa.flash_attention_fwd_reference(q, k, v, None)
+    assert (o.float() - ro.float()).abs().max().item() <= 2e-2
+    assert ((lse - rlse).abs() / rlse.abs().clamp(min=1)).max().item() <= 1e-4
+
+
+def test_vision_tower_on_card_matches_cpu(cuda):
+    from pathway_tpu_torch.models import VisionConfig, VisionEncoder, vision_forward, vit_tiny
+
+    cfg = VisionConfig(**{**vit_tiny().__dict__, "dtype": torch.float32})
+    cpu = VisionEncoder(cfg, device="cpu", seed=5)
+    gpu = VisionEncoder(cfg, device=cuda, seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    pixels = torch.from_numpy(np.random.default_rng(4).normal(size=(6, 32, 32, 3)).astype(np.float32))
+    before = tfa.KERNEL.launches
+    ours = vision_forward(gpu, pixels.to(cuda)).cpu()
+    assert tfa.KERNEL.launches == before + cfg.layers
+    assert (ours - vision_forward(cpu, pixels)).abs().max().item() < 1e-4
+
+
+def test_tiny_decoder_greedy_tokens_repeat_on_the_card(cuda):
+    from pathway_tpu_torch.models import Decoder, greedy_generate, tiny_decoder
+
+    model = Decoder(tiny_decoder(), device=cuda, seed=2)
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.integers(4, 512, (3, 9))).to(cuda)
+    mask = torch.ones((3, 9), dtype=torch.bool, device=cuda)
+    mask[1, :4] = False
+    first = greedy_generate(model, ids, 16, eos_id=2, prompt_mask=mask)
+    second = greedy_generate(model, ids, 16, eos_id=2, prompt_mask=mask)
+    assert first.shape == (3, 16) and torch.equal(first, second)
+
+
 def test_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 2, 24), device=cuda)
     with pytest.raises(ValueError):

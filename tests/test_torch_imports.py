@@ -29,6 +29,10 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.models.transformer",
         "pathway_tpu_torch.models.hf_import",
         "pathway_tpu_torch.models.train",
+        "pathway_tpu_torch.models.vision",
+        "pathway_tpu_torch.models.decoder",
+        "pathway_tpu_torch.xpacks.llm.rerankers",
+        "pathway_tpu_torch.xpacks.llm.llms",
         "pathway_tpu_torch.engine.external_index",
         "pathway_tpu_torch.xpacks.llm.embedders",
         "pathway_tpu_torch.xpacks.llm._tokenizer",
@@ -147,7 +151,13 @@ def test_default_device_raises_where_there_is_no_card():
     from pathway_tpu_torch.models import Encoder, minilm_l6
     from pathway_tpu_torch.ops.knn import knn_init
     from pathway_tpu_torch.stdlib.indexing import DeviceKnnFactory
-    from pathway_tpu_torch.xpacks.llm import EncoderEmbedder
+    from pathway_tpu_torch.models import Decoder, VisionEncoder, tiny_decoder, vit_tiny
+    from pathway_tpu_torch.xpacks.llm import (
+        CrossEncoderReranker,
+        EncoderEmbedder,
+        ImageEmbedder,
+        PipelineChat,
+    )
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -156,6 +166,11 @@ def test_default_device_raises_where_there_is_no_card():
         lambda: knn_init(8, 4),
         lambda: DeviceKnnFactory(dimensions=4).build(),
         lambda: EncoderEmbedder(),
+        lambda: VisionEncoder(vit_tiny()),
+        lambda: Decoder(tiny_decoder()),
+        lambda: ImageEmbedder("vit-tiny"),
+        lambda: CrossEncoderReranker(),
+        lambda: PipelineChat("tiny"),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
