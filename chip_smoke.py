@@ -34,7 +34,29 @@ limit):
    and backward less its forward; timed here only, as a yardstick).
 5. checkpoint: the committed ``tests/fixtures/tiny_bert`` checkpoint through the port's
    importer and the kernel in f32 reproduces its golden embeddings.
-6. main_path: MiniLM-L6 at full width (seeded weights) embeds 20,000 generated docs in
+6. relational: ``bench_dataflow.py``'s workloads at its own sizes through the port's
+   Scope and Scheduler (groupby_sum: 1M rows by ``i % 1024``, sum and count;
+   wordcount: 1M rows over 4,096 string keys; join_inner and join_multikey: 500,000 x
+   50,000 rows on one and two int keys; incremental_update: after the 1M-row load, 100
+   commits of 1,000 retractions and 1,000 inserts), each once on the host kernels
+   (``PATHWAY_TPU_DEVICE_OPS=0``, the spec) and once on the card after a warm-up:
+   rows/s each way, the operators' calls and ns, the routes the batches took, the
+   segment kernel's launches in the timed card run and peak device memory. The card's output state must be
+   the host's bit for bit (keys equal, floats through their int64 views), and every
+   batch must take the device route. A profiler window over one 1M-row device groupby
+   commit; the ordered segment kernel alone on float64 sums at [1M rows, 1,024 | 8 |
+   1M groups] and on int64 diffs at [1M, 1,024 | 4,096] against its plain version (bit
+   for bit), ``np.bincount`` or ``np.add.at``, ``index_add_`` (timed only) and its byte
+   bound, with the whole dispatch (upload, sort, kernel, fetch) timed apart; the device matcher at the join_inner shape against the host matcher.
+7. relational_engine: one ``pw.run`` program through the Table API at
+   ``device_ops_leg``'s size: 200,000 rows through ``pw.io.python`` into
+   ``groupby(k).reduce(k, s=sum(v), c=count())``, ``join_left`` with a 1,024-row table
+   from ``pw.debug.table_from_rows``, ``filter``, ``concat_reindex`` with a second
+   stream of 50,000 rows joined inner to the same table, ``pw.io.subscribe``; the
+   subscriber's state must equal NumPy's answer, the groupby's commits and the inner
+   join's batches must take the device route (the left join takes its row path, as in
+   the JAX package).
+8. main_path: MiniLM-L6 at full width (seeded weights) embeds 20,000 generated docs in
    256-doc commits into a 1,048,576-slot f32 index on the card, 980,000 seeded unit
    vectors are bulk-added so 1,000,000 rows are live, and 64 queries are embedded and
    searched one per commit. Reports docs/s, query p50/p95, peak memory and the kernels'
@@ -44,7 +66,7 @@ limit):
    the kernel against the plain attention (cosine, beside the readings of two broken
    attentions), and profiler windows over a few more ingest commits and queries:
    device time by kernel and the device's idle share.
-7. engine_pipeline: ``bench.py::pipeline_leg``'s program through the port's engine:
+9. engine_pipeline: ``bench.py::pipeline_leg``'s program through the port's engine:
    20,000 docs through ``pw.io.python`` (100 ms autocommit), the embedder UDF (lazy
    device rows, 256-doc chunks) and ``DataIndex`` into a 1,048,576-slot index, 64
    as-of-now queries once every doc has reached the doc subscriber, two subscribe
@@ -67,7 +89,7 @@ limit):
    probe on, beside the device-path loop over the same docs (wall and device-busy ms,
    idle share, per-node batches, insertions, deletions and time, and the engine's own
    host time per 256 docs: in-commit wall less the batch-apply node's time).
-8. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
+10. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
    steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
    curve (which must fall and stay finite) and each kernel's launches (which must be
@@ -78,7 +100,7 @@ limit):
    the kernels against the plain forward and backward through the same
    ``autograd.Function``, and the same reading with a deliberately broken backward
    (delta left out), which must fall below the bar.
-9. vision_parity: one 64-image batch of 224-px pixels through ``ImageEmbedder``'s
+11. vision_parity: one 64-image batch of 224-px pixels through ``ImageEmbedder``'s
    CLIP ViT-B/16 tower (seeded, full width) with the kernel (12 launches) and with the
    plain attention, the embeddings within the bf16 bar; ``normalize_u8`` on the card
    against the host's ``preprocess_image`` within 1e-6; the forward's time against
@@ -88,20 +110,21 @@ limit):
    answer must be the top-1 of an exact f32 host search over the embeddings the
    subscriber received; a second, profiled run gives the device's idle share inside
    commits.
-10. rerank: ``bench.py::reranker_leg``, the MiniLM-L6 cross-encoder reranker over 256
+12. rerank: ``bench.py::reranker_leg``, the MiniLM-L6 cross-encoder reranker over 256
    pairs in a 3 s loop: pairs/s, launches per call (6), a profiler window; one batch's
    scores with the kernel against the plain attention; one ``pw.run`` of the same pairs
    as a two-column UDF, whose scores must be the direct call's on the same chunks.
-11. decode: ``bench.py::decode_leg``, the Mistral-7B shape with seeded bf16 weights
+13. decode: ``bench.py::decode_leg``, the Mistral-7B shape with seeded bf16 weights
    (after the earlier phases' index and models are freed): greedy decode of a
    128-token prompt of ones, prefill ms, per-step ms, tokens/s, HBM utilisation
    against the 4.24 ms byte bound of a step, peak memory, a profiler window over decode
    steps; checks: two greedy runs agree, ``top_k=1`` sampling gives the greedy tokens
    (up to a tie of the top logits), sampled rows are independent of the batch.
-12. chat_engine: eight prompts through ``PipelineChat("mistral-7b")`` in ``pw.run`` with
+14. chat_engine: eight prompts through ``PipelineChat("mistral-7b")`` in ``pw.run`` with
    the decode phase's weights; every reply must be the tokenizer's decode of a direct
    ``greedy_generate`` on the same left-padded batch.
-13. The kernels line, the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+15. The kernels line (the three flash kernels and ``segment_reduce``), the ``nvidia-smi``
+   line, and last ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -126,9 +149,13 @@ import torch
 import pathway_tpu_torch as pw
 from pathway_tpu_torch import _build
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
-from pathway_tpu_torch.engine import device_pipeline
+from pathway_tpu_torch.engine import device as hd
+from pathway_tpu_torch.engine import device_ops, device_pipeline
+from pathway_tpu_torch.engine.batch import Columns
 from pathway_tpu_torch.engine.device import TRANSFERS, device_batches_held, lazy_rows
-from pathway_tpu_torch.engine.graph import Scheduler
+from pathway_tpu_torch.engine.graph import Scheduler, Scope, _match_join_pairs
+from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
+from pathway_tpu_torch.internals.runner import GraphRunner
 from pathway_tpu_torch.models import (
     ContrastiveBatch,
     Encoder,
@@ -148,6 +175,7 @@ from pathway_tpu_torch.models import (
     vision_forward,
 )
 from pathway_tpu_torch.ops import flash_attention as fa
+from pathway_tpu_torch.ops import segment_reduce as sr
 from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory
 from pathway_tpu_torch.xpacks.llm import (
     CrossEncoderReranker,
@@ -1958,6 +1986,409 @@ def phase_chat_engine(card: Card, chat) -> dict:
     return {"replies": len(replies)}
 
 
+# -- the relational operators -----------------------------------------------------------
+
+N_REL = 1_000_000  # bench_dataflow.py's N
+N_RIGHT = 50_000  # its join_inner / join_multikey right side
+N_ENGINE = 200_000  # its device_ops_leg's size
+ENGINE_CHUNK = 25_000  # rows between the connector's pauses in relational_engine
+N_DIM = 1024
+INC_COMMITS, INC_DELTA = 100, 1000  # its incremental_update
+# the segment kernel alone: [rows, groups, weights]; the float64 sums at groupby_sum's
+# shape and at the two ends, the int64 diff counts at groupby_sum's and wordcount's
+SEGMENT_CASES = (
+    (N_REL, 1024, "float64"), (N_REL, 8, "float64"), (N_REL, N_REL, "float64"),
+    (N_REL, 1024, "int64"), (N_REL, 4096, "int64"),
+)
+
+
+def _relational_rows() -> dict:
+    """bench_dataflow.py's rows, keyed as it keys them (the port's ``ref_scalar``)."""
+    keys = [pw.ref_scalar(i) for i in range(N_REL)]
+    lkeys = [pw.ref_scalar(("l", i)) for i in range(N_REL // 2)]
+    rkeys = [pw.ref_scalar(("r", i)) for i in range(N_RIGHT)]
+    return {
+        "groupby": [(k, (i % 1024, float(i))) for i, k in enumerate(keys)],
+        "words": [(k, (f"w{i % 4096}",)) for i, k in enumerate(keys)],
+        "join_l": [(k, (i % N_RIGHT, float(i))) for i, k in enumerate(lkeys)],
+        "join_r": [(k, (i, f"name{i}")) for i, k in enumerate(rkeys)],
+        "multi_l": [(k, (i % 250, (i // 250) % 200, float(i))) for i, k in enumerate(lkeys)],
+        "multi_r": [(k, (i % 250, i // 250, f"name{i}")) for i, k in enumerate(rkeys)],
+    }
+
+
+def _final_state(node) -> tuple:
+    """A node's output state for a bit-for-bit comparison: its columnar output
+    batches stacked and sorted by key bytes (float columns as int64 bits), or its row
+    state with floats as their bits where the output is not columnar."""
+    lag = node._state_lag
+    if not node._state and lag and all(b.columns is not None and b.columns.diffs is None for b in lag):
+        cols = Columns.concat([b.columns for b in lag]) if len(lag) > 1 else lag[0].columns
+        if cols is not None:
+            kb = np.ascontiguousarray(cols.kbytes())
+            order = np.lexsort(kb.T[::-1])
+            arrays = [c[order].view(np.int64) if c.dtype == np.float64 else c[order] for c in cols.cols]
+            return "columns", kb[order], arrays
+    bits = lambda v: np.float64(v).view(np.int64).item() if isinstance(v, float) else v  # noqa: E731
+    return "rows", {int(k): tuple(map(bits, row)) for k, row in node.current.items()}
+
+
+def _same_state(a: tuple, b: tuple) -> bool:
+    if a[0] != b[0]:
+        return False
+    if a[0] == "rows":
+        return a[1] == b[1]
+    return np.array_equal(a[1], b[1]) and len(a[2]) == len(b[2]) and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a[2], b[2])
+    )
+
+
+def _groupby_prepared(rows, reducers, n_in):
+    """A groupby over an input session holding ``rows``, before its commit."""
+    scope = Scope()
+    sess = scope.input_session(n_in)
+    node = scope.group_by_table(sess, by_cols=[0], reducers=reducers)
+    sched = Scheduler(scope)
+    for key, row in rows:
+        sess.insert(key, row)
+    return sched, node
+
+
+def _groupby_once(rows, reducers, n_in):
+    sched, node = _groupby_prepared(rows, reducers, n_in)
+    t0 = time.perf_counter()
+    sched.commit()
+    return time.perf_counter() - t0, node
+
+
+def _sum_count():
+    return [(make_reducer(ReducerKind.SUM), [1]), (make_reducer(ReducerKind.COUNT), [])]
+
+
+def _workload(name: str, rows: dict):
+    """-> (rows the timed part moves, run() -> (seconds, output node))."""
+    if name == "groupby_sum":
+        return N_REL, lambda: _groupby_once(rows["groupby"], _sum_count(), 2)
+    if name == "wordcount":
+        return N_REL, lambda: _groupby_once(rows["words"], [(make_reducer(ReducerKind.COUNT), [])], 1)
+    if name in ("join_inner", "join_multikey"):
+        side = "join" if name == "join_inner" else "multi"
+        nk = 1 if name == "join_inner" else 2
+
+        def run():
+            scope = Scope()
+            left, right = scope.input_session(nk + 1), scope.input_session(nk + 1)
+            node = scope.join_tables(left, right, list(range(nk)), list(range(nk)), kind="inner")
+            sched = Scheduler(scope)
+            for key, row in rows[f"{side}_l"]:
+                left.insert(key, row)
+            for key, row in rows[f"{side}_r"]:
+                right.insert(key, row)
+            t0 = time.perf_counter()
+            sched.commit()
+            return time.perf_counter() - t0, node
+
+        return N_REL // 2 + N_RIGHT, run
+    if name == "incremental_update":
+
+        def run():
+            scope = Scope()
+            sess = scope.input_session(2)
+            node = scope.group_by_table(sess, by_cols=[0], reducers=[(make_reducer(ReducerKind.SUM), [1])])
+            sched = Scheduler(scope)
+            data = rows["groupby"]
+            for key, row in data:
+                sess.insert(key, row)
+            sched.commit()
+            t = 0.0
+            for c in range(INC_COMMITS):
+                base = (c * INC_DELTA) % (N_REL - INC_DELTA)
+                for i in range(base, base + INC_DELTA):
+                    key, row = data[i]
+                    sess.remove(key, row)
+                    sess.insert(key, (row[0], row[1] + 1.0))
+                t0 = time.perf_counter()
+                sched.commit()
+                t += time.perf_counter() - t0
+            return t, node
+
+        return INC_COMMITS * 2 * INC_DELTA, run
+    raise KeyError(name)
+
+
+def _with_device_ops(flag: str, fn):
+    prev = os.environ.get("PATHWAY_TPU_DEVICE_OPS")
+    os.environ["PATHWAY_TPU_DEVICE_OPS"] = flag
+    try:
+        return fn()
+    finally:
+        if prev is None:
+            os.environ.pop("PATHWAY_TPU_DEVICE_OPS")
+        else:
+            os.environ["PATHWAY_TPU_DEVICE_OPS"] = prev
+
+
+def _segment_bound_ms(n: int, groups: int) -> float:
+    """The byte bound of ``ordered_segment_sum`` (the time it is held against leaves
+    out the sort): the order and the weights read once (8 bytes a row each), the
+    ``groups + 1`` offsets read once and the sums written once (8 bytes a group each)."""
+    return (16 * n + 16 * groups + 8) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_relational(card: Card) -> dict:
+    """bench_dataflow.py's workloads through the port's Scope and Scheduler, once on
+    the host kernels (``PATHWAY_TPU_DEVICE_OPS=0``, the spec) and once on the card
+    after a warm-up; the card's output state must be the host's bit for bit, and every
+    batch must have taken the device route. Then the ordered segment kernel alone
+    against its plain version and ``index_add_``, the whole dispatch, and the matcher
+    alone against the host matcher."""
+    device_ops.configure()
+    t0 = time.perf_counter()
+    rows = _relational_rows()
+    card.emit("relational_rows", seconds=time.perf_counter() - t0, rows=N_REL)
+    launches = 0  # the timed card runs' launches only, not the warm-ups'
+    for name in ("groupby_sum", "wordcount", "join_inner", "join_multikey", "incremental_update"):
+        n, run = _workload(name, rows)
+        host_s, host_node = _with_device_ops("0", run)
+        host_state = _final_state(host_node)
+        check(host_node.routes["device"] == 0, f"{name}: host run took the card")
+        del host_node
+        _with_device_ops("1", run)  # warm-up
+        device_ops.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sr.KERNEL.launches = 0
+        dev_s, dev_node = _with_device_ops("1", run)
+        run_launches = sr.KERNEL.launches
+        launches += run_launches
+        peak = torch.cuda.max_memory_allocated()
+        stats = device_ops.stats()
+        routes = dict(dev_node.routes)
+        same = _same_state(host_state, _final_state(dev_node))
+        card.emit("relational", workload=name, rows=n, host_rows_per_s=n / host_s,
+                  device_rows_per_s=n / dev_s, host_s=host_s, device_s=dev_s, routes=routes,
+                  segment_launches=run_launches, hit_counts=stats["hit_counts"],
+                  kernel_ns=stats["kernel_ns"], peak_device_mib=peak / 2**20,
+                  bit_identical=same)
+        check(same, f"{name}: the card's output state differs from the host spec")
+        check(routes["device"] > 0 and routes["host"] == 0 and routes["rows"] == 0,
+              f"{name}: routes {routes}")
+        if name not in ("join_inner", "join_multikey"):
+            check(run_launches > 0, f"{name}: no segment kernel launch")
+        del dev_node
+    check(launches > 0, "the relational path launched no segment kernel")
+
+    profile_groupby(card, rows)
+    del rows
+    gc.collect()
+    kernel = segment_kernel_parity_and_time(card)
+    matcher_alone(card)
+    return {**kernel, "launches": launches}
+
+
+def profile_groupby(card: Card, rows: dict) -> None:
+    """One device groupby_sum commit of 1M rows under the profiler: where the time
+    goes between the host, the upload, the sort and the kernel."""
+    sched, _node = _groupby_prepared(rows["groupby"], _sum_count(), 2)
+    wall_ms, kernels, _ops = _profiled(lambda: _with_device_ops("1", sched.commit))
+    busy = sum(ms for ms, _k, _c in kernels)
+    card.emit("relational_profile", workload="groupby_sum", rows=N_REL, wall_ms=wall_ms,
+              device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+              device_ms_by_kernel=[[k, ms, c] for ms, k, c in kernels[:12]])
+
+
+def segment_kernel_parity_and_time(card: Card) -> dict:
+    gen = np.random.default_rng(SEED)
+    out: dict = {}
+    worst = 0.0
+    for n, groups, dtype in SEGMENT_CASES:
+        inverse = gen.integers(0, groups, n)
+        if dtype == "float64":
+            w = gen.standard_normal(n) * 10.0 ** gen.integers(-6, 7, n)
+            host = np.bincount(inverse, weights=w, minlength=groups)
+        else:  # diffs: the +1/-1 of a retracting commit, or wordcount's +1s
+            w = gen.choice(np.array([-1, 1], np.int64), n) if groups == 1024 else np.ones(n, np.int64)
+            host = np.zeros(groups, np.int64)
+            np.add.at(host, inverse, w)
+        inv_d = torch.from_numpy(inverse).cuda()
+        w_d = torch.from_numpy(w).cuda()
+        order, offsets = sr.segment_offsets(inv_d, groups)
+        got = sr.ordered_segment_sum(w_d, order, offsets)
+        plain = sr.ordered_segment_sum_reference(w_d, order, offsets)
+        torch.cuda.synchronize()
+        got_h = got.cpu().numpy()
+        err = float(np.abs(got_h - plain.cpu().numpy()).max())
+        bits_plain = np.array_equal(got_h.view(np.int64), plain.cpu().numpy().view(np.int64))
+        bits_host = np.array_equal(got_h.view(np.int64), host.view(np.int64))
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: sr.ordered_segment_sum(w_d, order, offsets), iters=20, warmup=2)
+        plain_iters = 1 if n // groups > 10_000 else 3
+        plain_ms = cuda_ms(lambda: sr.ordered_segment_sum_reference(w_d, order, offsets),
+                           iters=plain_iters, warmup=1 if plain_iters > 1 else 0)
+        sort_ms = cuda_ms(lambda: sr.segment_offsets(inv_d, groups), iters=20, warmup=2)
+        library_ms = cuda_ms(
+            lambda: torch.zeros(groups, dtype=w_d.dtype, device=w_d.device).index_add_(0, inv_d, w_d),
+            iters=20, warmup=2,
+        )
+        diffs = np.ones(n, np.int64)
+        device_ops.segment_reduce_dispatch(inverse, diffs, [w], groups).fetch()  # warm
+        t0 = time.perf_counter()
+        reps = 5
+        for _ in range(reps):
+            device_ops.segment_reduce_dispatch(inverse, diffs, [w], groups).fetch()
+        dispatch_ms = 1e3 * (time.perf_counter() - t0) / reps
+        t0 = time.perf_counter()
+        hd.segment_count(inverse, diffs, groups)
+        hd.segment_sum(inverse, w, diffs, groups)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        bound_ms = _segment_bound_ms(n, groups)
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "library_ms": library_ms, "roofline_share": bound_ms / ms, "sort_offsets_ms": sort_ms,
+               "dispatch_ms": dispatch_ms, "host_spec_ms": host_ms}
+        card.emit("segment_kernel", rows=n, groups=groups, dtype=dtype, max_abs_err=err,
+                  tol=0.0, bits_equal_plain=bits_plain, bits_equal_host=bits_host,
+                  host="np.bincount" if dtype == "float64" else "np.add.at",
+                  library="index_add_", **row)
+        check(bits_plain and bits_host, f"segment kernel [{n}, {groups}] {dtype}: bits differ")
+        out[f"{n}x{groups}_{dtype}"] = row
+        del inv_d, w_d, order, offsets, got, plain
+    main = out[f"{N_REL}x1024_float64"]
+    return {
+        "name": "segment_reduce",
+        "route": "cuda",
+        "source": "pathway_tpu_torch/csrc/segment_reduce.cu",
+        "replaces": "pathway_tpu/engine/device_ops.py:213",
+        "max_abs_err": worst,
+        **main,
+        "shapes": out,
+    }
+
+
+def matcher_alone(card: Card) -> None:
+    """The device pair matcher at the join_inner shape against the host matcher."""
+    la = np.arange(N_REL // 2, dtype=np.int64) % N_RIGHT
+    ra = np.arange(N_RIGHT, dtype=np.int64)
+    device_ops.match_pairs([la], [ra])  # warm
+    t0 = time.perf_counter()
+    got = device_ops.match_pairs([la], [ra])
+    dev_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref = _match_join_pairs(la, ra)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    same = np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+    card.emit("matcher", left=len(la), right=len(ra), pairs=len(ref[0]), device_ms=dev_ms,
+              host_ms=host_ms, pairs_equal=same)
+    check(same, "device matcher pairs differ from the host matcher's")
+
+
+class _KeptRunner:
+    """Keeps the GraphRunner of the next ``pw.run``, to read its nodes' routes."""
+
+    def __enter__(self):
+        self.runners = []
+        self._run = GraphRunner.run
+        kept = self.runners
+
+        def run(runner):
+            kept.append(runner)
+            return self._run(runner)
+
+        GraphRunner.run = run
+        return self
+
+    def __exit__(self, *exc):
+        GraphRunner.run = self._run
+
+
+def phase_relational_engine(card: Card) -> int:
+    """One ``pw.run`` program through the Table API at device_ops_leg's size: a python
+    connector (200,000 rows) into a groupby (sum and count), a left join with a
+    1,024-row dimension table from ``pw.debug.table_from_rows``, a filter, and a
+    concat_reindex with a second stream (50,000 rows) joined inner to the same
+    dimension table; the subscriber's final state must equal a NumPy computation of
+    the same answer, and the groupby must have reduced more than one commit on the
+    card. The values are multiples of 1/8 well inside float64's exact range,
+    so every sum is exact and the answer does not depend on how the stream splits into
+    commits."""
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def __init__(self, keys, vals) -> None:
+            super().__init__()
+            self.keys, self.vals = keys, vals
+
+        def run(self) -> None:
+            # a pause every 25,000 rows lets the 50 ms autocommit cut the stream into
+            # commits, so the groupby's later commits carry retractions
+            for i, (k, v) in enumerate(zip(self.keys, self.vals)):
+                self.next(k=k, v=v)
+                if i % ENGINE_CHUNK == ENGINE_CHUNK - 1:
+                    time.sleep(0.2)
+
+    rng = np.random.default_rng(SEED)
+    a_k = rng.integers(0, N_DIM + 64, N_ENGINE)  # 64 groups with no dimension row
+    a_v = rng.integers(-4000, 4000, N_ENGINE) * 0.125
+    b_k = rng.integers(0, N_DIM + 64, N_ENGINE // 4)
+    b_v = rng.integers(-4000, 4000, N_ENGINE // 4) * 0.125
+    min_count = int(np.median(np.bincount(a_k)))
+    schema = pw.schema_from_types(k=int, v=float)
+    a = pw.io.python.read(Feed(a_k.tolist(), a_v.tolist()), schema=schema, autocommit_duration_ms=50)
+    b = pw.io.python.read(Feed(b_k.tolist(), b_v.tolist()), schema=schema, autocommit_duration_ms=50)
+    dim = pw.debug.table_from_rows(pw.schema_from_types(k=int, name=str),
+                                   [(i, f"d{i}") for i in range(N_DIM)])
+    g = a.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v), c=pw.reducers.count())
+    j = g.join_left(dim, pw.left.k == pw.right.k).select(pw.left.k, pw.left.s, pw.left.c,
+                                                         name=pw.right.name)
+    f = j.filter(pw.this.c >= min_count)
+    bj = b.join_inner(dim, pw.left.k == pw.right.k).select(pw.left.k, s=pw.left.v, c=1,
+                                                           name=pw.right.name)
+    out = f.concat_reindex(bj)
+    state: dict = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            state[key] = (row["k"], row["s"], row["c"], row["name"])
+        else:
+            state.pop(key, None)
+
+    pw.io.subscribe(out, on_change=on_change)
+    device_ops.configure()
+    device_ops.reset_counters()
+    sr.KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _KeptRunner() as kept:
+        t0 = time.perf_counter()
+        pw.run()
+        run_s = time.perf_counter() - t0
+    launches = sr.KERNEL.launches
+    nodes = kept.runners[0].scope.nodes
+    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in nodes if hasattr(n, "routes")}
+
+    counts = np.bincount(a_k, minlength=N_DIM + 64)
+    sums = np.bincount(a_k, weights=a_v, minlength=N_DIM + 64)
+    want = [
+        (k, float(sums[k]), int(counts[k]), f"d{k}" if k < N_DIM else None)
+        for k in range(N_DIM + 64) if counts[k] >= min_count
+    ] + [(int(k), float(v), 1, f"d{k}") for k, v in zip(b_k, b_v) if k < N_DIM]
+    bits = lambda r: (r[0], np.float64(r[1]).view(np.int64).item(), r[2], r[3])  # noqa: E731
+    same = sorted(map(bits, state.values()), key=repr) == sorted(map(bits, want), key=repr)
+    card.emit("relational_engine", rows=N_ENGINE, second_stream=N_ENGINE // 4, dim_rows=N_DIM,
+              out_rows=len(state), expected_rows=len(want), rows_per_s=(N_ENGINE * 5 // 4) / run_s,
+              run_s=run_s, routes=routes, segment_launches=launches,
+              hit_counts=device_ops.hit_counts(), peak_device_mib=torch.cuda.max_memory_allocated() / 2**20,
+              equals_numpy=same)
+    check(same, "relational_engine: the subscriber's state differs from NumPy's answer")
+    groupbys = [r for name, r in routes.items() if name.startswith("GroupbyNode")]
+    joins = [r for name, r in routes.items() if name.startswith("JoinNode")]
+    check(len(groupbys) == 1 and groupbys[0]["device"] > 1 and groupbys[0]["host"] == 0
+          and groupbys[0]["rows"] == 0, f"groupby routes {groupbys}")
+    # the inner join's matcher took the card; the left join takes the row path, as it
+    # does in the JAX package (its columnar path is inner-only)
+    check(any(r["device"] > 0 for r in joins) and all(r["host"] == 0 for r in joins),
+          f"join routes {joins}")
+    check(launches > 0, "relational_engine launched no segment kernel")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1970,6 +2401,8 @@ def main() -> int:
     fwd = phase_kernel(card)
     bwd = phase_train_kernel(card)
     phase_checkpoint(card)
+    relational = phase_relational(card)
+    relational_engine = phase_relational_engine(card)
     serving = phase_main_path(card)
     engine, parity = phase_engine_pipeline(card, serving["docs_per_s"])
     train = phase_train(card)
@@ -1991,7 +2424,9 @@ def main() -> int:
         row["launches_by_path"] = {"train": train[row["name"]]}
     for row in (fwd, *bwd):
         row["tensor_core_instructions"] = sass[row["name"]]
-    print(json.dumps({"kernels": [fwd, *bwd]}), flush=True)
+    relational["launches_by_path"] = {"relational": relational["launches"],
+                                      "relational_engine": relational_engine}
+    print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

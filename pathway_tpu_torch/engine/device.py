@@ -25,7 +25,12 @@ which keeps the tensor alive for as long as the reader uses it. The completion t
 only waits on events and drops references; every copy is enqueued on the scheduler
 thread, whose stream produced the batch.
 
-The JAX package's columnar evaluator (the rest of its ``device.py``) is not ported yet.
+The rest is the columnar bridge of the JAX package's ``device.py``: a column-major
+view of a batch's rows (:class:`ColumnarView`, :class:`PayloadView`), the vectorized
+NumPy evaluator of engine expressions (:func:`eval_columnar`), and the host kernels
+behind the groupby and the join: :func:`factorize`, :func:`factorize_multi`, and the
+segment reductions :func:`segment_count` and :func:`segment_sum`, which are the spec
+that the device operators (``engine/device_ops.py``) are held to bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+
+from pathway_tpu_torch.engine import expression as ex
 
 #: device batches produced since the last commit boundary (weak: a batch no row
 #: references any more needs no decay)
@@ -282,3 +289,287 @@ def common_device_parent(vectors: Sequence[Any]) -> tuple[Any, list[int]] | None
     if len(runs) == 1 and runs[0][2] is not None:
         return runs[0][2], runs[0][3]
     return None
+
+
+# -- the columnar bridge ------------------------------------------------------
+
+#: batches smaller than this are cheaper to run through the per-row interpreter than
+#: to columnarise
+VECTOR_THRESHOLD = 256
+
+_OK_KINDS = frozenset("bifU")
+_CLEAN_TYPES = frozenset((int, float, bool, str))
+_MISSING = object()
+
+
+class ColumnarView:
+    """Lazy column-major view over a batch's rows (insertions only). Extraction is
+    per column and gives up (``None``) on a column that is not a clean homogeneous
+    numeric, bool or string sequence, so ERROR poisoning, ``None`` handling and other
+    Python values keep their row-wise semantics. ``from_entries=True`` views
+    ``(key, row, diff)`` entries directly."""
+
+    __slots__ = ("rows", "n", "_cols", "_entries")
+
+    def __init__(self, rows: Sequence[tuple], from_entries: bool = False) -> None:
+        self.rows = rows
+        self.n = len(rows)
+        self._cols: dict[int, np.ndarray | None] = {}
+        self._entries = from_entries
+
+    def column(self, index: int) -> np.ndarray | None:
+        """The column as a NumPy array, or None if not cleanly columnar (mixed types,
+        None or ERROR values, nested containers, bigints)."""
+        got = self._cols.get(index, _MISSING)
+        if got is not _MISSING:
+            return got
+        values = (
+            [e[1][index] for e in self.rows]
+            if self._entries
+            else [row[index] for row in self.rows]
+        )
+        arr = _extract(values)
+        self._cols[index] = arr
+        return arr
+
+
+def materialize_columns(view: ColumnarView, arity: int) -> list[np.ndarray]:
+    """Every column of an entry view as an array: clean dtypes where extraction
+    succeeds, an exact-object array otherwise (never None), so a row round trip
+    through ``Columns.to_entries`` is lossless."""
+    cols = []
+    rows = view.rows
+    for c in range(arity):
+        col = view.column(c)
+        if col is None:
+            col = np.empty(view.n, object)
+            col[:] = [e[1][c] for e in rows] if view._entries else [r[c] for r in rows]
+        cols.append(col)
+    return cols
+
+
+class PayloadView:
+    """ColumnarView-compatible adapter over a columnar batch payload: the columns are
+    arrays already, so extraction is a dtype screen."""
+
+    __slots__ = ("_payload", "n")
+
+    def __init__(self, payload: Any) -> None:
+        self._payload = payload
+        self.n = payload.n
+
+    def column(self, index: int) -> np.ndarray | None:
+        col = self._payload.cols[index]
+        return col if col.dtype.kind in _OK_KINDS else None
+
+
+def _extract(values: list) -> np.ndarray | None:
+    """A list of Python scalars as a homogeneous ndarray, else None."""
+    kinds = set(map(type, values))
+    if not kinds or not kinds.issubset(_CLEAN_TYPES):
+        return None
+    if len(kinds) > 1:
+        # int+float mixing would promote ints in pass-through columns; bool+int
+        # would demote: keep exact dtypes only
+        return None
+    if next(iter(kinds)) is str and any("\x00" in v for v in values):
+        return None  # NumPy's U dtype strips trailing NULs on the round trip
+    try:
+        arr = np.asarray(values)
+    except (OverflowError, ValueError):
+        return None
+    if arr.dtype == object or arr.dtype.kind not in _OK_KINDS:
+        return None
+    return arr
+
+
+class NotVectorizable(Exception):
+    """An expression (or its operand columns) cannot run column-wise; the caller
+    falls back to the row interpreter."""
+
+
+# ops where NumPy diverges from the row interpreter on edge inputs (ZeroDivisionError
+# poisoning against inf/nan, 0**-1)
+_DIVISION_OPS = frozenset(("/", "//", "%"))
+_I64_MAX = (1 << 63) - 1
+
+
+def _guard_int_overflow(op: str, a: np.ndarray, b: np.ndarray) -> None:
+    """int64 wraps in NumPy while the row interpreter computes exact Python ints:
+    reject any int op whose result could leave the int64 range (magnitude bounds in
+    exact Python ints)."""
+    if op not in ("+", "-", "*", "**", "<<"):
+        return  # //, %, comparisons and bitwise ops stay within the operands' range
+    amax = int(np.abs(a).max(initial=0))
+    bmax = int(np.abs(b).max(initial=0))
+    if amax < 0 or bmax < 0:  # np.abs(INT64_MIN) wraps negative
+        raise NotVectorizable(f"possible int64 overflow in {op}")
+    if op in ("+", "-"):
+        safe = amax + bmax <= _I64_MAX
+    elif op == "*":
+        safe = amax * bmax <= _I64_MAX
+    elif op == "**":
+        safe = bmax <= 63 and (amax <= 1 or amax.bit_length() * bmax <= 63)
+    else:  # <<
+        safe = bmax <= 62 and amax.bit_length() + bmax <= 63
+    if not safe:
+        raise NotVectorizable(f"possible int64 overflow in {op}")
+
+
+def eval_columnar(expr: ex.EngineExpression, view: Any) -> np.ndarray:
+    """Evaluate ``expr`` over all rows at once; raises NotVectorizable when a
+    sub-expression or an operand column needs row-wise treatment."""
+    if isinstance(expr, ex.ColumnRef):
+        col = view.column(expr.index)
+        if col is None:
+            raise NotVectorizable(f"column {expr.index}")
+        return col
+    if isinstance(expr, ex.Const):
+        v = expr.value
+        if type(v) not in _CLEAN_TYPES:
+            raise NotVectorizable("const")
+        return np.broadcast_to(np.asarray(v), (view.n,))
+    if isinstance(expr, ex.Binary):
+        if expr.op == "@":
+            raise NotVectorizable("matmul")
+        a = eval_columnar(expr.left, view)
+        b = eval_columnar(expr.right, view)
+        if expr.op in _DIVISION_OPS:
+            if b.dtype.kind not in "bif" or not np.all(b):
+                raise NotVectorizable("division edge case")
+        if expr.op == "**":
+            if a.dtype.kind == "i" and (b.dtype.kind != "i" or np.any(b < 0)):
+                raise NotVectorizable("pow edge case")
+        if a.dtype.kind == "U" or b.dtype.kind == "U":
+            if a.dtype.kind != b.dtype.kind:
+                raise NotVectorizable("string vs non-string operands")
+            if expr.op not in ("==", "!=", "<", "<=", ">", ">=", "+"):
+                raise NotVectorizable("string op")
+            if expr.op == "+":
+                return np.char.add(a, b)
+        if expr.op in ("+", "-", "*", "**", "//", "%") and (
+            a.dtype.kind == "b" or b.dtype.kind == "b"
+        ):
+            # NumPy's bool arithmetic (True+True=True) diverges from Python's int
+            # promotion (True+True=2)
+            raise NotVectorizable("bool arithmetic")
+        if a.dtype.kind == "i" and b.dtype.kind == "i":
+            _guard_int_overflow(expr.op, a, b)
+        try:
+            with np.errstate(all="raise"):
+                return expr.fn(a, b)
+        except Exception as e:  # noqa: BLE001 — the row path owns error semantics
+            raise NotVectorizable(str(e)) from None
+    if isinstance(expr, ex.Unary):
+        a = eval_columnar(expr.arg, view)
+        if expr.op == "not":
+            if a.dtype.kind != "b":
+                raise NotVectorizable("not on non-bool")
+            return ~a
+        if expr.op == "~" and a.dtype.kind == "b":
+            return ~a
+        try:
+            with np.errstate(all="raise"):
+                return expr.fn(a)
+        except Exception as e:  # noqa: BLE001
+            raise NotVectorizable(str(e)) from None
+    if isinstance(expr, ex.BooleanChain):
+        parts = [eval_columnar(arg, view) for arg in expr.args]
+        if any(p.dtype.kind != "b" for p in parts):
+            raise NotVectorizable("boolean chain on non-bool")
+        fn = np.logical_and if expr.op == "and" else np.logical_or
+        out = parts[0]
+        for p in parts[1:]:
+            out = fn(out, p)
+        return out
+    if isinstance(expr, ex.IfElse):
+        c = eval_columnar(expr.cond, view)
+        if c.dtype.kind != "b":
+            raise NotVectorizable("if_else condition not bool")
+        t = eval_columnar(expr.then, view)
+        f = eval_columnar(expr.otherwise, view)
+        if t.dtype != f.dtype:
+            raise NotVectorizable("if_else branch dtype mismatch")
+        return np.where(c, t, f)
+    if isinstance(expr, ex.IsNone):
+        # a successfully extracted column holds no None by construction
+        eval_columnar(expr.arg, view)
+        return np.broadcast_to(np.asarray(bool(expr.negated)), (view.n,))
+    raise NotVectorizable(type(expr).__name__)
+
+
+def eval_expressions_columnar_cols(
+    expressions: Sequence[ex.EngineExpression],
+    rows: Sequence[tuple],
+    from_entries: bool = False,
+) -> list[list] | None:
+    """All expressions over all rows, column-major as plain Python lists (the
+    interpreter's exact types), or None to fall back to the row interpreter."""
+    view = ColumnarView(rows, from_entries=from_entries)
+    outs = []
+    for expr in expressions:
+        try:
+            arr = eval_columnar(expr, view)
+        except NotVectorizable:
+            return None
+        outs.append(np.ascontiguousarray(arr).tolist())
+    return outs
+
+
+# -- the groupby's host kernels: the spec of the device reductions -------------
+
+
+def factorize(values: np.ndarray) -> tuple[list, np.ndarray]:
+    """Distinct values, and the inverse index of each row's group."""
+    uniques, inverse = np.unique(values, return_inverse=True)
+    return uniques.tolist(), inverse
+
+
+def factorize_multi(arrays: "list[np.ndarray]") -> tuple[np.ndarray, np.ndarray]:
+    """Composite factorization over several same-length columns: ``(first,
+    inverse)``, where ``first[g]`` is a row of distinct tuple ``g`` and ``inverse[i]``
+    is row ``i``'s tuple id. Per-column dense codes chain through a mixed-radix
+    combine, densified at each step so the int64 product cannot overflow."""
+    combined: np.ndarray | None = None
+    for a in arrays:
+        _u, inv = np.unique(a, return_inverse=True)
+        inv = inv.astype(np.int64, copy=False).reshape(-1)
+        if combined is None:
+            combined = inv
+        else:
+            _pu, prev = np.unique(combined, return_inverse=True)
+            combined = prev.astype(np.int64).reshape(-1) * np.int64(len(_u)) + inv
+    assert combined is not None
+    _uc, first, inverse = np.unique(combined, return_index=True, return_inverse=True)
+    return first, inverse.reshape(-1)
+
+
+def segment_count(inverse: np.ndarray, diffs: np.ndarray, n_groups: int) -> np.ndarray:
+    """Per-group sum of diffs (int64, wrapping)."""
+    out = np.zeros(n_groups, np.int64)
+    np.add.at(out, inverse, diffs)
+    return out
+
+
+def int_sum_overflow_risk(col: np.ndarray, n: int, dmax: int) -> bool:
+    """True when an int64 segment sum of ``col`` (diff magnitudes up to ``dmax`` over
+    ``n`` rows) could leave the int64 range: the vectorized paths compute in wrapping
+    int64 while the row interpreter uses exact Python ints."""
+    if col.dtype.kind != "i" or col.size == 0:
+        return False
+    amax = int(np.abs(col).max())
+    if amax < 0 or dmax < 0:  # np.abs(INT64_MIN) wraps negative
+        return True
+    return amax * n * dmax > (1 << 62)
+
+
+def segment_sum(
+    inverse: np.ndarray, values: np.ndarray, diffs: np.ndarray, n_groups: int
+) -> np.ndarray:
+    """Per-group sum of value*diff: int64 (wrapping) for int and bool values; for
+    floats, float64 added in row order from +0.0 (``np.bincount``)."""
+    if values.dtype.kind in "ib":
+        out = np.zeros(n_groups, np.int64)
+        np.add.at(out, inverse, values.astype(np.int64) * diffs)
+        return out
+    return np.bincount(inverse, weights=values * diffs, minlength=n_groups)

@@ -3,8 +3,9 @@
 A copy of ``pathway_tpu/engine/expression.py``: the Python API lowers its
 ``ColumnExpression`` DSL to these nodes, evaluated per row. Any failing operation or
 ``ERROR`` operand yields ``ERROR`` and reports the failure to the scope's error log
-instead of raising. The JAX package's columnar NumPy evaluator over the same trees
-(``engine/device.py``) is not ported yet; it computes the same rows.
+instead of raising. The columnar NumPy evaluator over the same trees
+(``engine/device.py::eval_columnar``) computes the same rows for large insert-only
+batches.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""Expression desugaring: bind ``pw.this`` placeholders to a table.
+"""Expression desugaring: bind the ``pw.this``, ``pw.left`` and ``pw.right``
+placeholders to tables.
 
 Counterpart of ``pathway_tpu/internals/desugaring.py``, a structural substitution over
-the expression tree. The join sides (``pw.left``, ``pw.right``) and the delayed
-``pw.this.ix_ref`` wait for the join and ix operators.
+the expression tree. The per-side binding of the temporal joins (``resolve_side``)
+waits for them.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import TYPE_CHECKING, Any, Callable
 
 from pathway_tpu_torch.internals import expression as expr_mod
 from pathway_tpu_torch.internals.expression import ColumnExpression, ColumnReference
-from pathway_tpu_torch.internals.thisclass import ThisColumnReference, this
+from pathway_tpu_torch.internals.thisclass import ThisColumnReference, left, right, this
 
 if TYPE_CHECKING:
     from pathway_tpu_torch.internals.table import Table
@@ -80,15 +81,68 @@ def substitute(
 
 def resolve_this(expression: Any, table: "Table") -> ColumnExpression:
     """Bind ``pw.this`` placeholders (and bare column names) to ``table``."""
+    from pathway_tpu_torch.internals.thisclass import DelayedIxRefColumn
+
     if isinstance(expression, str):
         return ColumnReference(table, expression)
     expression = expr_mod.wrap_expression(expression)
 
     def replace(node: ColumnExpression) -> ColumnExpression | None:
+        if isinstance(node, DelayedIxRefColumn):
+            if node._owner is not this:
+                raise ValueError(f"{node!r} cannot be used here; use pw.this")
+            return ColumnReference(
+                _delayed_ix_table(node, table), node.name
+            )
         if isinstance(node, ThisColumnReference):
             if node._owner is not this:
                 raise ValueError(f"{node!r} cannot be used here; use pw.this")
             return ColumnReference(table, node.name)
+        return None
+
+    return substitute(expression, replace)
+
+
+def _delayed_ix_table(node: "ColumnExpression", table: "Table") -> "Table":
+    """The bound table indexes ITSELF by the key expressions, with
+    itself as the keys context (reference delayed ix_ref). Identical
+    (args, kwargs) chains reuse ONE ix table per bound table, so
+    selecting several columns from the same pw.this.ix_ref(keys) runs a
+    single index lookup."""
+    cache = table.__dict__.setdefault("_pw_ix_ref_cache", {})
+    key = repr((node._ix_args, node._ix_kwargs))
+    ix_table = cache.get(key)
+    if ix_table is None:
+        ix_table = table.ix_ref(
+            *node._ix_args, context=table, **node._ix_kwargs
+        )
+        cache[key] = ix_table
+    return ix_table
+
+
+def resolve_join_sides(
+    expression: Any, left_table: "Table", right_table: "Table"
+) -> ColumnExpression:
+    """Bind pw.left/pw.right (and pw.this → left) in a join context."""
+    from pathway_tpu_torch.internals.thisclass import DelayedIxRefColumn
+
+    expression = expr_mod.wrap_expression(expression)
+
+    def replace(node: ColumnExpression) -> ColumnExpression | None:
+        if isinstance(node, DelayedIxRefColumn):
+            # pw.this binds the left side in a join context, matching
+            # the ThisColumnReference rule below
+            side = (
+                right_table if node._owner is right else left_table
+            )
+            return ColumnReference(
+                _delayed_ix_table(node, side), node.name
+            )
+        if isinstance(node, ThisColumnReference):
+            if node._owner is left or node._owner is this:
+                return ColumnReference(left_table, node.name)
+            if node._owner is right:
+                return ColumnReference(right_table, node.name)
         return None
 
     return substitute(expression, replace)

@@ -3,8 +3,9 @@
 Counterpart of ``pathway_tpu/internals/expression.py``: overloaded operators build a
 tree of :class:`ColumnExpression` nodes that the graph runner compiles to engine
 expressions (:mod:`pathway_tpu_torch.engine.expression`). ``pw.this`` placeholders are
-resolved eagerly at the call site (``table.select(x=pw.this.a)``). The ``.dt``, ``.str``
-and ``.num`` namespaces, reducers and ``apply_async`` wait for their operators.
+resolved eagerly at the call site (``table.select(x=pw.this.a)``). Reducer calls
+(``pw.reducers.*``) are :class:`ReducerExpression` nodes inside ``.reduce(...)``. The
+``.dt``, ``.str`` and ``.num`` namespaces and ``apply_async`` wait for their operators.
 """
 
 from __future__ import annotations
@@ -452,6 +453,28 @@ class PointerExpression(ColumnExpression):
     def _children(self) -> Iterable[ColumnExpression]:
         if self._instance is not None:
             return (*self._args, self._instance)
+        return tuple(self._args)
+
+
+class ReducerExpression(ColumnExpression):
+    """A reducer call inside ``.reduce(...)`` (pw.reducers.*)."""
+
+    def __init__(self, kind: Any, args: list[ColumnExpression], **options: Any) -> None:
+        from pathway_tpu_torch.engine.reducers import ReducerKind
+
+        self._kind: ReducerKind = kind
+        self._args = args
+        self._options = options
+        if kind in (ReducerKind.COUNT, ReducerKind.COUNT_DISTINCT):
+            self._dtype = dt.INT
+        elif kind in (ReducerKind.ARG_MIN, ReducerKind.ARG_MAX):
+            self._dtype = dt.Pointer()
+        elif args:
+            self._dtype = args[0]._dtype
+        else:
+            self._dtype = dt.ANY
+
+    def _children(self) -> Iterable[ColumnExpression]:
         return tuple(self._args)
 
 

@@ -2,10 +2,14 @@
 
 Counterpart of ``GraphRunner`` in ``pathway_tpu/internals/runner.py``: it builds the
 specs that the sinks reach, flattens columns into engine tuple positions, compiles the
-expression DSL to engine expressions, and pumps the connectors through the scheduler.
-It compiles connector-backed input tables, ``select`` (UDF columns included),
-``restrict``, ``remove_errors``, error logs and the as-of-now external index; every
-other table operation raises ``NotImplementedError`` naming its ROADMAP item.
+expression DSL to engine expressions, and runs the scheduler: one static commit when
+no connector feeds the graph, else the streaming loop over the connectors. It lowers
+static and connector-backed input tables, ``select`` (UDF columns included),
+``filter``, ``groupby_reduce``, ``join_select``, ``concat``, ``update_rows``,
+``update_cells``, ``reindex``, ``intersect``, ``subtract``, ``restrict``,
+``override_universe``, ``flatten``, ``ix``, ``remove_errors``, error logs and the
+as-of-now external index; any other table operation raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -15,9 +19,12 @@ from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 from pathway_tpu_torch.engine import expression as eex
 from pathway_tpu_torch.engine.external_index import ExternalIndexNode
-from pathway_tpu_torch.engine.graph import Node, Scheduler, Scope
+from pathway_tpu_torch.engine.graph import Node, Scheduler, Scope, StaticSource
+from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
+from pathway_tpu_torch.engine.value import Pointer
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as pex
+from pathway_tpu_torch.internals.desugaring import substitute
 from pathway_tpu_torch.internals.expression import ColumnExpression, ColumnReference
 from pathway_tpu_torch.internals.udfs.executors import make_kw_fn as _make_kw_fn
 from pathway_tpu_torch.internals.universe import solver
@@ -109,6 +116,9 @@ class GraphRunner:
     # -- expression compilation --------------------------------------------
 
     def compile(self, expression: ColumnExpression, layout: Layout) -> eex.EngineExpression:
+        override = getattr(expression, "_engine_override", None)
+        if override is not None:
+            return override  # a reducer's output position (groupby post-projection)
         c = lambda e: self.compile(e, layout)  # noqa: E731
         if isinstance(expression, ColumnReference):
             if expression.name == "id":
@@ -187,6 +197,8 @@ class GraphRunner:
                 "async/batched UDF calls are only supported as top-level "
                 "select columns"
             )
+        if isinstance(expression, pex.ReducerExpression):
+            raise ValueError("reducers are only allowed inside .reduce(...)")
         raise NotImplementedError(f"cannot compile expression {expression!r}")
 
     # -- storage ------------------------------------------------------------
@@ -259,6 +271,9 @@ class GraphRunner:
         if kind == "error_log":
             return self._error_log_node(spec.params.get("log_id"))
 
+        if kind == "static":
+            return scope.static_table(spec.params["rows"], len(table._column_names))
+
         if kind == "input":
             # connector-backed table: the io layer supplies an attach function
             node, driver = spec.params["attach"](scope)
@@ -275,12 +290,89 @@ class GraphRunner:
                 )
             return self._build_select_with_udfs(expr_list, storage, layout)
 
+        if kind == "filter":
+            base = spec.inputs[0]
+            cond = spec.params["condition"]
+            storage, layout = self.storage_for(base, [cond])
+            n = len(base._column_names)
+            pre = scope.expression_table(
+                storage,
+                [self.compile(ColumnReference(base, name), layout) for name in base._column_names]
+                + [self.compile(cond, layout)],
+            )
+            return self._project(scope.filter_table(pre, n), range(n))
+
         if kind == "remove_errors":
             return scope.remove_errors_from_table(self.build(spec.inputs[0]))
+
+        if kind == "groupby_reduce":
+            return self._build_groupby(table)
+
+        if kind == "join_select":
+            return self._build_join(table)
+
+        if kind == "concat":
+            aligned = [self._aligned(t, table._column_names) for t in spec.inputs]
+            return scope.concat_tables(aligned)
+
+        if kind == "update_rows":
+            orig, updates = spec.inputs
+            return scope.update_rows_table(
+                self.build(orig), self._aligned(updates, table._column_names)
+            )
+
+        if kind == "update_cells":
+            orig, updates = spec.inputs
+            update_cols = [
+                updates._column_names.index(name) if name in updates._column_names else -1
+                for name in table._column_names
+            ]
+            return scope.update_cells_table(self.build(orig), self.build(updates), update_cols)
+
+        if kind == "reindex":
+            base = spec.inputs[0]
+            new_id = spec.params["new_id"]
+            storage, layout = self.storage_for(base, [new_id])
+            n = len(base._column_names)
+            pre = scope.expression_table(
+                storage,
+                [self.compile(ColumnReference(base, name), layout) for name in base._column_names]
+                + [self.compile(new_id, layout)],
+            )
+            return self._project(scope.reindex_table(pre, n), range(n))
+
+        if kind == "intersect":
+            base, *others = spec.inputs
+            return scope.intersect_tables(self.build(base), [self.build(o) for o in others])
+
+        if kind == "subtract":
+            base, other = spec.inputs
+            return scope.subtract_table(self.build(base), self.build(other))
 
         if kind == "restrict":
             base, other = spec.inputs
             return scope.restrict_table(self.build(base), self.build(other))
+
+        if kind == "override_universe":
+            base, other = spec.inputs
+            return scope.override_table_universe(self.build(base), self.build(other))
+
+        if kind == "flatten":
+            base = spec.inputs[0]
+            return scope.flatten_table(
+                self.build(base),
+                base._column_names.index(spec.params["column"]),
+                with_origin=spec.params.get("origin_id") is not None,
+            )
+
+        if kind == "ix":
+            keys_table, source = spec.inputs
+            return scope.ix_table(
+                self.build(keys_table),
+                self.build(source),
+                keys_table._column_names.index("_pw_ix_key"),
+                optional=spec.params.get("optional", False),
+            )
 
         if kind == "external_index":
             data_t, query_t = spec.inputs
@@ -311,6 +403,126 @@ class GraphRunner:
         raise NotImplementedError(
             f"table operation {kind!r} is not ported yet "
             "(ROADMAP queue 1 item 11: the other node types and table operations)"
+        )
+
+    def _aligned(self, t: "Table", names: Sequence[str]) -> Node:
+        """``t``'s columns in the order of ``names`` (concat and update_rows take
+        same-named columns in any order)."""
+        layout = self.base_layout(t)
+        return self.scope.expression_table(
+            self.build(t), [self.compile(ColumnReference(t, name), layout) for name in names]
+        )
+
+    def _build_groupby(self, table: "Table") -> Node:
+        spec = table._spec
+        base = spec.inputs[0]
+        by_refs: list[ColumnReference] = spec.params["by"]
+        exprs: dict[str, ColumnExpression] = spec.params["exprs"]
+        scope = self.scope
+
+        # the distinct reducer nodes over all output expressions
+        reducer_nodes: list[pex.ReducerExpression] = []
+
+        def collect(e: ColumnExpression) -> None:
+            if isinstance(e, pex.ReducerExpression):
+                if not any(e is r for r in reducer_nodes):
+                    reducer_nodes.append(e)
+                return
+            for child in e._children():
+                collect(child)
+
+        for e in exprs.values():
+            collect(e)
+
+        arg_exprs = [a for r in reducer_nodes for a in r._args]
+        storage, layout = self.storage_for(base, [*by_refs, *arg_exprs])
+        pre_exprs: list[eex.EngineExpression] = [self.compile(b, layout) for b in by_refs]
+        nb = len(by_refs)
+        reducer_descr = []
+        pos = nb
+        for r in reducer_nodes:
+            arg_cols = list(range(pos, pos + len(r._args)))
+            pre_exprs.extend(self.compile(a, layout) for a in r._args)
+            pos += len(r._args)
+            if r._kind in (ReducerKind.ARG_MIN, ReducerKind.ARG_MAX):
+                # (value, row id) pairs
+                pre_exprs.append(eex.KeyRef())
+                arg_cols = [arg_cols[0], pos]
+                pos += 1
+            reducer_descr.append((make_reducer(r._kind, **r._options), arg_cols))
+
+        grouped = scope.group_by_table(
+            scope.expression_table(storage, pre_exprs),
+            by_cols=list(range(nb)),
+            reducers=reducer_descr,
+            set_id=spec.params["set_id"],
+            instance_last=spec.params.get("instance_last", False),
+        )
+
+        # post-projection: reducer nodes -> group-row positions, by refs too
+        post_layout = Layout()
+        post_layout.columns.update({(b.table._id, b.name): i for i, b in enumerate(by_refs)})
+
+        def replace(e: ColumnExpression) -> ColumnExpression | None:
+            for i, r in enumerate(reducer_nodes):
+                if e is r:
+                    marker = pex.ColumnConstExpression(None)
+                    marker._engine_override = eex.ColumnRef(nb + i)  # type: ignore[attr-defined]
+                    return marker
+            return None
+
+        return scope.expression_table(
+            grouped,
+            [self.compile(substitute(e, replace), post_layout) for e in exprs.values()],
+        )
+
+    def _build_join(self, table: "Table") -> Node:
+        spec = table._spec
+        left, right = spec.inputs
+        on = spec.params["on"]
+        exprs: dict[str, ColumnExpression] = spec.params["exprs"]
+        scope = self.scope
+        llayout = self.base_layout(left)
+        rlayout = self.base_layout(right)
+        nl = len(left._column_names)
+        nr = len(right._column_names)
+        k = len(on)
+        # each side's prep row: its columns, its id, then the join-key values
+        left_prep = scope.expression_table(
+            self.build(left),
+            [eex.ColumnRef(i) for i in range(nl)]
+            + [eex.KeyRef()]
+            + [self.compile(le, llayout) for le, _re in on],
+        )
+        right_prep = scope.expression_table(
+            self.build(right),
+            [eex.ColumnRef(i) for i in range(nr)]
+            + [eex.KeyRef()]
+            + [self.compile(re_, rlayout) for _le, re_ in on],
+        )
+        id_spec = spec.params.get("id_spec")
+        if id_spec is not None and id_spec[1] is not None:
+            # name -> column index in the side's prep row
+            side, name = id_spec
+            id_spec = (side, (left if side == "left" else right)._column_names.index(name))
+        joined = scope.join_tables(
+            left_prep,
+            right_prep,
+            left_on=list(range(nl + 1, nl + 1 + k)),
+            right_on=list(range(nr + 1, nr + 1 + k)),
+            kind=spec.params["how"],
+            id_spec=id_spec,
+        )
+        combined = Layout()
+        for i, name in enumerate(left._column_names):
+            combined.columns[(left._id, name)] = i
+        combined.id_columns[left._id] = nl
+        off = nl + 1 + k
+        for i, name in enumerate(right._column_names):
+            combined.columns[(right._id, name)] = off + i
+        combined.id_columns[right._id] = off + nr
+        return scope.expression_table(
+            joined, [self.compile(e, combined) for e in exprs.values()]
         )
 
     def _build_select_with_udfs(
@@ -373,11 +585,24 @@ class GraphRunner:
     # -- execution ----------------------------------------------------------
 
     def run(self) -> Scheduler:
-        """Run to completion: the streaming loop (poll the drivers, commit, until all
-        of them report done), then the final commit and the sinks' end hooks. The
-        scheduler stays on ``self.scheduler``, where its probe stats are read."""
+        """Run to completion: with no connector, one static commit and the end;
+        otherwise the static tables' rows as a first commit, the streaming loop (poll
+        the drivers, commit, until all of them report done), then the final commit and
+        the sinks' end hooks. The scheduler stays on ``self.scheduler``, where its
+        probe stats are read."""
         sched = Scheduler(self.scope, probe=self.probe_stats)
         self.scheduler = sched
+        if not self.drivers:
+            sched.run_static()
+            return sched
+        if any(isinstance(node, StaticSource) for node in self.scope.nodes):
+            sched.commit()
         _pump_drivers(self.drivers, sched.commit)
         sched.finish()
         return sched
+
+    def capture(self, *tables: "Table") -> list[dict[Pointer, tuple]]:
+        """Run the graph that ``tables`` reach and return each one's final state."""
+        nodes = [self.build(t) for t in tables]
+        self.run()
+        return [node.snapshot() for node in nodes]

@@ -1,10 +1,14 @@
 """`pw.Table`: the declarative table API.
 
-Counterpart of ``pathway_tpu/internals/table.py`` for the operations of the
-streaming-RAG pipeline: column access, ``select`` and the operations that are selects
-(``with_columns``, ``without``, ``rename*``, ``with_prefix``, ``with_suffix``, ``copy``,
-``cast_to_types``, ``update_types``), ``restrict``, the universe promises,
-``remove_errors`` and the as-of-now external index. Tables are lazy: each holds a
+Counterpart of ``pathway_tpu/internals/table.py``: column access, ``select`` and the
+operations that are selects (``with_columns``, ``without``, ``rename*``,
+``with_prefix``, ``with_suffix``, ``copy``, ``cast_to_types``, ``update_types``),
+``filter`` and ``split``, ``groupby`` and ``reduce``, the joins, ``concat`` and
+``concat_reindex``, ``update_rows`` and ``update_cells``, ``intersect``,
+``difference`` and ``restrict``, the re-keying operations (``with_id``,
+``with_id_from``, ``with_universe_of``), ``flatten``, ``ix`` and ``ix_ref``, the
+universe promises, ``remove_errors``, the as-of-now external index and the static
+constructors ``empty`` and ``from_rows``. Tables are lazy: each holds a
 :class:`TableSpec` describing the operator that produces it, and
 :mod:`pathway_tpu_torch.internals.runner` lowers the reachable specs onto the engine
 scope at run time. The reference's other public methods are here by name and raise
@@ -17,6 +21,7 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Mapping, Sequence
 
+from pathway_tpu_torch.engine.value import Pointer, ref_scalar
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as expr_mod
 from pathway_tpu_torch.internals import schema as schema_mod
@@ -25,11 +30,19 @@ from pathway_tpu_torch.internals.expression import (
     ColumnExpression,
     ColumnReference,
     PointerExpression,
+    wrap_expression,
 )
 from pathway_tpu_torch.internals.trace import current_trace
 from pathway_tpu_torch.internals.universe import Universe, solver
 
 _table_counter = itertools.count()
+
+
+class JoinMode:
+    INNER = "inner"
+    LEFT = "left"
+    RIGHT = "right"
+    OUTER = "outer"
 
 
 @dataclass
@@ -260,6 +273,304 @@ class Table:
     def update_types(self, **kwargs: Any) -> "Table":
         return self._retyped(expr_mod.DeclareTypeExpression, kwargs)
 
+    # -- filter -------------------------------------------------------------
+
+    def filter(self, filter_expression: Any) -> "Table":
+        cond = resolve_this(filter_expression, self)
+        return self._derived(
+            TableSpec("filter", [self], {"condition": cond}),
+            {n: self._dtypes[n] for n in self._column_names},
+            universe=self._universe.subset(),
+        )
+
+    def split(self, expression: Any) -> tuple["Table", "Table"]:
+        cond = resolve_this(expression, self)
+        pos = self.filter(cond)
+        neg = self.filter(expr_mod.UnaryOpExpression("not", cond))
+        return pos, neg
+
+    # -- groupby / reduce ---------------------------------------------------
+
+    def groupby(
+        self,
+        *args: Any,
+        id: Any = None,  # noqa: A002 — mirrors reference signature
+        instance: Any = None,
+        **kwargs: Any,
+    ) -> "GroupedTable":
+        from pathway_tpu_torch.internals.groupbys import GroupedTable
+
+        by: list[ColumnReference] = []
+        if id is not None:
+            resolved = resolve_this(id, self)
+            assert isinstance(resolved, ColumnReference)
+            return GroupedTable(self, [resolved], set_id=True)
+        for arg in args:
+            resolved = resolve_this(arg, self)
+            if not isinstance(resolved, ColumnReference):
+                raise ValueError("groupby arguments must be column references")
+            by.append(resolved)
+        if instance is not None:
+            inst = resolve_this(instance, self)
+            assert isinstance(inst, ColumnReference)
+            by.append(inst)
+        return GroupedTable(self, by, instance_last=instance is not None)
+
+    def reduce(self, *args: Any, **kwargs: Any) -> "Table":
+        from pathway_tpu_torch.internals.groupbys import GroupedTable
+
+        return GroupedTable(self, []).reduce(*args, **kwargs)
+
+    # -- joins --------------------------------------------------------------
+
+    def join(
+        self, other: "Table", *on: Any, id: Any = None, how: str = JoinMode.INNER  # noqa: A002
+    ) -> "JoinResult":
+        from pathway_tpu_torch.internals.joins import JoinResult
+
+        return JoinResult(self, other, on, how=how, id=id)
+
+    def join_inner(self, other: "Table", *on: Any, id: Any = None) -> "JoinResult":  # noqa: A002
+        return self.join(other, *on, id=id, how=JoinMode.INNER)
+
+    def join_left(self, other: "Table", *on: Any, id: Any = None) -> "JoinResult":  # noqa: A002
+        return self.join(other, *on, id=id, how=JoinMode.LEFT)
+
+    def join_right(self, other: "Table", *on: Any, id: Any = None) -> "JoinResult":  # noqa: A002
+        return self.join(other, *on, id=id, how=JoinMode.RIGHT)
+
+    def join_outer(self, other: "Table", *on: Any, id: Any = None) -> "JoinResult":  # noqa: A002
+        return self.join(other, *on, id=id, how=JoinMode.OUTER)
+
+    # -- set operations -----------------------------------------------------
+
+    def concat(self, *others: "Table") -> "Table":
+        tables = [self, *others]
+        dtypes: dict[str, dt.DType] = {}
+        for n in self._column_names:
+            dtype = self._dtypes[n]
+            for o in others:
+                if n not in o._dtypes:
+                    raise ValueError(f"column {n!r} missing in concat operand")
+                dtype = dt.lca(dtype, o._dtypes[n])
+            dtypes[n] = dtype
+        return self._derived(
+            TableSpec("concat", tables, {}),
+            dtypes,
+            # concat's key set IS the union of the operands': the SAT
+            # solver then proves each operand ⊆ result (cross-table
+            # selects against an operand keep working)
+            universe=solver.get_union(*(t._universe for t in tables)),
+        )
+
+    def concat_reindex(self, *others: "Table") -> "Table":
+        reindexed = [
+            t.with_id_from(t.id, expr_mod.ColumnConstExpression(i))
+            for i, t in enumerate([self, *others])
+        ]
+        return reindexed[0].concat(*reindexed[1:])
+
+    def update_rows(self, other: "Table") -> "Table":
+        if set(other._column_names) != set(self._column_names):
+            raise ValueError("update_rows requires matching columns")
+        dtypes = {
+            n: dt.lca(self._dtypes[n], other._dtypes[n]) for n in self._column_names
+        }
+        return self._derived(TableSpec("update_rows", [self, other], {}), dtypes)
+
+    def update_cells(self, other: "Table") -> "Table":
+        extra = set(other._column_names) - set(self._column_names)
+        if extra:
+            raise ValueError(f"update_cells: unknown columns {extra}")
+        dtypes = {
+            n: dt.lca(self._dtypes[n], other._dtypes[n]) if n in other._dtypes else self._dtypes[n]
+            for n in self._column_names
+        }
+        return self._derived(
+            TableSpec("update_cells", [self, other], {}),
+            dtypes,
+            universe=self._universe,
+        )
+
+    def __lshift__(self, other: "Table") -> "Table":
+        return self.update_cells(other)
+
+    def intersect(self, *tables: "Table") -> "Table":
+        return self._derived(
+            TableSpec("intersect", [self, *tables], {}),
+            {n: self._dtypes[n] for n in self._column_names},
+            universe=solver.get_intersection(
+                self._universe, *(t._universe for t in tables)
+            ),
+        )
+
+    def difference(self, other: "Table") -> "Table":
+        return self._derived(
+            TableSpec("subtract", [self, other], {}),
+            {n: self._dtypes[n] for n in self._column_names},
+            universe=solver.get_difference(self._universe, other._universe),
+        )
+
+    def with_universe_of(self, other: "Table") -> "Table":
+        solver.register_equal(self._universe, other._universe)
+        return self._derived(
+            TableSpec("override_universe", [self, other], {}),
+            {n: self._dtypes[n] for n in self._column_names},
+            universe=other._universe,
+        )
+
+    # -- re-keying and pointer lookup ---------------------------------------
+
+    def with_id_from(self, *args: Any, instance: Any = None) -> "Table":
+        resolved = [resolve_this(a, self) for a in args]
+        inst = resolve_this(instance, self) if instance is not None else None
+        pointer = PointerExpression(resolved, instance=inst)
+        return self._derived(
+            TableSpec("reindex", [self], {"new_id": pointer}),
+            {n: self._dtypes[n] for n in self._column_names},
+        )
+
+    def with_id(self, new_id: Any) -> "Table":
+        pointer = resolve_this(new_id, self)
+        return self._derived(
+            TableSpec("reindex", [self], {"new_id": pointer}),
+            {n: self._dtypes[n] for n in self._column_names},
+        )
+
+    def ix(
+        self, expression: Any, *, optional: bool = False, context: Any = None
+    ) -> "Table":
+        expression = wrap_expression(expression)
+        if context is not None:
+            keys_table = context
+        else:
+            deps = list(expression._dependencies())
+            if not deps:
+                raise ValueError(
+                    "ix expression must reference a column (or pass "
+                    "context=)"
+                )
+            keys_table = deps[0].table
+        keys = keys_table.select(_pw_ix_key=expression)
+        return self._derived(
+            TableSpec("ix", [keys, self], {"optional": optional}),
+            {n: self._dtypes[n] for n in self._column_names},
+            universe=keys_table._universe,
+        )
+
+    def ix_ref(
+        self,
+        *args: Any,
+        optional: bool = False,
+        instance: Any = None,
+        context: "Table | None" = None,
+        allow_misses: bool = False,
+    ) -> "Table":
+        """Reindex this table by primary-key expressions: desugars to
+        ``self.ix(keys_table.pointer_from(*args))``, inferring the keys table from the
+        expressions' column references. ``context`` pins the keys table when the
+        arguments are literals only; ``pw.this.ix_ref(...)`` inside select supplies it
+        automatically."""
+        keys_table = context
+        if keys_table is None:
+            exprs = [wrap_expression(a) for a in args]
+            if instance is not None:
+                exprs.append(wrap_expression(instance))
+            deps = [d for e in exprs for d in e._dependencies()]
+            if not deps:
+                raise ValueError(
+                    "ix_ref with literal-only keys cannot infer the keys "
+                    "table; pass context= or use pw.this.ix_ref(...) "
+                    "inside select"
+                )
+            keys_table = deps[0].table
+        # plain strings are literal KEY VALUES here (ix_ref("Alice")),
+        # unlike select's string-as-column-name convention
+        resolved = [
+            wrap_expression(a)
+            if isinstance(a, str)
+            else resolve_this(a, keys_table)
+            for a in args
+        ]
+        inst = (
+            resolve_this(instance, keys_table)
+            if instance is not None
+            else None
+        )
+        pointer = PointerExpression(resolved, instance=inst)
+        return self.ix(
+            pointer, optional=optional or allow_misses, context=keys_table
+        )
+
+    def flatten(
+        self, to_flatten: Any, *, origin_id: str | None = None, **kwargs: Any
+    ) -> "Table":
+        """Explode a sequence column; ``origin_id`` names an extra column holding
+        the source row's id."""
+        ref = resolve_this(to_flatten, self)
+        assert isinstance(ref, ColumnReference)
+        inner = self._dtypes.get(ref.name, dt.ANY)
+        base = inner.strip_optional()
+        if isinstance(base, dt.List):
+            flat_dtype: dt.DType = base.wrapped
+        elif isinstance(base, dt.Tuple) and base.args:
+            flat_dtype = base.args[0]
+        elif base == dt.STR:
+            flat_dtype = dt.STR
+        else:
+            flat_dtype = dt.ANY
+        dtypes = {
+            n: (flat_dtype if n == ref.name else self._dtypes[n])
+            for n in self._column_names
+        }
+        if origin_id is not None:
+            dtypes[origin_id] = dt.Pointer()
+        return self._derived(
+            TableSpec(
+                "flatten", [self], {"column": ref.name, "origin_id": origin_id}
+            ),
+            dtypes,
+        )
+
+    # -- static constructors ------------------------------------------------
+
+    @staticmethod
+    def empty(**kwargs: Any) -> "Table":
+        dtypes = {n: dt.wrap(t) for n, t in kwargs.items()}
+        return Table(
+            TableSpec("static", [], {"rows": []}),
+            list(dtypes.keys()),
+            dtypes,
+        )
+
+    @staticmethod
+    def from_rows(
+        rows: Sequence[tuple],
+        schema: schema_mod.SchemaMetaclass,
+        keys: Sequence[Pointer] | None = None,
+    ) -> "Table":
+        names = schema.column_names()
+        dtypes = schema.dtypes()
+        pk = schema.primary_key_columns()
+        out_rows: list[tuple[Pointer, tuple]] = []
+        for i, row in enumerate(rows):
+            normalized = tuple(
+                dt.normalize_value(v, dtypes[n]) for v, n in zip(row, names)
+            )
+            if keys is not None:
+                key = keys[i]
+            elif pk:
+                key_vals = tuple(normalized[names.index(p)] for p in pk)
+                key = ref_scalar(*key_vals)
+            else:
+                key = ref_scalar(i)
+            out_rows.append((key, normalized))
+        return Table(
+            TableSpec("static", [], {"rows": out_rows}),
+            names,
+            dtypes,
+        )
+
     def restrict(self, other: "Table") -> "Table":
         return self._derived(
             TableSpec("restrict", [self, other], {}),
@@ -340,12 +651,8 @@ class Table:
 UNPORTED = {
     **dict.fromkeys(
         (
-            "asof_join", "asof_now_join", "await_futures", "concat", "concat_reindex",
-            "deduplicate", "difference", "empty", "filter", "flatten", "from_rows",
-            "groupby", "having", "intersect", "interval_join", "ix", "ix_ref", "join",
-            "join_inner", "join_left", "join_outer", "join_right", "reduce", "sort",
-            "split", "update_cells", "update_rows", "window_join", "windowby",
-            "with_id", "with_id_from", "with_universe_of",
+            "asof_join", "asof_now_join", "await_futures", "deduplicate", "having",
+            "interval_join", "sort", "window_join", "windowby",
         ),
         "11: the other node types and table operations",
     ),
@@ -365,7 +672,5 @@ def _unported(name: str, item: str) -> Any:
 
 
 for _name, _item in UNPORTED.items():
-    _fn = _unported(_name, _item)
-    # the reference's constructors are static methods
-    setattr(Table, _name, staticmethod(_fn) if _name in ("empty", "from_rows") else _fn)
-del _name, _item, _fn
+    setattr(Table, _name, _unported(_name, _item))
+del _name, _item

@@ -1,9 +1,9 @@
-"""The ``pw.this`` placeholder.
+"""The ``pw.this``, ``pw.left`` and ``pw.right`` placeholders.
 
-Counterpart of ``pathway_tpu/internals/thisclass.py``: placeholders are resolved
-eagerly by the consuming method (``select``) via
-:mod:`pathway_tpu_torch.internals.desugaring`. ``pw.left``, ``pw.right`` and
-``pw.this.ix_ref`` wait for the join and ix operators.
+A copy of ``pathway_tpu/internals/thisclass.py``: placeholders are resolved eagerly by
+the consuming method (``select``, ``filter``, ``join``, ``reduce``) via
+:mod:`pathway_tpu_torch.internals.desugaring`; ``pw.this.ix_ref(...)`` resolves when
+the consuming method binds ``pw.this`` to a table.
 """
 
 from __future__ import annotations
@@ -35,6 +35,55 @@ class ThisColumnReference(ColumnExpression):
         return f"pw.{self._owner._side}.{self._name}"
 
 
+class DelayedIxRefColumn(ColumnExpression):
+    """``pw.this.ix_ref(*keys).column`` — the whole chain resolves when
+    the consuming select/reduce binds pw.this to a concrete table: the
+    table indexes ITSELF by the key expressions (reference delayed
+    ix_ref, thisclass.py ix handling)."""
+
+    def __init__(
+        self, owner: "ThisMetaclass", args: tuple, kwargs: dict, name: str
+    ) -> None:
+        self._owner = owner
+        self._ix_args = args
+        self._ix_kwargs = kwargs
+        self._name = name
+        self._dtype = dt.ANY
+
+    @property
+    def name(self) -> str:
+        return self._name
+
+    def _dependencies(self):
+        raise RuntimeError(
+            f"pw.{self._owner._side}.ix_ref(...) used outside of a table "
+            f"context"
+        )
+
+    def __repr__(self) -> str:
+        return f"pw.{self._owner._side}.ix_ref(...).{self._name}"
+
+
+class DelayedIxRef:
+    """Result of ``pw.this.ix_ref(...)`` — column access yields the
+    delayed expression."""
+
+    def __init__(
+        self, owner: "ThisMetaclass", args: tuple, kwargs: dict
+    ) -> None:
+        self._owner = owner
+        self._args = args
+        self._kwargs = kwargs
+
+    def __getattr__(self, name: str) -> DelayedIxRefColumn:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return DelayedIxRefColumn(self._owner, self._args, self._kwargs, name)
+
+    def __getitem__(self, name: str) -> DelayedIxRefColumn:
+        return DelayedIxRefColumn(self._owner, self._args, self._kwargs, name)
+
+
 class ThisStar:
     """``*pw.this`` marker: select expands it to every column of the
     bound table (reference thisclass __iter__ mock, thisclass.py:103)."""
@@ -49,6 +98,9 @@ class ThisStar:
 class ThisMetaclass:
     def __init__(self, side: str) -> None:
         self._side = side
+
+    def ix_ref(self, *args: Any, **kwargs: Any) -> DelayedIxRef:
+        return DelayedIxRef(self, args, kwargs)
 
     def __getattr__(self, name: str) -> ThisColumnReference:
         # engine-provided columns (_pw_window_start, _pw_instance, ...) are
@@ -74,6 +126,8 @@ class ThisMetaclass:
 
 
 this = ThisMetaclass("this")
+left = ThisMetaclass("left")
+right = ThisMetaclass("right")
 
 
 def is_this_ref(value: Any) -> bool:

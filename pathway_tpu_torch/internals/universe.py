@@ -1,16 +1,18 @@
 """Universe (key-set) tracking: a SAT-based solver.
 
-A copy of the part of ``pathway_tpu/internals/universe.py`` the ported table operations
-use: universe relations are propositional clauses over "a generic element is in
-universe U" variables, decided by a compact DPLL with unit propagation.
+A copy of ``pathway_tpu/internals/universe.py``: universe relations are propositional
+clauses over "a generic element is in universe U" variables, decided by a compact DPLL
+with unit propagation.
 
 Encoding (one boolean variable per universe; clauses hold for an arbitrary fixed
 element):
 - ``A ⊆ B``       →  (¬A ∨ B)
 - ``A == B``      →  (¬A ∨ B), (¬B ∨ A)
+- ``U = A ∪ B``   →  (¬A ∨ U), (¬B ∨ U), (¬U ∨ A ∨ B)   (concat)
+- ``I = A ∩ B``   →  (¬I ∨ A), (¬I ∨ B), (¬A ∨ ¬B ∨ I)  (intersect)
+- ``D = A ∖ B``   →  (¬D ∨ A), (¬D ∨ ¬B), (¬A ∨ B ∨ D)  (difference)
 
-``A ⊆ B`` holds iff clauses ∧ A ∧ ¬B is UNSAT; equality is subset both ways. Unions,
-intersections and differences come with the operators that make them.
+``A ⊆ B`` holds iff clauses ∧ A ∧ ¬B is UNSAT; equality is subset both ways.
 """
 
 from __future__ import annotations
@@ -152,6 +154,9 @@ class UniverseSolver:
 
     def __init__(self) -> None:
         self._clauses: list[tuple[int, ...]] = []
+        self._unions: dict[tuple[int, ...], Universe] = {}
+        self._intersections: dict[tuple[int, ...], Universe] = {}
+        self._differences: dict[tuple[int, int], Universe] = {}
         # clause sets only grow, and subset=True means UNSAT — which more
         # clauses can never undo: positive answers cache forever, negative
         # answers are dropped (O(1)) whenever clauses are added
@@ -169,6 +174,53 @@ class UniverseSolver:
 
     def register_subset(self, sub: Universe, sup: Universe) -> None:
         self._add((-sub.id, sup.id))
+
+    def register_union(self, result: Universe, *parts: Universe) -> None:
+        self._add(
+            *((-p.id, result.id) for p in parts),
+            (-result.id, *(p.id for p in parts)),
+        )
+
+    def register_intersection(self, result: Universe, *parts: Universe) -> None:
+        self._add(
+            *((-result.id, p.id) for p in parts),
+            (*(-p.id for p in parts), result.id),
+        )
+
+    def register_difference(
+        self, result: Universe, a: Universe, b: Universe
+    ) -> None:
+        self._add(
+            (-result.id, a.id),
+            (-result.id, -b.id),
+            (-a.id, b.id, result.id),
+        )
+
+    # -- derived universes (memoized, reference get_union etc.) ------------
+
+    def get_union(self, *parts: Universe) -> Universe:
+        key = tuple(sorted(p.id for p in parts))
+        got = self._unions.get(key)
+        if got is None:
+            got = self._unions[key] = Universe()
+            self.register_union(got, *parts)
+        return got
+
+    def get_intersection(self, *parts: Universe) -> Universe:
+        key = tuple(sorted(p.id for p in parts))
+        got = self._intersections.get(key)
+        if got is None:
+            got = self._intersections[key] = Universe()
+            self.register_intersection(got, *parts)
+        return got
+
+    def get_difference(self, a: Universe, b: Universe) -> Universe:
+        key = (a.id, b.id)
+        got = self._differences.get(key)
+        if got is None:
+            got = self._differences[key] = Universe()
+            self.register_difference(got, a, b)
+        return got
 
     # -- queries -----------------------------------------------------------
 

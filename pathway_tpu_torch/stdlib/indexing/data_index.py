@@ -93,12 +93,12 @@ class DataIndex:
         with the query columns plus ``_pw_index_reply_ids`` (tuple of data-row keys)
         and ``_pw_index_reply_scores``. The scores column is there whatever
         ``with_scores`` says, as in the reference, which accepts the argument and
-        always answers with scores. ``collapse_rows=False`` (one row per hit) needs the
-        flatten operator, which is not ported yet."""
+        always answers with scores. ``collapse_rows=False`` (one row per hit, the
+        reference's ``explode_reply``) is not ported yet."""
         if not collapse_rows:
             raise NotImplementedError(
-                "collapse_rows=False needs the flatten operator, which is not ported "
-                "yet (ROADMAP queue 1 item 11)"
+                "collapse_rows=False (one row per hit) is not ported yet "
+                "(ROADMAP queue 1 item 11)"
             )
         reply = self.data_table._external_index_as_of_now(
             query_table,

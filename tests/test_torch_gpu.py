@@ -417,3 +417,78 @@ def test_lazy_rows_reach_the_index_with_no_host_copy(cuda):
     slots = torch.tensor([index.key_to_slot[k] for k in range(50)], device=cuda)
     assert torch.equal(index.state.vectors[slots], dev[:50].flip(0))
     rows[0].batch.decay()
+
+
+# -- the relational operators on the card -----------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "n, groups, dtype",
+    [(100_000, 1024, torch.float64), (100_000, 8, torch.float64), (50_000, 50_000, torch.float64),
+     (100_000, 1024, torch.int64), (1000, 3000, torch.float64)],
+)
+def test_ordered_segment_sum_kernel_matches_plain_version(cuda, n, groups, dtype):
+    """Bit for bit against the plain version and against the host's np.bincount /
+    np.add.at: the kernel adds each group's rows in row order."""
+    from pathway_tpu_torch.ops import segment_reduce as sr
+
+    rng = np.random.default_rng(n + groups)
+    inverse = rng.integers(0, groups, n)
+    if dtype == torch.float64:
+        w = rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)
+        host = np.bincount(inverse, weights=w, minlength=groups)
+    else:
+        w = rng.integers(-(1 << 40), 1 << 40, n)
+        host = np.zeros(groups, np.int64)
+        np.add.at(host, inverse, w)
+    inv_d = torch.from_numpy(inverse).to(cuda)
+    w_d = torch.from_numpy(w).to(cuda)
+    order, offsets = sr.segment_offsets(inv_d, groups)
+    launches = sr.KERNEL.launches
+    got = sr.ordered_segment_sum(w_d, order, offsets)
+    torch.cuda.synchronize()
+    assert sr.KERNEL.launches == launches + 1
+    plain = sr.ordered_segment_sum_reference(w_d, order, offsets)
+    bits = (lambda t: t.cpu().numpy().view(np.int64))
+    assert np.array_equal(bits(got), bits(plain))
+    assert np.array_equal(got.cpu().numpy().view(np.int64), host.view(np.int64))
+
+
+def test_ordered_segment_sum_raises_on_what_it_does_not_take(cuda):
+    from pathway_tpu_torch.ops import segment_reduce as sr
+
+    inv = torch.zeros(8, dtype=torch.int64, device=cuda)
+    order, offsets = sr.segment_offsets(inv, 2)
+    with pytest.raises(TypeError):
+        sr.ordered_segment_sum(torch.zeros(8, dtype=torch.float32, device=cuda), order, offsets)
+    with pytest.raises(ValueError):
+        sr.ordered_segment_sum(torch.zeros(7, dtype=torch.float64, device=cuda), order, offsets)
+
+
+def test_device_operators_on_the_card_match_the_host(cuda):
+    """``segment_reduce_dispatch`` and ``match_pairs`` on the card against the host
+    kernels, bit for bit."""
+    from pathway_tpu_torch.engine import device as hd
+    from pathway_tpu_torch.engine import device_ops as dops
+    from pathway_tpu_torch.engine import graph as g
+
+    dops.configure(device="cuda")
+    try:
+        rng = np.random.default_rng(2)
+        n, nu = 200_000, 1024
+        inverse = rng.integers(0, nu, n)
+        diffs = rng.choice([-1, 1], n)
+        vals = [rng.standard_normal(n), None, rng.integers(-1000, 1000, n)]
+        gd, deltas = dops.segment_reduce_dispatch(inverse, diffs, vals, nu).fetch()
+        assert np.array_equal(gd, hd.segment_count(inverse, diffs, nu))
+        assert np.array_equal(
+            deltas[0].view(np.int64), hd.segment_sum(inverse, vals[0], diffs, nu).view(np.int64)
+        )
+        assert deltas[1] is None
+        assert np.array_equal(deltas[2], hd.segment_sum(inverse, vals[2], diffs, nu))
+        la, ra = rng.integers(0, 5000, 100_000), rng.integers(0, 5000, 10_000)
+        got = dops.match_pairs([la], [ra])
+        ref = g._match_join_pairs(la, ra)
+        assert np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+    finally:
+        dops.configure()

@@ -63,6 +63,13 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.io._subscribe",
         "pathway_tpu_torch.io._utils",
         "pathway_tpu_torch.stdlib.indexing.data_index",
+        "pathway_tpu_torch.engine.device_ops",
+        "pathway_tpu_torch.engine.reducers",
+        "pathway_tpu_torch.ops.segment_reduce",
+        "pathway_tpu_torch.internals.reducers",
+        "pathway_tpu_torch.internals.groupbys",
+        "pathway_tpu_torch.internals.joins",
+        "pathway_tpu_torch.debug",
     ):
         assert expected in names
 
@@ -77,7 +84,8 @@ def test_engine_api_imports_no_jax_and_touches_no_card():
             "import pathway_tpu_torch as pw",
             "from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory",
             "names = [pw.run, pw.io.python.read, pw.io.python.ConnectorSubject,",
-            "         pw.io.subscribe, pw.this.x, pw.schema_from_types, pw.Table, pw.udf, pw.UDF]",
+            "         pw.io.subscribe, pw.this.x, pw.schema_from_types, pw.Table, pw.udf, pw.UDF,",
+            "         pw.reducers.sum, pw.left.x, pw.right.x, pw.debug.table_from_markdown]",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))",
             "assert not bad, bad",
             "import torch",
@@ -107,6 +115,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "assert KERNEL._fn is None and KERNEL.launches == 0",
             "from pathway_tpu_torch.ops.flash_attention import BWD_DQ_KERNEL, BWD_DKV_KERNEL",
             "assert BWD_DQ_KERNEL._fn is None and BWD_DKV_KERNEL._fn is None",
+            "from pathway_tpu_torch.ops.segment_reduce import KERNEL as SEGMENT_KERNEL",
+            "assert SEGMENT_KERNEL._fn is None and SEGMENT_KERNEL.launches == 0",
             "print('clean')",
         ]
     )

@@ -1,6 +1,7 @@
 """The port's public surface against the reference's names: every public name of the
 reference ``Table`` is on the port's ``Table``, either ported (a select-derived
-operation gives the reference's columns and runs through ``pw.run``) or raising
+operation gives the reference's columns and runs through ``pw.run``; a relational
+operation gives the reference's ids and values through ``pw.debug``) or raising
 ``NotImplementedError`` naming its ROADMAP item; and the keyword arguments of the
 reference's ``DataIndex``, ``query_as_of_now`` and embedder are accepted and honoured,
 or refused with the item that ports them."""
@@ -69,13 +70,95 @@ ALREADY_PORTED = {
     "restrict", "schema", "select", "slice", "typehints",
 }
 
+#: the ported relational operations: (name, how to call it on the tables of
+#: ``_relational_tables``, through either package's ``pw``)
+RELATIONAL_CALLS = {
+    "filter": lambda pw, T: T["t"].filter(pw.this.v > 1.0),
+    "split": lambda pw, T: T["t"].split(pw.this.v > 1.0)[1],
+    "groupby": lambda pw, T: T["t"].groupby(pw.this.k).reduce(
+        pw.this.k, s=pw.reducers.sum(pw.this.v), c=pw.reducers.count()
+    ),
+    "reduce": lambda pw, T: T["t"].reduce(
+        c=pw.reducers.count(), m=pw.reducers.min(pw.this.v), a=pw.reducers.avg(pw.this.n)
+    ),
+    "join": lambda pw, T: T["t"].join(T["d"], pw.left.k == pw.right.k).select(
+        pw.left.s, pw.right.label
+    ),
+    "join_inner": lambda pw, T: T["t"].join_inner(T["d"], T["t"].k == T["d"].k).select(
+        T["t"].n, T["d"].label
+    ),
+    "join_left": lambda pw, T: T["t"].join_left(T["d"], pw.left.k == pw.right.k).select(
+        pw.left.n, label=pw.right.label
+    ),
+    "join_right": lambda pw, T: T["t"].join_right(T["d"], pw.left.k == pw.right.k).select(
+        k=pw.right.k, n=pw.left.n
+    ),
+    "join_outer": lambda pw, T: T["t"].join_outer(T["d"], pw.left.k == pw.right.k).select(
+        pw.left.n, pw.right.label
+    ),
+    "concat": lambda pw, T: T["t"].concat(T["u"]),
+    "concat_reindex": lambda pw, T: T["t"].concat_reindex(T["t"]),
+    "with_id": lambda pw, T: T["t"].with_id(T["t"].pointer_from(pw.this.s)),
+    "with_id_from": lambda pw, T: T["t"].with_id_from(pw.this.s, pw.this.k),
+    "with_universe_of": lambda pw, T: T["t"].select(x=pw.this.v * 2).with_universe_of(T["t"]),
+    "update_rows": lambda pw, T: T["t"].update_rows(T["v"]),
+    "update_cells": lambda pw, T: T["t"].update_cells(T["v"].select(pw.this.v)),
+    "intersect": lambda pw, T: T["t"].intersect(T["v"]),
+    "difference": lambda pw, T: T["t"].difference(T["v"]),
+    "flatten": lambda pw, T: T["t"].flatten(pw.this.s),
+    "ix": lambda pw, T: T["d"].ix(T["t"].pointer_from(T["t"].k)),
+    "ix_ref": lambda pw, T: T["d"].ix_ref(T["t"].k),
+    "empty": lambda pw, T: pw.Table.empty(a=int, b=str),
+    "from_rows": lambda pw, T: pw.Table.from_rows(
+        [(1, "a"), (2, "b")], pw.schema_from_types(a=int, b=str)
+    ),
+}
+
+_MARKDOWN = {
+    "t": """
+       | k | v    | s   | n
+    1  | 1 | 1.5  | ab  | 10
+    2  | 1 | 2.0  | c   | 20
+    3  | 2 | 4.0  | de  | 30
+    4  | 3 | -1.0 | fgh | 40
+    5  | 2 | 0.5  | i   | 50
+    """,
+    "u": """
+       | k | v    | s   | n
+    11 | 4 | 9.0  | x   | 60
+    12 | 1 | 0.25 | yz  | 70
+    """,
+    "v": """
+       | k | v    | s   | n
+    3  | 7 | 7.5  | q   | 80
+    4  | 8 | 8.5  | r   | 90
+    6  | 9 | 9.5  | s   | 100
+    """,
+    "d": """
+       | k | label
+    1  | 1 | one
+    2  | 2 | two
+    9  | 9 | nine
+    """,
+}
+
+
+def _relational_result(pw, name: str) -> tuple[list, dict]:
+    tables = {n: pw.debug.table_from_markdown(md) for n, md in _MARKDOWN.items()}
+    data, names = pw.debug.table_to_dicts(RELATIONAL_CALLS[name](pw, tables))
+    return names, {
+        int(k): {c: (np.float64(x).view(np.int64).item() if isinstance(x, float) else x)
+                 for c, x in row.items()}
+        for k, row in data.items()
+    }
+
 
 def test_every_reference_name_is_ported_or_names_its_item():
     names = _reference_names()
     assert len(names) > 50
     for name in names:
         assert hasattr(tpw.Table, name), name
-        if name in PORTED_CALLS or name in ALREADY_PORTED:
+        if name in PORTED_CALLS or name in ALREADY_PORTED or name in RELATIONAL_CALLS:
             assert name not in ttable.UNPORTED, name
             continue
         assert name in ttable.UNPORTED, f"{name} is neither ported nor listed"
@@ -90,6 +173,26 @@ def test_unported_method_raises_naming_its_item(tables, name):
     assert f"Table.{name}" in str(info.value)
     with pytest.raises(NotImplementedError, match=ITEM):
         getattr(tpw.Table, name)()  # also when called on the class (the constructors)
+
+
+@pytest.mark.parametrize("name", sorted(RELATIONAL_CALLS))
+def test_ported_relational_operation_matches_the_reference(name, monkeypatch):
+    """Each ported relational operation through ``pw.debug``: the reference's column
+    names, row ids and values, bit for bit (the port's device operators on the CPU)."""
+    import pathway_tpu as jpw
+
+    from pathway_tpu_torch.engine import device_ops
+
+    monkeypatch.setenv("PATHWAY_TPU_DEVICE_OPS", "0")
+    ref = _relational_result(jpw, name)
+    monkeypatch.setenv("PATHWAY_TPU_DEVICE_OPS", "1")
+    device_ops.configure(device="cpu")
+    try:
+        got = _relational_result(tpw, name)
+    finally:
+        device_ops.configure()
+    assert got == ref
+    assert name not in ttable.UNPORTED
 
 
 @pytest.mark.parametrize("name", sorted(PORTED_CALLS))
