@@ -41,13 +41,21 @@ limit):
    commits of 1,000 retractions and 1,000 inserts), each once on the host kernels
    (``PATHWAY_TPU_DEVICE_OPS=0``, the spec) and once on the card after a warm-up:
    rows/s each way, the operators' calls and ns, the routes the batches took, the
-   segment kernel's launches in the timed card run and peak device memory. The card's output state must be
-   the host's bit for bit (keys equal, floats through their int64 views), and every
-   batch must take the device route. A profiler window over one 1M-row device groupby
-   commit; the ordered segment kernel alone on float64 sums at [1M rows, 1,024 | 8 |
-   1M groups] and on int64 diffs at [1M, 1,024 | 4,096] against its plain version (bit
-   for bit), ``np.bincount`` or ``np.add.at``, ``index_add_`` (timed only) and its byte
-   bound, with the whole dispatch (upload, sort, kernel, fetch) timed apart; the device matcher at the join_inner shape against the host matcher.
+   segment stage kernels' launches in the timed card run (each of ``SEGMENT_PATH_KERNELS``
+   where the workload has a float sum, the int kernel alone for wordcount) and peak
+   device memory. The card's output state must be the host's bit for bit (keys equal,
+   floats through their int64 views), and every batch must take the device route. A
+   profiler window over one 1M-row device groupby commit; ``t_dadd``, the latency of a
+   dependent float64 add (a 2^20-add chain in one thread); then ``segment_reduce`` alone
+   on float64 sums at [1M rows, 1,024 | 8 | 1M groups], on int64 diffs at [1M, 1,024 |
+   4,096] (no partition launched), on groupby_sum's own commit (an int64 count and a
+   float64 sum in one call), on one of incremental_update's 2,000-row commits and on a
+   Zipf-skewed (s = 1.1) float64 index over 65,536 groups, each against its plain
+   version (bit for bit), ``np.add.at`` and ``np.bincount``, ``index_add_`` per column
+   (timed only, on CUDA events and on device busy time), its byte bound and its
+   chain floor (the longest run times ``t_dadd``), with the whole dispatch (upload,
+   kernels, fetch) timed apart; the device matcher at the join_inner shape against the
+   host matcher, on the host clock and between CUDA events, against its byte bound.
 7. relational_engine: one ``pw.run`` program through the Table API at
    ``device_ops_leg``'s size: 200,000 rows through ``pw.io.python`` into
    ``groupby(k).reduce(k, s=sum(v), c=count())``, ``join_left`` with a 1,024-row table
@@ -1994,12 +2002,28 @@ N_ENGINE = 200_000  # its device_ops_leg's size
 ENGINE_CHUNK = 25_000  # rows between the connector's pauses in relational_engine
 N_DIM = 1024
 INC_COMMITS, INC_DELTA = 100, 1000  # its incremental_update
-# the segment kernel alone: [rows, groups, weights]; the float64 sums at groupby_sum's
-# shape and at the two ends, the int64 diff counts at groupby_sum's and wordcount's
+# the segment reduction alone: (case, rows, groups, int64 columns, float64 columns,
+# index). The float64 sums at groupby_sum's shape and at the two ends; the int64 diffs
+# at groupby_sum's (+1/-1) and wordcount's (+1) shapes; groupby_sum's own commit (index
+# i % 1,024, an int64 count and the float64 sum of float(i) in one call); one of
+# incremental_update's 2,000-row commits (1,000 groups of a retraction and an insert, a
+# count and a float sum); a skewed float64 case (Zipf s = 1.1 over 65,536 groups, drawn
+# again past the last group: two partition passes and both run classes)
 SEGMENT_CASES = (
-    (N_REL, 1024, "float64"), (N_REL, 8, "float64"), (N_REL, N_REL, "float64"),
-    (N_REL, 1024, "int64"), (N_REL, 4096, "int64"),
+    ("float64_1024", N_REL, 1024, 0, 1, "uniform"),
+    ("float64_8", N_REL, 8, 0, 1, "uniform"),
+    ("float64_1M", N_REL, N_REL, 0, 1, "uniform"),
+    ("int64_1024", N_REL, 1024, 1, 0, "uniform"),
+    ("int64_4096", N_REL, 4096, 1, 0, "uniform"),
+    ("commit_1024", N_REL, 1024, 1, 1, "groupby_sum"),
+    ("commit_2000", 2 * INC_DELTA, INC_DELTA, 1, 1, "incremental_update"),
+    ("zipf_65536", N_REL, 65_536, 0, 1, "zipf"),
 )
+DADD_ITERS = 1 << 20  # the calibration chain of dependent float64 adds
+# the segment entry points a relational path's shapes launch (run_ends only follows a
+# second partition pass, past 2,048 groups in a commit with a float column)
+SEGMENT_PATH_KERNELS = ("int_sum", "radix_pass", "fold_runs")
+PROFILED_CALLS = 5  # segment_reduce calls in each case's profiler window
 
 
 def _relational_rows() -> dict:
@@ -2128,25 +2152,34 @@ def _with_device_ops(flag: str, fn):
             os.environ["PATHWAY_TPU_DEVICE_OPS"] = prev
 
 
-def _segment_bound_ms(n: int, groups: int) -> float:
-    """The byte bound of ``ordered_segment_sum`` (the time it is held against leaves
-    out the sort): the order and the weights read once (8 bytes a row each), the
-    ``groups + 1`` offsets read once and the sums written once (8 bytes a group each)."""
-    return (16 * n + 16 * groups + 8) / HBM_BYTES_PER_S * 1e3
+def _segment_bound_ms(n: int, groups: int, cols: int) -> float:
+    """The byte bound of ``segment_reduce``: the group index read once (8 bytes a row),
+    every weight column read once (8 bytes a row) and every sum written once (8 bytes a
+    group)."""
+    return (8 * n + 8 * n * cols + 8 * groups * cols) / HBM_BYTES_PER_S * 1e3
+
+
+def _segment_launches() -> dict[str, int]:
+    return {name: k.launches for name, k in sr.KERNELS.items()}
+
+
+def _zero_segment_launches() -> None:
+    for k in sr.KERNELS.values():
+        k.launches = 0
 
 
 def phase_relational(card: Card) -> dict:
     """bench_dataflow.py's workloads through the port's Scope and Scheduler, once on
     the host kernels (``PATHWAY_TPU_DEVICE_OPS=0``, the spec) and once on the card
     after a warm-up; the card's output state must be the host's bit for bit, and every
-    batch must have taken the device route. Then the ordered segment kernel alone
-    against its plain version and ``index_add_``, the whole dispatch, and the matcher
-    alone against the host matcher."""
+    batch must have taken the device route. Then the segment reduction alone against
+    its plain version and ``index_add_``, the whole dispatch, and the matcher alone
+    against the host matcher."""
     device_ops.configure()
     t0 = time.perf_counter()
     rows = _relational_rows()
     card.emit("relational_rows", seconds=time.perf_counter() - t0, rows=N_REL)
-    launches = 0  # the timed card runs' launches only, not the warm-ups'
+    launches = dict.fromkeys(sr.KERNELS, 0)  # the timed card runs' launches only
     for name in ("groupby_sum", "wordcount", "join_inner", "join_multikey", "incremental_update"):
         n, run = _workload(name, rows)
         host_s, host_node = _with_device_ops("0", run)
@@ -2157,10 +2190,11 @@ def phase_relational(card: Card) -> dict:
         device_ops.reset_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        sr.KERNEL.launches = 0
+        _zero_segment_launches()
         dev_s, dev_node = _with_device_ops("1", run)
-        run_launches = sr.KERNEL.launches
-        launches += run_launches
+        run_launches = _segment_launches()
+        for k, v in run_launches.items():
+            launches[k] += v
         peak = torch.cuda.max_memory_allocated()
         stats = device_ops.stats()
         routes = dict(dev_node.routes)
@@ -2173,22 +2207,27 @@ def phase_relational(card: Card) -> dict:
         check(same, f"{name}: the card's output state differs from the host spec")
         check(routes["device"] > 0 and routes["host"] == 0 and routes["rows"] == 0,
               f"{name}: routes {routes}")
-        if name not in ("join_inner", "join_multikey"):
-            check(run_launches > 0, f"{name}: no segment kernel launch")
+        if name in ("groupby_sum", "incremental_update"):  # a count and a float sum
+            check(all(run_launches[k] > 0 for k in SEGMENT_PATH_KERNELS),
+                  f"{name}: segment launches {run_launches}")
+        elif name == "wordcount":  # the count alone: the int path, no partition
+            check(run_launches["int_sum"] > 0 and sum(run_launches.values()) == run_launches["int_sum"],
+                  f"{name}: segment launches {run_launches}")
         del dev_node
-    check(launches > 0, "the relational path launched no segment kernel")
+    check(all(launches[k] > 0 for k in SEGMENT_PATH_KERNELS),
+          f"the relational path left a segment kernel unlaunched: {launches}")
 
     profile_groupby(card, rows)
     del rows
     gc.collect()
     kernel = segment_kernel_parity_and_time(card)
     matcher_alone(card)
-    return {**kernel, "launches": launches}
+    return {**kernel, "launches": sum(launches.values()), "launches_by_kernel": launches}
 
 
 def profile_groupby(card: Card, rows: dict) -> None:
     """One device groupby_sum commit of 1M rows under the profiler: where the time
-    goes between the host, the upload, the sort and the kernel."""
+    goes between the host, the upload and the segment kernels."""
     sched, _node = _groupby_prepared(rows["groupby"], _sum_count(), 2)
     wall_ms, kernels, _ops = _profiled(lambda: _with_device_ops("1", sched.commit))
     busy = sum(ms for ms, _k, _c in kernels)
@@ -2197,62 +2236,148 @@ def profile_groupby(card: Card, rows: dict) -> None:
               device_ms_by_kernel=[[k, ms, c] for ms, k, c in kernels[:12]])
 
 
+def _segment_case(n: int, groups: int, ni: int, nf: int, index: str, gen):
+    """-> (inverse, int64 [ni, n], float64 [nf, n]) on the host."""
+    if index == "groupby_sum":  # bench_dataflow.py's rows: i % 1024, float(i), a +1 count
+        inverse = np.arange(n, dtype=np.int64) % groups
+        return inverse, np.ones((ni, n), np.int64), np.arange(n, dtype=np.float64)[None].repeat(nf, 0)
+    if index == "incremental_update":  # its commit: each row retracted, then inserted + 1.0
+        inverse = np.tile(np.arange(groups, dtype=np.int64), 2)
+        diffs = np.repeat(np.array([-1, 1], np.int64), groups)[None].repeat(ni, 0)
+        vals = np.arange(groups, dtype=np.float64)
+        return inverse, diffs, (np.concatenate([vals, vals + 1.0]) * diffs[0])[None].repeat(nf, 0)
+    if index == "zipf":
+        inverse = _zipf_index(gen, n, groups, 1.1)
+    else:
+        inverse = gen.integers(0, groups, n)
+    w_float = gen.standard_normal((nf, n)) * 10.0 ** gen.integers(-6, 7, (nf, n))
+    # diffs: the +1/-1 of a retracting commit, or wordcount's +1s
+    w_int = gen.choice(np.array([-1, 1], np.int64), (ni, n)) if groups == 1024 else np.ones((ni, n), np.int64)
+    return inverse, w_int, w_float
+
+
+def _zipf_index(gen, n: int, groups: int, s: float) -> np.ndarray:
+    """Zipf(s) over ``[0, groups)``: a draw past the last group is drawn again, so group
+    0 keeps its own share of the rows."""
+    inverse = gen.zipf(s, n) - 1
+    out = inverse >= groups
+    while out.any():
+        inverse[out] = gen.zipf(s, int(out.sum())) - 1
+        out = inverse >= groups
+    return inverse.astype(np.int64)
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key's function name with its template arguments, without the
+    namespace and the parameter list."""
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", key)
+    return m.group(1) if m else key[:48]
+
+
+def _once_ms(fn):
+    """(fn's result, its card time in ms), one call between CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def segment_kernel_parity_and_time(card: Card) -> dict:
+    """``segment_reduce`` alone at each of ``SEGMENT_CASES``: bit for bit against its
+    plain version on the card and against ``np.add.at`` / ``np.bincount``; its whole
+    card time (the int path, the partition passes, the fold, every column of the call)
+    against its byte bound and the chain floor (the longest run times ``t_dadd``, the
+    latency of a dependent float64 add measured here); ``index_add_`` per column (timed
+    only, on CUDA events and on the profiler's busy time as the kernel is: for int64 the
+    same function, for float64 a yardstick in another order); and the whole dispatch on
+    the host clock."""
     gen = np.random.default_rng(SEED)
+    x = torch.tensor([0.0, 1.0], dtype=torch.float64).cuda()
+    chain = sr.dadd_chain(x, DADD_ITERS)
+    torch.cuda.synchronize()
+    check(chain.item() == float(DADD_ITERS), f"dadd_chain gave {chain.item()}")
+    t_dadd_ns = cuda_ms(lambda: sr.dadd_chain(x, DADD_ITERS), iters=3, warmup=1) * 1e6 / DADD_ITERS
+    card.emit("dadd_latency", iters=DADD_ITERS, t_dadd_ns=t_dadd_ns)
     out: dict = {}
     worst = 0.0
-    for n, groups, dtype in SEGMENT_CASES:
-        inverse = gen.integers(0, groups, n)
-        if dtype == "float64":
-            w = gen.standard_normal(n) * 10.0 ** gen.integers(-6, 7, n)
-            host = np.bincount(inverse, weights=w, minlength=groups)
-        else:  # diffs: the +1/-1 of a retracting commit, or wordcount's +1s
-            w = gen.choice(np.array([-1, 1], np.int64), n) if groups == 1024 else np.ones(n, np.int64)
-            host = np.zeros(groups, np.int64)
-            np.add.at(host, inverse, w)
-        inv_d = torch.from_numpy(inverse).cuda()
-        w_d = torch.from_numpy(w).cuda()
-        order, offsets = sr.segment_offsets(inv_d, groups)
-        got = sr.ordered_segment_sum(w_d, order, offsets)
-        plain = sr.ordered_segment_sum_reference(w_d, order, offsets)
+    for case, n, groups, ni, nf, index in SEGMENT_CASES:
+        inverse, w_int, w_float = _segment_case(n, groups, ni, nf, index, gen)
+        host = np.zeros((ni + nf, groups), np.int64)
+        for c in range(ni):
+            np.add.at(host[c], inverse, w_int[c])
+        for c in range(nf):
+            host[ni + c] = np.bincount(inverse, weights=w_float[c], minlength=groups).view(np.int64)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (inverse, w_int, w_float)]
+        before = _segment_launches()
+        got = sr.segment_reduce(*args, groups)
         torch.cuda.synchronize()
-        got_h = got.cpu().numpy()
-        err = float(np.abs(got_h - plain.cpu().numpy()).max())
-        bits_plain = np.array_equal(got_h.view(np.int64), plain.cpu().numpy().view(np.int64))
-        bits_host = np.array_equal(got_h.view(np.int64), host.view(np.int64))
+        stages = {k: v - before[k] for k, v in _segment_launches().items()}
+        plain, plain_ms = _once_ms(lambda: sr.segment_reduce_reference(*args, groups))
+        got_h, plain_h = got.cpu().numpy(), plain.cpu().numpy()
+        bits_plain = np.array_equal(got_h, plain_h)
+        bits_host = np.array_equal(got_h, host)
+        as_values = lambda a: np.concatenate([a[:ni].astype(np.float64).ravel(), a[ni:].view(np.float64).ravel()])  # noqa: E731
+        with np.errstate(invalid="ignore"):
+            err = float(np.nan_to_num(np.abs(as_values(got_h) - as_values(plain_h))).max())
         worst = max(worst, err)
-        ms = cuda_ms(lambda: sr.ordered_segment_sum(w_d, order, offsets), iters=20, warmup=2)
-        plain_iters = 1 if n // groups > 10_000 else 3
-        plain_ms = cuda_ms(lambda: sr.ordered_segment_sum_reference(w_d, order, offsets),
-                           iters=plain_iters, warmup=1 if plain_iters > 1 else 0)
-        sort_ms = cuda_ms(lambda: sr.segment_offsets(inv_d, groups), iters=20, warmup=2)
-        library_ms = cuda_ms(
-            lambda: torch.zeros(groups, dtype=w_d.dtype, device=w_d.device).index_add_(0, inv_d, w_d),
-            iters=20, warmup=2,
-        )
-        diffs = np.ones(n, np.int64)
-        device_ops.segment_reduce_dispatch(inverse, diffs, [w], groups).fetch()  # warm
+        ms = cuda_ms(lambda: sr.segment_reduce(*args, groups), iters=20, warmup=2)
+        # the card's own time by kernel (CUDA events above read the host's pace where
+        # it enqueues more slowly than the card runs), and the host's time to enqueue
+        _wall, kernels, _ops = _profiled(
+            lambda: [sr.segment_reduce(*args, groups) for _ in range(PROFILED_CALLS)])
+        device_busy_ms = sum(k_ms for k_ms, _k, _c in kernels) / PROFILED_CALLS
+        by_kernel = [[_kernel_name(k), k_ms / PROFILED_CALLS, c // PROFILED_CALLS]
+                     for k_ms, k, c in kernels]
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sr.segment_reduce(*args, groups)
+        host_enqueue_ms = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
+        inv_d = args[0]
+        columns = [*args[1], *args[2]]
+        def library():
+            return [torch.zeros(groups, dtype=w.dtype, device=w.device).index_add_(0, inv_d, w)
+                    for w in columns]
+
+        library_ms = cuda_ms(library, iters=20, warmup=2)
+        _wall, lib_kernels, _ops = _profiled(lambda: [library() for _ in range(PROFILED_CALLS)])
+        library_busy_ms = sum(k_ms for k_ms, _k, _c in lib_kernels) / PROFILED_CALLS
+        longest = int(np.bincount(inverse, minlength=groups).max())
+        chain_floor_ms = longest * t_dadd_ns * 1e-6 if nf else None
+        bound_ms = _segment_bound_ms(n, groups, ni + nf)
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "library_ms": library_ms, "library_busy_ms": library_busy_ms,
+               "roofline_share": bound_ms / ms,
+               "device_busy_ms": device_busy_ms, "busy_roofline_share": bound_ms / device_busy_ms,
+               "host_enqueue_ms": host_enqueue_ms, "device_ms_by_kernel": by_kernel,
+               "chain_floor_ms": chain_floor_ms, "longest_run": longest,
+               "passes": len(sr.radix_passes(groups)) if nf else 0, "stage_launches": stages}
+        if nf == 0:
+            check(sum(stages.values()) == stages["int_sum"] == 1, f"{case}: int-only launches {stages}")
+        diffs = w_int[0] if ni else np.ones(n, np.int64)
+        vals = [*w_int[1:], *w_float]
+        device_ops.segment_reduce_dispatch(inverse, diffs, vals, groups).fetch()  # warm
         t0 = time.perf_counter()
         reps = 5
         for _ in range(reps):
-            device_ops.segment_reduce_dispatch(inverse, diffs, [w], groups).fetch()
-        dispatch_ms = 1e3 * (time.perf_counter() - t0) / reps
+            device_ops.segment_reduce_dispatch(inverse, diffs, vals, groups).fetch()
+        row["dispatch_ms"] = 1e3 * (time.perf_counter() - t0) / reps
         t0 = time.perf_counter()
         hd.segment_count(inverse, diffs, groups)
-        hd.segment_sum(inverse, w, diffs, groups)
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        bound_ms = _segment_bound_ms(n, groups)
-        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-               "library_ms": library_ms, "roofline_share": bound_ms / ms, "sort_offsets_ms": sort_ms,
-               "dispatch_ms": dispatch_ms, "host_spec_ms": host_ms}
-        card.emit("segment_kernel", rows=n, groups=groups, dtype=dtype, max_abs_err=err,
-                  tol=0.0, bits_equal_plain=bits_plain, bits_equal_host=bits_host,
-                  host="np.bincount" if dtype == "float64" else "np.add.at",
-                  library="index_add_", **row)
-        check(bits_plain and bits_host, f"segment kernel [{n}, {groups}] {dtype}: bits differ")
-        out[f"{n}x{groups}_{dtype}"] = row
-        del inv_d, w_d, order, offsets, got, plain
-    main = out[f"{N_REL}x1024_float64"]
+        for col in vals:
+            hd.segment_sum(inverse, col, diffs, groups)
+        row["host_spec_ms"] = 1e3 * (time.perf_counter() - t0)
+        card.emit("segment_kernel", case=case, rows=n, groups=groups, int_columns=ni,
+                  float_columns=nf, index=index, max_abs_err=err, tol=0.0,
+                  bits_equal_plain=bits_plain, bits_equal_host=bits_host,
+                  host="np.add.at + np.bincount", library="index_add_ per column",
+                  t_dadd_ns=t_dadd_ns, **row)
+        check(bits_plain and bits_host, f"segment_reduce {case}: bits differ")
+        out[case] = row
+        del args, got, plain, inv_d, columns
+    main = out["commit_1024"]
     return {
         "name": "segment_reduce",
         "route": "cuda",
@@ -2260,12 +2385,17 @@ def segment_kernel_parity_and_time(card: Card) -> dict:
         "replaces": "pathway_tpu/engine/device_ops.py:213",
         "max_abs_err": worst,
         **main,
+        "t_dadd_ns": t_dadd_ns,
         "shapes": out,
     }
 
 
 def matcher_alone(card: Card) -> None:
-    """The device pair matcher at the join_inner shape against the host matcher."""
+    """The device pair matcher at the join_inner shape against the host matcher: the
+    whole call on the host clock (uploads and fetch included), and its on-card part
+    (``_pairs_on_card`` over codes already on the card, one wait for the pair count
+    included) between CUDA events, against its byte bound (la and ra read once, the
+    pairs written once). No single PyTorch call computes the pair list."""
     la = np.arange(N_REL // 2, dtype=np.int64) % N_RIGHT
     ra = np.arange(N_RIGHT, dtype=np.int64)
     device_ops.match_pairs([la], [ra])  # warm
@@ -2276,8 +2406,13 @@ def matcher_alone(card: Card) -> None:
     ref = _match_join_pairs(la, ra)
     host_ms = 1e3 * (time.perf_counter() - t0)
     same = np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
-    card.emit("matcher", left=len(la), right=len(ra), pairs=len(ref[0]), device_ms=dev_ms,
-              host_ms=host_ms, pairs_equal=same)
+    la_d, ra_d = torch.from_numpy(la).cuda(), torch.from_numpy(ra).cuda()
+    card_ms = cuda_ms(lambda: device_ops._pairs_on_card(la_d, ra_d), iters=10, warmup=2)
+    pairs = len(ref[0])
+    bound_ms = (8 * (len(la) + len(ra)) + 16 * pairs) / HBM_BYTES_PER_S * 1e3
+    card.emit("matcher", left=len(la), right=len(ra), pairs=pairs, device_ms=dev_ms,
+              card_ms=card_ms, bound_ms=bound_ms, bound_by="bytes", roofline_share=bound_ms / card_ms,
+              library_ms=None, host_ms=host_ms, pairs_equal=same)
     check(same, "device matcher pairs differ from the host matcher's")
 
 
@@ -2353,13 +2488,14 @@ def phase_relational_engine(card: Card) -> int:
     pw.io.subscribe(out, on_change=on_change)
     device_ops.configure()
     device_ops.reset_counters()
-    sr.KERNEL.launches = 0
+    _zero_segment_launches()
     torch.cuda.reset_peak_memory_stats()
     with _KeptRunner() as kept:
         t0 = time.perf_counter()
         pw.run()
         run_s = time.perf_counter() - t0
-    launches = sr.KERNEL.launches
+    by_kernel = _segment_launches()
+    launches = sum(by_kernel.values())
     nodes = kept.runners[0].scope.nodes
     routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in nodes if hasattr(n, "routes")}
 
@@ -2373,7 +2509,7 @@ def phase_relational_engine(card: Card) -> int:
     same = sorted(map(bits, state.values()), key=repr) == sorted(map(bits, want), key=repr)
     card.emit("relational_engine", rows=N_ENGINE, second_stream=N_ENGINE // 4, dim_rows=N_DIM,
               out_rows=len(state), expected_rows=len(want), rows_per_s=(N_ENGINE * 5 // 4) / run_s,
-              run_s=run_s, routes=routes, segment_launches=launches,
+              run_s=run_s, routes=routes, segment_launches=by_kernel,
               hit_counts=device_ops.hit_counts(), peak_device_mib=torch.cuda.max_memory_allocated() / 2**20,
               equals_numpy=same)
     check(same, "relational_engine: the subscriber's state differs from NumPy's answer")
@@ -2385,7 +2521,8 @@ def phase_relational_engine(card: Card) -> int:
     # does in the JAX package (its columnar path is inner-only)
     check(any(r["device"] > 0 for r in joins) and all(r["host"] == 0 for r in joins),
           f"join routes {joins}")
-    check(launches > 0, "relational_engine launched no segment kernel")
+    check(all(by_kernel[k] > 0 for k in SEGMENT_PATH_KERNELS),
+          f"relational_engine left a segment kernel unlaunched: {by_kernel}")
     return launches
 
 

@@ -5,11 +5,13 @@ operator cores run on the card, on the columnar delta batches' arrays (+1/-1 dif
 included):
 
 - **the groupby's segment reductions**: the columnar groupby's per-commit
-  ``device.segment_count`` and ``device.segment_sum`` become one upload, one stable sort
-  of the group index and one launch of the ordered segment-sum kernel
-  (``ops/segment_reduce.py``, ``csrc/segment_reduce.cu``) per column. Dispatch is split
-  from fetch (:func:`segment_reduce_dispatch`, :meth:`SegmentReduceJob.fetch`), so the
-  kernels run while the host resolves group ids.
+  ``device.segment_count`` and ``device.segment_sum`` become one upload and one
+  ``ops/segment_reduce.py::segment_reduce`` over all the commit's columns
+  (``csrc/segment_reduce.cu``): the int64 columns (the counts, the integer sums) in one
+  order-free launch, the float64 columns through a stable radix partition by group and
+  an ordered fold of each group's run. Dispatch is split from fetch
+  (:func:`segment_reduce_dispatch`, :meth:`SegmentReduceJob.fetch`), so the kernels run
+  while the host resolves group ids.
 - **the join's pair matcher**: ``graph._match_join_pairs`` over int64 key codes as
   torch ops on the card (:func:`match_pairs`): stable sort, ``searchsorted`` left and
   right, ``repeat_interleave`` and ``cumsum``, with the same swap rule (the smaller
@@ -41,7 +43,7 @@ import torch
 
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.engine import device as _host
-from pathway_tpu_torch.ops.segment_reduce import ordered_segment_sum, segment_offsets
+from pathway_tpu_torch.ops.segment_reduce import segment_reduce
 
 __all__ = [
     "SegmentReduceJob",
@@ -133,33 +135,20 @@ def stats() -> dict:
     }
 
 
-# -- transfers -------------------------------------------------------------------
-
-
-def _upload(arrays: Sequence[np.ndarray], dev: torch.device) -> list[torch.Tensor]:
-    """Same-length int64 or float64 arrays -> their copies on ``dev``, in one
-    host-to-device copy (float64 rides as its int64 bits)."""
-    stacked = torch.from_numpy(np.stack([a.view(np.int64) for a in arrays])).to(dev)
-    return [
-        stacked[i].view(torch.float64) if a.dtype == np.float64 else stacked[i]
-        for i, a in enumerate(arrays)
-    ]
-
-
 # -- groupby: segment reduction ----------------------------------------------------
 
 
 class SegmentReduceJob:
     """An in-flight segment reduction: :func:`segment_reduce_dispatch` enqueued the
-    upload, the sort and the kernels, and the copy of the results back into pinned
-    memory; :meth:`fetch` waits for that copy only."""
+    upload, the kernels, and the copy of the results back into pinned memory;
+    :meth:`fetch` waits for that copy only."""
 
-    __slots__ = ("_host", "_done", "_kinds", "_t0")
+    __slots__ = ("_host", "_done", "_rows", "_t0")
 
-    def __init__(self, host: torch.Tensor, done, kinds: list, t0: int) -> None:
+    def __init__(self, host: torch.Tensor, done, rows: list, t0: int) -> None:
         self._host = host  # [1 + columns, groups] int64 (float64 rows as bits)
         self._done = done  # event behind the copy back, or None on the CPU
-        self._kinds = kinds
+        self._rows = rows  # per sum column: None, or (row, is_float)
         self._t0 = t0
 
     def fetch(self) -> tuple[np.ndarray, list]:
@@ -167,16 +156,15 @@ class SegmentReduceJob:
         ``device.segment_sum``."""
         if self._done is not None:
             self._done.synchronize()
-        rows = self._host.numpy()
-        gdiffs = rows[0].copy()
+        sums = self._host.numpy()
+        gdiffs = sums[0].copy()
         deltas: list = []
-        i = 1
-        for kind in self._kinds:
-            if kind is None:
+        for row in self._rows:
+            if row is None:
                 deltas.append(None)
-                continue
-            deltas.append(rows[i].view(np.float64).copy() if kind == "f" else rows[i].copy())
-            i += 1
+            else:
+                i, is_float = row
+                deltas.append(sums[i].view(np.float64).copy() if is_float else sums[i].copy())
         record_kernel("segment_reduce", _time.perf_counter_ns() - self._t0)
         return gdiffs, deltas
 
@@ -189,45 +177,69 @@ def segment_reduce_dispatch(
 ) -> SegmentReduceJob:
     """Device twin of the columnar groupby's per-commit reductions:
     ``segment_count(inverse, diffs)`` plus one ``segment_sum`` per sum column, on
-    :func:`device`. The weight products are computed here with NumPy, as the spec
-    computes them."""
+    :func:`device`, in one upload and one :func:`segment_reduce` call. The weight
+    products are computed here with NumPy, as the spec computes them."""
     t0 = _time.perf_counter_ns()
     dev = device()
     diffs = np.ascontiguousarray(diffs, np.int64)
-    arrays = [np.ascontiguousarray(inverse, np.int64), diffs]
+    ints: list[np.ndarray] = [diffs]
+    floats: list[np.ndarray] = []
     kinds: list = []
     for col in vals:
         if col is None:
             kinds.append(None)
         elif col.dtype.kind in "ib":
-            kinds.append("i")
-            arrays.append(col.astype(np.int64, copy=False) * diffs)
+            kinds.append((False, len(ints)))
+            ints.append(col.astype(np.int64, copy=False) * diffs)
         else:
-            kinds.append("f")
-            arrays.append(np.ascontiguousarray(col * diffs, np.float64))
-    up = _upload(arrays, dev)
-    inv_d, weights = up[0], up[1:]
-    order, offsets = segment_offsets(inv_d, n_groups)
-    out = torch.empty((len(weights), n_groups), dtype=torch.int64, device=dev)
-    for w, row in zip(weights, out):
-        ordered_segment_sum(w, order, offsets, out=row.view(w.dtype))
+            kinds.append((True, len(floats)))
+            floats.append(np.ascontiguousarray(col * diffs, np.float64))
+    ni = len(ints)
+    rows = [None if k is None else (k[1] + ni if k[0] else k[1], k[0]) for k in kinds]
+    # one host-to-device copy: the index, the int columns, the float columns as bits
+    arrays = [np.ascontiguousarray(inverse, np.int64), *ints, *(f.view(np.int64) for f in floats)]
+    stacked = torch.from_numpy(np.stack(arrays)).to(dev)
+    out = segment_reduce(stacked[0], stacked[1 : 1 + ni], stacked[1 + ni :].view(torch.float64), n_groups)
     if dev.type == "cpu":
-        return SegmentReduceJob(out, None, kinds, t0)
+        return SegmentReduceJob(out, None, rows, t0)
     host = torch.empty(out.shape, dtype=torch.int64, pin_memory=True)
     host.copy_(out, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
-    return SegmentReduceJob(host, done, kinds, t0)
+    return SegmentReduceJob(host, done, rows, t0)
 
 
 # -- join: sort-based pair matcher ----------------------------------------------------
 
 
+def _pairs_on_card(la_d: torch.Tensor, ra_d: torch.Tensor):
+    """The matcher's torch ops over int64 codes already on the card, ``ra_d`` the
+    haystack: -> (l_idx, r_idx) on the card, or None when nothing matches. Waits for the
+    card once, at ``int(counts.sum())``, the pair count that sizes the output."""
+    dev = la_d.device
+    rs, order = torch.sort(ra_d, stable=True)
+    lo = torch.searchsorted(rs, la_d, side="left")
+    hi = torch.searchsorted(rs, la_d, side="right")
+    counts = hi - lo
+    total = int(counts.sum())  # waits for the card
+    if total == 0:
+        return None
+    l_idx = torch.repeat_interleave(
+        torch.arange(len(la_d), device=dev), counts, output_size=total
+    )
+    starts = torch.repeat_interleave(lo, counts, output_size=total)
+    csum = torch.cumsum(counts, 0) - counts
+    offs = torch.arange(total, device=dev) - torch.repeat_interleave(
+        csum, counts, output_size=total
+    )
+    return l_idx, order[starts + offs]
+
+
 def _match_pairs_device(la: np.ndarray, ra: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """``graph._match_join_pairs`` in torch ops on :func:`device`: the same swap rule,
     stable sort and emission arithmetic, so the pair sequence is the host matcher's.
-    Two points wait for the card: ``int(counts.sum())``, the pair count that sizes the
-    output, and the copy of the two index arrays back to the host."""
+    Two points wait for the card: the pair count (:func:`_pairs_on_card`) and the copy
+    of the two index arrays back to the host."""
     empty = np.empty(0, np.int64)
     if len(la) == 0 or len(ra) == 0:
         return empty, empty
@@ -235,25 +247,10 @@ def _match_pairs_device(la: np.ndarray, ra: np.ndarray) -> tuple[np.ndarray, np.
         r_idx, l_idx = _match_pairs_device(ra, la)
         return l_idx, r_idx
     dev = device()
-    la_d = torch.from_numpy(la).to(dev)
-    ra_d = torch.from_numpy(ra).to(dev)
-    rs, order = torch.sort(ra_d, stable=True)
-    lo = torch.searchsorted(rs, la_d, side="left")
-    hi = torch.searchsorted(rs, la_d, side="right")
-    counts = hi - lo
-    total = int(counts.sum())  # waits for the card
-    if total == 0:
+    pairs = _pairs_on_card(torch.from_numpy(la).to(dev), torch.from_numpy(ra).to(dev))
+    if pairs is None:
         return empty, empty
-    l_idx = torch.repeat_interleave(
-        torch.arange(len(la), device=dev), counts, output_size=total
-    )
-    starts = torch.repeat_interleave(lo, counts, output_size=total)
-    csum = torch.cumsum(counts, 0) - counts
-    offs = torch.arange(total, device=dev) - torch.repeat_interleave(
-        csum, counts, output_size=total
-    )
-    r_idx = order[starts + offs]
-    return l_idx.cpu().numpy(), r_idx.cpu().numpy()
+    return pairs[0].cpu().numpy(), pairs[1].cpu().numpy()
 
 
 def match_pairs(

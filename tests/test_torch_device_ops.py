@@ -52,6 +52,17 @@ def _check_segments(inverse, diffs, vals, nu):
             assert np.array_equal(_bits(got), _bits(ref))
 
 
+def _zipf_index(rng, n, groups, s=1.1):
+    """Zipf(s) over ``[0, groups)``: a draw past the last group is drawn again, so group
+    0 keeps its own share of the rows."""
+    inverse = rng.zipf(s, n) - 1
+    out = inverse >= groups
+    while out.any():
+        inverse[out] = rng.zipf(s, int(out.sum())) - 1
+        out = inverse >= groups
+    return inverse.astype(np.int64)
+
+
 def _segment_case(name: str):
     rng = np.random.default_rng(7)
     if name == "int_and_float_with_retractions":
@@ -106,6 +117,51 @@ def _segment_case(name: str):
             [rng.integers(-1000, 1000, n).astype(np.int64), rng.standard_normal(n)],
             n,
         )
+    if name == "int64_wrapping_at_the_edges":
+        # INT64_MIN / INT64_MAX weights and diffs of both signs: the sums wrap
+        n, nu = 96, 4
+        edges = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1, 1], np.int64)
+        return (
+            np.arange(n, dtype=np.int64) % nu,
+            rng.choice([-1, 1], n).astype(np.int64),
+            [edges[rng.integers(0, 4, n)], edges[np.arange(n) % 4]],
+            nu,
+        )
+    if name == "nan_inf_and_negative_zero":
+        # +-inf meeting in one group gives NaN; a group of -0.0 alone sums to +0.0 (the
+        # host accumulator starts at +0.0); NaN poisons only its own group
+        vals = np.array([np.inf, -np.inf, -0.0, -0.0, np.nan, 1.0, np.inf, 2.5], np.float64)
+        return (
+            np.array([0, 0, 1, 1, 2, 3, 4, 4], np.int64),
+            np.array([1, 1, 1, 1, 1, 1, 1, -1], np.int64),
+            [vals, vals.copy()],
+            6,  # group 5 has no rows
+        )
+    if name == "several_int_and_float_columns":
+        n, nu = 5000, 300  # 9 bits: one partition pass
+        return (
+            rng.integers(0, nu, n).astype(np.int64),
+            rng.choice([-1, 1], n).astype(np.int64),
+            [
+                rng.standard_normal(n) * 10.0 ** rng.integers(-8, 9, n),
+                rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64),
+                None,
+                rng.standard_normal(n),
+                rng.integers(0, 2, n).astype(bool),
+                (rng.integers(-64, 64, n) * 0.5).astype(np.float64),
+            ],
+            nu,
+        )
+    if name == "zipf_skewed_index":
+        # one hot group of thousands of rows (a warp's run on the card) beside a long
+        # tail of short ones and empty groups, over 12 bits: two partition passes
+        n, nu = 20_000, 4096
+        return (
+            _zipf_index(rng, n, nu),
+            rng.choice([-1, 1], n).astype(np.int64),
+            [rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n), rng.integers(-1000, 1000, n)],
+            nu,
+        )
     raise KeyError(name)
 
 
@@ -117,6 +173,10 @@ SEGMENT_CASES = [
     "groups_without_rows",
     "bool_and_wrapping_int",
     "every_row_its_own_group",
+    "int64_wrapping_at_the_edges",
+    "nan_inf_and_negative_zero",
+    "several_int_and_float_columns",
+    "zipf_skewed_index",
 ]
 
 
@@ -132,25 +192,30 @@ def test_nan_values_poison_the_same_groups():
 
 
 def test_ordered_segment_sum_plain_version_adds_in_row_order():
-    """The kernel's plain version against a Python loop of the same adds."""
+    """The float path's plain versions (the partition, then the fold of each run)
+    against a Python loop of the same adds, and the partition against NumPy's stable
+    argsort."""
     rng = np.random.default_rng(11)
     n, nu = 500, 7
     inverse = rng.integers(0, nu, n)
     w = rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)
-    order, offsets = sr.segment_offsets(torch.from_numpy(inverse), nu)
-    got = sr.ordered_segment_sum(torch.from_numpy(w), order, offsets).numpy()
+    payload, ends = sr.partition(torch.from_numpy(inverse), torch.from_numpy(w[None]), nu)
+    got = sr.fold_runs(payload, ends, nu)[0].numpy()
     want = np.zeros(nu)
     for i in range(n):
         want[inverse[i]] += w[i]
     assert np.array_equal(got.view(np.int64), want.view(np.int64))
-    assert order.tolist() == sorted(range(n), key=lambda i: (inverse[i], i))
-    assert offsets.tolist() == [0, *np.cumsum(np.bincount(inverse, minlength=nu)).tolist()]
+    order = np.argsort(inverse, kind="stable")
+    assert np.array_equal(payload[0].numpy(), w[order])
+    assert ends.tolist() == np.cumsum(np.bincount(inverse, minlength=nu)).tolist()
 
 
 def test_ordered_segment_sum_raises_on_other_devices():
-    w = torch.zeros(3, dtype=torch.float64, device="meta")
+    w = torch.zeros((1, 3), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        sr.ordered_segment_sum(w, w.long(), w.long())
+        sr.segment_reduce(w[0].long(), w.long(), w, 2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sr.fold_runs(w, None, 1)
 
 
 def _match_case(name: str):

@@ -422,47 +422,193 @@ def test_lazy_rows_reach_the_index_with_no_host_copy(cuda):
 # -- the relational operators on the card -----------------------------------------------
 
 
+def _zipf_index(rng, n, groups, s=1.1):
+    """Zipf(s) over ``[0, groups)``: a draw past the last group is drawn again, so group
+    0 keeps its own share of the rows."""
+    inverse = rng.zipf(s, n) - 1
+    out = inverse >= groups
+    while out.any():
+        inverse[out] = rng.zipf(s, int(out.sum())) - 1
+        out = inverse >= groups
+    return inverse.astype(np.int64)
+
+
+def _segment_inputs(n, groups, cols, rng, zipf=False):
+    if zipf:
+        inverse = _zipf_index(rng, n, groups)
+    else:
+        inverse = rng.integers(0, groups, n).astype(np.int64)
+    w_int = rng.integers(-(1 << 62), 1 << 62, (cols, n)).astype(np.int64)
+    w_float = rng.standard_normal((cols, n)) * 10.0 ** rng.integers(-6, 7, (cols, n))
+    return inverse, w_int, w_float
+
+
+def _counts(kernels) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+# by shape (int_sums_shared in csrc/segment_reduce.cu): the shared path at [200k, 1,024]
+# with one and two columns, [100k, 8] and [1M, 4,096]; global atomics at [100k, 4,096]
+# (few rows a group), [50k, 50k] (the sums past a block's shared memory), [1,000,
+# 3,000] and [2,000, 1,000] (few rows)
 @pytest.mark.parametrize(
-    "n, groups, dtype",
-    [(100_000, 1024, torch.float64), (100_000, 8, torch.float64), (50_000, 50_000, torch.float64),
-     (100_000, 1024, torch.int64), (1000, 3000, torch.float64)],
+    "n, groups, cols",
+    [(200_000, 1024, 1), (200_000, 1024, 2), (100_000, 8, 1), (1_000_000, 4096, 1),
+     (100_000, 4096, 1), (50_000, 50_000, 1), (1000, 3000, 3), (2000, 1000, 2)],
 )
-def test_ordered_segment_sum_kernel_matches_plain_version(cuda, n, groups, dtype):
-    """Bit for bit against the plain version and against the host's np.bincount /
-    np.add.at: the kernel adds each group's rows in row order."""
+def test_segment_sum_int_kernel_matches_plain_version(cuda, n, groups, cols):
+    """The int kernel at shapes that take each of its paths (shared-memory sums,
+    warp-aggregated global atomics), bit for bit against ``index_add_`` and
+    ``np.add.at``, wrapping."""
+    from pathway_tpu_torch.ops import segment_reduce as sr
+
+    rng = np.random.default_rng(n + groups + cols)
+    inverse, w_int, _ = _segment_inputs(n, groups, cols, rng)
+    inv_d, w_d = torch.from_numpy(inverse).to(cuda), torch.from_numpy(w_int).to(cuda)
+    launches = sr.INT_SUM.launches
+    got = sr.segment_sum_int(inv_d, w_d, groups)
+    torch.cuda.synchronize()
+    assert sr.INT_SUM.launches == launches + 1
+    plain = sr.segment_sum_int_reference(inv_d, w_d, groups)
+    assert torch.equal(got, plain)
+    host = np.zeros((cols, groups), np.int64)
+    for c in range(cols):
+        np.add.at(host[c], inverse, w_int[c])
+    assert np.array_equal(got.cpu().numpy(), host)
+
+
+@pytest.mark.parametrize(
+    "n, shift, bits, key_dtype",
+    [(100_000, 0, 10, torch.int64), (100_000, 0, 11, torch.int64), (100_000, 6, 6, torch.int32),
+     (4097, 0, 3, torch.int64), (1, 0, 1, torch.int64), (300_000, 11, 10, torch.int32)],
+)
+def test_radix_pass_kernel_matches_plain_version(cuda, n, shift, bits, key_dtype):
+    """One pass (histogram, the scans along tiles and digits, the stable scatter)
+    against ``torch.sort(stable=True)`` over the same digit: keys, payload and digit
+    ends bit for bit."""
+    from pathway_tpu_torch.ops import segment_reduce as sr
+
+    rng = np.random.default_rng(n + bits)
+    keys = torch.from_numpy(rng.integers(0, 1 << (shift + bits), n)).to(key_dtype).to(cuda)
+    payload = torch.from_numpy(rng.standard_normal((2, n))).to(cuda)
+    launches = sr.RADIX_PASS.launches
+    got = sr.radix_pass(keys, payload, shift, bits)
+    torch.cuda.synchronize()
+    assert sr.RADIX_PASS.launches == launches + 1
+    plain = sr.radix_pass_reference(keys, payload, shift, bits)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
+def test_run_ends_kernel_matches_plain_version(cuda):
+    from pathway_tpu_torch.ops import segment_reduce as sr
+
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(np.sort(rng.integers(0, 70_000, 200_000))).to(torch.int32).to(cuda)
+    launches = sr.RUN_ENDS.launches
+    got = sr.run_ends(keys, 80_000)  # groups past the last key end at n
+    torch.cuda.synchronize()
+    assert sr.RUN_ENDS.launches == launches + 1
+    assert torch.equal(got, sr.run_ends_reference(keys, 80_000))
+
+
+@pytest.mark.parametrize(
+    "n, groups, zipf",
+    [(100_000, 8, False), (100_000, 1024, False), (50_000, 50_000, False), (100_000, 4096, True),
+     (1000, 1, False), (31, 1, False), (1000, 3000, False)],
+)
+def test_fold_runs_kernel_matches_plain_version(cuda, n, groups, zipf):
+    """Both run classes (a thread per run under 32 rows, a warp per run and column
+    above), over the partition's runs, bit for bit against the plain fold."""
     from pathway_tpu_torch.ops import segment_reduce as sr
 
     rng = np.random.default_rng(n + groups)
-    inverse = rng.integers(0, groups, n)
-    if dtype == torch.float64:
-        w = rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)
-        host = np.bincount(inverse, weights=w, minlength=groups)
-    else:
-        w = rng.integers(-(1 << 40), 1 << 40, n)
-        host = np.zeros(groups, np.int64)
-        np.add.at(host, inverse, w)
-    inv_d = torch.from_numpy(inverse).to(cuda)
-    w_d = torch.from_numpy(w).to(cuda)
-    order, offsets = sr.segment_offsets(inv_d, groups)
-    launches = sr.KERNEL.launches
-    got = sr.ordered_segment_sum(w_d, order, offsets)
+    inverse, _, w_float = _segment_inputs(n, groups, 2, rng, zipf=zipf)
+    payload, ends = sr.partition_reference(
+        torch.from_numpy(inverse).to(cuda), torch.from_numpy(w_float).to(cuda), groups
+    )
+    launches = sr.FOLD_RUNS.launches
+    got = sr.fold_runs(payload, ends, groups)
     torch.cuda.synchronize()
-    assert sr.KERNEL.launches == launches + 1
-    plain = sr.ordered_segment_sum_reference(w_d, order, offsets)
-    bits = (lambda t: t.cpu().numpy().view(np.int64))
-    assert np.array_equal(bits(got), bits(plain))
-    assert np.array_equal(got.cpu().numpy().view(np.int64), host.view(np.int64))
+    assert sr.FOLD_RUNS.launches == launches + 1
+    plain = sr.fold_runs_reference(payload, ends, groups)
+    assert torch.equal(got.view(torch.int64), plain.view(torch.int64))
 
 
-def test_ordered_segment_sum_raises_on_what_it_does_not_take(cuda):
+@pytest.mark.parametrize(
+    "n, groups, ni, nf, zipf",
+    [(100_000, 1024, 1, 1, False), (100_000, 8, 1, 2, False), (60_000, 60_000, 2, 1, False),
+     (200_000, 65_536, 1, 1, True), (100_000, 4096, 2, 0, False), (5, 3, 1, 1, False),
+     (100_000, 1, 1, 1, False)],
+)
+def test_segment_reduce_kernels_match_the_host(cuda, n, groups, ni, nf, zipf):
+    """The whole function on the card against its plain version, ``np.add.at`` and
+    ``np.bincount``, bit for bit; an int-only call launches no partition."""
+    from pathway_tpu_torch.ops import segment_reduce as sr
+
+    rng = np.random.default_rng(n + groups + nf)
+    inverse, w_int, w_float = _segment_inputs(n, groups, max(ni, nf), rng, zipf=zipf)
+    w_int, w_float = w_int[:ni], w_float[:nf]
+    args = [torch.from_numpy(a).to(cuda) for a in (inverse, w_int, w_float)]
+    before = _counts(sr.KERNELS)
+    got = sr.segment_reduce(*args, groups)
+    torch.cuda.synchronize()
+    after = _counts(sr.KERNELS)
+    assert after["int_sum"] == before["int_sum"] + 1
+    if nf == 0:
+        assert all(after[k] == before[k] for k in after if k != "int_sum")
+    plain = sr.segment_reduce_reference(*args, groups)
+    assert torch.equal(got, plain)
+    host = got.cpu().numpy()
+    for c in range(ni):
+        want = np.zeros(groups, np.int64)
+        np.add.at(want, inverse, w_int[c])
+        assert np.array_equal(host[c], want)
+    for c in range(nf):
+        want = np.bincount(inverse, weights=w_float[c], minlength=groups)
+        assert np.array_equal(host[ni + c], want.view(np.int64))
+
+
+def test_segment_reduce_special_values_match_the_host(cuda):
+    """NaN, +-inf, -0.0 and long runs of them (a warp's fold pads its last chunk with
+    +0.0): the card's bits against ``np.bincount``'s."""
+    from pathway_tpu_torch.ops import segment_reduce as sr
+
+    rng = np.random.default_rng(9)
+    n, groups = 20_000, 64
+    inverse = rng.integers(0, groups, n).astype(np.int64)
+    specials = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1e-310, -1e308, 1e308])
+    w = np.where(rng.random(n) < 0.002, specials[rng.integers(0, 8, n)], rng.standard_normal(n))
+    w[inverse == 5] = -0.0  # a long run of -0.0 alone sums to +0.0
+    w[inverse == 6] = np.where(np.arange(n)[inverse == 6] % 2, 1e308, -1e308)
+    args = [torch.from_numpy(a).to(cuda) for a in (inverse, np.empty((0, n), np.int64), w[None])]
+    got = sr.segment_reduce(*args, groups)[0].cpu().numpy()
+    want = np.bincount(inverse, weights=w, minlength=groups)
+    assert np.array_equal(got, want.view(np.int64))
+
+
+def test_segment_reduce_raises_on_what_it_does_not_take(cuda):
     from pathway_tpu_torch.ops import segment_reduce as sr
 
     inv = torch.zeros(8, dtype=torch.int64, device=cuda)
-    order, offsets = sr.segment_offsets(inv, 2)
+    w_int = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
+    w_float = torch.zeros((1, 8), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
-        sr.ordered_segment_sum(torch.zeros(8, dtype=torch.float32, device=cuda), order, offsets)
+        sr.segment_reduce(inv, w_int, w_float.float(), 2)
     with pytest.raises(ValueError):
-        sr.ordered_segment_sum(torch.zeros(7, dtype=torch.float64, device=cuda), order, offsets)
+        sr.segment_reduce(inv, w_int, w_float[:, :7].contiguous(), 2)
+    with pytest.raises(ValueError):
+        sr.segment_reduce(inv, w_int, w_float.cpu(), 2)
+    with pytest.raises(ValueError):
+        sr.segment_sum_int(inv, w_int[:, :7].contiguous(), 2)
+
+
+def test_dadd_chain_kernel_rounds_every_add(cuda):
+    from pathway_tpu_torch.ops import segment_reduce as sr
+
+    assert sr.dadd_chain(torch.tensor([0.0, 1.0], dtype=torch.float64, device=cuda), 4096).item() == 4096.0
+    tiny = torch.tensor([1.0, 2.0**-53], dtype=torch.float64, device=cuda)
+    assert sr.dadd_chain(tiny, 64).item() == 1.0
 
 
 def test_device_operators_on_the_card_match_the_host(cuda):

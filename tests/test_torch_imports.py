@@ -115,8 +115,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "assert KERNEL._fn is None and KERNEL.launches == 0",
             "from pathway_tpu_torch.ops.flash_attention import BWD_DQ_KERNEL, BWD_DKV_KERNEL",
             "assert BWD_DQ_KERNEL._fn is None and BWD_DKV_KERNEL._fn is None",
-            "from pathway_tpu_torch.ops.segment_reduce import KERNEL as SEGMENT_KERNEL",
-            "assert SEGMENT_KERNEL._fn is None and SEGMENT_KERNEL.launches == 0",
+            "from pathway_tpu_torch.ops.segment_reduce import DADD_CHAIN, KERNELS",
+            "assert all(k._fn is None and k.launches == 0 for k in [*KERNELS.values(), DADD_CHAIN])",
             "print('clean')",
         ]
     )
