@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's device paths once, on one card: the streaming-RAG
 serving path, the same pipeline through the port's own engine (``pw.run``), the
-contrastive trainer, and the other model families: the ViT image embedder
-(multimodal RAG), the cross-encoder reranker and the local decoder chat.
+contrastive trainer, the other model families (the ViT image embedder of multimodal
+RAG, the cross-encoder reranker and the local decoder chat), the relational operators,
+and the xpack's RAG document pipeline (``VectorStoreServer`` over BGE-base, and the
+adaptive RAG question answerer over it).
 
     python3 chip_smoke.py
 
@@ -18,10 +20,11 @@ limit):
 3. kernel: the flash-attention kernel against its plain PyTorch version on the card at
    the main path's shape and at the edge shapes (head dim 64, t not a multiple of the
    tile, multi-tile t, no mask, a fully masked row, the ViT-B/16 call: t = 197, d = 64,
-   no mask) and the tile-skipping patterns (real keys only in the last 16-key tile or
+   no mask, the BGE-base embed call of the vector store: [256, 128, 12, 64] with 10-34
+   real keys) and the tile-skipping patterns (real keys only in the last 16-key tile or
    past position 128, live and masked tiles in turn, a dead sequence among live ones);
-   then its time at the serving, the train and the vision shape against its bound, the
-   plain version and
+   then its time at the serving, the train, the vision and the BGE-base serving shape
+   against its bound, the plain version and
    ``scaled_dot_product_attention`` (timed here only, as a yardstick; the port never
    calls it).
 4. train_kernel: the flash-attention backward's two kernels (dQ, dK/dV) against their
@@ -131,7 +134,25 @@ limit):
 14. chat_engine: eight prompts through ``PipelineChat("mistral-7b")`` in ``pw.run`` with
    the decode phase's weights; every reply must be the tokenizer's decode of a direct
    ``greedy_generate`` on the same left-padded batch.
-15. The kernels line (the three flash kernels and ``segment_reduce``), the ``nvidia-smi``
+15. vector_store: ``bench.py::vector_store_leg`` (BASELINE config #2) through
+   ``pw.run``: 3,000 docs with ``_metadata={"path": ...}`` through ``pw.io.python``
+   into a ``VectorStoreServer`` over ``EncoderEmbedder("BAAI/bge-base-en-v1.5")`` at
+   full width (768 hidden, 12 layers, 12 heads, bf16, seeded, 128-token buckets,
+   256-doc chunks) and a 4,096-slot index, then 16 queries of docs' own texts with k =
+   10, one at a time. Reports docs/s, query p50/p95 (and each query's ms), peak memory,
+   the forward's launches (12 per embed call) and the groupby's device calls; checks
+   that every query is answered, each top-1 is its own doc, each answer's hits and
+   dists are the exact f32 host search's over the vectors the index received (dist = 1
+   - cos within 1e-5; neighbours closer than that may trade places) and every doc takes
+   the device route. A profiled run of 768 docs gives the device's idle share in
+   commits.
+16. rag: ``AdaptiveRAGQuestionAnswerer`` over the same store program with the decode
+   phase's chat (the Mistral-7B shape): 4 prompts in one commit, whose expansion loops
+   run at once on the async executor's worker threads; every prompt must be answered,
+   each reply must equal the chat's direct batch-1 reply to ``prompts.prompt_qa`` of
+   the first two retrieved docs (the seeded chat never says "No information found.",
+   checked), and no event-loop thread may outlive the run.
+17. The kernels line (the three flash kernels and ``segment_reduce``), the ``nvidia-smi``
    line, and last ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -186,10 +207,13 @@ from pathway_tpu_torch.ops import flash_attention as fa
 from pathway_tpu_torch.ops import segment_reduce as sr
 from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory
 from pathway_tpu_torch.xpacks.llm import (
+    AdaptiveRAGQuestionAnswerer,
     CrossEncoderReranker,
+    DocumentStore,
     EncoderEmbedder,
     ImageEmbedder,
     PipelineChat,
+    VectorStoreServer,
     prompt_chat_single_qa,
 )
 from pathway_tpu_torch.xpacks.llm.llms import EOS_ID
@@ -229,6 +253,7 @@ PARITY_PAIRS = 128
 GRAD_COS_BAR = 0.99
 LOSS_TOL = 1e-2
 VIT_ATTN_SHAPE = (64, 197, 12, 64)  # ViT-B/16 at 224 px: 196 patches + CLS, 12 heads of 64
+BGE_ATTN_SHAPE = (CHUNK, SEQ_LEN, 12, 64)  # BGE-base: 256 docs in the 128 bucket, 12 heads of 64
 TILE = 16  # keys per tile that the kernels skip when all of its keys are masked
 # the tile-skipping parity cases, forward and backward, each in bf16 and f32
 TILE_CASES = [
@@ -437,6 +462,9 @@ def phase_kernel(card: Card) -> dict:
         ("dead_row", (4, 200, 12, 32), torch.bfloat16, "dead_row"),
         # the vision path's call: t = 197 (not a multiple of the tile), d = 64, no mask
         ("vit_b16", VIT_ATTN_SHAPE, torch.bfloat16, "none"),
+        # one BGE-base embed call of the vector store: 256 docs of 10-34 tokens in the
+        # 128 bucket, 12 heads of 64
+        ("bge_base", BGE_ATTN_SHAPE, torch.bfloat16, "ragged"),
         *TILE_CASES,
     ]
     main_err = None
@@ -460,12 +488,13 @@ def phase_kernel(card: Card) -> dict:
             main_err = err
 
     # the serving shape (one embed call of 256 docs), the train shape (one embed call
-    # of the trainer's 1,024 sequences) and the vision shape (one ViT-B/16 forward call
-    # of 64 images, no mask)
+    # of the trainer's 1,024 sequences), the vision shape (one ViT-B/16 forward call
+    # of 64 images, no mask) and the vector store's (one BGE-base embed call of 256 docs)
     times = {}
     for path, (b, t, h, d), masked in (("serving", (CHUNK, SEQ_LEN, 12, DIM // 12), "ragged"),
                                        ("train", (TRAIN_PAIRS, SEQ_LEN, 12, DIM // 12), "ragged"),
-                                       ("vision", VIT_ATTN_SHAPE, "none")):
+                                       ("vision", VIT_ATTN_SHAPE, "none"),
+                                       ("bge_serving", BGE_ATTN_SHAPE, "ragged")):
         q, k, v, bias = attn_inputs(b, t, h, d, torch.bfloat16, gen, masked=masked)
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), iters=200)
         plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, bias), iters=10, warmup=2)
@@ -497,6 +526,7 @@ def phase_kernel(card: Card) -> dict:
         **times["serving"],
         "train_shape": times["train"],
         "vision_shape": times["vision"],
+        "bge_serving_shape": times["bge_serving"],
     }
 
 
@@ -1994,6 +2024,339 @@ def phase_chat_engine(card: Card, chat) -> dict:
     return {"replies": len(replies)}
 
 
+# -- the RAG document pipeline of the xpack ----------------------------------------------
+
+VS_DOCS = 3000  # bench.py vector_store_leg's BENCH_VS_DOCS
+VS_QUERIES = 16  # and its BENCH_VS_QUERIES
+VS_CAPACITY = 4096  # its index capacity: 1 << max(10, (n_docs - 1).bit_length())
+VS_PROFILED_DOCS = 768  # the profiled second run: three 256-doc commits' worth
+RAG_PROMPTS = 4
+DIST_TOL = 1e-5  # dist = 1 - cos, against the exact f32 host search
+BGE = "BAAI/bge-base-en-v1.5"
+
+
+def _vector_store_program(embedder: EncoderEmbedder, corpus, n_queries: int,
+                          factory: DeviceKnnFactory, wait_s: float):
+    """``bench.py::vector_store_leg``'s program against the port: docs with
+    ``_metadata={"path": ...}`` through the python connector (100 ms autocommit) into a
+    ``VectorStoreServer`` (parse, split, embed, index on the card), and queries of docs'
+    own texts with k = 10, sent one at a time once every chunk has reached the
+    subscriber of ``store.indexed``. Returns the observations and the run."""
+    n_docs = len(corpus)
+    obs = {"chunks": {}, "answers": {}, "latencies": [], "timeouts": [], "failures": [],
+           "run_start": 0.0, "ingest_end": 0.0, "doc_times": set()}
+    ingest_done, answer_seen = threading.Event(), threading.Event()
+
+    class DocFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            obs["run_start"] = time.perf_counter()
+            for i in range(n_docs):
+                self.next(data=corpus[i], _metadata={"path": f"/d/{i}"})
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            if not ingest_done.wait(timeout=wait_s):
+                obs["failures"].append(f"{len(obs['chunks'])} of {n_docs} chunks arrived")
+                return
+            for i in range(n_queries):
+                answer_seen.clear()
+                t0 = time.perf_counter()
+                self.next(query=corpus[(i * 53) % n_docs], k=K)
+                if answer_seen.wait(timeout=wait_s):
+                    obs["latencies"].append(time.perf_counter() - t0)
+                else:
+                    obs["timeouts"].append(i)
+
+    docs = pw.io.python.read(DocFeed(), schema=pw.schema_from_types(data=str, _metadata=dict),
+                             autocommit_duration_ms=100)
+    store = VectorStoreServer(docs, embedder=embedder, index_capacity=VS_CAPACITY)
+    store.index.factory = factory  # the same index, kept so its routes can be read
+    queries = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(query=str, k=int),
+                                autocommit_duration_ms=None)
+    res = store.retrieve_query(queries)
+    perf_counter = time.perf_counter  # the callbacks' ``time`` argument shadows the module
+
+    def on_chunk(key, row, time, is_addition):
+        if is_addition:
+            meta = row["_metadata"]
+            path = getattr(meta, "value", meta)["path"]
+            obs["chunks"][path] = (row["text"], np.asarray(row["emb"], np.float32))
+            obs["doc_times"].add(time)
+            if len(obs["chunks"]) == n_docs:
+                obs["ingest_end"] = perf_counter()
+                ingest_done.set()
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            obs["answers"][len(obs["answers"])] = row["result"]
+            answer_seen.set()
+
+    pw.io.subscribe(store.indexed, on_change=on_chunk)
+    pw.io.subscribe(res, on_change=on_answer)
+    return obs, pw.run
+
+
+def _exact_top_k(chunks: dict, qvec: np.ndarray, k: int):
+    """Exact f32 cosine search over the vectors the index received -> (paths in rank
+    order, dists 1 - cos in that order, the (k+1)-th dist)."""
+    paths = sorted(chunks)
+    mat = np.stack([chunks[p][1] for p in paths])
+    cos = (mat @ qvec) / np.maximum(np.linalg.norm(mat, axis=1) * np.linalg.norm(qvec),
+                                    np.float32(1e-30))
+    order = np.argsort(-cos, kind="stable")
+    dist = 1.0 - cos[order].astype(np.float64)
+    return [paths[j] for j in order[:k]], dist[:k], dist[k] if len(order) > k else math.inf
+
+
+def _check_answer(result, query: str, qvec: np.ndarray, chunks: dict) -> dict:
+    """One answer against the exact f32 host search: its top-1 is the query's own doc;
+    its paths are the exact top-k's and in its order, where neighbours' dists differ by
+    more than DIST_TOL (closer ones are a tie either search may order either way, as is
+    the k-th against the (k+1)-th); each dist is 1 - cos of the query and that doc's
+    vector within DIST_TOL; each text and path belong together."""
+    paths = [hit["metadata"]["path"] for hit in result]
+    dists = np.array([hit["dist"] for hit in result], np.float64)
+    exact_paths, exact_dist, next_dist = _exact_top_k(chunks, qvec, len(result))
+    own = [chunks[p][1] for p in paths]
+    direct = np.array([1.0 - float(np.dot(v, qvec) / (np.linalg.norm(v) * np.linalg.norm(qvec)))
+                       for v in own])
+    ties_only = all(
+        a == b or abs(float(exact_dist[i]) - float(dists[i])) <= DIST_TOL
+        for i, (a, b) in enumerate(zip(paths, exact_paths))
+    ) and (set(paths) == set(exact_paths) or abs(float(exact_dist[-1]) - next_dist) <= DIST_TOL)
+    return {
+        "k": len(result),
+        "top1_own_doc": bool(result) and result[0]["text"] == query,
+        "texts_match_paths": all(hit["text"] == chunks[p][0] for hit, p in zip(result, paths)),
+        "order_exact": paths == exact_paths,
+        "order_within_ties": ties_only,
+        "max_dist_err_vs_exact": float(np.abs(dists - exact_dist).max()) if result else None,
+        "max_dist_err_vs_own_vector": float(np.abs(dists - direct).max()) if result else None,
+    }
+
+
+def phase_vector_store(card: Card) -> tuple[EncoderEmbedder, int]:
+    """``bench.py::vector_store_leg`` (BASELINE config #2) through the port's ``pw.run``:
+    3,000 generated docs with ``_metadata`` through the python connector into a
+    ``VectorStoreServer`` whose embedder is BGE-base at full width (768 hidden, 12
+    layers, 12 heads of 64, bf16, seeded weights, 128-token buckets, 256-doc chunks),
+    a 4,096-slot index on the card, then 16 queries of docs' own texts with k = 10, one
+    at a time. Reports docs/s (first doc into the connector to the last chunk at the
+    subscriber), query p50/p95, peak memory, the forward's launches (12 per embed call)
+    and the groupby's device calls; checks that every query is answered, that each
+    answer's top-1 is its own doc and its hits and dists are the exact f32 search's
+    over the vectors the index received, and that every doc takes the device route.
+    Then a profiled run of 768 docs for the device's idle share inside commits."""
+    corpus = [doc_text(i) for i in range(VS_DOCS)]
+    embedder = EncoderEmbedder(BGE, max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    check(embedder.config.hidden == 768 and embedder.config.layers == 12
+          and embedder.config.heads == 12 and embedder.config.dtype == torch.bfloat16,
+          f"BGE-base config: {embedder.config}")
+    for b in (8, 64, CHUNK):
+        embedder.embed_batch(corpus[:b])  # warm, as the bench does
+    embed_calls, _sizes = _count_embed_calls(embedder)
+    factory = _KeptKnnFactory(dimensions=embedder.get_embedding_dimension(), capacity=VS_CAPACITY)
+    obs, run = _vector_store_program(embedder, corpus, VS_QUERIES, factory, wait_s=300.0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    device_pipeline.PIPELINE.configure()
+    device_ops.reset_counters()
+    fa.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    try:
+        run()
+    finally:
+        del embedder.embed_batch
+    run_s = time.perf_counter() - t0
+    launches = fa.KERNEL.launches
+    groupby_device_calls = device_ops.hit_counts()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    index = factory.built
+    chunks, answers = obs["chunks"], obs["answers"]
+    checks = []
+    for i, result in sorted(answers.items()):
+        query = corpus[(i * 53) % VS_DOCS]
+        qvec = embedder.embed_batch([query]).float().cpu().numpy()[0]  # the run's own shape
+        checks.append(_check_answer(result, query, qvec, chunks))
+    lat_ms = sorted(1e3 * x for x in obs["latencies"])
+    ingest_s = obs["ingest_end"] - obs["run_start"]
+
+    # the same program under the profiler, on fewer docs and no queries: the device's
+    # idle share inside commits
+    factory2 = DeviceKnnFactory(dimensions=embedder.get_embedding_dimension(), capacity=VS_CAPACITY)
+    obs2, run2 = _vector_store_program(embedder, corpus[:VS_PROFILED_DOCS], 0, factory2, wait_s=300.0)
+    device_pipeline.PIPELINE.configure()
+    wall_ms, kernels, inside, _sched = _profiled_commits(run2)
+    busy_ms = sum(k[0] for k in kernels)
+    commit_ms = 1e3 * sum(inside)
+
+    # statistics_query's count over the same 3,000 docs (a BM25 store: the count needs
+    # no embedding): does the groupby's count take the device route at this size?
+    static_docs = pw.debug.table_from_rows(
+        pw.schema_from_types(data=str, _metadata=dict),
+        [(corpus[i], {"path": f"/d/{i}"}) for i in range(VS_DOCS)])
+    stats_query = pw.debug.table_from_rows(pw.schema_from_types(x=int), [(1,)])
+    device_ops.reset_counters()
+    stats, _ = pw.debug.table_to_dicts(
+        DocumentStore(static_docs, retriever_factory="bm25").statistics_query(stats_query))
+    stats_device_calls = device_ops.hit_counts()
+    stats_count = [row["count"] for row in stats.values()]
+    card.emit(
+        "vector_store",
+        model=f"{BGE} (hidden 768, 12 layers, 12 heads of 64, bf16, seeded)",
+        n_docs=len(chunks), n_queries=len(lat_ms), query_timeouts=len(obs["timeouts"]),
+        capacity=index.capacity, docs_per_s=VS_DOCS / ingest_s if ingest_s > 0 else None,
+        ingest_s=ingest_s, doc_commits=len(obs["doc_times"]), run_s=run_s,
+        query_p50_ms=lat_ms[len(lat_ms) // 2] if lat_ms else None,
+        query_p95_ms=lat_ms[int(0.95 * len(lat_ms))] if lat_ms else None,
+        query_ms_in_order=[1e3 * x for x in obs["latencies"]],
+        top1_self_retrieval=float(np.mean([c["top1_own_doc"] for c in checks])) if checks else None,
+        answers_order_exact=sum(c["order_exact"] for c in checks),
+        max_dist_err_vs_exact=max((c["max_dist_err_vs_exact"] for c in checks), default=None),
+        max_dist_err_vs_own_vector=max((c["max_dist_err_vs_own_vector"] for c in checks), default=None),
+        embed_calls=embed_calls[0], flash_launches=launches,
+        groupby_device_calls=groupby_device_calls,
+        statistics_query={"count": stats_count, "groupby_device_calls": stats_device_calls},
+        index_rows_device_route=index.rows_device, index_rows_host_route=index.rows_host,
+        live_device_batches_after_run=device_batches_held(), peak_device_gib=peak_gib,
+        profiled_run={"docs": len(obs2["chunks"]), "wall_ms": wall_ms, "in_commit_wall_ms": commit_ms,
+                      "commits": len(inside),
+                      "device_busy_ms": busy_ms if kernels else "not measured",
+                      "device_idle_share_in_commits": (1 - busy_ms / commit_ms) if kernels else "not measured",
+                      "top": [{"kernel": k[:80], "device_ms": ms, "launches": c} for ms, k, c in kernels[:10]]},
+        failures=obs["failures"] + obs2["failures"],
+    )
+    check(not obs["failures"] and not obs2["failures"], f"vector store: {obs['failures'] + obs2['failures']}")
+    check(len(chunks) == VS_DOCS and len(obs2["chunks"]) == VS_PROFILED_DOCS,
+          f"{len(chunks)} of {VS_DOCS} chunks arrived")
+    check(len(answers) == VS_QUERIES and not obs["timeouts"],
+          f"vector store: {len(answers)} answers, timeouts {obs['timeouts']}")
+    check(all(c["k"] == K for c in checks), f"vector store: answers of {[c['k'] for c in checks]} hits")
+    check(all(c["top1_own_doc"] for c in checks), "vector store: a query's top-1 is not its own doc")
+    check(all(c["texts_match_paths"] for c in checks), "vector store: a hit's text and path disagree")
+    check(all(c["order_within_ties"] for c in checks),
+          "vector store: an answer is not the exact f32 search's top-k")
+    check(all(c["max_dist_err_vs_exact"] <= DIST_TOL and c["max_dist_err_vs_own_vector"] <= DIST_TOL
+              for c in checks), f"vector store: dist off 1 - cos by more than {DIST_TOL}")
+    check(launches > 0 and launches == embedder.config.layers * embed_calls[0],
+          f"vector store: {launches} forward launches for {embed_calls[0]} embed calls")
+    check(index.rows_device == VS_DOCS and index.rows_host == 0,
+          f"vector store index routes: {index.rows_device} device, {index.rows_host} host")
+    check(device_batches_held() == 0, "device batches held after the vector store run")
+    check(stats_count == [VS_DOCS], f"statistics_query counted {stats_count} chunks")
+    return embedder, launches
+
+
+def phase_rag(card: Card, chat, embedder: EncoderEmbedder) -> int:
+    """BASELINE config #4's template: ``AdaptiveRAGQuestionAnswerer`` over the vector
+    store's program (the same 3,000 docs, BGE-base and index) with the decode phase's
+    chat (the Mistral-7B shape, so no second model is loaded); 4 prompts in one commit
+    once every chunk has arrived, so their expansion loops run at once on the event
+    loop's worker threads, each calling the chat on the card. Checks that every prompt
+    is answered and that each reply is the chat's direct batch-1 reply to the prompt
+    ``prompts.prompt_qa`` builds from the first two retrieved docs: the seeded model's
+    replies are token ids, which never say "No information found.", so no prompt
+    expands (checked)."""
+    from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
+    from pathway_tpu_torch.xpacks.llm import prompts
+
+    corpus = [doc_text(i) for i in range(VS_DOCS)]
+    questions = [corpus[(i * 331) % VS_DOCS] for i in range(RAG_PROMPTS)]
+    obs = {"chunks": 0, "replies": {}, "failures": [], "sent": 0.0, "done": 0.0}
+    ingest_done, all_answered = threading.Event(), threading.Event()
+    perf_counter = time.perf_counter
+
+    class DocFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            for i in range(VS_DOCS):
+                self.next(data=corpus[i], _metadata={"path": f"/d/{i}"})
+
+    class PromptFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            if not ingest_done.wait(timeout=300.0):
+                obs["failures"].append(f"{obs['chunks']} of {VS_DOCS} chunks arrived")
+                return
+            obs["sent"] = perf_counter()
+            for q in questions:
+                self.next(prompt=q)
+            if not all_answered.wait(timeout=300.0):
+                obs["failures"].append(f"{len(obs['replies'])} of {RAG_PROMPTS} prompts answered")
+
+    docs = pw.io.python.read(DocFeed(), schema=pw.schema_from_types(data=str, _metadata=dict),
+                             autocommit_duration_ms=100)
+    store = VectorStoreServer(docs, embedder=embedder, index_capacity=VS_CAPACITY)
+    rag = AdaptiveRAGQuestionAnswerer(chat, store, n_starting_documents=2, factor=2,
+                                      max_iterations=4)
+    queries = pw.io.python.read(PromptFeed(), schema=pw.schema_from_types(prompt=str),
+                                autocommit_duration_ms=None)
+    answered = rag.answer_query(queries)
+    out = queries.restrict(answered).select(prompt=queries.prompt, result=answered.result,
+                                            docs=answered.context_docs)
+
+    def on_chunk(key, row, time, is_addition):
+        if is_addition:
+            obs["chunks"] += 1
+            if obs["chunks"] == VS_DOCS:
+                ingest_done.set()
+
+    def on_reply(key, row, time, is_addition):
+        if is_addition:
+            obs["replies"][row["prompt"]] = (row["result"], [d["text"] for d in row["docs"]])
+            if len(obs["replies"]) == RAG_PROMPTS:
+                obs["done"] = perf_counter()
+                all_answered.set()
+
+    pw.io.subscribe(store.chunks, on_change=on_chunk)
+    pw.io.subscribe(out, on_change=on_reply)
+    calls, generate = [], chat._fn
+
+    def counted(batch):
+        calls.append(len(batch))
+        return generate(batch)
+
+    chat._fn = counted  # what the UDF calls; the direct calls below take the method
+    device_pipeline.PIPELINE.configure()
+    fa.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    try:
+        pw.run()
+    finally:
+        chat._fn = generate
+    run_s = time.perf_counter() - t0
+    launches = fa.KERNEL.launches
+    loop_threads = [t.name for t in threading.enumerate() if t.is_alive() and t.name == "pw-udf-loop"]
+    stop_event_loop()
+    rows, direct_s = [], 0.0
+    for q in questions:
+        reply, doc_texts = obs["replies"].get(q, (None, []))
+        t1 = time.perf_counter()
+        direct = chat.generate_batch([prompts.prompt_qa(q, doc_texts[:2])])[0]
+        direct_s += time.perf_counter() - t1
+        rows.append({"answered": reply is not None, "equal_direct": reply == direct,
+                     "expanded": "no information found." in (direct or "").lower(),
+                     "docs": len(doc_texts), "own_doc_first": bool(doc_texts) and doc_texts[0] == q,
+                     "reply_words": len((reply or "").split())})
+    card.emit("rag", model="Mistral-7B shape (the decode phase's weights) over the vector store "
+                           f"({BGE}, {VS_DOCS} docs)",
+              prompts=RAG_PROMPTS, answered=len(obs["replies"]), run_s=run_s,
+              prompts_to_replies_s=(obs["done"] - obs["sent"]) if obs["done"] else None,
+              direct_calls_one_after_another_s=direct_s,
+              chat_calls=len(calls), chat_batch_sizes=calls, flash_launches=launches,
+              udf_loop_threads_after_run=loop_threads, replies=rows, failures=obs["failures"])
+    check(not obs["failures"], f"rag: {obs['failures']}")
+    check(len(obs["replies"]) == RAG_PROMPTS, f"rag: {len(obs['replies'])} of {RAG_PROMPTS} answered")
+    check(not any(r["expanded"] for r in rows), "rag: the seeded chat said it found nothing")
+    check(all(r["equal_direct"] for r in rows), f"rag: replies differ from the direct calls: {rows}")
+    check(calls == [1] * RAG_PROMPTS, f"rag: chat calls {calls}, one batch-1 call a prompt expected")
+    check(not loop_threads, f"rag: event-loop threads alive after pw.run: {loop_threads}")
+    check(launches > 0 and launches % embedder.config.layers == 0,
+          f"rag: {launches} forward launches, not {embedder.config.layers} a call")
+    return launches
+
+
 # -- the relational operators -----------------------------------------------------------
 
 N_REL = 1_000_000  # bench_dataflow.py's N
@@ -2550,12 +2913,15 @@ def main() -> int:
     rerank = phase_rerank(card)
     chat = phase_decode(card)
     phase_chat_engine(card, chat)
-    del chat
+    bge, vector_store = phase_vector_store(card)
+    rag = phase_rag(card, chat, bge)
+    del chat, bge
     fwd["launches"] = serving["launches"]
     fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
                                "engine_async_parity": parity,
                                "train": train[fwd["name"]], "vision": vision,
-                               "multimodal": multimodal, "rerank": rerank}
+                               "multimodal": multimodal, "rerank": rerank,
+                               "vector_store": vector_store, "rag": rag}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}

@@ -8,7 +8,10 @@ and no JAX. It holds the engine (``pw.run``, ``pw.io.python``, ``pw.io.subscribe
 ``flatten``, ``ix`` and the other relational operations, the groupby's reductions and
 the join's pair matcher on the card, UDFs with a batch executor, lazy device rows,
 ``stdlib.indexing.DataIndex`` over the as-of-now KNN index on the card), the embedder
-UDF (``xpacks.llm.EncoderEmbedder``), the encoder and its train step (``models``,
+UDF (``xpacks.llm.EncoderEmbedder``) and the rest of the LLM xpack (the image embedder,
+rerankers, chats, and the RAG document pipeline: ``DocumentStore``,
+``VectorStoreServer``, parsers, splitters, the RAG answerers; UDFs may be async, cached
+and retried), the encoder and its train step (``models``,
 ``models.make_train_step``), and the flash-attention kernels for Hopper
 (``ops.flash_attention``: the forward in ``csrc/flash_attention_fwd.cu``, the backward
 in ``csrc/flash_attention_bwd.cu``) and the ordered segment sum under the groupby

@@ -543,7 +543,8 @@ class ExternalIndexNode(Node):
     of floats). Index-side updates of a commit are applied (removes before adds)
     before the queries of the same commit are answered. Answers stick until their
     query row is deleted; a query of a live key again replaces its answer. An error or
-    ``None`` vector is reported, not indexed.
+    ``None`` payload (a vector, or the text of the BM25 index) is reported, not indexed,
+    under the JAX engine's message.
     """
 
     def __init__(

@@ -19,7 +19,7 @@ from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 from pathway_tpu_torch.engine import expression as eex
 from pathway_tpu_torch.engine.external_index import ExternalIndexNode
-from pathway_tpu_torch.engine.graph import Node, Scheduler, Scope, StaticSource
+from pathway_tpu_torch.engine.graph import Node, Scheduler, Scope
 from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
 from pathway_tpu_torch.engine.value import Pointer
 from pathway_tpu_torch.internals import dtype as dt
@@ -27,6 +27,7 @@ from pathway_tpu_torch.internals import expression as pex
 from pathway_tpu_torch.internals.desugaring import substitute
 from pathway_tpu_torch.internals.expression import ColumnExpression, ColumnReference
 from pathway_tpu_torch.internals.udfs.executors import make_kw_fn as _make_kw_fn
+from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
 from pathway_tpu_torch.internals.universe import solver
 
 if TYPE_CHECKING:
@@ -586,20 +587,26 @@ class GraphRunner:
 
     def run(self) -> Scheduler:
         """Run to completion: with no connector, one static commit and the end;
-        otherwise the static tables' rows as a first commit, the streaming loop (poll
+        otherwise the static tables' rows as a first commit (time 0, empty when there
+        is no static table), the streaming loop (poll
         the drivers, commit, until all of them report done), then the final commit and
         the sinks' end hooks. The scheduler stays on ``self.scheduler``, where its
-        probe stats are read."""
+        probe stats are read. The async UDFs' event-loop thread is stopped when the run
+        ends or raises."""
         sched = Scheduler(self.scope, probe=self.probe_stats)
         self.scheduler = sched
-        if not self.drivers:
-            sched.run_static()
-            return sched
-        if any(isinstance(node, StaticSource) for node in self.scope.nodes):
+        try:
+            if not self.drivers:
+                sched.run_static()
+                return sched
+            # the static tables' rows (if any) at time 0, so streamed commits count
+            # from 1, as in the JAX engine
             sched.commit()
-        _pump_drivers(self.drivers, sched.commit)
-        sched.finish()
-        return sched
+            _pump_drivers(self.drivers, sched.commit)
+            sched.finish()
+            return sched
+        finally:
+            stop_event_loop()
 
     def capture(self, *tables: "Table") -> list[dict[Pointer, tuple]]:
         """Run the graph that ``tables`` reach and return each one's final state."""

@@ -2,49 +2,55 @@
 
 Counterpart of ``pathway_tpu/internals/udfs/__init__.py``. A UDF call inside ``select``
 lowers to the engine's BatchApplyNode, which hands whole commit batches of rows to the
-UDF's executor: device UDFs (the embedder) get micro-batches instead of rows. The UDF
-caches, retries and the async executor are not ported yet (ROADMAP queue 1 item 11).
+UDF's executor: device UDFs (the embedder) get micro-batches instead of rows, async
+UDFs (remote chats) run concurrently on the event-loop thread. A ``cache_strategy``
+is consulted before the executor runs, a ``retry_strategy`` wraps every call.
 """
 
 from __future__ import annotations
 
 import functools
-import hashlib
 from typing import Any, Callable
 
 from pathway_tpu_torch.internals.expression import (
     BatchApplyExpression,
     ColumnExpression,
 )
+from pathway_tpu_torch.internals.udfs.caches import (
+    CacheStrategy,
+    DefaultCache,
+    DiskCache,
+    InMemoryCache,
+    _digest,
+    fn_cache_name,
+    set_udf_cache_root,
+)
 from pathway_tpu_torch.internals.udfs.executors import (
+    AsyncExecutor,
     BatchExecutor,
     Executor,
     SyncExecutor,
+    async_executor,
     auto_executor,
     batch_executor,
     make_kw_fn,
     sync_executor,
 )
-
-
-def fn_cache_name(fn: Callable) -> str:
-    """Stable-across-runs identifier for a function: module + qualname + bytecode
-    digest (the JAX package's cache-key name for a UDF)."""
-    module = getattr(fn, "__module__", "?")
-    qualname = getattr(fn, "__qualname__", getattr(fn, "__name__", "udf"))
-    code = getattr(fn, "__code__", None)
-    code_hash = (
-        hashlib.sha256(code.co_code).hexdigest()[:16] if code is not None else ""
-    )
-    return f"{module}.{qualname}#{code_hash}"
+from pathway_tpu_torch.internals.udfs.retries import (
+    AsyncRetryStrategy,
+    ExponentialBackoffRetryStrategy,
+    FixedDelayRetryStrategy,
+    NoRetryStrategy,
+)
 
 
 class UDF:
     """A callable lowered to engine batch execution when used in ``select``.
 
     Subclass with ``__wrapped__`` or pass ``fn``; calling it with column expressions
-    builds the expression node. ``cache_name`` names the function for result caches
-    (closure-configured UDFs pass one that includes their configuration).
+    builds the expression node. ``cache_name`` names the function for result caches:
+    two instances wrapping the same closure code with different captured configuration
+    must pass distinct names, or they share cached results.
     """
 
     def __init__(
@@ -55,6 +61,8 @@ class UDF:
         deterministic: bool = False,
         propagate_none: bool = False,
         executor: Executor | None = None,
+        cache_strategy: CacheStrategy | None = None,
+        retry_strategy: AsyncRetryStrategy | None = None,
         max_batch_size: int | None = None,
         cache_name: str | None = None,
     ) -> None:
@@ -78,6 +86,8 @@ class UDF:
             # fresh instance: never mutate a caller-shared executor
             executor = BatchExecutor(max_batch_size=max_batch_size)
         self._executor = executor
+        self._cache = cache_strategy
+        self._retry = retry_strategy
         self._cache_name = cache_name or fn_cache_name(fn)
 
     def __call__(self, *args: Any, **kwargs: Any) -> ColumnExpression:
@@ -100,11 +110,31 @@ class UDF:
         n_pos: int | None = None,
         kw_names: tuple = (),
     ) -> list[tuple[bool, Any]]:
-        """(ok, value) per row, in row order."""
+        """(ok, value) per row, in row order. With a cache, hits are taken from it and
+        each distinct missing argument tuple is computed once; successes are stored."""
         fn = make_kw_fn(
             self._fn, n_pos if n_pos is not None else len(rows[0]), list(kw_names)
         )
-        return self._executor.run(fn, rows)
+        if self._cache is None:
+            return self._executor.run(fn, rows, self._retry)
+        results: list[tuple[bool, Any] | None] = [None] * len(rows)
+        keys = [_digest(self._cache_name, args) for args in rows]
+        unique: dict[str, list[int]] = {}
+        for i, key in enumerate(keys):
+            hit = self._cache.get(key)
+            if CacheStrategy.missing(hit):
+                unique.setdefault(key, []).append(i)
+            else:
+                results[i] = (True, hit)
+        if unique:
+            reps = [idxs[0] for idxs in unique.values()]
+            computed = self._executor.run(fn, [rows[i] for i in reps], self._retry)
+            for rep, res in zip(reps, computed):
+                for i in unique[keys[rep]]:
+                    results[i] = res
+                if res[0]:
+                    self._cache.put(keys[rep], res[1])
+        return results
 
 
 def udf(
@@ -115,6 +145,8 @@ def udf(
     deterministic: bool = False,
     propagate_none: bool = False,
     executor: Executor | None = None,
+    cache_strategy: CacheStrategy | None = None,
+    retry_strategy: AsyncRetryStrategy | None = None,
     max_batch_size: int | None = None,
 ) -> Any:
     """``@pw.udf`` decorator."""
@@ -126,6 +158,8 @@ def udf(
             deterministic=deterministic,
             propagate_none=propagate_none,
             executor=executor,
+            cache_strategy=cache_strategy,
+            retry_strategy=retry_strategy,
             max_batch_size=max_batch_size,
         )
         functools.update_wrapper(u, f, updated=())
@@ -137,11 +171,23 @@ def udf(
 
 
 __all__ = [
+    "AsyncExecutor",
+    "AsyncRetryStrategy",
     "BatchExecutor",
+    "CacheStrategy",
+    "DefaultCache",
+    "DiskCache",
+    "ExponentialBackoffRetryStrategy",
     "Executor",
+    "FixedDelayRetryStrategy",
+    "InMemoryCache",
+    "NoRetryStrategy",
     "SyncExecutor",
     "UDF",
+    "async_executor",
+    "auto_executor",
     "batch_executor",
+    "set_udf_cache_root",
     "sync_executor",
     "udf",
 ]

@@ -1,11 +1,23 @@
-"""The LLM xpack's local models on the card: the sentence and image embedders, the
-rerankers, the decoder chat, and the tokenizers."""
+"""The LLM xpack: the local models on the card (the sentence and image embedders, the
+rerankers, the decoder chat), the remote chats over an injected client, the
+tokenizers, and the RAG document pipeline (parsers, splitters, ``DocumentStore``,
+``VectorStoreServer``, the question answerers)."""
 
+from pathway_tpu_torch.xpacks.llm import (
+    embedders,
+    llms,
+    mocks,
+    parsers,
+    prompts,
+    rerankers,
+    splitters,
+)
 from pathway_tpu_torch.xpacks.llm._tokenizer import (
     HashTokenizer,
     WordPieceTokenizer,
     pad_to_buckets,
 )
+from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
 from pathway_tpu_torch.xpacks.llm.embedders import (
     EncoderEmbedder,
     ImageEmbedder,
@@ -19,16 +31,29 @@ from pathway_tpu_torch.xpacks.llm.llms import (
     PipelineChat,
     prompt_chat_single_qa,
 )
+from pathway_tpu_torch.xpacks.llm.question_answering import (
+    AdaptiveRAGQuestionAnswerer,
+    BaseRAGQuestionAnswerer,
+    RAGClient,
+    answer_with_geometric_rag_strategy,
+)
 from pathway_tpu_torch.xpacks.llm.rerankers import (
     CrossEncoderReranker,
     EncoderReranker,
     LLMReranker,
     rerank_topk_filter,
 )
+from pathway_tpu_torch.xpacks.llm.vector_store import (
+    VectorStoreClient,
+    VectorStoreServer,
+)
 
 __all__ = [
+    "AdaptiveRAGQuestionAnswerer",
+    "BaseRAGQuestionAnswerer",
     "CohereChat",
     "CrossEncoderReranker",
+    "DocumentStore",
     "EncoderEmbedder",
     "EncoderReranker",
     "HFPipelineChat",
@@ -38,9 +63,20 @@ __all__ = [
     "LiteLLMChat",
     "OpenAIChat",
     "PipelineChat",
+    "RAGClient",
     "SentenceTransformerEmbedder",
+    "VectorStoreClient",
+    "VectorStoreServer",
     "WordPieceTokenizer",
+    "answer_with_geometric_rag_strategy",
+    "embedders",
+    "llms",
+    "mocks",
     "pad_to_buckets",
+    "parsers",
     "prompt_chat_single_qa",
+    "prompts",
     "rerank_topk_filter",
+    "rerankers",
+    "splitters",
 ]

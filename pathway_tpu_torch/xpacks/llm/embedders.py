@@ -10,8 +10,8 @@ call whose rows enter the engine as lazy device rows (``device_resident``, on un
 ``PATHWAY_DEVICE_RESIDENT_UDF=0``; off, host arrays): the KNN index reads them on the
 card, and a host reader gets their host twin. The device pipeline's adaptive controller
 narrows the chunks below ``max_batch_size`` (the executor's sizer). ``embed_batch``
-returns the tensor to direct callers. The UDF result caches (``cache_strategy``) are not
-ported yet (ROADMAP queue 1 item 11).
+returns the tensor to direct callers. With a ``cache_strategy`` the UDF serves repeated
+texts from the cache (a lazy row stored in a disk cache pickles as its host array).
 
 ``ImageEmbedder`` is the counterpart of ``TpuImageEmbedder``: image bytes are decoded
 and resized on the host, sent to the card as uint8 ``[b, 224, 224, 3]`` (a quarter of
@@ -25,7 +25,7 @@ from __future__ import annotations
 import hashlib
 import io
 import os
-from typing import Any, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -33,7 +33,7 @@ import torch
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine.device import lazy_rows
-from pathway_tpu_torch.internals.udfs import UDF, batch_executor
+from pathway_tpu_torch.internals.udfs import UDF, CacheStrategy, batch_executor
 from pathway_tpu_torch.models.hf_import import load_sentence_transformer
 from pathway_tpu_torch.models.transformer import (
     Encoder,
@@ -75,9 +75,6 @@ _VISION_PRESETS = {
     "vit-tiny": "vit_tiny",
 }
 _VISION_CONFIGS = {"clip_vit_b16": clip_vit_b16, "vit_tiny": vit_tiny}
-_NO_CACHES = (
-    "UDF result caches (cache_strategy) are not ported yet (ROADMAP queue 1 item 11)"
-)
 
 
 def _resolve_device_resident(device_resident: "bool | None") -> bool:
@@ -133,11 +130,9 @@ class EncoderEmbedder(UDF):
         seed: int = 0,
         seq_bucket_min: int = 8,
         device: "str | torch.device | None" = None,
-        cache_strategy: Any = None,
+        cache_strategy: CacheStrategy | None = None,
         device_resident: bool | None = None,
     ) -> None:
-        if cache_strategy is not None:
-            raise NotImplementedError(_NO_CACHES)
         self.device = resolve_device(device)
         self.device_resident = _resolve_device_resident(device_resident)
         weights_tag = None
@@ -192,6 +187,7 @@ class EncoderEmbedder(UDF):
                 max_batch_size=max_batch_size, sizer=device_pipeline.suggested_batch_size
             ),
             deterministic=True,
+            cache_strategy=cache_strategy,
             cache_name=(
                 f"EncoderEmbedder:{preset}:{max_len}:"
                 + (f"ckpt{weights_tag}" if weights_tag else f"seed{seed}")
@@ -251,12 +247,10 @@ class ImageEmbedder(UDF):
         params: dict[str, torch.Tensor] | None = None,
         seed: int = 0,
         max_batch_size: int = 64,
-        cache_strategy: Any = None,
+        cache_strategy: CacheStrategy | None = None,
         device_resident: bool | None = None,
         device: "str | torch.device | None" = None,
     ) -> None:
-        if cache_strategy is not None:
-            raise NotImplementedError(_NO_CACHES)
         preset = _VISION_PRESETS.get(model, model)
         cfg_fn = _VISION_CONFIGS.get(preset)
         if cfg_fn is None:
@@ -281,6 +275,7 @@ class ImageEmbedder(UDF):
                 max_batch_size=max_batch_size, sizer=device_pipeline.suggested_batch_size
             ),
             deterministic=True,
+            cache_strategy=cache_strategy,
             cache_name=f"ImageEmbedder:{preset}:{weights_part}",
         )
 

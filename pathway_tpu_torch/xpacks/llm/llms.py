@@ -4,8 +4,9 @@ Counterpart of ``pathway_tpu/xpacks/llm/llms.py``. ``PipelineChat`` (``TpuPipeli
 there; ``HFPipelineChat`` keeps its name) is the causal decoder of ``models/decoder.py``
 with greedy or sampled decode over a static KV cache, micro-batched by the UDF's batch
 executor: each chunk of prompts is tokenized, left-padded and generated as one batch.
-The remote chats (``OpenAIChat``, ``LiteLLMChat``, ``CohereChat``) run on the async
-executor, which is not ported yet (ROADMAP queue 1 item 11): constructing one raises.
+The remote chats (``OpenAIChat``, ``LiteLLMChat``, ``CohereChat``) are async UDFs over
+an injected ``client`` callable (sync or async): the package makes no network call of
+its own.
 """
 
 from __future__ import annotations
@@ -13,13 +14,19 @@ from __future__ import annotations
 import hashlib
 import json
 import zlib
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch.internals.udfs import UDF, batch_executor
+from pathway_tpu_torch.internals.udfs import (
+    UDF,
+    AsyncRetryStrategy,
+    CacheStrategy,
+    async_executor,
+    batch_executor,
+)
 from pathway_tpu_torch.models.decoder import (
     Decoder,
     greedy_generate,
@@ -186,10 +193,42 @@ def _coerce_prompt(prompt: Any) -> str:
 
 
 class _RemoteChat(UDF):
-    def __init__(self, model: str, client: Any = None, **kwargs: Any) -> None:
-        raise NotImplementedError(
-            f"{type(self).__name__} runs on the async UDF executor, which is not "
-            "ported yet (ROADMAP queue 1 item 11)"
+    """A chat behind ``client(model=..., prompt=..., **client_kwargs)``, which may
+    return the reply or an awaitable of it; the reply is taken as ``str``. Runs on the
+    async executor (``capacity`` calls at once, ``timeout`` seconds a call), with the
+    optional cache and retry strategies; the cache name is the class and the model."""
+
+    def __init__(
+        self,
+        model: str,
+        client: Callable[..., Any] | None = None,
+        *,
+        capacity: int | None = None,
+        timeout: float | None = None,
+        cache_strategy: CacheStrategy | None = None,
+        retry_strategy: AsyncRetryStrategy | None = None,
+        **client_kwargs: Any,
+    ) -> None:
+        self.model = model
+        self.kwargs = client_kwargs
+        if client is None:
+            raise ValueError(
+                f"{type(self).__name__} needs an async `client` callable "
+                "(no network egress here); use xpacks.llm.mocks for tests"
+            )
+
+        async def call(prompt: Any) -> str:
+            result = client(model=self.model, prompt=prompt, **self.kwargs)
+            if hasattr(result, "__await__"):
+                result = await result
+            return str(result)
+
+        super().__init__(
+            call,
+            executor=async_executor(capacity=capacity, timeout=timeout),
+            cache_strategy=cache_strategy,
+            retry_strategy=retry_strategy,
+            cache_name=f"{type(self).__name__}:{model}",
         )
 
 

@@ -638,3 +638,73 @@ def test_device_operators_on_the_card_match_the_host(cuda):
         assert np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
     finally:
         dops.configure()
+
+
+def test_kernel_matches_plain_version_at_the_bge_base_shape(cuda):
+    """One BGE-base embed call of the vector store: 256 docs of 10-34 tokens in the
+    128 bucket, 12 heads of 64, bf16."""
+    b, t, h, d = 256, 128, 12, 64
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _qkv(b, t, h, d, seed=31))
+    bias = tfa.mask_bias(torch.from_numpy(_mask("ragged", b, t, np.random.default_rng(32))).to(cuda))
+    before = tfa.KERNEL.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert tfa.KERNEL.launches == before + 1
+    ro, rlse = tfa.flash_attention_fwd_reference(q, k, v, bias)
+    assert (o.float() - ro.float()).abs().max().item() <= 2e-2
+    assert ((lse - rlse).abs() / rlse.abs().clamp(min=1)).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_document_store_on_card_matches_cpu(cuda, dtype):
+    """A small ``DocumentStore`` over a hidden-64 ``EncoderEmbedder`` (2 layers, the same
+    seeded weights) on the card against the same program on the CPU: every top-1 is the query's own
+    doc on both; rank by rank the same text, or two texts whose dists are within the
+    bar of each other (a seeded model this small maps many docs to nearly the same
+    vector, so neighbours that close may trade places), and the dists within the bar:
+    1e-4 in f32, 2e-2 (the bf16 bar) in bf16."""
+    import pathway_tpu_torch as tpw
+    from pathway_tpu_torch.engine import device_ops
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.xpacks.llm import DocumentStore, EncoderEmbedder
+
+    words = "stream table index vector engine commit window join reduce shard".split()
+    rng = np.random.default_rng(4)
+    texts = [" ".join(words[j] for j in rng.integers(0, len(words), 6)) for _ in range(24)]
+    cfg = EncoderConfig(vocab_size=512, hidden=64, layers=2, heads=4, intermediate=128,
+                        max_len=64, dtype=dtype)
+    bar = 1e-4 if dtype == torch.float32 else 2e-2
+
+    # seeded weights are drawn per device, so the card takes the CPU encoder's
+    weights = EncoderEmbedder(cfg, seed=3, device="cpu").encoder.state_dict()
+
+    def answers(device):
+        emb = EncoderEmbedder(cfg, max_len=32, max_batch_size=16, params=weights, device=device)
+        docs = tpw.debug.table_from_rows(
+            tpw.schema_from_types(data=str, _metadata=dict),
+            [(t, {"path": f"/d/{i}"}) for i, t in enumerate(texts)],
+        )
+        store = DocumentStore(docs, embedder=emb, device=device)
+        queries = tpw.debug.table_from_rows(tpw.schema_from_types(query=str, k=int),
+                                            [(texts[i], 5) for i in range(0, 24, 5)])
+        data, _ = tpw.debug.table_to_dicts(store.retrieve_query(queries))
+        return [data[key]["result"] for key in sorted(data, key=int)]
+
+    device_ops.configure(device="cpu")
+    try:
+        ours, ref = answers(cuda), answers("cpu")
+    finally:
+        device_ops.configure()
+        G.clear()
+    queries = [texts[i] for i in range(0, 24, 5)]
+    assert len(ours) == len(ref) == len(queries)
+    assert sorted(r[0]["text"] for r in ours) == sorted(r[0]["text"] for r in ref) == sorted(queries)
+    for got, want in zip(ours, ref):
+        pairs = [(a["text"], b["text"], a["dist"], b["dist"]) for a, b in zip(got, want)]
+        assert len(got) == len(want) == 5, pairs
+        assert all(abs(da - db) <= bar for _ta, _tb, da, db in pairs), pairs
+        # the top 4: where the card's text differs, the CPU ranks it in its top 5 at a
+        # dist within the bar of the CPU's text at that rank
+        cpu_dist = {h["text"]: h["dist"] for h in want}
+        for ta, tb, _da, _db in pairs[:4]:
+            assert ta == tb or (ta in cpu_dist and abs(cpu_dist[ta] - cpu_dist[tb]) <= bar), pairs

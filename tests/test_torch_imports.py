@@ -70,6 +70,19 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.internals.groupbys",
         "pathway_tpu_torch.internals.joins",
         "pathway_tpu_torch.debug",
+        "pathway_tpu_torch.internals.udfs.caches",
+        "pathway_tpu_torch.internals.udfs.retries",
+        "pathway_tpu_torch.internals.jmespath_lite",
+        "pathway_tpu_torch.stdlib.indexing.bm25",
+        "pathway_tpu_torch.stdlib.indexing.hybrid_index",
+        "pathway_tpu_torch.xpacks.llm.prompts",
+        "pathway_tpu_torch.xpacks.llm.mocks",
+        "pathway_tpu_torch.xpacks.llm.splitters",
+        "pathway_tpu_torch.xpacks.llm._pdf",
+        "pathway_tpu_torch.xpacks.llm.parsers",
+        "pathway_tpu_torch.xpacks.llm.document_store",
+        "pathway_tpu_torch.xpacks.llm.vector_store",
+        "pathway_tpu_torch.xpacks.llm.question_answering",
     ):
         assert expected in names
 
@@ -83,6 +96,8 @@ def test_engine_api_imports_no_jax_and_touches_no_card():
             f"sys.path.insert(0, {REPO!r})",
             "import pathway_tpu_torch as pw",
             "from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory",
+            "from pathway_tpu_torch.xpacks.llm import (AdaptiveRAGQuestionAnswerer, DocumentStore,",
+            "    VectorStoreServer, mocks, parsers, splitters)",
             "names = [pw.run, pw.io.python.read, pw.io.python.ConnectorSubject,",
             "         pw.io.subscribe, pw.this.x, pw.schema_from_types, pw.Table, pw.udf, pw.UDF,",
             "         pw.reducers.sum, pw.left.x, pw.right.x, pw.debug.table_from_markdown]",

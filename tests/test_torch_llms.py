@@ -144,9 +144,39 @@ def test_prompt_chat_single_qa_matches_jax():
 
 @pytest.mark.parametrize("name", ["OpenAIChat", "LiteLLMChat", "CohereChat"])
 def test_remote_chats_are_not_ported_yet(name):
-    cls = getattr(tllms, name)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        cls(client=lambda **kw: "reply")
+    """The remote chats over an injected client (a sync one, then an async one with a
+    client keyword): the same replies, cache names and executor as the JAX package's,
+    and no client means a ValueError in both."""
+    import asyncio
+
+    from pathway_tpu.xpacks.llm import llms as jllms
+    from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
+
+    def sync_client(model, prompt, **kw):
+        return f"{model}|{prompt}|{sorted(kw.items())}"
+
+    async def async_client(model, prompt, **kw):
+        await asyncio.sleep(0)
+        return len(str(prompt)) if prompt != "boom" else 1 // 0
+
+    rows = [("hello",), ("boom",), (json.dumps([{"role": "user", "content": "hi"}]),)]
+    got = []
+    for mod in (tllms, jllms):
+        cls = getattr(mod, name)
+        with pytest.raises(ValueError, match="client"):
+            cls()
+        plain = cls(client=sync_client)
+        keyed = cls(model="m-1", client=async_client, temperature=0.5, capacity=2)
+        assert plain._executor.kind == keyed._executor.kind == "async"
+        got.append((
+            plain._cache_name,
+            keyed._cache_name,
+            plain.execute_rows(rows, n_pos=1),
+            [(ok, v if ok else type(v).__name__) for ok, v in keyed.execute_rows(rows, n_pos=1)],
+        ))
+    stop_event_loop()
+    assert got[0] == got[1]
+    assert got[0][3] == [(True, "5"), (False, "ZeroDivisionError"), (True, str(len(rows[2][0])))]
 
 
 @pytest.mark.parametrize("kw", [

@@ -179,18 +179,37 @@ def test_every_query_finds_its_own_doc(runs):
 
 
 def test_collapse_rows_false_is_not_ported_yet():
+    """``query_as_of_now(collapse_rows=False)``: one row per (query, hit), with the
+    query id, rank, hit id and score, and a rank -1 sentinel row for a query with no
+    hit; row ids, hits and scores equal the JAX package's bit for bit."""
+    import pathway_tpu as jpw
     import pathway_tpu_torch as tpw
-    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu.stdlib.indexing import DataIndex as JDataIndex
+    from pathway_tpu.stdlib.indexing import HostKnnFactory as JHostKnnFactory
     from pathway_tpu_torch.stdlib.indexing import DataIndex, HostKnnFactory
 
-    class Idle(tpw.io.python.ConnectorSubject):
-        def run(self) -> None:
-            pass
+    rng = np.random.default_rng(3)
+    vecs = [tuple(float(x) for x in v) for v in rng.normal(size=(6, 4)).astype(np.float32)]
+    qvecs = [tuple(float(x) for x in v) for v in rng.normal(size=(3, 4)).astype(np.float32)]
 
-    schema = tpw.schema_from_types(v=tuple)
-    docs = tpw.io.python.read(Idle(), schema=schema)
-    queries = tpw.io.python.read(Idle(), schema=schema)
-    index = DataIndex(docs, HostKnnFactory(dimensions=2), docs.v)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        index.query_as_of_now(queries, queries.v, collapse_rows=False)
-    G.clear()
+    def program(pw, data_index, factory):
+        docs = pw.debug.table_from_rows(pw.schema_from_types(v=tuple), [(v,) for v in vecs])
+        queries = pw.debug.table_from_rows(
+            pw.schema_from_types(q=tuple, k=int), [(qvecs[0], 2), (qvecs[1], 0), (qvecs[2], 4)]
+        )
+        index = data_index(docs, factory(dimensions=4, capacity=8), docs.v)
+        flat = index.query_as_of_now(
+            queries, queries.q, number_of_matches=queries.k, collapse_rows=False
+        )
+        data, names = pw.debug.table_to_dicts(flat)
+        return names, {int(k): {n: (int(v) if n.endswith("_id") and v is not None else v)
+                                 for n, v in row.items()} for k, row in data.items()}
+
+    ours = program(tpw, DataIndex, HostKnnFactory)
+    theirs = program(jpw, JDataIndex, JHostKnnFactory)
+    assert ours == theirs
+    names, rows = ours
+    assert names == ["_pw_query_id", "_pw_index_reply_rank", "_pw_index_reply_id",
+                     "_pw_index_reply_score"]
+    ranks = sorted(r["_pw_index_reply_rank"] for r in rows.values())
+    assert ranks == [-1, 0, 0, 1, 1, 2, 3]  # k = 2 and 4 hits, and the k = 0 sentinel

@@ -299,9 +299,27 @@ def _tiny_embedder(**kw):
 
 
 def test_embedder_cache_strategy_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        _tiny_embedder(cache_strategy=object())
-    assert _tiny_embedder(cache_strategy=None) is not None
+    """``EncoderEmbedder(cache_strategy=)`` serves repeated texts from the cache: the
+    rows equal the uncached embedder's bit for bit, each distinct text is embedded
+    once, and the cache keys are the JAX package's for the same cache name and text."""
+    from pathway_tpu.internals.udfs.caches import _digest as jax_digest
+    from pathway_tpu_torch.internals.udfs import InMemoryCache
+
+    cache = InMemoryCache()
+    cached = _tiny_embedder(cache_strategy=cache, device_resident=False)
+    plain = _tiny_embedder(device_resident=False)
+    texts = ["stream table", "vector engine", "stream table", "commit"]
+    calls = []
+    inner = cached._fn
+    cached._fn = lambda batch: calls.append(list(batch)) or inner(batch)
+    rows = cached.execute_rows([(t,) for t in texts], n_pos=1)
+    again = cached.execute_rows([("commit",), ("stream table",)], n_pos=1)
+    want = plain.execute_rows([(t,) for t in texts], n_pos=1)
+    assert calls == [["stream table", "vector engine", "commit"]]
+    for (ok, v), (wok, w) in zip(rows + again, want + [want[3], want[0]]):
+        assert ok and wok
+        np.testing.assert_array_equal(np.asarray(v), np.asarray(w))
+    assert set(cache._data) == {jax_digest(cached._cache_name, (t,)) for t in set(texts)}
 
 
 @pytest.mark.parametrize(

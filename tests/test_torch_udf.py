@@ -70,11 +70,24 @@ def test_max_batch_size_needs_a_batch_executor():
 
 
 def test_async_udfs_are_not_ported_yet():
-    async def fn(x):
-        return x
+    """Async UDFs run on the async executor and give the JAX package's per-row values
+    and failures, in row order (``tests/test_torch_udf_async.py`` holds the rest)."""
+    from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        tudfs.udf(fn)
+    async def fn(x, scale):
+        if x < 0:
+            raise ValueError("negative")
+        return x * scale
+
+    rows = [(5, 2), (-1, 2), (3, 2)]
+    got = []
+    for udfs in (tudfs, judfs):
+        udf = udfs.udf(fn)
+        assert udf._executor.kind == "async"
+        out = udf.execute_rows(rows, n_pos=1, kw_names=("scale",))
+        got.append([(ok, v if ok else str(v)) for ok, v in out])
+    stop_event_loop()
+    assert got[0] == got[1] == [(True, 10), (False, "negative"), (True, 6)]
 
 
 def test_cache_name_follows_the_jax_rule():

@@ -146,8 +146,14 @@ def test_image_embedder_rows_are_lazy_device_rows_by_default(state):
 def test_image_embedder_options(state):
     from pathway_tpu_torch.xpacks.llm import ImageEmbedder
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        ImageEmbedder(model="vit-tiny", cache_strategy=object(), device="cpu")
+    from pathway_tpu_torch.internals.udfs import InMemoryCache
+
+    cached = ImageEmbedder(model="vit-tiny", params=state, cache_strategy=InMemoryCache(),
+                           device_resident=False, device="cpu")
+    blobs = [_png(_img(1)), _png(_img(2)), _png(_img(1))]
+    rows = cached.execute_rows([(b,) for b in blobs], n_pos=1)
+    assert len(cached._cache._data) == 2  # one entry per distinct image
+    np.testing.assert_array_equal(np.asarray(rows[0][1]), np.asarray(rows[2][1]))
     with pytest.raises(ValueError, match="unknown vision preset"):
         ImageEmbedder(model="vit-huge", device="cpu")
     seeded = ImageEmbedder(model="vit-tiny", seed=4, device="cpu")
