@@ -3,8 +3,9 @@
 serving path, the same pipeline through the port's own engine (``pw.run``), the
 contrastive trainer, the other model families (the ViT image embedder of multimodal
 RAG, the cross-encoder reranker and the local decoder chat), the relational operators,
-and the xpack's RAG document pipeline (``VectorStoreServer`` over BGE-base, and the
-adaptive RAG question answerer over it).
+the xpack's RAG document pipeline (``VectorStoreServer`` over BGE-base, and the
+adaptive RAG question answerer over it), its ``rag_evals`` harness, and the table
+operations (the expression namespaces, deduplicate, sort, having, ``apply_async``).
 
     python3 chip_smoke.py
 
@@ -152,8 +153,25 @@ limit):
    each reply must equal the chat's direct batch-1 reply to ``prompts.prompt_qa`` of
    the first two retrieved docs (the seeded chat never says "No information found.",
    checked), and no event-loop thread may outlive the run.
-17. The kernels line (the three flash kernels and ``segment_reduce``), the ``nvidia-smi``
-   line, and last ``{"ok": true, ...}``.
+17. rag_evals: BASELINE config #5's ``rag_evals`` harness. ``RagEvaluator`` over
+   ``BaseRAGQuestionAnswerer(search_topk=2)`` and a ``DocumentStore`` of the same 3,000
+   docs (a static table) over the vector store's BGE-base and a 4,096-slot index, on
+   256 samples labelled here (a doc's text as the question, its first three words as
+   the answer, the doc as the source) with an oracle chat keyed on the question (exact
+   match, token F1 and hit rate must be 1.0, none missing), then on the first 16 with
+   the decode phase's chat, handed one prompt a call (each answer must be the chat's
+   direct batch-1 reply to ``prompt_qa`` of the same retrieved docs, hit rate 1.0, none
+   missing); both reports, each run's seconds, the forward's launches (12 per embed
+   call).
+18. table_ops: one streamed ``pw.run`` of 200,000 seeded rows in 20 commits through the
+   expression namespaces (``.str``, ``.dt``, ``.num``), ``deduplicate`` (4,096
+   instances), ``sort`` (1,024 instances), ``having`` and a groupby (count and sum) over
+   the deduplicated rows on the card's segment reduction, with a 4,096-row stream
+   through ``apply_async`` and ``await_futures``; every output equal to a plain Python /
+   NumPy computation; rows/s and the segment kernels' launches.
+19. The kernels line (the three flash kernels and ``segment_reduce``; the forward's
+   ``launches_by_path`` includes ``rag_evals``, the segment reduction's ``table_ops``),
+   the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -161,6 +179,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import gc
 import io
 import json
@@ -2357,6 +2376,326 @@ def phase_rag(card: Card, chat, embedder: EncoderEmbedder) -> int:
     return launches
 
 
+RAG_EVAL_SAMPLES = 256
+RAG_EVAL_CHAT_SAMPLES = 16
+
+
+def _rag_eval_samples() -> list:
+    """BASELINE config #5's harness on labelled samples made here: each question is a
+    doc's own text, its answer that doc's first three words, its source the doc."""
+    from pathway_tpu_torch.xpacks.llm import RagEvalSample
+
+    corpus = [doc_text(i) for i in range(VS_DOCS)]
+    picks = [(i * 89) % VS_DOCS for i in range(RAG_EVAL_SAMPLES)]  # 89 is prime to 3,000
+    return [RagEvalSample(question=corpus[i], answer=" ".join(corpus[i].split()[:3]),
+                          source=corpus[i]) for i in picks]
+
+
+def _question_of(prompt: str) -> str:
+    """The question of a ``prompts.prompt_qa`` prompt."""
+    return prompt.rsplit("\nQuestion: ", 1)[1].rsplit("\nAnswer:", 1)[0]
+
+
+def phase_rag_evals(card: Card, chat, embedder: EncoderEmbedder) -> int:
+    """BASELINE config #5's ``rag_evals`` harness on the card: ``RagEvaluator`` over
+    ``BaseRAGQuestionAnswerer(search_topk=2)`` and a ``DocumentStore`` over the vector
+    store phase's BGE-base (full width, seeded) with the same 3,000 docs from a static
+    table and a 4,096-slot index; one static run (``GraphRunner().capture``) each.
+    Run A: 256 samples and an oracle chat, a host UDF keyed on the prompt's question; it
+    must score exact match, token F1 and hit rate 1.0 with no sample missing. Run B: the
+    decode phase's chat (the Mistral-7B shape) on the first 16 samples, its UDF handed
+    one prompt a call; each answer must be the chat's direct batch-1 reply to
+    ``prompts.prompt_qa`` of the same retrieved docs, the hit rate 1.0, none missing.
+    Reports both reports, each run's wall seconds and the forward's launches (12 per
+    embed call)."""
+    from pathway_tpu_torch.internals.udfs.executors import BatchExecutor, stop_event_loop
+    from pathway_tpu_torch.xpacks.llm import BaseRAGQuestionAnswerer, RagEvaluator, prompts
+
+    class KeptRows(RagEvaluator):
+        """Keeps the captured (prompt, result, context_docs) rows."""
+
+        def _run(self, samples):
+            self.rows = super()._run(samples)
+            return self.rows
+
+    phase_t0 = time.perf_counter()
+    corpus = [doc_text(i) for i in range(VS_DOCS)]
+    samples = _rag_eval_samples()
+    answers = {s.question: s.answer for s in samples}
+
+    @pw.udf
+    def oracle(prompt: str) -> str:
+        return answers.get(_question_of(prompt), "No information found.")
+
+    def evaluator(llm, n: int):
+        docs = pw.debug.table_from_rows(
+            pw.schema_from_types(data=str, _metadata=dict),
+            [(corpus[i], {"path": f"/d/{i}"}) for i in range(VS_DOCS)])
+        store = DocumentStore(docs, embedder=embedder, index_capacity=VS_CAPACITY)
+        return KeptRows(BaseRAGQuestionAnswerer(llm, store, search_topk=2)), samples[:n]
+
+    device_pipeline.PIPELINE.configure()
+    embed_calls, _sizes = _count_embed_calls(embedder)
+    fa.KERNEL.launches = 0
+    try:
+        ev_a, samples_a = evaluator(oracle, RAG_EVAL_SAMPLES)
+        t0 = time.perf_counter()
+        report_a = ev_a.evaluate(samples_a)
+        run_a_s = time.perf_counter() - t0
+        calls_a, launches_a = embed_calls[0], fa.KERNEL.launches
+
+        chat_calls, generate, executor = [], chat._fn, chat._executor
+
+        def counted(batch):
+            chat_calls.append(len(batch))
+            return generate(batch)
+
+        chat._fn, chat._executor = counted, BatchExecutor(max_batch_size=1)
+        try:
+            ev_b, samples_b = evaluator(chat, RAG_EVAL_CHAT_SAMPLES)
+            t0 = time.perf_counter()
+            report_b = ev_b.evaluate(samples_b)
+            run_b_s = time.perf_counter() - t0
+        finally:
+            chat._fn, chat._executor = generate, executor
+    finally:
+        del embedder.embed_batch
+    launches = fa.KERNEL.launches
+    calls = embed_calls[0]
+    loop_threads = [t.name for t in threading.enumerate() if t.is_alive() and t.name == "pw-udf-loop"]
+    stop_event_loop()
+    direct_equal, own_doc_first = [], []
+    for prompt, result, docs in ev_b.rows:
+        texts = [d["text"] for d in docs]
+        direct_equal.append(result == chat.generate_batch([prompts.prompt_qa(prompt, texts)])[0])
+        own_doc_first.append(bool(texts) and texts[0] == prompt)
+    card.emit("rag_evals",
+              store=f"{BGE} (hidden 768, 12 layers, bf16, seeded), {VS_DOCS} docs, "
+                    f"{VS_CAPACITY}-slot index, search_topk=2",
+              oracle_run={"samples": len(samples_a), "report": report_a.as_dict(), "run_s": run_a_s,
+                          "embed_calls": calls_a, "flash_launches": launches_a},
+              chat_run={"model": "Mistral-7B shape (the decode phase's weights)",
+                        "samples": len(samples_b), "report": report_b.as_dict(), "run_s": run_b_s,
+                        "embed_calls": calls - calls_a, "flash_launches": launches - launches_a,
+                        "chat_calls": len(chat_calls), "chat_batch_sizes": sorted(set(chat_calls)),
+                        "answers_equal_direct": sum(direct_equal),
+                        "own_doc_first": sum(own_doc_first)},
+              flash_launches=launches, embed_calls=calls, udf_loop_threads_after_run=loop_threads,
+              phase_s=time.perf_counter() - phase_t0)
+    a, b = report_a, report_b
+    check(a.n_samples == RAG_EVAL_SAMPLES and a.n_missing == 0,
+          f"rag_evals oracle run: {a.n_samples} samples, {a.n_missing} missing")
+    check(a.answer_exact_match == a.answer_token_f1 == a.retrieval_hit_rate == 1.0,
+          f"rag_evals oracle run: {a.as_dict()}")
+    check(b.n_samples == RAG_EVAL_CHAT_SAMPLES and b.n_missing == 0 and b.retrieval_hit_rate == 1.0,
+          f"rag_evals chat run: {b.as_dict()}")
+    check(len(ev_b.rows) == RAG_EVAL_CHAT_SAMPLES and all(direct_equal),
+          f"rag_evals chat run: answers equal to the direct calls {direct_equal}")
+    check(chat_calls == [1] * RAG_EVAL_CHAT_SAMPLES, f"rag_evals chat calls {chat_calls}")
+    check(not loop_threads, f"rag_evals: event-loop threads alive after the runs: {loop_threads}")
+    check(launches > 0 and launches == embedder.config.layers * calls,
+          f"rag_evals: {launches} forward launches for {calls} embed calls")
+    return launches
+
+
+N_OPS = 200_000  # rows of table_ops: device_ops_leg's size, as relational_engine
+OPS_COMMITS = 20
+OPS_DEDUP_INSTANCES = 4096
+OPS_SORT_INSTANCES = 1024
+OPS_GROUPS = 64
+OPS_PICKS = 4096  # ids that having keeps
+OPS_ASYNC_ROWS = 4096
+OPS_FLOOR = 900  # seconds: dt.floor to 15 minutes
+OPS_EPOCH = datetime.datetime(2024, 1, 1)
+
+
+def _ops_rows() -> dict:
+    """Seeded rows in bench_dataflow.py's manner: a primary-key row number, an int key, a float
+    value (distinct multiples of 1/8, so every sum is exact in float64 in any order and
+    every instance has one largest value), a word of mixed case and a timestamp (whole
+    seconds around 2024-01-01)."""
+    rng = np.random.default_rng(SEED + 11)
+    return {
+        "id": np.arange(N_OPS),
+        "key": rng.integers(0, 1 << 20, N_OPS),
+        "v": (rng.permutation(N_OPS) - N_OPS // 2) * 0.125,
+        "word": [w.upper() if f else w for w, f in
+                 zip((_WORDS[j] for j in rng.integers(0, len(_WORDS), N_OPS)),
+                     rng.random(N_OPS) < 0.5)],
+        "secs": rng.integers(-10**8, 10**8, N_OPS),
+        "picks": rng.choice(N_OPS, OPS_PICKS, replace=False),
+    }
+
+
+def _ops_expected(rows: dict) -> dict:
+    """The plain Python / NumPy answer of table_ops' program on ``rows``."""
+    ids, keys, vals, words, secs = (rows[c] for c in ("id", "key", "v", "word", "secs"))
+    sel = {}
+    for i in range(N_OPS):
+        s = int(secs[i])
+        sel[i] = (int(keys[i]), words[i].lower(), len(words[i]),
+                  (OPS_EPOCH + datetime.timedelta(seconds=s)).hour,
+                  OPS_EPOCH + datetime.timedelta(seconds=s // OPS_FLOOR * OPS_FLOOR), abs(float(vals[i])))
+    best: dict[int, int] = {}
+    for i in range(N_OPS):
+        inst = int(keys[i]) % OPS_DEDUP_INSTANCES
+        if inst not in best or vals[i] > vals[best[inst]]:
+            best[inst] = i
+    dedup = {inst: int(ids[i]) for inst, i in best.items()}
+    groups: dict[int, list] = {}
+    for inst, i in best.items():
+        g = groups.setdefault(int(keys[i]) % OPS_GROUPS, [0, 0.0])
+        g[0] += 1
+        g[1] += float(vals[i])
+    order: dict[int, list] = {}
+    for i in np.argsort(vals, kind="stable"):
+        order.setdefault(int(keys[i]) % OPS_SORT_INSTANCES, []).append(int(i))
+    neighbours = {}
+    for members in order.values():
+        for j, i in enumerate(members):
+            neighbours[i] = (members[j - 1] if j else None,
+                             members[j + 1] if j + 1 < len(members) else None)
+    return {"sel": sel, "dedup": dedup, "groups": {g: tuple(x) for g, x in groups.items()},
+            "sort": neighbours, "having": sorted(int(i) for i in rows["picks"])}
+
+
+async def _ops_async_fn(v: float) -> float:
+    return 3.0 * v + 1.0
+
+
+def phase_table_ops(card: Card) -> int:
+    """One streamed ``pw.run`` of 200,000 rows through ``pw.io.python`` in 20 commits of
+    10,000 (the feed waits for each commit to reach the subscriber): one ``select`` of
+    the expression namespaces (``.str.lower()``, ``.str.len()``, ``.dt.hour()``,
+    ``.dt.floor(15 min)``, ``.num.abs()``), ``deduplicate(value=v, instance=key % 4096)``
+    keeping the largest value, ``sort(key=v, instance=key % 1024)``, ``having`` over
+    4,096 picked ids from a static table, and ``groupby(key % 64).reduce(count, sum)``
+    over the deduplicated rows, whose commits the card's segment reduction takes; with
+    a second stream of 4,096 rows through ``pw.apply_async`` and ``await_futures``.
+    Every output's final state must equal a plain Python / NumPy computation of the same
+    rows exactly. Reports rows/s, the commits and the segment kernels' launches."""
+    import datetime
+
+    from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
+
+    phase_t0 = time.perf_counter()
+    rows = _ops_rows()
+    t0 = time.perf_counter()
+    want = _ops_expected(rows)
+    plain_s = time.perf_counter() - t0
+    n_batch = N_OPS // OPS_COMMITS
+    seen = {"sel": 0}
+    batch_seen = threading.Semaphore(0)
+    failures: list = []
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            for b in range(OPS_COMMITS):
+                for i in range(b * n_batch, (b + 1) * n_batch):
+                    self.next(rid=i, key=int(rows["key"][i]), v=float(rows["v"][i]),
+                              word=rows["word"][i],
+                              ts=OPS_EPOCH + datetime.timedelta(seconds=int(rows["secs"][i])))
+                if not batch_seen.acquire(timeout=300.0):
+                    failures.append(f"batch {b} did not reach the subscriber")
+                    return
+
+    class AsyncFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            for i in range(OPS_ASYNC_ROWS):
+                self.next(rid=i, v=float(rows["v"][i]))
+
+    schema = pw.schema_from_dict({
+        "rid": pw.column_definition(dtype=int, primary_key=True),
+        "key": int, "v": float, "word": str, "ts": datetime.datetime,
+    })
+    t = pw.io.python.read(Feed(), schema=schema, autocommit_duration_ms=100)
+    sel = t.select(pw.this.rid, pw.this.key, low=pw.this.word.str.lower(), n=pw.this.word.str.len(),
+                   hour=pw.this.ts.dt.hour(), q=pw.this.ts.dt.floor(datetime.timedelta(seconds=OPS_FLOOR)),
+                   a=pw.this.v.num.abs())
+    dedup = t.deduplicate(value=pw.this.v, instance=pw.this.key % OPS_DEDUP_INSTANCES,
+                          acceptor=lambda new, old: new > old)
+    groups = dedup.select(g=pw.this.key % OPS_GROUPS, v=pw.this.v).groupby(pw.this.g).reduce(
+        pw.this.g, c=pw.reducers.count(), s=pw.reducers.sum(pw.this.v))
+    srt = t.sort(key=pw.this.v, instance=pw.this.key % OPS_SORT_INSTANCES)
+    picks = pw.debug.table_from_rows(pw.schema_from_types(r=int), [(int(r),) for r in rows["picks"]])
+    kept = t.having(picks.select(p=t.pointer_from(picks.r)).p)
+    a = pw.io.python.read(AsyncFeed(), schema=pw.schema_from_types(rid=int, v=float),
+                          autocommit_duration_ms=100)
+    awaited = a.select(pw.this.rid, w=pw.apply_async(_ops_async_fn, pw.this.v)).await_futures()
+
+    states = {name: {} for name in ("sel", "dedup", "groups", "sort", "having", "async")}
+    times: set = set()
+
+    def sink(name: str):
+        state = states[name]
+
+        def on_change(key, row, time, is_addition):
+            if is_addition:
+                state[key] = row
+            else:
+                state.pop(key, None)
+            if name == "sel":
+                times.add(time)
+                seen["sel"] += 1
+                if seen["sel"] % n_batch == 0:
+                    batch_seen.release()
+
+        return on_change
+
+    for name, table in (("sel", sel), ("dedup", dedup), ("groups", groups), ("sort", srt),
+                        ("having", kept), ("async", awaited)):
+        pw.io.subscribe(table, on_change=sink(name))
+    device_ops.configure()
+    device_ops.reset_counters()
+    device_pipeline.PIPELINE.configure()
+    _zero_segment_launches()
+    with _KeptRunner() as keep:
+        t0 = time.perf_counter()
+        pw.run()
+        run_s = time.perf_counter() - t0
+    by_kernel = _segment_launches()
+    launches = sum(by_kernel.values())
+    loop_threads = [th.name for th in threading.enumerate() if th.is_alive() and th.name == "pw-udf-loop"]
+    stop_event_loop()
+    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in keep.runners[0].scope.nodes
+              if hasattr(n, "routes")}
+
+    st = states
+    got_sel = {r["rid"]: (r["key"], r["low"], r["n"], r["hour"], r["q"], r["a"]) for r in st["sel"].values()}
+    id_of = {k: r["rid"] for k, r in st["sel"].items()}
+    got_dedup = {r["key"] % OPS_DEDUP_INSTANCES: r["rid"] for r in st["dedup"].values()}
+    got_groups = {r["g"]: (r["c"], r["s"]) for r in st["groups"].values()}
+    got_sort = {id_of.get(k): (id_of.get(r["prev"]), id_of.get(r["next"])) for k, r in st["sort"].items()}
+    got_having = sorted(r["rid"] for r in st["having"].values())
+    got_async = {r["rid"]: r["w"] for r in st["async"].values()}
+    want_async = {i: 3.0 * float(rows["v"][i]) + 1.0 for i in range(OPS_ASYNC_ROWS)}
+    bits = lambda d: {k: tuple(np.float64(x).view(np.int64).item() if isinstance(x, float) else x  # noqa: E731
+                               for x in (v if isinstance(v, tuple) else (v,))) for k, v in d.items()}
+    same = {
+        "sel": bits(got_sel) == bits(want["sel"]),
+        "dedup": got_dedup == want["dedup"],
+        "groups": bits(got_groups) == bits(want["groups"]),
+        "sort": got_sort == want["sort"],
+        "having": got_having == want["having"],
+        "async": bits(got_async) == bits(want_async),
+    }
+    groupbys = [r for name, r in routes.items() if name.startswith("GroupbyNode")]
+    card.emit("table_ops", rows=N_OPS, commits=len(times), async_rows=OPS_ASYNC_ROWS,
+              dedup_instances=OPS_DEDUP_INSTANCES, sort_instances=OPS_SORT_INSTANCES,
+              run_s=run_s, rows_per_s=N_OPS / run_s, plain_answer_s=plain_s,
+              out_rows={name: len(s) for name, s in states.items()},
+              equals_plain=same, segment_launches=by_kernel, groupby_routes=groupbys,
+              hit_counts=device_ops.hit_counts(), udf_loop_threads_after_run=loop_threads,
+              failures=failures, phase_s=time.perf_counter() - phase_t0)
+    check(not failures, f"table_ops: {failures}")
+    check(all(same.values()), f"table_ops: outputs differ from the plain computation: {same}")
+    check(len(groupbys) == 1 and groupbys[0]["device"] > 0 and groupbys[0]["host"] == 0,
+          f"table_ops groupby routes {groupbys}")
+    check(launches > 0, f"table_ops launched no segment kernel: {by_kernel}")
+    check(not loop_threads, f"table_ops: event-loop threads alive after pw.run: {loop_threads}")
+    return launches
+
+
 # -- the relational operators -----------------------------------------------------------
 
 N_REL = 1_000_000  # bench_dataflow.py's N
@@ -2915,20 +3254,24 @@ def main() -> int:
     phase_chat_engine(card, chat)
     bge, vector_store = phase_vector_store(card)
     rag = phase_rag(card, chat, bge)
+    rag_evals = phase_rag_evals(card, chat, bge)
     del chat, bge
+    table_ops = phase_table_ops(card)
     fwd["launches"] = serving["launches"]
     fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
                                "engine_async_parity": parity,
                                "train": train[fwd["name"]], "vision": vision,
                                "multimodal": multimodal, "rerank": rerank,
-                               "vector_store": vector_store, "rag": rag}
+                               "vector_store": vector_store, "rag": rag,
+                               "rag_evals": rag_evals}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
     for row in (fwd, *bwd):
         row["tensor_core_instructions"] = sass[row["name"]]
     relational["launches_by_path"] = {"relational": relational["launches"],
-                                      "relational_engine": relational_engine}
+                                      "relational_engine": relational_engine,
+                                      "table_ops": table_ops}
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

@@ -10,7 +10,7 @@ from __future__ import annotations
 import re
 from typing import Any, Iterable, Sequence
 
-from pathway_tpu_torch.engine.value import Pointer, ref_scalar
+from pathway_tpu_torch.engine.value import Pointer, ref_scalar, unsafe_make_pointer
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.runner import GraphRunner
@@ -146,7 +146,8 @@ def table_from_pandas(df: Any, *, id_from: Sequence[str] | None = None, **kwargs
             ref_scalar(*[df[c].iloc[i] for c in id_from]) for i in range(len(df))
         ]
     else:
-        keys = [Pointer(int(k)) if isinstance(k, (int,)) else ref_scalar(k) for k in df.index]
+        keys = [unsafe_make_pointer(int(k)) if isinstance(k, (int,)) else ref_scalar(k)
+                for k in df.index]
     return Table.from_rows(rows, schema, keys=keys)
 
 

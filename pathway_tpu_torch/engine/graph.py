@@ -8,8 +8,9 @@ per-row expressions (with the columnar NumPy evaluator for large insert-only bat
 batched UDF application, filter, concat, reindex, key filters (intersect, subtract,
 restrict), universe overrides, zips of same-universe tables, the equality join (inner,
 left, right, outer; columnar while insert-only and inner), the groupby with every
-reducer (columnar array state for count and sum), flatten, ix, update rows and cells,
-subscribe sinks, error logs and error removal.
+reducer (columnar array state for count and sum), deduplicate, flatten, sort (prev/next
+pointers per instance), ix, update rows and cells, subscribe sinks, error logs and error
+removal.
 
 The device work happens inside the operators: UDF micro-batches and vector search, and
 under the columnar groupby and join the device operators of ``engine/device_ops.py``
@@ -22,8 +23,8 @@ batches for completion on its own thread, or completes them inline under
 ``PATHWAY_TPU_ASYNC_DEVICE=0``. ``Scheduler(probe=True)`` keeps per-operator counts and
 times (:class:`OperatorStats`).
 
-Sort, deduplicate, iterate and the temporal operators are not ported yet (ROADMAP
-queue 1 item 11).
+Iterate and the temporal operators are not ported yet (ROADMAP queue 1 item 11), nor
+the row transformers' recompute node (item 8).
 """
 
 from __future__ import annotations
@@ -1727,6 +1728,58 @@ class GroupbyNode(Node):
         return out.consolidate()
 
 
+class DeduplicateNode(Node):
+    """Keeps one accepted row per instance: ``acceptor(new_value, old_value) -> bool``
+    decides whether a newly arriving row replaces the current one. The output is keyed
+    by the instance (``hash_values(instance, salt=b"dedup")``); an error value or a
+    raising acceptor is reported and the row skipped; a retraction removes the
+    instance's row only if it is that row."""
+
+    def __init__(
+        self,
+        scope: "Scope",
+        source: Node,
+        value_col: int,
+        instance_cols: Sequence[int],
+        acceptor: Callable[[Any, Any], bool],
+    ) -> None:
+        super().__init__(scope, [source], source.arity)
+        self.value_col = value_col
+        self.instance_cols = list(instance_cols)
+        self.acceptor = acceptor
+        self.accepted: dict[Pointer, tuple] = {}  # instance key -> row
+
+    def process(self, time: int) -> DeltaBatch:
+        batch = self.take(0)
+        out = DeltaBatch()
+        for key, row, diff in batch:
+            inst = tuple(row[c] for c in self.instance_cols)
+            gkey = hash_values(inst, salt=b"dedup")
+            prev = self.accepted.get(gkey)
+            if diff > 0:
+                new_val = row[self.value_col]
+                if is_error(new_val):
+                    self.report(key, "error value in deduplicate")
+                    continue
+                if prev is None:
+                    accept = True
+                else:
+                    try:
+                        accept = bool(self.acceptor(new_val, prev[self.value_col]))
+                    except Exception as e:  # noqa: BLE001
+                        self.report(key, f"error in deduplicate acceptor: {e}")
+                        continue
+                if accept:
+                    if prev is not None:
+                        out.append(gkey, prev, -1)
+                    self.accepted[gkey] = row
+                    out.append(gkey, row, 1)
+            elif prev is not None and not rows_differ(prev, row):
+                out.append(gkey, prev, -1)
+                del self.accepted[gkey]
+        return out.consolidate()
+
+
 class FlattenNode(Node):
     """Explode a sequence column into one row per element; with ``with_origin`` the
     source row id is appended as a last column."""
@@ -1765,6 +1818,77 @@ class FlattenNode(Node):
         for key, row, diff in batch:
             for new_key, new_row in self._explode(key, row):
                 out.append(new_key, new_row, diff)
+        return out.consolidate()
+
+
+class SortNode(Node):
+    """Keeps prev/next pointers per instance, in the order of a key column: ``None``
+    first, then the natural order, ties by row id; a mix of values that cannot be
+    compared orders by type name and ``repr``. Output row ``(prev, next)`` keyed by the
+    source row id. Each commit recomputes the order of every instance it touches."""
+
+    def __init__(
+        self, scope: "Scope", source: Node, key_col: int, instance_col: int | None
+    ) -> None:
+        super().__init__(scope, [source], 2)
+        self.key_col = key_col
+        self.instance_col = instance_col
+        self.members: dict[Any, dict[Pointer, Any]] = {}  # instance -> {key: sort value}
+
+    def _instance(self, row: tuple) -> Any:
+        if self.instance_col is None:
+            return None
+        v = row[self.instance_col]
+        try:
+            hash(v)
+        except TypeError:
+            v = repr(v)
+        return v
+
+    def _ordered(self, inst: Any) -> list[Pointer]:
+        items = list(self.members.get(inst, {}).items())
+        try:
+            items.sort(key=lambda kv: (True, kv[1], int(kv[0]))
+                       if kv[1] is not None else (False, 0, int(kv[0])))
+        except TypeError:
+            items.sort(
+                key=lambda kv: (kv[1] is not None, type(kv[1]).__name__, repr(kv[1]), int(kv[0]))
+            )
+        return [k for k, _v in items]
+
+    def _local(self, inst: Any) -> dict[Pointer, tuple]:
+        ordered = self._ordered(inst)
+        last = len(ordered) - 1
+        return {
+            k: (ordered[i - 1] if i > 0 else None, ordered[i + 1] if i < last else None)
+            for i, k in enumerate(ordered)
+        }
+
+    def process(self, time: int) -> DeltaBatch:
+        batch = self.take(0)
+        old: dict[Any, dict[Pointer, tuple]] = {}
+        for key, row, diff in batch:
+            inst = self._instance(row)
+            if inst not in old:
+                old[inst] = self._local(inst)
+        for key, row, diff in batch:
+            inst = self._instance(row)
+            group = self.members.setdefault(inst, {})
+            if diff > 0:
+                group[key] = row[self.key_col]
+            else:
+                group.pop(key, None)
+                if not group:
+                    self.members.pop(inst, None)
+        out = DeltaBatch()
+        for inst, old_rows in old.items():
+            new_rows = self._local(inst)
+            for k, r in old_rows.items():
+                if rows_differ(new_rows.get(k), r):
+                    out.append(k, r, -1)
+            for k, r in new_rows.items():
+                if rows_differ(old_rows.get(k), r):
+                    out.append(k, r, 1)
         return out.consolidate()
 
 
@@ -2082,8 +2206,20 @@ class Scope:
             self, table, by_cols, reducers, set_id=set_id, instance_last=instance_last
         )
 
+    def deduplicate(
+        self,
+        table: Node,
+        value_col: int,
+        instance_cols: Sequence[int],
+        acceptor: Callable[[Any, Any], bool],
+    ) -> Node:
+        return DeduplicateNode(self, table, value_col, instance_cols, acceptor)
+
     def flatten_table(self, table: Node, flat_col: int, with_origin: bool = False) -> Node:
         return FlattenNode(self, table, flat_col, with_origin=with_origin)
+
+    def sort_table(self, table: Node, key_col: int, instance_col: int | None) -> Node:
+        return SortNode(self, table, key_col, instance_col)
 
     def ix_table(
         self,

@@ -30,6 +30,7 @@ __all__ = [
     "is_error",
     "ref_scalar",
     "rows_differ",
+    "unsafe_make_pointer",
     "value_type_of",
 ]
 
@@ -361,6 +362,11 @@ def ref_scalar(*values: Any, instance: Any = None) -> Pointer:
     if instance is not None:
         return hash_values(tuple(values) + (instance,), salt=b"inst")
     return hash_values(values)
+
+
+def unsafe_make_pointer(value: int) -> Pointer:
+    """A pointer with the given 128-bit value, unhashed."""
+    return Pointer(value)
 
 
 def value_type_of(value: Any) -> Type:

@@ -5,7 +5,9 @@ tree of :class:`ColumnExpression` nodes that the graph runner compiles to engine
 expressions (:mod:`pathway_tpu_torch.engine.expression`). ``pw.this`` placeholders are
 resolved eagerly at the call site (``table.select(x=pw.this.a)``). Reducer calls
 (``pw.reducers.*``) are :class:`ReducerExpression` nodes inside ``.reduce(...)``. The
-``.dt``, ``.str`` and ``.num`` namespaces and ``apply_async`` wait for their operators.
+``.dt``, ``.str`` and ``.num`` properties give the method namespaces of
+:mod:`pathway_tpu_torch.internals.expressions`; ``apply_async`` runs a function on the
+async UDF executor.
 """
 
 from __future__ import annotations
@@ -156,6 +158,24 @@ class ColumnExpression:
 
     def to_string(self) -> "ColumnExpression":
         return CastExpression(self, dt.STR)
+
+    @property
+    def dt(self) -> Any:
+        from pathway_tpu_torch.internals.expressions.date_time import DateTimeNamespace
+
+        return DateTimeNamespace(self)
+
+    @property
+    def str(self) -> Any:
+        from pathway_tpu_torch.internals.expressions.string import StringNamespace
+
+        return StringNamespace(self)
+
+    @property
+    def num(self) -> Any:
+        from pathway_tpu_torch.internals.expressions.numerical import NumericalNamespace
+
+        return NumericalNamespace(self)
 
     def _dependencies(self) -> "Iterable[ColumnReference]":
         """All ColumnReferences in this tree."""
@@ -529,3 +549,21 @@ def fill_error(expr: Any, fallback: Any) -> ColumnExpression:
 
 def make_tuple(*args: Any) -> ColumnExpression:
     return MakeTupleExpression([wrap_expression(a) for a in args])
+
+
+def apply_async(fn: Callable[..., Any], *args: Any, **kwargs: Any) -> ColumnExpression:
+    """Apply ``fn`` to each row on the async UDF executor (a plain function is wrapped
+    in a coroutine), lowered to the engine's batch-apply node."""
+    import inspect
+
+    from pathway_tpu_torch.internals.udfs import UDF
+    from pathway_tpu_torch.internals.udfs.executors import AsyncExecutor
+
+    if not inspect.iscoroutinefunction(fn):
+        sync_fn = fn
+
+        async def async_fn(*a: Any, **kw: Any) -> Any:
+            return sync_fn(*a, **kw)
+
+        fn = async_fn
+    return UDF(fn, executor=AsyncExecutor())(*args, **kwargs)

@@ -86,3 +86,8 @@ def run(**kwargs: Any) -> None:
         # a raising run must not leave the completion thread behind
         device_pipeline.stop_worker()
         G.clear()
+
+
+def run_all(**kwargs: Any) -> None:
+    """``run``, by the name of the reference's entry point that runs every sink."""
+    run(**kwargs)

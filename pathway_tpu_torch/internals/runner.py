@@ -7,9 +7,9 @@ no connector feeds the graph, else the streaming loop over the connectors. It lo
 static and connector-backed input tables, ``select`` (UDF columns included),
 ``filter``, ``groupby_reduce``, ``join_select``, ``concat``, ``update_rows``,
 ``update_cells``, ``reindex``, ``intersect``, ``subtract``, ``restrict``,
-``override_universe``, ``flatten``, ``ix``, ``remove_errors``, error logs and the
-as-of-now external index; any other table operation raises ``NotImplementedError``
-naming its ROADMAP item.
+``override_universe``, ``flatten``, ``sort``, ``deduplicate``, ``ix``,
+``remove_errors``, error logs and the as-of-now external index; any other table
+operation raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -365,6 +365,34 @@ class GraphRunner:
                 base._column_names.index(spec.params["column"]),
                 with_origin=spec.params.get("origin_id") is not None,
             )
+
+        if kind == "sort":
+            base = spec.inputs[0]
+            key_expr = spec.params["key"]
+            inst_expr = spec.params["instance"]
+            exprs = [key_expr] + ([inst_expr] if inst_expr is not None else [])
+            storage, layout = self.storage_for(base, exprs)
+            pre = scope.expression_table(storage, [self.compile(e, layout) for e in exprs])
+            return scope.sort_table(pre, 0, 1 if inst_expr is not None else None)
+
+        if kind == "deduplicate":
+            # the base's columns, then the value and the instance expressions
+            base = spec.inputs[0]
+            value = spec.params["value"]
+            instance = spec.params["instance"]
+            storage, layout = self.storage_for(base, [value, *instance])
+            n = len(base._column_names)
+            pre_exprs = [
+                self.compile(ColumnReference(base, name), layout) for name in base._column_names
+            ]
+            pre_exprs += [self.compile(e, layout) for e in (value, *instance)]
+            dedup = scope.deduplicate(
+                scope.expression_table(storage, pre_exprs),
+                value_col=n,
+                instance_cols=list(range(n + 1, n + 1 + len(instance))),
+                acceptor=spec.params["acceptor"],
+            )
+            return self._project(dedup, range(n))
 
         if kind == "ix":
             keys_table, source = spec.inputs

@@ -2,8 +2,9 @@
 
 Counterpart of ``pathway_tpu/internals/schema.py``: schemas are classes whose
 annotations declare column dtypes; ``column_definition`` adds primary-key and default
-metadata; ``schema_from_types`` and ``schema_from_dict`` make them. The CSV inference,
-``schema_builder`` and the schema assertion are not ported yet.
+metadata; ``schema_from_types``, ``schema_from_dict``, ``schema_builder`` and
+``schema_from_csv`` (a header and a sample of rows) make them, and
+``assert_table_has_schema`` holds a table to one.
 """
 
 from __future__ import annotations
@@ -187,3 +188,113 @@ def schema_from_dict(
         else:
             defs[col_name] = ColumnDefinition(dtype=dt.wrap(spec), name=col_name)
     return schema_from_column_definitions(defs, name=name)
+
+
+def schema_builder(
+    columns: Mapping[str, ColumnDefinition],
+    *,
+    name: str | None = None,
+    properties: SchemaProperties | None = None,
+) -> SchemaMetaclass:
+    cls = schema_from_column_definitions(dict(columns), name=name)
+    if properties is not None:
+        cls.__properties__ = properties
+    return cls
+
+
+def schema_from_csv(
+    path: str,
+    *,
+    name: str | None = None,
+    num_parsed_rows: int | None = 30,
+    delimiter: str = ",",
+    quote: str = '"',
+    double_quote_escapes: bool = True,
+) -> SchemaMetaclass:
+    """Infer a schema from a CSV file's header + a sample of rows
+    (reference schema_from_csv): int ⊂ float ⊂ str by widening."""
+    import csv as _csv
+
+    def classify(text: str) -> type:
+        try:
+            int(text)
+            return int
+        except ValueError:
+            pass
+        try:
+            float(text)
+            return float
+        except ValueError:
+            return str
+
+    with open(path, newline="", encoding="utf-8") as f:
+        reader = _csv.reader(
+            f,
+            delimiter=delimiter,
+            quotechar=quote,
+            doublequote=double_quote_escapes,
+        )
+        header = next(reader, None)
+        if header is None:
+            raise ValueError(f"schema_from_csv: {path!r} is empty (no header)")
+        if len(set(header)) != len(header):
+            dupes = sorted({h for h in header if header.count(h) > 1})
+            raise ValueError(
+                f"schema_from_csv: duplicate column names {dupes}"
+            )
+        kinds: dict[str, type | None] = {h: None for h in header}
+        for i, row in enumerate(reader):
+            if num_parsed_rows is not None and i >= num_parsed_rows:
+                break
+            for h, cell in zip(header, row):
+                k = classify(cell)
+                prev = kinds[h]
+                if prev is None or prev is k:
+                    kinds[h] = k
+                elif {prev, k} == {int, float}:
+                    kinds[h] = float
+                else:
+                    kinds[h] = str
+    return schema_from_types(
+        name, **{h: (k or str) for h, k in kinds.items()}
+    )
+
+
+def assert_table_has_schema(
+    table: Any,
+    schema: SchemaMetaclass,
+    *,
+    allow_superset: bool = False,
+    ignore_primary_keys: bool = True,
+) -> None:
+    """Raise AssertionError unless the table's columns (and dtypes) match
+    the schema (reference pw.assert_table_has_schema)."""
+    table_types = {n: table._dtypes[n] for n in table.column_names()}
+    wanted = dict(schema.dtypes())
+    if not ignore_primary_keys:
+        table_pk = set(table.schema.primary_key_columns() or [])
+        schema_pk = set(schema.primary_key_columns() or [])
+        if table_pk != schema_pk:
+            raise AssertionError(
+                f"primary keys differ: table {sorted(table_pk)} vs schema "
+                f"{sorted(schema_pk)}"
+            )
+    if allow_superset:
+        missing = [n for n in wanted if n not in table_types]
+        if missing:
+            raise AssertionError(
+                f"table lacks columns required by the schema: {missing}"
+            )
+        compare = {n: table_types[n] for n in wanted}
+    else:
+        if set(table_types) != set(wanted):
+            raise AssertionError(
+                f"column sets differ: table {sorted(table_types)} vs "
+                f"schema {sorted(wanted)}"
+            )
+        compare = table_types
+    for n, dtype in compare.items():
+        if dtype != wanted[n] and wanted[n] != dt.ANY and dtype != dt.ANY:
+            raise AssertionError(
+                f"column {n!r}: table dtype {dtype!r} != schema {wanted[n]!r}"
+            )

@@ -6,9 +6,10 @@ operations that are selects (``with_columns``, ``without``, ``rename*``,
 ``filter`` and ``split``, ``groupby`` and ``reduce``, the joins, ``concat`` and
 ``concat_reindex``, ``update_rows`` and ``update_cells``, ``intersect``,
 ``difference`` and ``restrict``, the re-keying operations (``with_id``,
-``with_id_from``, ``with_universe_of``), ``flatten``, ``ix`` and ``ix_ref``, the
-universe promises, ``remove_errors``, the as-of-now external index and the static
-constructors ``empty`` and ``from_rows``. Tables are lazy: each holds a
+``with_id_from``, ``with_universe_of``), ``flatten``, ``ix`` and ``ix_ref``,
+``having``, ``deduplicate``, ``sort``, ``await_futures``, the universe promises,
+``remove_errors``, the as-of-now external index and the static constructors ``empty``
+and ``from_rows``. Tables are lazy: each holds a
 :class:`TableSpec` describing the operator that produces it, and
 :mod:`pathway_tpu_torch.internals.runner` lowers the reachable specs onto the engine
 scope at run time. The reference's other public methods are here by name and raise
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Any, Iterable, Mapping, Sequence
+from typing import Any, Callable, Iterable, Mapping, Sequence
 
 from pathway_tpu_torch.engine.value import Pointer, ref_scalar
 from pathway_tpu_torch.internals import dtype as dt
@@ -321,6 +322,27 @@ class Table:
 
         return GroupedTable(self, []).reduce(*args, **kwargs)
 
+    def deduplicate(
+        self,
+        *,
+        value: Any,
+        instance: Any = None,
+        acceptor: Callable[[Any, Any], bool],
+        name: str | None = None,
+    ) -> "Table":
+        """One row per ``instance`` (one for the whole table without it): a new row
+        replaces the kept one when ``acceptor(new value, kept value)`` is true."""
+        instance_refs = [resolve_this(instance, self)] if instance is not None else []
+        return self._derived(
+            TableSpec(
+                "deduplicate",
+                [self],
+                {"value": resolve_this(value, self), "instance": instance_refs,
+                 "acceptor": acceptor, "name": name},
+            ),
+            {n: self._dtypes[n] for n in self._column_names},
+        )
+
     # -- joins --------------------------------------------------------------
 
     def join(
@@ -594,6 +616,44 @@ class Table:
         """A column-access view; tables take ``t[...]`` directly."""
         return self
 
+    def having(self, *indexers: Any) -> "Table":
+        """The rows whose id is among the pointer values of each indexer expression
+        (as ``ix_ref`` gives them)."""
+        out = self
+        for ix in indexers:
+            resolved = resolve_this(ix, self)
+            keys = resolved.table.select(_pw_p=resolved)
+            out = out.intersect(keys.with_id(keys["_pw_p"]))
+        return out
+
+    def sort(self, key: Any, instance: Any = None) -> "Table":
+        """``prev`` and ``next``: each row's neighbours' ids in the order of ``key``
+        within its ``instance``."""
+        key_expr = resolve_this(key, self)
+        inst_expr = resolve_this(instance, self) if instance is not None else None
+        return self._derived(
+            TableSpec("sort", [self], {"key": key_expr, "instance": inst_expr}),
+            {"prev": dt.Optional_(dt.Pointer()), "next": dt.Optional_(dt.Pointer())},
+            universe=self._universe,
+        )
+
+    def await_futures(self) -> "Table":
+        """The table with its ``Future`` columns' types unwrapped: async results are
+        resolved in the commit of their rows, so this is a type-level unwrap."""
+        exprs = {
+            n: (
+                expr_mod.DeclareTypeExpression(ColumnReference(self, n), self._dtypes[n].wrapped)
+                if isinstance(self._dtypes[n], dt.Future)
+                else ColumnReference(self, n)
+            )
+            for n in self._column_names
+        }
+        return self._derived(
+            TableSpec("select", [self], {"exprs": exprs}),
+            {n: e._dtype for n, e in exprs.items()},
+            universe=self._universe,
+        )
+
     def _external_index_as_of_now(
         self,
         query_table: "Table",
@@ -650,10 +710,7 @@ class Table:
 #: queue 1 item that ports them
 UNPORTED = {
     **dict.fromkeys(
-        (
-            "asof_join", "asof_now_join", "await_futures", "deduplicate", "having",
-            "interval_join", "sort", "window_join", "windowby",
-        ),
+        ("asof_join", "asof_now_join", "interval_join", "window_join", "windowby"),
         "11: the other node types and table operations",
     ),
     "show": "8: the rest of the package (the stdlib's viz)",

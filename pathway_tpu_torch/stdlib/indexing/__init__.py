@@ -1,6 +1,9 @@
-"""Indexing: ``DataIndex`` over the KNN index on the card, the host BM25 index, and
-reciprocal-rank fusion of several indexes (``HybridIndex``)."""
+"""Indexing: ``DataIndex`` over the KNN index on the card (``USearchKnnFactory`` names
+the same index), the host BM25 index, and reciprocal-rank fusion of several indexes
+(``HybridIndex``). ``LshKnnFactory`` raises ``NotImplementedError`` naming its ROADMAP
+item."""
 
+from pathway_tpu_torch.internals.unported import module_getattr
 from pathway_tpu_torch.stdlib.indexing.bm25 import TantivyBM25Factory
 from pathway_tpu_torch.stdlib.indexing.data_index import (
     BruteForceKnnFactory,
@@ -10,6 +13,7 @@ from pathway_tpu_torch.stdlib.indexing.data_index import (
     InnerIndexFactory,
 )
 from pathway_tpu_torch.stdlib.indexing.hybrid_index import HybridIndex
+from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import USearchKnnFactory
 
 __all__ = [
     "BruteForceKnnFactory",
@@ -19,4 +23,10 @@ __all__ = [
     "HybridIndex",
     "InnerIndexFactory",
     "TantivyBM25Factory",
+    "USearchKnnFactory",
 ]
+
+
+__getattr__ = module_getattr(__name__, {
+    "LshKnnFactory": "8: the rest of the package (the stdlib's ml, LshKnnFactory)",
+})

@@ -1,7 +1,8 @@
 """The LLM xpack: the local models on the card (the sentence and image embedders, the
 rerankers, the decoder chat), the remote chats over an injected client, the
 tokenizers, and the RAG document pipeline (parsers, splitters, ``DocumentStore``,
-``VectorStoreServer``, the question answerers)."""
+``VectorStoreServer``, the question answerers) and its evaluation harness
+(``rag_evals``)."""
 
 from pathway_tpu_torch.xpacks.llm import (
     embedders,
@@ -9,6 +10,7 @@ from pathway_tpu_torch.xpacks.llm import (
     mocks,
     parsers,
     prompts,
+    rag_evals,
     rerankers,
     splitters,
 )
@@ -37,6 +39,13 @@ from pathway_tpu_torch.xpacks.llm.question_answering import (
     RAGClient,
     answer_with_geometric_rag_strategy,
 )
+from pathway_tpu_torch.xpacks.llm.rag_evals import (
+    RagEvalReport,
+    RagEvalSample,
+    RagEvaluator,
+    load_dataset,
+    run_experiment,
+)
 from pathway_tpu_torch.xpacks.llm.rerankers import (
     CrossEncoderReranker,
     EncoderReranker,
@@ -64,6 +73,9 @@ __all__ = [
     "OpenAIChat",
     "PipelineChat",
     "RAGClient",
+    "RagEvalReport",
+    "RagEvalSample",
+    "RagEvaluator",
     "SentenceTransformerEmbedder",
     "VectorStoreClient",
     "VectorStoreServer",
@@ -71,12 +83,15 @@ __all__ = [
     "answer_with_geometric_rag_strategy",
     "embedders",
     "llms",
+    "load_dataset",
     "mocks",
     "pad_to_buckets",
     "parsers",
     "prompt_chat_single_qa",
     "prompts",
+    "rag_evals",
     "rerank_topk_filter",
     "rerankers",
+    "run_experiment",
     "splitters",
 ]

@@ -708,3 +708,61 @@ def test_document_store_on_card_matches_cpu(cuda, dtype):
         cpu_dist = {h["text"]: h["dist"] for h in want}
         for ta, tb, _da, _db in pairs[:4]:
             assert ta == tb or (ta in cpu_dist and abs(cpu_dist[ta] - cpu_dist[tb]) <= bar), pairs
+
+
+def test_rag_evaluator_on_card_matches_cpu(cuda):
+    """``RagEvaluator`` over a small ``DocumentStore`` on the card (a hidden-64 f32
+    ``EncoderEmbedder``, the CPU encoder's seeded weights) against the same run with
+    ``device="cpu"``: each question is a doc's own text, its answer that doc's first
+    three words, its source the doc; an oracle chat keyed on the question. Top-1
+    retrieval is the question's own doc on both devices, so the reports are equal field
+    for field, and the oracle scores 1.0 with no sample missing."""
+    import dataclasses
+
+    import pathway_tpu_torch as tpw
+    from pathway_tpu_torch.engine import device_ops
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
+    from pathway_tpu_torch.xpacks.llm import (
+        BaseRAGQuestionAnswerer,
+        DocumentStore,
+        EncoderEmbedder,
+        RagEvalSample,
+        RagEvaluator,
+    )
+
+    words = "stream table index vector engine commit window join reduce shard".split()
+    rng = np.random.default_rng(6)
+    texts = [f"doc{i} " + " ".join(words[j] for j in rng.integers(0, len(words), 6))
+             for i in range(24)]
+    samples = [RagEvalSample(question=t, answer=" ".join(t.split()[:3]), source=t)
+               for t in texts[::3]]
+    answers = {s.question: s.answer for s in samples}
+    cfg = EncoderConfig(vocab_size=512, hidden=64, layers=2, heads=4, intermediate=128,
+                        max_len=64, dtype=torch.float32)
+    weights = EncoderEmbedder(cfg, seed=3, device="cpu").encoder.state_dict()
+
+    @tpw.udf
+    def oracle(prompt: str) -> str:
+        question = prompt.rsplit("Question: ", 1)[-1].split("\n", 1)[0]
+        return answers.get(question, "No information found.")
+
+    def report(device):
+        emb = EncoderEmbedder(cfg, max_len=32, max_batch_size=16, params=weights, device=device)
+        docs = tpw.debug.table_from_rows(
+            tpw.schema_from_types(data=str, _metadata=dict),
+            [(t, {"path": f"/d/{i}"}) for i, t in enumerate(texts)],
+        )
+        store = DocumentStore(docs, embedder=emb, device=device)
+        return RagEvaluator(BaseRAGQuestionAnswerer(oracle, store, search_topk=1)).evaluate(samples)
+
+    device_ops.configure(device="cpu")
+    try:
+        ours, ref = report(cuda), report("cpu")
+    finally:
+        device_ops.configure()
+        stop_event_loop()
+        G.clear()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.n_missing == 0 and ours.n_samples == len(samples)
+    assert ours.answer_exact_match == ours.answer_token_f1 == ours.retrieval_hit_rate == 1.0

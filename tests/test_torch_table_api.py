@@ -108,6 +108,14 @@ RELATIONAL_CALLS = {
     "flatten": lambda pw, T: T["t"].flatten(pw.this.s),
     "ix": lambda pw, T: T["d"].ix(T["t"].pointer_from(T["t"].k)),
     "ix_ref": lambda pw, T: T["d"].ix_ref(T["t"].k),
+    "sort": lambda pw, T: T["t"].sort(key=pw.this.v, instance=pw.this.k),
+    "deduplicate": lambda pw, T: T["t"].deduplicate(
+        value=pw.this.n, instance=pw.this.k, acceptor=lambda new, old: new > old
+    ),
+    "having": lambda pw, T: T["t"].having(T["d"].select(p=T["t"].pointer_from(T["d"].k)).p),
+    "await_futures": lambda pw, T: T["t"].select(
+        pw.this.k, w=pw.apply_async(lambda x: 2 * x, pw.this.n)
+    ).await_futures(),
     "empty": lambda pw, T: pw.Table.empty(a=int, b=str),
     "from_rows": lambda pw, T: pw.Table.from_rows(
         [(1, "a"), (2, "b")], pw.schema_from_types(a=int, b=str)
