@@ -4,8 +4,9 @@ serving path, the same pipeline through the port's own engine (``pw.run``), the
 contrastive trainer, the other model families (the ViT image embedder of multimodal
 RAG, the cross-encoder reranker and the local decoder chat), the relational operators,
 the xpack's RAG document pipeline (``VectorStoreServer`` over BGE-base, and the
-adaptive RAG question answerer over it), its ``rag_evals`` harness, and the table
-operations (the expression namespaces, deduplicate, sort, having, ``apply_async``).
+adaptive RAG question answerer over it), its ``rag_evals`` harness, the table
+operations (the expression namespaces, deduplicate, sort, having, ``apply_async``), the
+temporal operators (Nexmark queries 5, 7 and 8) and ``pw.iterate`` (PageRank).
 
     python3 chip_smoke.py
 
@@ -169,9 +170,27 @@ limit):
    the deduplicated rows on the card's segment reduction, with a 4,096-row stream
    through ``apply_async`` and ``await_futures``; every output equal to a plain Python /
    NumPy computation; rows/s and the segment kernels' launches.
-19. The kernels line (the three flash kernels and ``segment_reduce``; the forward's
-   ``launches_by_path`` includes ``rag_evals``, the segment reduction's ``table_ops``),
-   the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+19. temporal: Nexmark queries 5 (a sliding 10 s window every 2 s per auction, count
+   and sum of the price), 7 (the highest bid of each tumbling 10 s window, exactly once)
+   and 8 (persons and the auctions they open in the same tumbling 10 s window, a
+   ``window_join``) and an interval join of bids to their auction, over 100,000 events
+   of Beam's generator (1 : 3 : 46 persons, auctions and bids at 1,000 events/s of
+   event time) as one streamed ``pw.run`` through ``pw.io.python`` in 10 commits; once
+   on the host kernels and once on the card, both equal to a plain Python computation
+   exactly and to each other; Q7 retracts nothing and Q5's groupby reduces every commit
+   on the card. Reports events/s, the commits, the segment kernels' launches, the
+   matcher calls and each query's rows.
+20. iterate: ``pw.stdlib.graphs.pagerank`` (20 rounds at most) through one ``pw.run``
+   over a Graph500 Kronecker graph of scale 12 (4,096 vertices, 65,536 edges) in two
+   commits of a StreamGenerator table (90% of the edges, then the rest); once on the
+   host kernels and once on the card: the ranks after each commit bit for bit equal,
+   within 1e-9 of a NumPy power iteration with the same rounding and rounds; the
+   rounds' groupbys on the card's segment reduction and their inner joins on the
+   matcher. Reports seconds and rounds per commit and edges/s per round.
+21. The kernels line (the three flash kernels and ``segment_reduce``; the forward's
+   ``launches_by_path`` includes ``rag_evals``, the segment reduction's ``table_ops``,
+   ``temporal`` and ``iterate``), the ``nvidia-smi`` line, and last ``{"ok": true,
+   ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -2696,6 +2715,458 @@ def phase_table_ops(card: Card) -> int:
     return launches
 
 
+# -- the temporal operators: Nexmark ------------------------------------------------------
+
+NEXMARK_EVENTS = 100_000
+NEXMARK_COMMITS = 10
+NEXMARK_MS_PER_EVENT = 1  # 1,000 events/s of event time
+NEXMARK_WINDOW_MS = 10_000
+NEXMARK_HOP_MS = 2_000
+# Beam's NexmarkConfiguration defaults and its generator's constants
+NEXMARK_PROPORTIONS = (1, 3, 46)  # person : auction : bid
+NEXMARK_ACTIVE_PEOPLE = 1000
+NEXMARK_IN_FLIGHT_AUCTIONS = 100
+NEXMARK_HOT_AUCTION_RATIO = 2
+NEXMARK_HOT_SELLER_RATIO = 4
+NEXMARK_HOT_BIDDER_RATIO = 4
+_NEXMARK_FIRST_ID = 1000  # FIRST_PERSON_ID and FIRST_AUCTION_ID
+_NEXMARK_HOT_SPAN = 100  # HOT_SELLER_RATIO, HOT_AUCTION_RATIO, HOT_BIDDER_RATIO: ids rounded down
+_NEXMARK_PERSON_LEAD = 10
+_NEXMARK_AUCTION_LEAD = 10
+PERSON, AUCTION, BID = 0, 1, 2
+
+
+def _nexmark_events(n: int) -> dict:
+    """Beam's Nexmark generator (``sdks/java/testing/nexmark``: ``GeneratorConfig``, the
+    person, auction and bid generators) on numpy from ``SEED``: event ``i`` is a person, an
+    auction or a bid by ``i % 50`` against the 1 : 3 : 46 mix, at event time ``i`` ms;
+    persons and auctions take the next ids, an auction's seller and a bid's bidder are a
+    hot person (id rounded down to 100) 3 times in 4 or else one of the 1,000 active
+    people, a bid's auction is the hot auction (rounded down to 100) 1 time in 2 or else
+    one of the 100 in flight, and a price is ``round(10 ** (6 u) * 100)`` cents. Columns
+    (kind, t, oid, seller, auction, bidder, price), 0 where a kind has no such field."""
+    rng = np.random.default_rng(SEED + 12)
+    i = np.arange(n, dtype=np.int64)
+    total = sum(NEXMARK_PROPORTIONS)
+    n_person, n_auction, _n_bid = NEXMARK_PROPORTIONS
+    epoch, offset = i // total, i % total
+    kind = np.where(offset < n_person, PERSON, np.where(offset < n_person + n_auction, AUCTION, BID))
+    last_person = epoch * n_person + np.minimum(offset, n_person - 1)  # lastBase0PersonId
+    a_epoch = np.where(offset < n_person, epoch - 1, epoch)
+    a_off = np.where(offset < n_person, n_auction - 1,
+                     np.where(offset >= n_person + n_auction, n_auction - 1, offset - n_person))
+    last_auction = a_epoch * n_auction + a_off  # lastBase0AuctionId
+
+    def next_person() -> np.ndarray:
+        people = last_person + 1
+        active = np.minimum(people, NEXMARK_ACTIVE_PEOPLE)
+        return people - active + (rng.random(n) * (active + _NEXMARK_PERSON_LEAD)).astype(np.int64)
+
+    hot_seller = rng.integers(0, NEXMARK_HOT_SELLER_RATIO, n) > 0
+    seller = np.where(hot_seller, last_person // _NEXMARK_HOT_SPAN * _NEXMARK_HOT_SPAN, next_person())
+    hot_auction = rng.integers(0, NEXMARK_HOT_AUCTION_RATIO, n) > 0
+    lo = np.maximum(last_auction - NEXMARK_IN_FLIGHT_AUCTIONS, 0)
+    cold_auction = lo + (rng.random(n) * (last_auction - lo + 1 + _NEXMARK_AUCTION_LEAD)).astype(np.int64)
+    auction = np.where(hot_auction, last_auction // _NEXMARK_HOT_SPAN * _NEXMARK_HOT_SPAN, cold_auction)
+    hot_bidder = rng.integers(0, NEXMARK_HOT_BIDDER_RATIO, n) > 0
+    bidder = np.where(hot_bidder, last_person // _NEXMARK_HOT_SPAN * _NEXMARK_HOT_SPAN + 1, next_person())
+    price = np.round(10.0 ** (rng.random(n) * 6.0) * 100.0).astype(np.int64)
+    is_p, is_a, is_b = kind == PERSON, kind == AUCTION, kind == BID
+    zero = np.zeros(n, np.int64)
+    return {
+        "kind": kind,
+        "t": i * NEXMARK_MS_PER_EVENT,
+        "oid": np.where(is_p, last_person, np.where(is_a, last_auction, zero)) + _NEXMARK_FIRST_ID * (is_p | is_a),
+        "seller": np.where(is_a, seller + _NEXMARK_FIRST_ID, zero),
+        "auction": np.where(is_b, auction + _NEXMARK_FIRST_ID, zero),
+        "bidder": np.where(is_b, bidder + _NEXMARK_FIRST_ID, zero),
+        "price": np.where(is_b, price, zero),
+    }
+
+
+def _sliding_starts(t: int, hop: int, duration: int) -> list[int]:
+    first = (t - duration) // hop * hop + hop  # the first start s with t < s + duration
+    return list(range(first, t + 1, hop))
+
+
+def _nexmark_expected(ev: dict) -> dict:
+    """The plain Python answer of the four queries on ``ev``."""
+    kinds, ts = ev["kind"].tolist(), ev["t"].tolist()
+    ids, sellers = ev["oid"].tolist(), ev["seller"].tolist()
+    auctions, prices = ev["auction"].tolist(), ev["price"].tolist()
+    q5: dict = {}
+    q7: dict = {}
+    persons_in: dict = {}  # window start -> person ids
+    auctions_in: dict = {}  # window start -> [(auction id, seller)]
+    auction_t: dict = {}
+    for j, kind in enumerate(kinds):
+        t = ts[j]
+        w = t // NEXMARK_WINDOW_MS * NEXMARK_WINDOW_MS
+        if kind == PERSON:
+            persons_in.setdefault(w, set()).add(ids[j])
+        elif kind == AUCTION:
+            auctions_in.setdefault(w, []).append((ids[j], sellers[j]))
+            auction_t[ids[j]] = t
+        else:
+            for s in _sliding_starts(t, NEXMARK_HOP_MS, NEXMARK_WINDOW_MS):
+                c = q5.setdefault((s, auctions[j]), [0, 0])
+                c[0] += 1
+                c[1] += prices[j]
+            q7[w] = max(q7.get(w, prices[j]), prices[j])
+    q8 = sorted((w, a, s) for w, pairs in auctions_in.items() for a, s in pairs
+                if s in persons_in.get(w, ()))
+    joined = sorted((auctions[j], ts[j], prices[j]) for j, kind in enumerate(kinds)
+                    if kind == BID and auctions[j] in auction_t
+                    and 0 <= ts[j] - auction_t[auctions[j]] <= NEXMARK_WINDOW_MS)
+    return {"q5": {k: tuple(v) for k, v in q5.items()}, "q7": q7, "q8": q8, "interval": joined}
+
+
+def _nexmark_program(ev: dict, n_batch: int):
+    """Nexmark queries 5, 7 and 8 and an interval join over one ``pw.io.python`` event
+    stream; the feed pushes ``n_batch`` events, then waits for the commit that holds
+    them to end at the subscribers. -> what the sinks gather: each query's state, Q7's
+    updates, the commits and the feed's clocks."""
+    cols = ("kind", "t", "oid", "seller", "auction", "bidder", "price")
+    # built before the run: the feed's thread only pushes, so a batch reaches the
+    # connector well inside one autocommit window
+    rows = [dict(zip(cols, r)) for r in zip(*(ev[c].tolist() for c in cols))]
+    out = {"q5": {}, "q7": {}, "q8": {}, "interval": {}, "q7_updates": [], "times": set(),
+           "seen": 0, "released": 0, "last_row": 0.0, "first_event": 0.0, "failures": []}
+    batch_seen = threading.Semaphore(0)
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            out["first_event"] = time.perf_counter()
+            for b in range(0, len(rows), n_batch):
+                for r in rows[b:b + n_batch]:
+                    self.next(**r)
+                if not batch_seen.acquire(timeout=300.0):
+                    out["failures"].append(f"events from {b} did not reach the subscriber")
+                    return
+
+    events = pw.io.python.read(Feed(), schema=pw.schema_from_types(**dict.fromkeys(cols, int)),
+                               autocommit_duration_ms=800)
+    persons = events.filter(pw.this.kind == PERSON).select(pw.this.t, pw.this.oid)
+    auctions = events.filter(pw.this.kind == AUCTION).select(pw.this.t, pw.this.oid, pw.this.seller)
+    bids = events.filter(pw.this.kind == BID).select(pw.this.t, pw.this.auction, pw.this.price)
+    q5 = bids.windowby(
+        bids.t, window=pw.temporal.sliding(hop=NEXMARK_HOP_MS, duration=NEXMARK_WINDOW_MS),
+        instance=bids.auction,
+    ).reduce(pw.this._pw_window_start, pw.this._pw_instance, n=pw.reducers.count(),
+             total=pw.reducers.sum(pw.this.price))
+    q7 = bids.windowby(
+        bids.t, window=pw.temporal.tumbling(NEXMARK_WINDOW_MS),
+        behavior=pw.temporal.exactly_once_behavior(),
+    ).reduce(pw.this._pw_window_start, top=pw.reducers.max(pw.this.price))
+    q8 = pw.temporal.window_join(
+        persons, auctions, persons.t, auctions.t, pw.temporal.tumbling(NEXMARK_WINDOW_MS),
+        persons.oid == auctions.seller,
+    ).select(start=pw.left._pw_window_start, auction=auctions.oid, seller=persons.oid)
+    joined = auctions.interval_join(
+        bids, auctions.t, bids.t, pw.temporal.interval(0, NEXMARK_WINDOW_MS),
+        auctions.oid == bids.auction,
+    ).select(auction=pw.right.auction, t=pw.right.t, price=pw.right.price)
+
+    def on_event(key, row, time, is_addition):
+        out["times"].add(time)
+        out["seen"] += 1
+
+    def on_event_time_end(time):
+        # the whole commit has run: release the feed for each batch it completed
+        while out["released"] < min(out["seen"] // n_batch, -(-len(rows) // n_batch)) or (
+                out["seen"] == len(rows) and out["released"] * n_batch < len(rows)):
+            out["released"] += 1
+            batch_seen.release()
+
+    def sink(name: str, fields):
+        state = out[name]
+
+        def on_change(key, row, time, is_addition):
+            out["last_row"] = _now()
+            if is_addition:
+                state[key] = tuple(row[f] for f in fields)
+            else:
+                state.pop(key, None)
+            if name == "q7":
+                out["q7_updates"].append((tuple(row[f] for f in fields), time, is_addition))
+
+        return on_change
+
+    pw.io.subscribe(events, on_change=on_event, on_time_end=on_event_time_end)
+    for name, table, fields in (("q5", q5, ("_pw_window_start", "_pw_instance", "n", "total")),
+                                ("q7", q7, ("_pw_window_start", "top")),
+                                ("q8", q8, ("start", "auction", "seller")),
+                                ("interval", joined, ("auction", "t", "price"))):
+        pw.io.subscribe(table, on_change=sink(name, fields))
+    return out
+
+
+_now = time.perf_counter  # the sinks' own ``time`` argument shadows the module
+
+
+def _nexmark_run(ev: dict, n_batch: int) -> tuple[dict, list]:
+    """One ``pw.run`` of the Nexmark program. -> (its outputs, the routes of the kept
+    runner's nodes)."""
+    out = _nexmark_program(ev, n_batch)
+    with _KeptRunner() as keep:
+        pw.run()
+    nodes = keep.runners[0].scope.nodes
+    routes = [(type(n).__name__, [r.kind.name for r, _c in getattr(n, "reducers", ())], dict(n.routes))
+              for n in nodes if hasattr(n, "routes")]
+    return out, routes
+
+
+def phase_temporal(card: Card) -> int:
+    """Nexmark queries 5 (hot items: a sliding window of 10 s every 2 s per auction,
+    count and sum of the price), 7 (highest bid: a tumbling 10 s window with
+    ``exactly_once_behavior``, so the buffer and freeze nodes are on the path) and 8
+    (new users: a tumbling 10 s ``window_join`` of persons and auctions on person id ==
+    seller), and an interval join of bids to their auction within 10 s after it, over
+    100,000 events of Beam's generator (1,000 events/s of event time, in event-time
+    order) as one streamed ``pw.run`` through ``pw.io.python`` in 10 commits of 10,000;
+    the feed waits for each commit to reach the subscriber. Once on the host kernels
+    (``PATHWAY_TPU_DEVICE_OPS=0``), then on the card; both runs' outputs must equal a
+    plain Python computation exactly and each other, Q7 may retract nothing, and the
+    Q5 groupby must reduce every commit it sees on the card (no row path). Reports
+    events/s (first event into the connector to the last row at the subscribers), the
+    commits, the segment kernels' launches, the matcher calls and each query's rows."""
+    phase_t0 = time.perf_counter()
+    ev = _nexmark_events(NEXMARK_EVENTS)
+    t0 = time.perf_counter()
+    want = _nexmark_expected(ev)
+    plain_s = time.perf_counter() - t0
+    n_batch = NEXMARK_EVENTS // NEXMARK_COMMITS
+    device_ops.configure()
+    host, host_routes = _with_device_ops("0", lambda: _nexmark_run(ev, n_batch))
+    device_ops.reset_counters()
+    _zero_segment_launches()
+    t0 = time.perf_counter()
+    got, routes = _with_device_ops("1", lambda: _nexmark_run(ev, n_batch))
+    run_s = time.perf_counter() - t0
+    by_kernel = _segment_launches()
+    launches = sum(by_kernel.values())
+    hits = device_ops.hit_counts()
+
+    def final(o: dict) -> dict:
+        return {
+            "q5": {(s, a): (n, tot) for s, a, n, tot in o["q5"].values()},
+            "q7": {s: top for s, top in o["q7"].values()},
+            "q8": sorted(o["q8"].values()),
+            "interval": sorted(o["interval"].values()),
+        }
+
+    got_f, host_f = final(got), final(host)
+    # commit times follow the connector's autocommit clock, not the data: Q7's updates
+    # compare by row and sign, in order
+    same_as_host = got_f == host_f and (
+        [(r, a) for r, _t, a in got["q7_updates"]] == [(r, a) for r, _t, a in host["q7_updates"]])
+    same = {q: got_f[q] == want[q] for q in want}
+    q5_nodes = [r for name, kinds, r in routes
+                if name == "GroupbyNode" and sorted(kinds) == ["COUNT", "SUM"]]
+    span_s = got["last_row"] - got["first_event"]
+    card.emit("temporal", events=NEXMARK_EVENTS, commits=len(got["times"]),
+              host_commits=len(host["times"]),
+              events_per_s=NEXMARK_EVENTS / span_s, span_s=span_s, run_s=run_s,
+              plain_answer_s=plain_s, rows={q: len(got_f[q]) for q in got_f},
+              q7_updates=len(got["q7_updates"]), equals_plain=same,
+              equals_host_kernels=same_as_host, segment_launches=by_kernel,
+              matcher_calls=hits.get("match_pairs", 0),
+              segment_reduce_calls=hits.get("segment_reduce", 0),
+              routes=[(name, kinds, r) for name, kinds, r in routes if name in ("GroupbyNode", "JoinNode")],
+              host_routes=[(n, r) for n, _k, r in host_routes if n == "GroupbyNode"],
+              failures=got["failures"] + host["failures"], phase_s=time.perf_counter() - phase_t0)
+    check(not got["failures"] and not host["failures"], f"temporal: {got['failures'] + host['failures']}")
+    check(all(same.values()), f"temporal: outputs differ from the plain computation: {same}")
+    check(same_as_host, "temporal: the card's run differs from the host kernels' run")
+    check(all(added for _row, _t, added in got["q7_updates"]) and
+          len(got["q7_updates"]) == len(want["q7"]), "temporal: Q7 retracted or revised a window")
+    check(len(q5_nodes) == 1 and q5_nodes[0]["device"] == len(got["times"])
+          and q5_nodes[0]["host"] == 0 and q5_nodes[0]["rows"] == 0,
+          f"temporal: Q5 groupby routes {q5_nodes} over {len(got['times'])} commits")
+    check(all(r["device"] == 0 for n, _k, r in host_routes), "temporal: the host run took the card")
+    check(by_kernel["int_sum"] > 0, f"temporal launched no segment kernel: {by_kernel}")
+    check(hits.get("match_pairs", 0) > 0, "temporal: Q8's join never reached the matcher")
+    return launches
+
+
+# -- pw.iterate: PageRank -----------------------------------------------------------------
+
+GRAPH_SCALE = 12  # Graph500's smallest class is scale 26
+GRAPH_EDGE_FACTOR = 16
+GRAPH_ABC = (0.57, 0.19, 0.19)
+PAGERANK_ROUNDS = 20
+PAGERANK_FIRST_SHARE = 0.9  # the first commit's share of the edges
+PAGERANK_TOL = 1e-9
+
+
+def _kronecker_edges(scale: int, edge_factor: int) -> tuple[np.ndarray, np.ndarray]:
+    """Graph500's Kronecker generator (``kronecker_generator.m``) on numpy from ``SEED``:
+    ``edge_factor * 2**scale`` edges, each picking a quadrant per bit level with
+    probabilities A, B, C and 1 - A - B - C, then a random relabelling of the vertices
+    and a random order of the edges."""
+    rng = np.random.default_rng(SEED + 13)
+    n, m = 1 << scale, edge_factor << scale
+    a, b, c = GRAPH_ABC
+    ab, c_norm, a_norm = a + b, c / (1 - (a + b)), a / (a + b)
+    u = np.zeros(m, np.int64)
+    v = np.zeros(m, np.int64)
+    for bit in range(scale):
+        ii = rng.random(m) > ab
+        jj = rng.random(m) > np.where(ii, c_norm, a_norm)
+        u += ii.astype(np.int64) << bit
+        v += jj.astype(np.int64) << bit
+    perm = rng.permutation(n)
+    order = rng.permutation(m)
+    return perm[u][order], perm[v][order]
+
+
+def _numpy_pagerank(u: np.ndarray, v: np.ndarray, rounds: int, damping: float = 0.85):
+    """``stdlib.graphs.pagerank`` in NumPy, with its rounding (``round(..., 12)`` of
+    ``(1 - d) + d * inflow``) and its stop (no change, or ``rounds`` rounds). -> ({vertex:
+    rank}, rounds run)."""
+    verts = np.unique(np.concatenate([u, v]))
+    size = int(verts.max()) + 1
+    deg = np.bincount(u, minlength=size).astype(np.float64)
+    has_inflow = np.bincount(v, minlength=size) > 0
+    rank = np.zeros(size)
+    rank[verts] = 1.0
+    for step in range(1, rounds + 1):
+        inflow = np.bincount(v, weights=rank[u] / deg[u], minlength=size)
+        new = rank.copy()
+        for x in verts.tolist():
+            t = float(inflow[x]) if has_inflow[x] else 0.0
+            new[x] = round((1.0 - damping) + damping * t, 12)
+        done = np.array_equal(new, rank)
+        rank = new
+        if done:
+            break
+    return {int(x): float(rank[x]) for x in verts}, step
+
+
+class _RoutesScheduler(Scheduler):
+    """The scheduler of ``pw.iterate``'s rounds, keeping its groupbys' and joins'
+    routes."""
+
+    seen: list = []
+
+    def run_static(self) -> None:
+        super().run_static()
+        for n in self.scope.nodes:
+            if hasattr(n, "routes"):
+                _RoutesScheduler.seen.append((type(n).__name__, dict(n.routes)))
+
+
+def _pagerank_run(u: np.ndarray, v: np.ndarray, n_first: int) -> dict:
+    """PageRank over a StreamGenerator edge table of two commits (the first ``n_first``
+    edges, then the rest) through one ``pw.run``. -> the ranks after each commit, the
+    seconds and rounds of each fixed point, and the routes of the rounds' operators."""
+    from pathway_tpu_torch.internals import iterate as iterate_mod
+
+    edges_rows = [{"u": a, "v": b} for a, b in zip(u.tolist(), v.tolist())]
+    edges = pw.debug.StreamGenerator().table_from_list_of_batches(
+        [edges_rows[:n_first], edges_rows[n_first:]], pw.schema_from_types(u=int, v=int))
+    ranks = pw.stdlib.graphs.pagerank(edges, iteration_limit=PAGERANK_ROUNDS)
+    engine = ranks._spec.params["engine"]
+    fixed_points: list = []
+    compute_all = engine.compute_all
+
+    def timed(states):
+        t0 = time.perf_counter()
+        result = compute_all(states)
+        fixed_points.append((time.perf_counter() - t0, engine.steps))
+        return result
+
+    engine.compute_all = timed
+    state: dict = {}
+    changed: set = set()
+    by_commit: dict = {}
+
+    def on_change(key, row, time, is_addition):
+        changed.add(time)
+        if is_addition:
+            state[key] = (row["v"], row["rank"])
+        else:
+            state.pop(key, None)
+
+    def on_time_end(time):
+        if time in changed:
+            by_commit[time] = dict(state.values())
+
+    pw.io.subscribe(ranks, on_change=on_change, on_time_end=on_time_end)
+    _RoutesScheduler.seen = []
+    iterate_mod.Scheduler = _RoutesScheduler
+    try:
+        t0 = time.perf_counter()
+        pw.run()
+        run_s = time.perf_counter() - t0
+    finally:
+        iterate_mod.Scheduler = Scheduler
+    return {"commits": [ranks_ for _t, ranks_ in sorted(by_commit.items())], "fixed_points": fixed_points, "run_s": run_s,
+            "routes": list(_RoutesScheduler.seen)}
+
+
+def phase_iterate(card: Card) -> int:
+    """``pw.stdlib.graphs.pagerank`` (20 rounds at most) through one ``pw.run`` over a
+    Graph500 Kronecker graph of scale 12 (4,096 vertices, 65,536 edges; A = 0.57, B = C
+    = 0.19, edge factor 16) fed as two commits of a StreamGenerator table: 90% of the
+    edges, then the other 10%, which makes the iteration recompute and emit a delta.
+    Once on the host kernels (``PATHWAY_TPU_DEVICE_OPS=0``), then on the card: the ranks
+    after each commit must be the host run's bit for bit and within 1e-9 of a NumPy power
+    iteration with the same rounding and the same rounds; every groupby inside the
+    rounds must take the device route and the inner joins the matcher. Reports seconds
+    and rounds per commit, edges per second per round, and the segment and matcher
+    calls."""
+    phase_t0 = time.perf_counter()
+    u, v = _kronecker_edges(GRAPH_SCALE, GRAPH_EDGE_FACTOR)
+    n_first = int(len(u) * PAGERANK_FIRST_SHARE)
+    t0 = time.perf_counter()
+    want = [_numpy_pagerank(u[:n_first], v[:n_first], PAGERANK_ROUNDS),
+            _numpy_pagerank(u, v, PAGERANK_ROUNDS)]
+    plain_s = time.perf_counter() - t0
+    device_ops.configure()
+    host = _with_device_ops("0", lambda: _pagerank_run(u, v, n_first))
+    device_ops.reset_counters()
+    _zero_segment_launches()
+    got = _with_device_ops("1", lambda: _pagerank_run(u, v, n_first))
+    by_kernel = _segment_launches()
+    launches = sum(by_kernel.values())
+    hits = device_ops.hit_counts()
+    bits = lambda ranks: {k: np.float64(x).view(np.int64).item() for k, x in ranks.items()}  # noqa: E731
+    err = [max(abs(got_c.get(x, math.inf) - r) for x, r in want_c.items())
+           for got_c, (want_c, _steps) in zip(got["commits"], want)]
+    per_commit = [{"seconds": s, "rounds": r, "edges": n,
+                   "edges_per_s_per_round": n * r / s}
+                  for (s, r), n in zip(got["fixed_points"], (n_first, len(u)))]
+    groupbys = [r for name, r in got["routes"] if name == "GroupbyNode"]
+    joins = [r for name, r in got["routes"] if name == "JoinNode"]
+    card.emit("iterate", vertices=1 << GRAPH_SCALE, edges=len(u), first_commit_edges=n_first,
+              commits=len(got["commits"]), per_commit=per_commit,
+              host_per_commit=[{"seconds": s, "rounds": r} for s, r in host["fixed_points"]],
+              numpy_rounds=[steps for _w, steps in want], max_abs_err=err,
+              equals_host_kernels=[bits(a) == bits(b) for a, b in zip(got["commits"], host["commits"])],
+              run_s=got["run_s"], plain_answer_s=plain_s, segment_launches=by_kernel,
+              segment_reduce_calls=hits.get("segment_reduce", 0),
+              matcher_calls=hits.get("match_pairs", 0),
+              inner_groupby_routes={k: sum(r[k] for r in groupbys) for k in ("device", "host", "rows")},
+              inner_join_routes={k: sum(r[k] for r in joins) for k in ("device", "host", "rows")},
+              phase_s=time.perf_counter() - phase_t0)
+    check(len(got["commits"]) == 2 and len(host["commits"]) == 2,
+          f"iterate: {len(got['commits'])} commits of ranks, want 2")
+    check(all(bits(a) == bits(b) for a, b in zip(got["commits"], host["commits"])),
+          "iterate: the card's ranks differ from the host kernels'")
+    check(all(set(g) == set(w) for g, (w, _s) in zip(got["commits"], want)),
+          "iterate: the ranked vertices differ from NumPy's")
+    check(max(err) <= PAGERANK_TOL, f"iterate: ranks {err} from NumPy's, bar {PAGERANK_TOL}")
+    check([r for _s, r in got["fixed_points"]] == [s for _w, s in want],
+          f"iterate: rounds {got['fixed_points']} against NumPy's {[s for _w, s in want]}")
+    check(groupbys and all(r["device"] > 0 and r["host"] == 0 and r["rows"] == 0 for r in groupbys),
+          f"iterate: inner groupby routes {groupbys}")
+    check(any(r["device"] > 0 for r in joins) and all(r["host"] == 0 for r in joins),
+          f"iterate: inner join routes {joins}")
+    check(by_kernel["fold_runs"] > 0, f"iterate: the inflow sum launched no fold: {by_kernel}")
+    return launches
+
+
 # -- the relational operators -----------------------------------------------------------
 
 N_REL = 1_000_000  # bench_dataflow.py's N
@@ -3257,6 +3728,8 @@ def main() -> int:
     rag_evals = phase_rag_evals(card, chat, bge)
     del chat, bge
     table_ops = phase_table_ops(card)
+    temporal = phase_temporal(card)
+    iterate = phase_iterate(card)
     fwd["launches"] = serving["launches"]
     fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
                                "engine_async_parity": parity,
@@ -3271,7 +3744,8 @@ def main() -> int:
         row["tensor_core_instructions"] = sass[row["name"]]
     relational["launches_by_path"] = {"relational": relational["launches"],
                                       "relational_engine": relational_engine,
-                                      "table_ops": table_ops}
+                                      "table_ops": table_ops, "temporal": temporal,
+                                      "iterate": iterate}
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

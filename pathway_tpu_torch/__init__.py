@@ -6,7 +6,9 @@ and no JAX. It holds the engine (``pw.run``, ``pw.io.python``, ``pw.io.subscribe
 ``pw.debug``'s static tables, tables with ``select``, ``filter``, ``groupby`` /
 ``reduce`` with ``pw.reducers``, the joins with ``pw.left`` / ``pw.right``, ``concat``,
 ``flatten``, ``ix``, ``deduplicate``, ``sort``, ``having`` and the other relational
-operations, the expression namespaces ``.str`` / ``.dt`` / ``.num``, the groupby's
+operations, the temporal operators (``pw.temporal``: windows, behaviors, the interval,
+asof, asof-now and window joins), ``pw.iterate`` (with ``stdlib.graphs``' PageRank and
+Bellman-Ford), ``pw.debug.StreamGenerator``, the expression namespaces ``.str`` / ``.dt`` / ``.num``, the groupby's
 reductions and the join's pair matcher on the card, UDFs with a batch executor and
 ``pw.apply_async``, lazy device rows, ``stdlib.indexing.DataIndex`` over the as-of-now
 KNN index on the card), the embedder UDF (``xpacks.llm.EncoderEmbedder``) and the rest
@@ -74,6 +76,8 @@ from pathway_tpu_torch.xpacks.llm import EncoderEmbedder, SentenceTransformerEmb
 
 from pathway_tpu_torch import debug  # noqa: E402  (imports Table)
 from pathway_tpu_torch import stdlib  # noqa: E402
+from pathway_tpu_torch.internals.iterate import iterate  # noqa: E402
+from pathway_tpu_torch.stdlib import temporal  # noqa: E402
 
 
 class universes:
@@ -95,7 +99,6 @@ def wrap_py_object(obj: object, **kwargs: object) -> PyObjectWrapper:
 
 
 __getattr__ = _module_getattr(__name__, {
-    **dict.fromkeys(("iterate", "temporal"), "11: the other node types and table operations"),
     **dict.fromkeys(
         (
             "sql", "demo", "load_yaml", "export_table", "import_table", "AsyncTransformer",
@@ -153,6 +156,7 @@ __all__ = [
     "global_error_log",
     "if_else",
     "io",
+    "iterate",
     "knn_search",
     "knn_update",
     "left",
@@ -169,6 +173,7 @@ __all__ = [
     "schema_from_dict",
     "schema_from_types",
     "stdlib",
+    "temporal",
     "this",
     "udf",
     "udfs",

@@ -1,8 +1,8 @@
-"""Debug and notebook helpers: static tables from markdown, rows or pandas, and a
-table's final state as dicts, a DataFrame or printed rows.
+"""Debug and notebook helpers: static tables from markdown, rows or pandas, streamed
+tables from explicit batches (:class:`StreamGenerator`), and a table's final state as
+dicts, a DataFrame or printed rows, or its update stream printed.
 
-Counterpart of ``pathway_tpu/debug/__init__.py``; its ``StreamGenerator`` and
-``compute_and_print_update_stream`` are not ported yet (ROADMAP queue 1 item 11).
+Counterpart of ``pathway_tpu/debug/__init__.py``.
 """
 
 from __future__ import annotations
@@ -197,3 +197,62 @@ def compute_and_print(
     print(" | ".join(h.ljust(w) for h, w in zip(header, widths)))
     for cells in rows:
         print(" | ".join(c.ljust(w) for c, w in zip(cells, widths)))
+
+
+class StreamGenerator:
+    """Tables fed by explicit batches, one commit each, for streaming tests."""
+
+    def table_from_list_of_batches_by_workers(
+        self,
+        batches: Sequence[dict[int, list[dict[str, Any]]]],
+        schema: schema_mod.SchemaMetaclass,
+    ) -> Table:
+        """Batches of rows by worker; one worker runs them all, so each batch is the
+        workers' rows in worker order."""
+        flat = [[row for rows in batch.values() for row in rows] for batch in batches]
+        return self.table_from_list_of_batches(flat, schema)
+
+    def table_from_list_of_batches(
+        self,
+        batches: Sequence[list[dict[str, Any]]],
+        schema: schema_mod.SchemaMetaclass,
+    ) -> Table:
+        """A table whose rows arrive batch by batch, one commit a batch; row ``i`` (in
+        order over all batches) has the id ``ref_scalar("sg", i)``."""
+        from pathway_tpu_torch.engine.connectors import INSERT, BatchScheduleDriver
+        from pathway_tpu_torch.internals.table import TableSpec
+
+        names = schema.column_names()
+        dtypes = schema.dtypes()
+        seq = 0
+        schedule = []
+        for batch in batches:
+            entries = []
+            for row in batch:
+                values = tuple(dt.normalize_value(row.get(n), dtypes[n]) for n in names)
+                entries.append((INSERT, ref_scalar("sg", seq), values))
+                seq += 1
+            schedule.append(entries)
+
+        def attach(scope: Any, make_driver: bool = True):
+            session = scope.input_session(len(names))
+            return session, (BatchScheduleDriver(session, schedule) if make_driver else None)
+
+        return Table(TableSpec("input", [], {"attach": attach}), names, dtypes,
+                     name="stream-generator")
+
+
+def compute_and_print_update_stream(table: Table, **kwargs: Any) -> None:
+    """Run the graph ``table`` reaches and print each update of it: its id, its values,
+    the commit time and the diff. A streamed input runs commit by commit (the JAX
+    package's version runs only the static tables)."""
+    runner = GraphRunner()
+    node = runner.build(table)
+    updates: list[tuple] = []
+    runner.scope.subscribe_table(
+        node, on_change=lambda key, row, time, diff: updates.append((key, row, time, diff))
+    )
+    runner.run()
+    print(" | ".join(["id", *table.column_names(), "__time__", "__diff__"]))
+    for key, row, time, diff in updates:
+        print(" | ".join([repr(key), *[repr(v) for v in row], str(time), str(diff)]))

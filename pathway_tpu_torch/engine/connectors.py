@@ -9,7 +9,8 @@ pushes. Rows without a primary key get the reference's key,
 feed gives the same keys in both packages. The file, CSV, JSON-lines and message-bus
 connectors (with their replaced sources, explicit event keys, upsert parsers and
 metadata columns), the synchronization groups and the writers are not ported yet
-(ROADMAP queue 1 item 15).
+(ROADMAP queue 1 item 15). :class:`BatchScheduleDriver` feeds ``pw.debug``'s
+``StreamGenerator``.
 """
 
 from __future__ import annotations
@@ -135,3 +136,26 @@ class InputDriver:
             self.done = True
             return "done"
         return "data" if produced else "idle"
+
+
+class BatchScheduleDriver:
+    """Feeds predefined batches of ``(kind, key, values)`` events, one batch a commit
+    (``pw.debug.StreamGenerator``)."""
+
+    def __init__(self, session: InputSession, batches: list[list[tuple[str, Pointer, tuple]]]):
+        self.session = session
+        self.batches = list(batches)
+
+    def effective_autocommit_s(self) -> float:
+        return 0.0  # every batch is its own commit
+
+    def poll(self) -> str:
+        if not self.batches:
+            return "done"
+        batch = self.batches.pop(0)
+        for kind, key, values in batch:
+            if kind == INSERT:
+                self.session.insert(key, values)
+            else:
+                self.session.remove(key, values)
+        return "data" if batch or self.batches else "done"

@@ -23,8 +23,9 @@ batches for completion on its own thread, or completes them inline under
 ``PATHWAY_TPU_ASYNC_DEVICE=0``. ``Scheduler(probe=True)`` keeps per-operator counts and
 times (:class:`OperatorStats`).
 
-Iterate and the temporal operators are not ported yet (ROADMAP queue 1 item 11), nor
-the row transformers' recompute node (item 8).
+The temporal operators live in ``engine/temporal.py`` and ``pw.iterate``'s node in
+``engine/iterate.py``; both share this module's Node and :func:`emit_local_group_diffs`.
+The row transformers' recompute node is not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -1881,14 +1882,7 @@ class SortNode(Node):
                 if not group:
                     self.members.pop(inst, None)
         out = DeltaBatch()
-        for inst, old_rows in old.items():
-            new_rows = self._local(inst)
-            for k, r in old_rows.items():
-                if rows_differ(new_rows.get(k), r):
-                    out.append(k, r, -1)
-            for k, r in new_rows.items():
-                if rows_differ(old_rows.get(k), r):
-                    out.append(k, r, 1)
+        emit_local_group_diffs(out, old, self._local)
         return out.consolidate()
 
 
@@ -2106,6 +2100,23 @@ class _RemoveErrorsNode(Node):
                 continue
             out.append(key, row, diff)
         return out
+
+
+def emit_local_group_diffs(
+    out: DeltaBatch, old_groups: dict, local_fn: Callable[[Any], dict]
+) -> None:
+    """The tail of a group-local recompute: for each touched group, diff the output
+    taken before the batch (``old_groups[group]``) against ``local_fn(group)`` after it,
+    and append the retractions and insertions to ``out``. Used by sort, sessions and the
+    temporal joins."""
+    for inst, old_rows in old_groups.items():
+        new_rows = local_fn(inst)
+        for k, r in old_rows.items():
+            if rows_differ(new_rows.get(k), r):
+                out.append(k, r, -1)
+        for k, r in new_rows.items():
+            if rows_differ(old_rows.get(k), r):
+                out.append(k, r, 1)
 
 
 class Scope:

@@ -2,8 +2,7 @@
 placeholders to tables.
 
 Counterpart of ``pathway_tpu/internals/desugaring.py``, a structural substitution over
-the expression tree. The per-side binding of the temporal joins (``resolve_side``)
-waits for them.
+the expression tree.
 """
 
 from __future__ import annotations
@@ -143,6 +142,25 @@ def resolve_join_sides(
                 return ColumnReference(left_table, node.name)
             if node._owner is right:
                 return ColumnReference(right_table, node.name)
+        return None
+
+    return substitute(expression, replace)
+
+
+def resolve_side(expression: Any, table: "Table", side: str) -> ColumnExpression:
+    """Bind ``pw.this`` and the side's own placeholder (``pw.left`` for ``side="left"``,
+    ``pw.right`` for ``"right"``) to ``table``: the temporal joins take a time
+    expression per side in either spelling."""
+    if isinstance(expression, str):
+        return ColumnReference(table, expression)
+    expression = expr_mod.wrap_expression(expression)
+    sided = left if side == "left" else right
+
+    def replace(node: ColumnExpression) -> ColumnExpression | None:
+        if isinstance(node, ThisColumnReference):
+            if node._owner is this or node._owner is sided:
+                return ColumnReference(table, node.name)
+            raise ValueError(f"{node!r} cannot be used for the {side} side of this join")
         return None
 
     return substitute(expression, replace)

@@ -8,8 +8,11 @@ static and connector-backed input tables, ``select`` (UDF columns included),
 ``filter``, ``groupby_reduce``, ``join_select``, ``concat``, ``update_rows``,
 ``update_cells``, ``reindex``, ``intersect``, ``subtract``, ``restrict``,
 ``override_universe``, ``flatten``, ``sort``, ``deduplicate``, ``ix``,
-``remove_errors``, error logs and the as-of-now external index; any other table
-operation raises ``NotImplementedError`` naming its ROADMAP item.
+``remove_errors``, error logs, the as-of-now external index, the temporal operators
+(``buffer``, ``forget``, ``freeze``, ``session_assign``, ``gradual_broadcast`` and the
+``interval_join``, ``asof_join`` and ``asof_now_join`` specs) and ``pw.iterate``'s
+``iterate_param``, ``iterate_result`` and ``table_transform``. The row transformers'
+spec raises ``NotImplementedError`` naming its ROADMAP item (queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ import time as _time
 from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 from pathway_tpu_torch.engine import expression as eex
+from pathway_tpu_torch.engine import temporal
 from pathway_tpu_torch.engine.external_index import ExternalIndexNode
 from pathway_tpu_torch.engine.graph import Node, Scheduler, Scope
+from pathway_tpu_torch.engine.iterate import IterateNode
 from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
 from pathway_tpu_torch.engine.value import Pointer
 from pathway_tpu_torch.internals import dtype as dt
@@ -112,6 +117,8 @@ class GraphRunner:
         #: run the scheduler with per-operator probe stats (``pw.run`` sets it when
         #: process metrics are asked for)
         self.probe_stats = False
+        #: the rows of ``pw.iterate``'s parameter tables, by slot, in an inner run
+        self.iterate_params: list[list[tuple[Pointer, tuple]]] | None = None
         self.scheduler: Scheduler | None = None
 
     # -- expression compilation --------------------------------------------
@@ -429,9 +436,66 @@ class GraphRunner:
                 limit_col=limit_col,
             )
 
+        if kind in ("buffer", "forget", "freeze"):
+            cls = {
+                "buffer": temporal.BufferNode,
+                "forget": temporal.ForgetNode,
+                "freeze": temporal.FreezeNode,
+            }[kind]
+            return cls(
+                scope,
+                self.build(spec.inputs[0]),
+                spec.params["threshold_col"],
+                spec.params["time_col"],
+            )
+
+        if kind == "gradual_broadcast":
+            # the threshold table is the (lower, value, upper) select of
+            # Table._gradual_broadcast
+            base, triplet = spec.inputs
+            return temporal.GradualBroadcastNode(scope, self.build(base), self.build(triplet))
+
+        if kind == "session_assign":
+            return temporal.SessionAssignNode(
+                scope,
+                self.build(spec.inputs[0]),
+                spec.params["time_col"],
+                spec.params["instance_col"],
+                spec.params["max_gap"],
+            )
+
+        if kind in ("interval_join", "asof_join", "asof_now_join"):
+            return self._build_temporal_join(table)
+
+        if kind == "iterate_param":
+            if self.iterate_params is None:
+                raise ValueError("iterate parameter table used outside pw.iterate")
+            return scope.static_table(
+                self.iterate_params[spec.params["slot"]], len(table._column_names)
+            )
+
+        if kind == "table_transform":
+            fn = spec.params["fn"]
+            return IterateNode(
+                scope,
+                [self.build(spec.inputs[0])],
+                len(table._column_names),
+                lambda states, _fn=fn: _fn(states[0]),
+            )
+
+        if kind == "iterate_result":
+            engine = spec.params["engine"]
+            name = spec.params["name"]
+            return IterateNode(
+                scope,
+                [self.build(t) for t in spec.inputs],
+                len(table._column_names),
+                lambda states, _engine=engine, _name=name: _engine.compute_all(states)[_name],
+            )
+
         raise NotImplementedError(
             f"table operation {kind!r} is not ported yet "
-            "(ROADMAP queue 1 item 11: the other node types and table operations)"
+            "(ROADMAP queue 1 item 8: the rest of the package)"
         )
 
     def _aligned(self, t: "Table", names: Sequence[str]) -> Node:
@@ -516,17 +580,24 @@ class GraphRunner:
         nl = len(left._column_names)
         nr = len(right._column_names)
         k = len(on)
-        # each side's prep row: its columns, its id, then the join-key values
+        # each side's prep row: its columns, its id where the output reads it, then the
+        # join-key values (an id column is a column of Pointer objects, which keeps the
+        # prep off the columnar evaluator)
+        ids_read = {
+            ref.table._id for e in exprs.values() for ref in e._dependencies() if ref.name == "id"
+        }
+        lid = [eex.KeyRef()] if left._id in ids_read else []
+        rid = [eex.KeyRef()] if right._id in ids_read else []
         left_prep = scope.expression_table(
             self.build(left),
             [eex.ColumnRef(i) for i in range(nl)]
-            + [eex.KeyRef()]
+            + lid
             + [self.compile(le, llayout) for le, _re in on],
         )
         right_prep = scope.expression_table(
             self.build(right),
             [eex.ColumnRef(i) for i in range(nr)]
-            + [eex.KeyRef()]
+            + rid
             + [self.compile(re_, rlayout) for _le, re_ in on],
         )
         id_spec = spec.params.get("id_spec")
@@ -534,25 +605,97 @@ class GraphRunner:
             # name -> column index in the side's prep row
             side, name = id_spec
             id_spec = (side, (left if side == "left" else right)._column_names.index(name))
+        nli, nri = nl + len(lid), nr + len(rid)
         joined = scope.join_tables(
             left_prep,
             right_prep,
-            left_on=list(range(nl + 1, nl + 1 + k)),
-            right_on=list(range(nr + 1, nr + 1 + k)),
+            left_on=list(range(nli, nli + k)),
+            right_on=list(range(nri, nri + k)),
             kind=spec.params["how"],
             id_spec=id_spec,
         )
         combined = Layout()
         for i, name in enumerate(left._column_names):
             combined.columns[(left._id, name)] = i
-        combined.id_columns[left._id] = nl
-        off = nl + 1 + k
+        if lid:
+            combined.id_columns[left._id] = nl
+        off = nli + k
         for i, name in enumerate(right._column_names):
             combined.columns[(right._id, name)] = off + i
-        combined.id_columns[right._id] = off + nr
+        if rid:
+            combined.id_columns[right._id] = off + nr
         return scope.expression_table(
             joined, [self.compile(e, combined) for e in exprs.values()]
         )
+
+    def _build_temporal_join(self, table: "Table") -> Node:
+        """The interval, asof and asof-now joins. Each side's prep row is its columns,
+        its id, its time (interval and asof) and its equality values; several equalities
+        of an interval or asof join fold into one tuple-valued instance column."""
+        spec = table._spec
+        kind = spec.kind
+        left, right = spec.inputs
+        on = spec.params["on"]
+        how = spec.params["how"]
+        exprs: dict[str, ColumnExpression] = spec.params["exprs"]
+        scope = self.scope
+        nl = len(left._column_names)
+        nr = len(right._column_names)
+        k = len(on)
+        has_time = kind in ("interval_join", "asof_join")
+        fold = has_time and k > 1
+
+        def prep(base: "Table", side: int, time_expr: Any) -> Node:
+            layout = self.base_layout(base)
+            n = len(base._column_names)
+            extras: list[eex.EngineExpression] = [eex.KeyRef()]
+            if time_expr is not None:
+                extras.append(self.compile(time_expr, layout))
+            # the side by index: a self-join has the same table on both sides
+            compiled = [self.compile(pair[side], layout) for pair in on]
+            if fold:
+                extras.append(eex.MakeTuple(compiled))
+            else:
+                extras.extend(compiled)
+            return scope.expression_table(
+                self.build(base), [eex.ColumnRef(i) for i in range(n)] + extras
+            )
+
+        left_prep = prep(left, 0, spec.params.get("left_time") if has_time else None)
+        right_prep = prep(right, 1, spec.params.get("right_time") if has_time else None)
+        t_off = 1 if has_time else 0
+        k_extras = 1 if fold else k
+        l_inst = list(range(nl + 1 + t_off, nl + 1 + t_off + k_extras))
+        r_inst = list(range(nr + 1 + t_off, nr + 1 + t_off + k_extras))
+        if kind == "interval_join":
+            node = temporal.IntervalJoinNode(
+                scope, left_prep, right_prep,
+                left_time_col=nl + 1, right_time_col=nr + 1,
+                lower_bound=spec.params["lower_bound"], upper_bound=spec.params["upper_bound"],
+                left_instance_col=l_inst[0] if k else None,
+                right_instance_col=r_inst[0] if k else None,
+                kind=how,
+            )
+        elif kind == "asof_join":
+            node = temporal.AsofJoinNode(
+                scope, left_prep, right_prep,
+                left_time_col=nl + 1, right_time_col=nr + 1,
+                left_instance_col=l_inst[0] if k else None,
+                right_instance_col=r_inst[0] if k else None,
+                direction=spec.params["direction"],
+                kind=how,
+            )
+        else:
+            node = temporal.AsofNowJoinNode(scope, left_prep, right_prep, l_inst, r_inst, kind=how)
+        combined = Layout()
+        for i, name in enumerate(left._column_names):
+            combined.columns[(left._id, name)] = i
+        combined.id_columns[left._id] = nl
+        off = nl + 1 + t_off + k_extras
+        for i, name in enumerate(right._column_names):
+            combined.columns[(right._id, name)] = off + i
+        combined.id_columns[right._id] = off + nr
+        return scope.expression_table(node, [self.compile(e, combined) for e in exprs.values()])
 
     def _build_select_with_udfs(
         self,

@@ -8,8 +8,10 @@ operations that are selects (``with_columns``, ``without``, ``rename*``,
 ``difference`` and ``restrict``, the re-keying operations (``with_id``,
 ``with_id_from``, ``with_universe_of``), ``flatten``, ``ix`` and ``ix_ref``,
 ``having``, ``deduplicate``, ``sort``, ``await_futures``, the universe promises,
-``remove_errors``, the as-of-now external index and the static constructors ``empty``
-and ``from_rows``. Tables are lazy: each holds a
+``remove_errors``, the as-of-now external index, the temporal operations
+(``windowby``, ``interval_join``, ``asof_join``, ``asof_now_join``, ``window_join``,
+which ``stdlib/temporal`` builds) and the static constructors ``empty`` and
+``from_rows``. Tables are lazy: each holds a
 :class:`TableSpec` describing the operator that produces it, and
 :mod:`pathway_tpu_torch.internals.runner` lowers the reachable specs onto the engine
 scope at run time. The reference's other public methods are here by name and raise
@@ -698,6 +700,85 @@ class Table:
             universe=query_table._universe.subset(),
         )
 
+    # -- temporal -----------------------------------------------------------
+
+    def windowby(
+        self,
+        time_expr: Any,
+        *,
+        window: Any,
+        instance: Any = None,
+        behavior: Any = None,
+    ) -> Any:
+        from pathway_tpu_torch.stdlib.temporal import windowby as _windowby
+
+        return _windowby(self, time_expr, window=window, instance=instance, behavior=behavior)
+
+    def interval_join(
+        self,
+        other: "Table",
+        self_time: Any,
+        other_time: Any,
+        interval: Any,
+        *on: Any,
+        how: str = JoinMode.INNER,
+    ) -> Any:
+        from pathway_tpu_torch.stdlib.temporal import interval_join as _ij
+
+        return _ij(self, other, self_time, other_time, interval, *on, how=how)
+
+    def asof_join(
+        self,
+        other: "Table",
+        self_time: Any,
+        other_time: Any,
+        *on: Any,
+        how: str = JoinMode.INNER,
+        direction: str = "backward",
+    ) -> Any:
+        from pathway_tpu_torch.stdlib.temporal import asof_join as _aj
+
+        return _aj(self, other, self_time, other_time, *on, how=how, direction=direction)
+
+    def asof_now_join(self, other: "Table", *on: Any, how: str = JoinMode.INNER) -> Any:
+        from pathway_tpu_torch.stdlib.temporal import asof_now_join as _anj
+
+        return _anj(self, other, *on, how=how)
+
+    def window_join(
+        self,
+        other: "Table",
+        self_time: Any,
+        other_time: Any,
+        window: Any,
+        *on: Any,
+        how: str = JoinMode.INNER,
+        **kwargs: Any,
+    ) -> Any:
+        from pathway_tpu_torch.stdlib.temporal import window_join as _wj
+
+        return _wj(self, other, self_time, other_time, window, *on, how=how, **kwargs)
+
+    def _gradual_broadcast(
+        self,
+        threshold_table: "Table",
+        lower_column: Any,
+        value_column: Any,
+        upper_column: Any,
+    ) -> "Table":
+        """Attach ``apx_value``, which moves between lower and upper row by row as the
+        broadcast value advances (``engine/temporal.py::GradualBroadcastNode``)."""
+        triplet = threshold_table.select(
+            _pw_lower=resolve_this(lower_column, threshold_table),
+            _pw_value=resolve_this(value_column, threshold_table),
+            _pw_upper=resolve_this(upper_column, threshold_table),
+        )
+        return self._derived(
+            TableSpec("gradual_broadcast", [self, triplet], {}),
+            {**{n: self._dtypes[n] for n in self._column_names}, "apx_value": dt.ANY},
+            universe=self._universe,
+        )
+
     def remove_errors(self) -> "Table":
         return self._derived(
             TableSpec("remove_errors", [self], {}),
@@ -709,10 +790,6 @@ class Table:
 #: the reference ``Table``'s public methods that are not ported yet -> the ROADMAP
 #: queue 1 item that ports them
 UNPORTED = {
-    **dict.fromkeys(
-        ("asof_join", "asof_now_join", "interval_join", "window_join", "windowby"),
-        "11: the other node types and table operations",
-    ),
     "show": "8: the rest of the package (the stdlib's viz)",
 }
 

@@ -640,6 +640,65 @@ def test_device_operators_on_the_card_match_the_host(cuda):
         dops.configure()
 
 
+def test_windowby_and_pagerank_take_the_card_and_match_the_host(cuda, monkeypatch):
+    """A sliding ``windowby(...).reduce(count, sum)`` and PageRank rounds through the
+    Table API: on the card, every batch of the window's groupby takes the device route
+    and PageRank's float64 inflow sum launches the ordered fold; both outputs equal the
+    host kernels' (``PATHWAY_TPU_DEVICE_OPS=0``) bit for bit."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import device_ops as dops
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.ops import segment_reduce as sr
+    from pathway_tpu_torch.stdlib.graphs import pagerank
+
+    rng = np.random.default_rng(5)
+    n = 4000
+    bids = list(zip(np.sort(rng.integers(0, 5000, n)).tolist(), rng.integers(1, 1000, n).tolist(),
+                    rng.integers(0, 16, n).tolist()))
+    us = rng.integers(0, 300, 3000)
+    edges = list(zip(us.tolist(), ((us + 1 + rng.integers(0, 299, 3000)) % 300).tolist()))
+
+    def bits(state):
+        return sorted(tuple(np.float64(x).view(np.int64).item() if isinstance(x, float) else x
+                            for x in row) for row in state.values())
+
+    def run(flag):
+        monkeypatch.setenv("PATHWAY_TPU_DEVICE_OPS", flag)
+        dops.configure(device="cuda")
+        t = pw.debug.table_from_rows(pw.schema_from_types(t=int, price=int, auction=int), bids)
+        win = t.windowby(t.t, window=pw.temporal.sliding(hop=200, duration=1000),
+                         instance=t.auction).reduce(
+            pw.this._pw_window_start, pw.this._pw_instance, c=pw.reducers.count(),
+            s=pw.reducers.sum(pw.this.price))
+        e = pw.debug.table_from_rows(pw.schema_from_types(u=int, v=int), edges)
+        ranks = pagerank(e, iteration_limit=2)
+        out = {}
+        for name, table in (("windows", win), ("ranks", ranks)):
+            for k in sr.KERNELS.values():
+                k.launches = 0
+            runner = GraphRunner()
+            (state,) = runner.capture(table)
+            routes = [dict(node.routes) for node in runner.scope.nodes
+                      if type(node).__name__ == "GroupbyNode"]
+            out[name] = (bits(state), routes, {k: v.launches for k, v in sr.KERNELS.items()})
+        G.clear()
+        return out
+
+    try:
+        host, card = run("0"), run("1")
+    finally:
+        dops.configure()
+    for name in ("windows", "ranks"):
+        assert card[name][0] == host[name][0], name
+        assert card[name][0], name
+        assert sum(host[name][2].values()) == 0
+    (routes,) = card["windows"][1]
+    assert routes["device"] > 0 and routes["host"] == 0 and routes["rows"] == 0
+    assert card["windows"][2]["int_sum"] > 0
+    assert card["ranks"][2]["fold_runs"] > 0  # the inflow sum inside the iteration
+
+
 def test_kernel_matches_plain_version_at_the_bge_base_shape(cuda):
     """One BGE-base embed call of the vector store: 256 docs of 10-34 tokens in the
     128 bucket, 12 heads of 64, bf16."""
