@@ -187,10 +187,27 @@ limit):
    within 1e-9 of a NumPy power iteration with the same rounding and rounds; the
    rounds' groupbys on the card's segment reduction and their inner joins on the
    matcher. Reports seconds and rounds per commit and edges/s per round.
-21. The kernels line (the three flash kernels and ``segment_reduce``; the forward's
+21. optimizer: the graph optimizer (pushdown, fusion, elision marks) and the
+   measurement-driven placement, over relational_engine's program, table_ops' at a
+   quarter of its depth (50,000 rows in 5 commits) and ``bench_dataflow.py``'s
+   incremental_update (the 1M-row load, 100 commits of +-1,000 rows), each in three
+   modes: spec (``PATHWAY_TPU_OPTIMIZE=0``, ``PATHWAY_TPU_DEVICE_OPS=0``), forced
+   (optimizer on, ``=1``) and auto (optimizer on, unset). Every output equal to the
+   spec's bit for bit; per program and mode rows/s, ``optimizer_stats()``,
+   ``POLICY.decisions()``, the residency plane's h2d/d2h bytes per commit (equal to the
+   operators' upload and fetch tensors' bytes), the segment kernels' launches and the
+   matcher's calls; in auto mode incremental_update's groupby probed on both sides; no
+   resident batch outlives a commit; ``optimizer_stats()`` of engine_pipeline's graph.
+22. The kernels line (the three flash kernels and ``segment_reduce``; the forward's
    ``launches_by_path`` includes ``rag_evals``, the segment reduction's ``table_ops``,
-   ``temporal`` and ``iterate``), the ``nvidia-smi`` line, and last ``{"ok": true,
-   ...}``.
+   ``temporal``, ``iterate`` and ``optimizer``), the ``nvidia-smi`` line, and last
+   ``{"ok": true, ...}``.
+
+Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
+its first batch, as in the JAX package. Phases that check a device route
+(relational_engine, table_ops, relational, temporal, iterate) force the device operators
+(``PATHWAY_TPU_DEVICE_OPS=1``): in auto mode the placement policy sends some batches to
+the host kernels.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -217,7 +234,7 @@ import pathway_tpu_torch as pw
 from pathway_tpu_torch import _build
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
 from pathway_tpu_torch.engine import device as hd
-from pathway_tpu_torch.engine import device_ops, device_pipeline
+from pathway_tpu_torch.engine import device_ops, device_pipeline, device_residency
 from pathway_tpu_torch.engine.batch import Columns
 from pathway_tpu_torch.engine.device import TRANSFERS, device_batches_held, lazy_rows
 from pathway_tpu_torch.engine.graph import Scheduler, Scope, _match_join_pairs
@@ -242,6 +259,8 @@ from pathway_tpu_torch.models import (
     vision_forward,
 )
 from pathway_tpu_torch.ops import flash_attention as fa
+from pathway_tpu_torch.optimize import optimizer_stats
+from pathway_tpu_torch.optimize.placement import POLICY, PlacementPolicy
 from pathway_tpu_torch.ops import segment_reduce as sr
 from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory
 from pathway_tpu_torch.xpacks.llm import (
@@ -1053,6 +1072,8 @@ def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
     run()
     run_s = time.perf_counter() - t0
     launches = fa.KERNEL.launches
+    # the rewrite of this run's graph, for the optimizer phase's report
+    OPTIMIZER_SEEN["engine_pipeline"] = optimizer_stats()
     pipe = {**device_pipeline.PIPELINE.stats(), **_pipe_since(mark)}
     threads_after = _pipeline_threads()
     backward_launches = fa.BWD_DQ_KERNEL.launches + fa.BWD_DKV_KERNEL.launches
@@ -2528,35 +2549,36 @@ OPS_FLOOR = 900  # seconds: dt.floor to 15 minutes
 OPS_EPOCH = datetime.datetime(2024, 1, 1)
 
 
-def _ops_rows() -> dict:
-    """Seeded rows in bench_dataflow.py's manner: a primary-key row number, an int key, a float
-    value (distinct multiples of 1/8, so every sum is exact in float64 in any order and
-    every instance has one largest value), a word of mixed case and a timestamp (whole
-    seconds around 2024-01-01)."""
+def _ops_rows(n: int = N_OPS) -> dict:
+    """``n`` seeded rows in bench_dataflow.py's manner: a primary-key row number, an int
+    key, a float value (distinct multiples of 1/8, so every sum is exact in float64 in
+    any order and every instance has one largest value), a word of mixed case and a
+    timestamp (whole seconds around 2024-01-01)."""
     rng = np.random.default_rng(SEED + 11)
     return {
-        "id": np.arange(N_OPS),
-        "key": rng.integers(0, 1 << 20, N_OPS),
-        "v": (rng.permutation(N_OPS) - N_OPS // 2) * 0.125,
+        "id": np.arange(n),
+        "key": rng.integers(0, 1 << 20, n),
+        "v": (rng.permutation(n) - n // 2) * 0.125,
         "word": [w.upper() if f else w for w, f in
-                 zip((_WORDS[j] for j in rng.integers(0, len(_WORDS), N_OPS)),
-                     rng.random(N_OPS) < 0.5)],
-        "secs": rng.integers(-10**8, 10**8, N_OPS),
-        "picks": rng.choice(N_OPS, OPS_PICKS, replace=False),
+                 zip((_WORDS[j] for j in rng.integers(0, len(_WORDS), n)),
+                     rng.random(n) < 0.5)],
+        "secs": rng.integers(-10**8, 10**8, n),
+        "picks": rng.choice(n, OPS_PICKS, replace=False),
     }
 
 
 def _ops_expected(rows: dict) -> dict:
     """The plain Python / NumPy answer of table_ops' program on ``rows``."""
     ids, keys, vals, words, secs = (rows[c] for c in ("id", "key", "v", "word", "secs"))
+    n = len(ids)
     sel = {}
-    for i in range(N_OPS):
+    for i in range(n):
         s = int(secs[i])
         sel[i] = (int(keys[i]), words[i].lower(), len(words[i]),
                   (OPS_EPOCH + datetime.timedelta(seconds=s)).hour,
                   OPS_EPOCH + datetime.timedelta(seconds=s // OPS_FLOOR * OPS_FLOOR), abs(float(vals[i])))
     best: dict[int, int] = {}
-    for i in range(N_OPS):
+    for i in range(n):
         inst = int(keys[i]) % OPS_DEDUP_INSTANCES
         if inst not in best or vals[i] > vals[best[inst]]:
             best[inst] = i
@@ -2582,34 +2604,27 @@ async def _ops_async_fn(v: float) -> float:
     return 3.0 * v + 1.0
 
 
-def phase_table_ops(card: Card) -> int:
-    """One streamed ``pw.run`` of 200,000 rows through ``pw.io.python`` in 20 commits of
-    10,000 (the feed waits for each commit to reach the subscriber): one ``select`` of
-    the expression namespaces (``.str.lower()``, ``.str.len()``, ``.dt.hour()``,
-    ``.dt.floor(15 min)``, ``.num.abs()``), ``deduplicate(value=v, instance=key % 4096)``
-    keeping the largest value, ``sort(key=v, instance=key % 1024)``, ``having`` over
-    4,096 picked ids from a static table, and ``groupby(key % 64).reduce(count, sum)``
-    over the deduplicated rows, whose commits the card's segment reduction takes; with
-    a second stream of 4,096 rows through ``pw.apply_async`` and ``await_futures``.
-    Every output's final state must equal a plain Python / NumPy computation of the same
-    rows exactly. Reports rows/s, the commits and the segment kernels' launches."""
+def _table_ops_run(n_ops: int, commits: int) -> dict:
+    """One streamed ``pw.run`` of table_ops' program (see :func:`phase_table_ops`) over
+    ``n_ops`` rows in ``commits`` commits, under the environment as it stands: -> each
+    output against the plain answer, the outputs' bits, the run's seconds, the kept
+    runner, the groupby's routes and the segment kernels' launches."""
     import datetime
 
     from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
 
-    phase_t0 = time.perf_counter()
-    rows = _ops_rows()
+    rows = _ops_rows(n_ops)
     t0 = time.perf_counter()
     want = _ops_expected(rows)
     plain_s = time.perf_counter() - t0
-    n_batch = N_OPS // OPS_COMMITS
+    n_batch = n_ops // commits
     seen = {"sel": 0}
     batch_seen = threading.Semaphore(0)
     failures: list = []
 
     class Feed(pw.io.python.ConnectorSubject):
         def run(self) -> None:
-            for b in range(OPS_COMMITS):
+            for b in range(commits):
                 for i in range(b * n_batch, (b + 1) * n_batch):
                     self.next(rid=i, key=int(rows["key"][i]), v=float(rows["v"][i]),
                               word=rows["word"][i],
@@ -2673,10 +2688,10 @@ def phase_table_ops(card: Card) -> int:
         pw.run()
         run_s = time.perf_counter() - t0
     by_kernel = _segment_launches()
-    launches = sum(by_kernel.values())
     loop_threads = [th.name for th in threading.enumerate() if th.is_alive() and th.name == "pw-udf-loop"]
     stop_event_loop()
-    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in keep.runners[0].scope.nodes
+    runner = keep.runners[0]
+    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in runner.scope.nodes
               if hasattr(n, "routes")}
 
     st = states
@@ -2690,28 +2705,54 @@ def phase_table_ops(card: Card) -> int:
     want_async = {i: 3.0 * float(rows["v"][i]) + 1.0 for i in range(OPS_ASYNC_ROWS)}
     bits = lambda d: {k: tuple(np.float64(x).view(np.int64).item() if isinstance(x, float) else x  # noqa: E731
                                for x in (v if isinstance(v, tuple) else (v,))) for k, v in d.items()}
+    got = {"sel": bits(got_sel), "dedup": got_dedup, "groups": bits(got_groups), "sort": got_sort,
+           "having": got_having, "async": bits(got_async)}
     same = {
-        "sel": bits(got_sel) == bits(want["sel"]),
+        "sel": got["sel"] == bits(want["sel"]),
         "dedup": got_dedup == want["dedup"],
-        "groups": bits(got_groups) == bits(want["groups"]),
+        "groups": got["groups"] == bits(want["groups"]),
         "sort": got_sort == want["sort"],
         "having": got_having == want["having"],
-        "async": bits(got_async) == bits(want_async),
+        "async": got["async"] == bits(want_async),
     }
+    return {"out": got, "same": same, "run_s": run_s, "plain_s": plain_s, "runner": runner,
+            "routes": routes, "by_kernel": by_kernel, "commits": len(times),
+            "out_rows": {name: len(s) for name, s in states.items()},
+            "loop_threads": loop_threads, "failures": failures, "rows": n_ops}
+
+
+def phase_table_ops(card: Card) -> int:
+    """One streamed ``pw.run`` of 200,000 rows through ``pw.io.python`` in 20 commits of
+    10,000 (the feed waits for each commit to reach the subscriber): one ``select`` of
+    the expression namespaces (``.str.lower()``, ``.str.len()``, ``.dt.hour()``,
+    ``.dt.floor(15 min)``, ``.num.abs()``), ``deduplicate(value=v, instance=key % 4096)``
+    keeping the largest value, ``sort(key=v, instance=key % 1024)``, ``having`` over
+    4,096 picked ids from a static table, and ``groupby(key % 64).reduce(count, sum)``
+    over the deduplicated rows, whose commits the card's segment reduction takes; with
+    a second stream of 4,096 rows through ``pw.apply_async`` and ``await_futures``.
+    Every output's final state must equal a plain Python / NumPy computation of the same
+    rows exactly. Reports rows/s, the commits and the segment kernels' launches. The
+    device operators are forced (``PATHWAY_TPU_DEVICE_OPS=1``), as in
+    relational_engine."""
+    phase_t0 = time.perf_counter()
+    res = _with_device_ops("1", lambda: _table_ops_run(N_OPS, OPS_COMMITS))
+    by_kernel, routes, same, failures = res["by_kernel"], res["routes"], res["same"], res["failures"]
+    launches = sum(by_kernel.values())
     groupbys = [r for name, r in routes.items() if name.startswith("GroupbyNode")]
-    card.emit("table_ops", rows=N_OPS, commits=len(times), async_rows=OPS_ASYNC_ROWS,
+    card.emit("table_ops", rows=N_OPS, commits=res["commits"], async_rows=OPS_ASYNC_ROWS,
               dedup_instances=OPS_DEDUP_INSTANCES, sort_instances=OPS_SORT_INSTANCES,
-              run_s=run_s, rows_per_s=N_OPS / run_s, plain_answer_s=plain_s,
-              out_rows={name: len(s) for name, s in states.items()},
-              equals_plain=same, segment_launches=by_kernel, groupby_routes=groupbys,
-              hit_counts=device_ops.hit_counts(), udf_loop_threads_after_run=loop_threads,
-              failures=failures, phase_s=time.perf_counter() - phase_t0)
+              run_s=res["run_s"], rows_per_s=N_OPS / res["run_s"], plain_answer_s=res["plain_s"],
+              out_rows=res["out_rows"], equals_plain=same, segment_launches=by_kernel,
+              groupby_routes=groupbys, hit_counts=device_ops.hit_counts(),
+              udf_loop_threads_after_run=res["loop_threads"], failures=failures,
+              phase_s=time.perf_counter() - phase_t0)
     check(not failures, f"table_ops: {failures}")
     check(all(same.values()), f"table_ops: outputs differ from the plain computation: {same}")
     check(len(groupbys) == 1 and groupbys[0]["device"] > 0 and groupbys[0]["host"] == 0,
           f"table_ops groupby routes {groupbys}")
     check(launches > 0, f"table_ops launched no segment kernel: {by_kernel}")
-    check(not loop_threads, f"table_ops: event-loop threads alive after pw.run: {loop_threads}")
+    check(not res["loop_threads"],
+          f"table_ops: event-loop threads alive after pw.run: {res['loop_threads']}")
     return launches
 
 
@@ -3313,16 +3354,26 @@ def _workload(name: str, rows: dict):
     raise KeyError(name)
 
 
-def _with_device_ops(flag: str, fn):
-    prev = os.environ.get("PATHWAY_TPU_DEVICE_OPS")
-    os.environ["PATHWAY_TPU_DEVICE_OPS"] = flag
+def _with_env(env: dict, fn):
+    """``fn()`` with the variables of ``env`` set (None: unset), restored after."""
+    prior = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         return fn()
     finally:
-        if prev is None:
-            os.environ.pop("PATHWAY_TPU_DEVICE_OPS")
-        else:
-            os.environ["PATHWAY_TPU_DEVICE_OPS"] = prev
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _with_device_ops(flag: str, fn):
+    return _with_env({"PATHWAY_TPU_DEVICE_OPS": flag}, fn)
 
 
 def _segment_bound_ms(n: int, groups: int, cols: int) -> float:
@@ -3608,16 +3659,11 @@ class _KeptRunner:
         GraphRunner.run = self._run
 
 
-def phase_relational_engine(card: Card) -> int:
-    """One ``pw.run`` program through the Table API at device_ops_leg's size: a python
-    connector (200,000 rows) into a groupby (sum and count), a left join with a
-    1,024-row dimension table from ``pw.debug.table_from_rows``, a filter, and a
-    concat_reindex with a second stream (50,000 rows) joined inner to the same
-    dimension table; the subscriber's final state must equal a NumPy computation of
-    the same answer, and the groupby must have reduced more than one commit on the
-    card. The values are multiples of 1/8 well inside float64's exact range,
-    so every sum is exact and the answer does not depend on how the stream splits into
-    commits."""
+def _relational_engine_run() -> dict:
+    """One ``pw.run`` of relational_engine's program (see :func:`phase_relational_engine`)
+    under the environment as it stands: -> the subscriber's final state, NumPy's answer,
+    the run's seconds, the kept runner, the nodes' routes and the segment kernels'
+    launches."""
 
     class Feed(pw.io.python.ConnectorSubject):
         def __init__(self, keys, vals) -> None:
@@ -3661,17 +3707,16 @@ def phase_relational_engine(card: Card) -> int:
     pw.io.subscribe(out, on_change=on_change)
     device_ops.configure()
     device_ops.reset_counters()
+    device_pipeline.PIPELINE.configure()
     _zero_segment_launches()
-    torch.cuda.reset_peak_memory_stats()
     with _KeptRunner() as kept:
         t0 = time.perf_counter()
         pw.run()
         run_s = time.perf_counter() - t0
     by_kernel = _segment_launches()
-    launches = sum(by_kernel.values())
-    nodes = kept.runners[0].scope.nodes
-    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in nodes if hasattr(n, "routes")}
-
+    runner = kept.runners[0]
+    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in runner.scope.nodes
+              if hasattr(n, "routes")}
     counts = np.bincount(a_k, minlength=N_DIM + 64)
     sums = np.bincount(a_k, weights=a_v, minlength=N_DIM + 64)
     want = [
@@ -3679,12 +3724,33 @@ def phase_relational_engine(card: Card) -> int:
         for k in range(N_DIM + 64) if counts[k] >= min_count
     ] + [(int(k), float(v), 1, f"d{k}") for k, v in zip(b_k, b_v) if k < N_DIM]
     bits = lambda r: (r[0], np.float64(r[1]).view(np.int64).item(), r[2], r[3])  # noqa: E731
-    same = sorted(map(bits, state.values()), key=repr) == sorted(map(bits, want), key=repr)
+    return {"out": sorted(map(bits, state.values()), key=repr),
+            "want": sorted(map(bits, want), key=repr), "run_s": run_s, "runner": runner,
+            "routes": routes, "by_kernel": by_kernel, "rows": N_ENGINE * 5 // 4}
+
+
+def phase_relational_engine(card: Card) -> int:
+    """One ``pw.run`` program through the Table API at device_ops_leg's size: a python
+    connector (200,000 rows) into a groupby (sum and count), a left join with a
+    1,024-row dimension table from ``pw.debug.table_from_rows``, a filter, and a
+    concat_reindex with a second stream (50,000 rows) joined inner to the same
+    dimension table; the subscriber's final state must equal a NumPy computation of
+    the same answer, and the groupby must have reduced more than one commit on the
+    card. The values are multiples of 1/8 well inside float64's exact range,
+    so every sum is exact and the answer does not depend on how the stream splits into
+    commits. The device operators are forced (``PATHWAY_TPU_DEVICE_OPS=1``): in auto
+    mode the placement policy sends some batches to the host kernels (the optimizer
+    phase runs the program in every mode)."""
+    torch.cuda.reset_peak_memory_stats()
+    res = _with_device_ops("1", _relational_engine_run)
+    by_kernel, routes = res["by_kernel"], res["routes"]
+    launches = sum(by_kernel.values())
+    same = res["out"] == res["want"]
     card.emit("relational_engine", rows=N_ENGINE, second_stream=N_ENGINE // 4, dim_rows=N_DIM,
-              out_rows=len(state), expected_rows=len(want), rows_per_s=(N_ENGINE * 5 // 4) / run_s,
-              run_s=run_s, routes=routes, segment_launches=by_kernel,
-              hit_counts=device_ops.hit_counts(), peak_device_mib=torch.cuda.max_memory_allocated() / 2**20,
-              equals_numpy=same)
+              out_rows=len(res["out"]), expected_rows=len(res["want"]),
+              rows_per_s=res["rows"] / res["run_s"], run_s=res["run_s"], routes=routes,
+              segment_launches=by_kernel, hit_counts=device_ops.hit_counts(),
+              peak_device_mib=torch.cuda.max_memory_allocated() / 2**20, equals_numpy=same)
     check(same, "relational_engine: the subscriber's state differs from NumPy's answer")
     groupbys = [r for name, r in routes.items() if name.startswith("GroupbyNode")]
     joins = [r for name, r in routes.items() if name.startswith("JoinNode")]
@@ -3696,6 +3762,179 @@ def phase_relational_engine(card: Card) -> int:
           f"join routes {joins}")
     check(all(by_kernel[k] > 0 for k in SEGMENT_PATH_KERNELS),
           f"relational_engine left a segment kernel unlaunched: {by_kernel}")
+    return launches
+
+
+# -- the graph optimizer and measurement-driven placement --------------------------------
+
+#: optimizer_stats() of earlier phases' graphs, for the optimizer phase's report
+OPTIMIZER_SEEN: dict = {}
+#: (mode, its environment): the spec (no rewrite, host kernels), forced device operators,
+#: and auto placement (the policy decides per batch)
+OPT_MODES = (
+    ("spec", {"PATHWAY_TPU_OPTIMIZE": "0", "PATHWAY_TPU_DEVICE_OPS": "0"}),
+    ("forced", {"PATHWAY_TPU_OPTIMIZE": "1", "PATHWAY_TPU_DEVICE_OPS": "1"}),
+    ("auto", {"PATHWAY_TPU_OPTIMIZE": "1", "PATHWAY_TPU_DEVICE_OPS": None}),
+)
+OPT_OPS_ROWS, OPT_OPS_COMMITS = N_OPS // 4, OPS_COMMITS // 4  # table_ops at a quarter of its depth
+
+
+class _TransferLedger:
+    """The bytes of the device operators' upload and fetch tensors, counted from the
+    arrays they are handed and return, beside the residency plane's own ledger: the
+    segment reduction uploads ``[1 + columns, rows]`` int64 and fetches ``[columns,
+    groups]`` int64 (the count is a column); the matcher uploads both key arrays and
+    fetches both index arrays."""
+
+    def __enter__(self):
+        self.h2d = self.d2h = 0
+        self._dispatch = device_ops.segment_reduce_dispatch
+        self._match = device_ops._match_pairs_device
+        ledger = self
+
+        def dispatch(inverse, diffs, vals, n_groups):
+            live = 1 + sum(v is not None for v in vals)
+            ledger.h2d += (1 + live) * len(inverse) * 8
+            ledger.d2h += live * n_groups * 8
+            return ledger._dispatch(inverse, diffs, vals, n_groups)
+
+        def match(la, ra):
+            out = ledger._match(la, ra)
+            # the swapped call comes back through this wrapper, and is counted there
+            if len(la) and len(ra) and len(ra) <= len(la):
+                ledger.h2d += la.nbytes + ra.nbytes
+                ledger.d2h += out[0].nbytes + out[1].nbytes
+            return out
+
+        device_ops.segment_reduce_dispatch = dispatch
+        device_ops._match_pairs_device = match
+        return self
+
+    def __exit__(self, *exc):
+        device_ops.segment_reduce_dispatch = self._dispatch
+        device_ops._match_pairs_device = self._match
+
+
+def _incremental_run(rows: list) -> dict:
+    """``bench_dataflow.py::incremental_update`` through a Scope: the 1M-row load, then
+    100 commits of 1,000 retractions and 1,000 inserts into a groupby (sum)."""
+    scope = Scope()
+    sess = scope.input_session(2)
+    node = scope.group_by_table(sess, by_cols=[0], reducers=[(make_reducer(ReducerKind.SUM), [1])])
+    sched = Scheduler(scope)
+    for key, row in rows:
+        sess.insert(key, row)
+    t0 = time.perf_counter()
+    sched.commit()
+    load_s = time.perf_counter() - t0
+    t = 0.0
+    for c in range(INC_COMMITS):
+        base = (c * INC_DELTA) % (N_REL - INC_DELTA)
+        for i in range(base, base + INC_DELTA):
+            key, row = rows[i]
+            sess.remove(key, row)
+            sess.insert(key, (row[0], row[1] + 1.0))
+        t0 = time.perf_counter()
+        sched.commit()
+        t += time.perf_counter() - t0
+    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in scope.nodes
+              if hasattr(n, "routes")}
+    return {"out": _final_state(node), "run_s": t, "load_s": load_s, "routes": routes,
+            "commits": sched.time, "rows": INC_COMMITS * 2 * INC_DELTA, "node": node}
+
+
+def phase_optimizer(card: Card) -> int:
+    """The graph optimizer and measurement-driven placement. Three programs, each in
+    three modes: ``spec`` (``PATHWAY_TPU_OPTIMIZE=0``, ``PATHWAY_TPU_DEVICE_OPS=0``: the
+    graph as written, host kernels), ``forced`` (optimizer on, ``=1``) and ``auto``
+    (optimizer on, the variable unset: the placement policy picks host or card per
+    batch). The programs: relational_engine's (200,000 + 50,000 rows through
+    ``pw.run``), table_ops' at a quarter of its depth (50,000 rows in 5 commits of
+    10,000) and ``bench_dataflow.py::incremental_update`` (a 1M-row load, then 100
+    commits of 1,000 retractions and 1,000 inserts, so auto mode sees batches on both
+    sides of ``min_rows``: 1M and 2,000 rows above, the table_ops groupby's small
+    commits below). Every output must equal the spec's bit for bit. Reports, per program
+    and mode: rows/s, ``optimizer_stats()``, ``POLICY.decisions()`` (calls and ns/row
+    each side, the final side), the residency plane's h2d/d2h bytes per commit (which
+    must equal the bytes of the operators' upload and fetch tensors), the segment
+    kernels' launches and the matcher's calls; and ``optimizer_stats()`` of
+    engine_pipeline's graph. Checks: in auto mode incremental_update's groupby ran at
+    least ``PROBE_CALLS`` batches on each side; no resident batch outlived a commit.
+    Returns the segment kernels' launches of the forced and auto runs."""
+    phase_t0 = time.perf_counter()
+    inc_rows = [(pw.ref_scalar(i), (i % 1024, float(i))) for i in range(N_REL)]
+    programs = (
+        ("relational_engine", _relational_engine_run),
+        ("table_ops", lambda: _table_ops_run(OPT_OPS_ROWS, OPT_OPS_COMMITS)),
+        ("incremental_update", lambda: _incremental_run(inc_rows)),
+    )
+    launches = 0
+    spec: dict = {}
+    for prog, run in programs:
+        for mode, env in OPT_MODES:
+            POLICY.reset()
+            device_residency.reset_counters()
+            device_ops.configure()
+            device_ops.reset_counters()
+            _zero_segment_launches()
+            with _TransferLedger() as ledger:
+                res = _with_env(env, run)
+            stats = optimizer_stats()
+            by_kernel = _segment_launches()
+            hits = device_ops.hit_counts()
+            res_stats = device_residency.stats()
+            decisions = POLICY.decisions()
+            commits = res["runner"].scheduler.time if "runner" in res else res["commits"]
+            if mode != "spec":
+                launches += sum(by_kernel.values())
+            if mode == "spec":
+                spec[prog] = res["out"]
+                same = True
+            elif prog == "incremental_update":
+                same = _same_state(spec[prog], res["out"])
+            else:
+                same = res["out"] == spec[prog]
+            plain = {"table_ops": res.get("same"),
+                     "relational_engine": res.get("want") == res["out"]}.get(prog)
+            card.emit(
+                "optimizer", program=prog, mode=mode, env=env, rows=res["rows"],
+                run_s=res["run_s"], rows_per_s=res["rows"] / res["run_s"], commits=commits,
+                optimizer_stats=stats, placement=decisions, routes=res["routes"],
+                segment_launches=by_kernel, segment_reduce_calls=hits.get("segment_reduce", 0),
+                matcher_calls=hits.get("match_pairs", 0),
+                h2d_bytes_per_commit=res_stats["h2d"]["bytes"] / max(1, commits),
+                d2h_bytes_per_commit=res_stats["d2h"]["bytes"] / max(1, commits),
+                residency=res_stats, upload_fetch_tensor_bytes={"h2d": ledger.h2d, "d2h": ledger.d2h},
+                equals_spec=same, equals_plain=plain,
+            )
+            check(same, f"optimizer: {prog} in {mode} mode differs from the spec")
+            if prog == "table_ops":
+                check(all(res["same"].values()) and not res["failures"],
+                      f"optimizer: table_ops in {mode} mode: {res['same']} {res['failures']}")
+            if prog == "relational_engine":
+                check(res["out"] == res["want"], f"optimizer: relational_engine in {mode} mode")
+            check(res_stats["h2d"]["bytes"] == ledger.h2d and res_stats["d2h"]["bytes"] == ledger.d2h,
+                  f"optimizer: {prog} {mode}: residency ledger {res_stats['h2d']} {res_stats['d2h']}"
+                  f" against the tensors' {ledger.h2d} / {ledger.d2h} bytes")
+            check(device_residency.live_resident_batches() == 0
+                  and res_stats["events"]["resident_batches"] == 0,
+                  f"optimizer: {prog} {mode}: a resident batch outlived its commit")
+            if mode == "spec":
+                check(not decisions and sum(by_kernel.values()) == 0,
+                      f"optimizer: {prog}: the spec run reached the card")
+            if mode == "forced":
+                check(all(d["host_calls"] == 0 for d in decisions.values()) and decisions,
+                      f"optimizer: {prog}: forced mode consulted the host side: {decisions}")
+            if mode == "auto" and prog == "incremental_update":
+                key = f"groupby:{res['node'].index}"
+                st = decisions.get(key, {})
+                check(st.get("host_calls", 0) >= PlacementPolicy.PROBE_CALLS
+                      and st.get("device_calls", 0) >= PlacementPolicy.PROBE_CALLS,
+                      f"optimizer: incremental_update's groupby was not probed on both sides: {st}")
+            del res
+            gc.collect()
+    card.emit("optimizer", program="engine_pipeline", optimizer_stats=OPTIMIZER_SEEN.get("engine_pipeline"),
+              phase_s=time.perf_counter() - phase_t0)
     return launches
 
 
@@ -3730,6 +3969,7 @@ def main() -> int:
     table_ops = phase_table_ops(card)
     temporal = phase_temporal(card)
     iterate = phase_iterate(card)
+    optimizer = phase_optimizer(card)
     fwd["launches"] = serving["launches"]
     fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
                                "engine_async_parity": parity,
@@ -3745,7 +3985,7 @@ def main() -> int:
     relational["launches_by_path"] = {"relational": relational["launches"],
                                       "relational_engine": relational_engine,
                                       "table_ops": table_ops, "temporal": temporal,
-                                      "iterate": iterate}
+                                      "iterate": iterate, "optimizer": optimizer}
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

@@ -103,6 +103,19 @@ class Columns:
             int(len(idx)), [c[idx] for c in self.cols], kbytes=kb, kobjs=kobjs, diffs=diffs
         )
 
+    def keys_gather(self, idx: np.ndarray) -> "tuple[np.ndarray | None, list | None]":
+        """Key rows at ``idx`` as ``(kbytes, kobjs)``, exactly one not None, without
+        touching the value columns (the fused chain's sweep pairs the surviving keys
+        with freshly evaluated arrays)."""
+        kb = self._kbytes
+        if kb is None and self._kb_thunk is not None:
+            kb = self.kbytes()  # force the lazy keys once
+        if kb is not None:
+            return kb[idx], None
+        arr = np.empty(self.n, object)
+        arr[:] = self._kobjs
+        return None, arr[idx].tolist()
+
     def compress(self, mask: np.ndarray) -> "Columns":
         """Row subset by boolean mask."""
         return self.gather(np.flatnonzero(mask))

@@ -1,8 +1,7 @@
 """Device operators under the groupby and the join.
 
-Counterpart of ``pathway_tpu/engine/device_ops.py`` without its placement policy. Two
-operator cores run on the card, on the columnar delta batches' arrays (+1/-1 diffs
-included):
+Counterpart of ``pathway_tpu/engine/device_ops.py``. Two operator cores run on the
+card, on the columnar delta batches' arrays (+1/-1 diffs included):
 
 - **the groupby's segment reductions**: the columnar groupby's per-commit
   ``device.segment_count`` and ``device.segment_sum`` become one upload and one
@@ -20,15 +19,25 @@ included):
 
 The host kernels stay the spec. The weights (``col.astype(int64) * diffs``, ``col *
 diffs``) are computed on the host with NumPy, so their rounding is the spec's; the card
-adds them in the spec's order, so the sums are the spec's bits.
+adds them in the spec's order, so the sums are the spec's bits. Every upload and fetch
+is counted in the residency plane's transfer ledger (``engine/device_residency.py``).
+
+Placement is measurement-driven: the optimizer's placement pass
+(``optimize/placement.py``) seeds a per-operator policy that compares observed device
+ns/row with host ns/row, with hysteresis. ``PATHWAY_TPU_DEVICE_OPS`` is the control:
+
+- ``0``: host kernels only;
+- ``1``: forced, every representable batch takes the device operators and the policy is
+  bypassed (the tests use it to reach the operators on small batches);
+- unset: auto, the policy decides per batch; on when the configured device is a CUDA
+  device (the port's reading of the JAX package's "a real accelerator backend").
 
 The device comes from the caller: :func:`configure` names it (``None``, the default,
 is the card; with no card the first operator that reaches the card raises, unless the
 caller configured ``device="cpu"``, where the same torch code runs on CPU tensors with
-the kernel's plain version). ``PATHWAY_TPU_DEVICE_OPS=0`` keeps its JAX meaning: host
-kernels only. Otherwise every representable batch takes the device operators, as the
-JAX package's forced mode ``PATHWAY_TPU_DEVICE_OPS=1`` does; there is no placement
-policy, and an error on the card raises.
+the kernel's plain version). Auto mode with ``device="cpu"`` keeps the host kernels. An
+error on the card raises: the JAX code's fallback to the host on any exception is
+dropped, so no failure hides the card.
 """
 
 from __future__ import annotations
@@ -43,13 +52,16 @@ import torch
 
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.engine import device as _host
+from pathway_tpu_torch.engine import device_residency as _dres
 from pathway_tpu_torch.ops.segment_reduce import segment_reduce
 
 __all__ = [
     "SegmentReduceJob",
     "configure",
+    "configured_on_card",
     "device",
     "enabled",
+    "forced",
     "hit_counts",
     "kernel_ns",
     "match_pairs",
@@ -72,9 +84,10 @@ _DEVICE: torch.device | None = None
 def configure(device: "str | torch.device | None" = None) -> None:
     """Name the device of the operators: ``None`` is the card (resolved at first use),
     ``"cpu"`` runs the same code on CPU tensors."""
-    global _DEVICE_ARG, _DEVICE
+    global _DEVICE_ARG, _DEVICE, _ENABLED_CACHE
     _DEVICE_ARG = device
     _DEVICE = None
+    _ENABLED_CACHE = None
 
 
 def device() -> torch.device:
@@ -86,17 +99,41 @@ def device() -> torch.device:
     return _DEVICE
 
 
+_FORCE = ("1", "true", "on", "yes", "force")
+_OFF = ("0", "false", "off", "no")
+
+
+def configured_on_card() -> bool:
+    """Whether the configured device is a CUDA device: the default (``None``, the
+    card) or a named ``cuda`` device. Asks nothing of the card."""
+    return _DEVICE_ARG is None or torch.device(_DEVICE_ARG).type == "cuda"
+
+
 def enabled() -> bool:
-    """False under ``PATHWAY_TPU_DEVICE_OPS=0`` (host kernels only), else True; cached
-    per value of the variable, since the operators ask once per batch."""
+    """Whether the device operators may engage (the contract above): False under
+    ``=0``, True under ``=1``, and in auto mode True when the configured device is a
+    CUDA device. Cached per value of the variable, since the operators ask once per
+    batch."""
     global _ENABLED_CACHE
     raw = os.environ.get("PATHWAY_TPU_DEVICE_OPS", "").strip().lower()
     cached = _ENABLED_CACHE
     if cached is not None and cached[0] == raw:
         return cached[1]
-    val = raw not in ("0", "false", "off", "no")
+    if raw in _OFF:
+        val = False
+    elif raw in _FORCE:
+        val = True
+    else:
+        val = configured_on_card()
     _ENABLED_CACHE = (raw, val)
     return val
+
+
+def forced() -> bool:
+    """True under ``PATHWAY_TPU_DEVICE_OPS=1``: every representable batch goes to the
+    device operators, and the placement policy is bypassed."""
+    raw = os.environ.get("PATHWAY_TPU_DEVICE_OPS", "").strip().lower()
+    return raw in _FORCE and enabled()
 
 
 # -- accounting ----------------------------------------------------------------
@@ -125,13 +162,18 @@ def reset_counters() -> None:
 
 
 def stats() -> dict:
-    """Roll-up for a run's report: whether the operators may engage, their device (if
-    resolved), and the calls and ns per operator."""
+    """Roll-up for a run's report: whether the operators may engage and are forced,
+    their device (if resolved), the calls and ns per operator, and the placement
+    policy's decisions."""
+    from pathway_tpu_torch.optimize import placement as _placement
+
     return {
         "enabled": enabled(),
+        "forced": forced(),
         "device": None if _DEVICE is None else str(_DEVICE),
         "hit_counts": hit_counts(),
         "kernel_ns": kernel_ns(),
+        "placement": _placement.POLICY.decisions(),
     }
 
 
@@ -156,6 +198,7 @@ class SegmentReduceJob:
         ``device.segment_sum``."""
         if self._done is not None:
             self._done.synchronize()
+        _dres.record_d2h(self._host.nbytes)
         sums = self._host.numpy()
         gdiffs = sums[0].copy()
         deltas: list = []
@@ -199,6 +242,7 @@ def segment_reduce_dispatch(
     # one host-to-device copy: the index, the int columns, the float columns as bits
     arrays = [np.ascontiguousarray(inverse, np.int64), *ints, *(f.view(np.int64) for f in floats)]
     stacked = torch.from_numpy(np.stack(arrays)).to(dev)
+    _dres.record_h2d(stacked.nbytes)
     out = segment_reduce(stacked[0], stacked[1 : 1 + ni], stacked[1 + ni :].view(torch.float64), n_groups)
     if dev.type == "cpu":
         return SegmentReduceJob(out, None, rows, t0)
@@ -247,10 +291,16 @@ def _match_pairs_device(la: np.ndarray, ra: np.ndarray) -> tuple[np.ndarray, np.
         r_idx, l_idx = _match_pairs_device(ra, la)
         return l_idx, r_idx
     dev = device()
-    pairs = _pairs_on_card(torch.from_numpy(la).to(dev), torch.from_numpy(ra).to(dev))
+    la_d = torch.from_numpy(la).to(dev)
+    _dres.record_h2d(la.nbytes)
+    ra_d = torch.from_numpy(ra).to(dev)
+    _dres.record_h2d(ra.nbytes)
+    pairs = _pairs_on_card(la_d, ra_d)
     if pairs is None:
         return empty, empty
-    return pairs[0].cpu().numpy(), pairs[1].cpu().numpy()
+    l_out, r_out = pairs[0].cpu().numpy(), pairs[1].cpu().numpy()
+    _dres.record_d2h(l_out.nbytes + r_out.nbytes)
+    return l_out, r_out
 
 
 def match_pairs(

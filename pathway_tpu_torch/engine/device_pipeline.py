@@ -26,10 +26,13 @@ device work has retired. Here:
 
 ``PATHWAY_TPU_ASYNC_DEVICE=0`` decays inline instead, bit for bit the synchronous
 boundary. A failure on the completion thread is raised on the scheduler thread at the
-next staging, ``drain_until`` or ``drain``; only ``reset`` drops it. The device planes'
-resident batches and stats (ROADMAP queue 1 item 7) and the tracer's spans and
-critical-path samples (item 12) are not ported yet: with no tracer the controller reads
-no critical path, as the JAX package does with tracing off.
+next staging, ``drain_until`` or ``drain``; only ``reset`` drops it. Each boundary and
+drain first decays the residency plane's resident batches
+(``device_residency.decay_resident_batches``; none on one card). :meth:`stats` reports
+the device operators and the residency plane beside the pipeline; the collective
+exchange is absent until the sharded runners (ROADMAP queue 1 item 14). The tracer's
+spans and critical-path samples are not ported yet (item 12): with no tracer the
+controller reads no critical path, as the JAX package does with tracing off.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import time as _time
 from collections import deque
 
 from pathway_tpu_torch.engine import device as _device
+from pathway_tpu_torch.engine import device_ops as _dops
+from pathway_tpu_torch.engine import device_residency as _dres
 from pathway_tpu_torch.internals import metrics as _metrics
 
 __all__ = [
@@ -267,7 +272,9 @@ class DevicePipeline:
     def commit_boundary(self, time: int) -> None:
         """The end of a commit. Sync mode (``PATHWAY_TPU_ASYNC_DEVICE=0``): decay
         inline. Async mode: start every live handle's copy, stage the commit on the
-        FIFO (blocking only while ``depth`` commits are in flight) and return."""
+        FIFO (blocking only while ``depth`` commits are in flight) and return. Resident
+        batches are materialized first, so none outlives its commit."""
+        _dres.decay_resident_batches()
         handles = _device.stage_device_batches()
         if not handles:
             return
@@ -346,6 +353,7 @@ class DevicePipeline:
     def drain_until(self, time: int) -> None:
         """Block until every staged commit at or before ``time`` has completed: the
         seam a checkpoint or a published snapshot of commit N waits on."""
+        _dres.decay_resident_batches()
         if self._worker is None:
             return
         with self._cv:
@@ -357,6 +365,7 @@ class DevicePipeline:
 
     def drain(self) -> None:
         """Complete everything in flight (run end, tests)."""
+        _dres.decay_resident_batches()
         if self._worker is None:
             return
         with self._cv:
@@ -389,9 +398,10 @@ class DevicePipeline:
         return self._occupancy
 
     def stats(self) -> dict:
-        """Roll-up for a bench's JSON line. The device planes' sub-dicts
-        (``device_ops``, ``collective_exchange``, ``device_residency``) come with
-        ROADMAP queue 1 item 7."""
+        """Roll-up for a bench's JSON line, with the device planes beside the pipe:
+        the device operators' engagement and calls, the residency plane's transfer
+        ledger, and ``collective_exchange`` as None (absent until ROADMAP queue 1 item
+        14)."""
         return {
             "enabled": async_enabled(),
             "inflight": self.inflight(),
@@ -404,6 +414,9 @@ class DevicePipeline:
                 self._h_latency.quantile(0.99) * 1000.0, 3
             ),
             "controller": self.controller.stats(),
+            "device_ops": {"enabled": _dops.enabled(), "hit_counts": _dops.hit_counts()},
+            "collective_exchange": None,
+            "device_residency": _dres.stats(),
         }
 
 

@@ -15,9 +15,11 @@ removal.
 The device work happens inside the operators: UDF micro-batches and vector search, and
 under the columnar groupby and join the device operators of ``engine/device_ops.py``
 (the groupby's segment reductions in the ordered segment-sum kernel, the join's pair
-matcher in torch ops), held bit for bit to the host kernels. Where the JAX code
-branches on its C++ host kernels (``pathway_tpu.native``), this module takes the
-NumPy/Python branch. The scheduler ends each commit in the device pipeline's commit
+matcher in torch ops), held bit for bit to the host kernels; the placement policy
+(``optimize/placement.py``) picks the card or the host per batch. The scheduler runs the
+graph optimizer (``pathway_tpu_torch.optimize``) on its scope before the first batch.
+Where the JAX code branches on its C++ host kernels (``pathway_tpu.native``), this
+module takes the NumPy/Python branch. The scheduler ends each commit in the device pipeline's commit
 boundary (``engine.device_pipeline.commit_boundary``), which stages the commit's device
 batches for completion on its own thread, or completes them inline under
 ``PATHWAY_TPU_ASYNC_DEVICE=0``. ``Scheduler(probe=True)`` keeps per-operator counts and
@@ -977,11 +979,21 @@ class JoinNode(Node):
             if uni is None:
                 return None
             unified.append(uni)
+        # measurement-driven placement of the pair matcher: the device matcher is
+        # pair for pair the host one, so the choice is economics (observed ns/row)
         _dops = _device_ops_active() if plan else None
+        use_device = False
+        t0_ns = 0
+        if _dops is not None:
+            from pathway_tpu_torch.optimize.placement import POLICY
+
+            match_rows = sum(l.n + r.n for l, r in plan)
+            t0_ns = _walltime.perf_counter_ns()
+            use_device = POLICY.choose("join", self.index, match_rows)
         matches = []
         for (l, r), uni in zip(plan, unified):
-            got = _dops.match_pairs(*uni) if _dops is not None else None
-            if got is None:  # the operators are off, or a key has no int64 code view
+            got = _dops.match_pairs(*uni) if use_device else None
+            if got is None:  # placed on the host, or a key has no int64 code view
                 self.routes["host"] += 1
                 l_idx, r_idx = _match_join_pairs_multi(*uni)
             else:
@@ -989,6 +1001,10 @@ class JoinNode(Node):
                 l_idx, r_idx = got
             if len(l_idx):
                 matches.append((l, r, l_idx, r_idx))
+        if _dops is not None:
+            POLICY.record(
+                "join", self.index, use_device, match_rows, _walltime.perf_counter_ns() - t0_ns
+            )
         # every screen passed: commit the block appends, then emit
         if ls.n:
             self._blocks_left.append(ls)
@@ -1366,21 +1382,30 @@ class _ColumnarGroups:
         else:
             raws, inverse = _factorize_bys(bys)
         nu = len(raws)
-        # on the card: the reductions are enqueued now and fetched after the group-id
-        # resolution below, so the kernels run while the host walks the dict
+        # the placement policy picks the card or the host per batch; on the card the
+        # reductions are enqueued now and fetched after the group-id resolution below,
+        # so the kernels run while the host walks the dict
         job = None
         deltas: list[np.ndarray | None] = []
+        gb_idx = node.index
+        t0_ns = 0
         _dops = _device_ops_active()
         if _dops is not None:
-            job = _dops.segment_reduce_dispatch(inverse, diffs, vals, nu)
-            node.routes["device"] += 1
-        else:
+            from pathway_tpu_torch.optimize.placement import POLICY
+
+            t0_ns = _walltime.perf_counter_ns()
+            if POLICY.choose("groupby", gb_idx, n):
+                job = _dops.segment_reduce_dispatch(inverse, diffs, vals, nu)
+                node.routes["device"] += 1
+        if job is None:
             node.routes["host"] += 1
             gdiffs = _device.segment_count(inverse, diffs, nu)
             for col in vals:
                 deltas.append(
                     None if col is None else _device.segment_sum(inverse, col, diffs, nu)
                 )
+            if _dops is not None:
+                POLICY.record("groupby", gb_idx, False, n, _walltime.perf_counter_ns() - t0_ns)
         # resolve group ids (creating new groups), all before mutation
         index = self.index
         gis = np.empty(nu, np.int64)
@@ -1401,7 +1426,9 @@ class _ColumnarGroups:
                 created.append(i)
             gis[i] = gi
         if job is not None:
+            # the reductions ran while the loop above resolved group ids
             gdiffs, deltas = job.fetch()
+            POLICY.record("groupby", gb_idx, True, n, _walltime.perf_counter_ns() - t0_ns)
         # int64 accumulator headroom: degrade before any mutation
         for ri, delta in enumerate(deltas):
             if delta is None:
@@ -2263,6 +2290,25 @@ class Scope:
     def remove_errors_from_table(self, table: Node) -> Node:
         return _RemoveErrorsNode(self, table)
 
+    # -- execution ----------------------------------------------------------
+
+    def run(
+        self, strict: bool = False, probe: bool = False, optimize: bool = True
+    ) -> "Scheduler":
+        """Build and go: pump every static source through one commit and finish.
+        ``optimize=True`` (the default) runs the graph rewriter
+        (``pathway_tpu_torch.optimize``); ``PATHWAY_TPU_OPTIMIZE=0`` is the
+        environment's escape hatch. ``strict=True`` asks for the static analyzer,
+        which is not ported yet (ROADMAP queue 1 item 8), and raises."""
+        if strict:
+            raise NotImplementedError(
+                "Scope.run(strict=True) needs the static analyzer, which is not "
+                "ported yet (ROADMAP queue 1 item 8)"
+            )
+        scheduler = Scheduler(self, probe=probe, optimize=optimize)
+        scheduler.run_static()
+        return scheduler
+
 
 class OperatorStats:
     """Per-operator probe counters: rows inserted and deleted by the operator's
@@ -2294,12 +2340,22 @@ class Scheduler:
     settles within the commit, and then hands the commit's device batches to the
     device pipeline.
 
-    ``probe=True`` collects per-operator stats into ``self.stats`` (node index ->
-    :class:`OperatorStats`) and sets the ``pathway_queue_depth`` gauge to the number of
-    operators with pending batches on each sweep.
+    ``optimize=True`` (the default) rewrites the scope before the first batch
+    (``pathway_tpu_torch.optimize.optimize_scopes``: placement, projection pushdown,
+    elision marks, stateless-chain fusion). ``probe=True`` collects per-operator stats
+    into ``self.stats`` (node index -> :class:`OperatorStats`) and sets the
+    ``pathway_queue_depth`` gauge to the number of operators with pending batches on
+    each sweep.
     """
 
-    def __init__(self, scope: Scope, probe: bool = False) -> None:
+    def __init__(self, scope: Scope, probe: bool = False, optimize: bool = True) -> None:
+        if optimize:
+            from pathway_tpu_torch.optimize import optimize_scopes
+
+            # one scope: no exchange to elide, but placement, pushdown and fusion
+            # apply (it skips itself under PATHWAY_TPU_OPTIMIZE=0 and in analyze mode,
+            # and is idempotent per scope)
+            optimize_scopes([scope])
         self.scope = scope
         self.time = 0
         self.probe = probe

@@ -128,6 +128,11 @@ class _IterationEngine:
             for t, rows in zip(self.captured, bound):
                 runner.nodes[t._id] = runner.scope.static_table(rows, len(t._column_names))
             nodes = {n: runner.build(t) for n, t in self.results.items()}
+            for node in nodes.values():
+                # the round reads each result's state directly: the optimizer must
+                # leave these nodes whole (the JAX package does not mark them, so a
+                # result that feeds a fused chain loses its rows there; queue 3)
+                node._pw_observed = True
             Scheduler(runner.scope).run_static()
             out = {n: dict(node.current) for n, node in nodes.items()}
             steps += 1

@@ -6,16 +6,19 @@ Counterpart of the primitives of ``pathway_tpu/internals/metrics.py`` (``Counter
 scheduler's probe sets ``pathway_queue_depth`` here, and the async device pipeline
 keeps its queue depth, occupancy, dispatch-to-completion latency and commit count
 here. Instrument handles are made once, under the registry's lock, and cached by the
-call site; a bump is a plain attribute add. The snapshots, the Prometheus exposition,
-the flight recorder, the request log and the pull collectors are not ported yet
-(ROADMAP queue 1 item 12).
+call site; a bump is a plain attribute add. The residency plane's event counters are a
+:class:`MirroredCounterDict`. Pull collectors (:meth:`Registry.register_collector`, read
+by :meth:`Registry.collect`) report the optimizer's counters and the device operators'
+launches, times and placement (``pathway_device_ops_placement``, 1 = card, 0 = host).
+The snapshots, the Prometheus exposition, the flight recorder and the request log are
+not ported yet (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import threading
 from bisect import bisect_left
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable
 
 DEFAULT_LATENCY_BUCKETS = (
     0.001,
@@ -101,6 +104,7 @@ class Registry:
         self._lock = threading.Lock()
         #: name -> (kind, {sorted label items: instrument})
         self._families: dict[str, tuple[str, dict[tuple, Any]]] = {}  # guarded-by: self._lock
+        self._collectors: list[Callable[[], Iterable[tuple]]] = []  # guarded-by: self._lock
 
     def _series(self, name: str, kind: str, labels: dict, factory) -> Any:
         key = tuple(sorted(labels.items()))
@@ -131,6 +135,103 @@ class Registry:
         buckets = tuple(float(b) for b in buckets)
         return self._series(name, "histogram", labels, lambda: Histogram(buckets))
 
+    # -- pull collectors --------------------------------------------------------
+
+    def register_collector(self, fn: Callable[[], Iterable[tuple]]) -> None:
+        """``fn`` yields ``(name, kind, help, labels_dict, value)`` sample tuples when
+        the registry is read."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def collect(self) -> list[tuple]:
+        """Every registered collector's samples, in registration order."""
+        with self._lock:
+            collectors = list(self._collectors)
+        out: list[tuple] = []
+        for fn in collectors:
+            out.extend(fn())
+        return out
+
 
 #: the process-wide registry every instrumented layer reports into
 REGISTRY = Registry()
+
+
+class MirroredCounterDict(dict):
+    """A plain dict whose integer writes mirror into a labelled counter family: call
+    sites write ``d[key] += 1`` (or ``d[key] = 0`` to reset), i.e. ``__setitem__`` with
+    the new total, so the mirror sets the counter's value and the dict stays the
+    authoritative alias."""
+
+    def __init__(self, metric: str, label: str, initial: dict, help: str = "") -> None:
+        super().__init__(initial)
+        self._metric = metric
+        self._label = label
+        self._help = help
+        self._series: dict[Any, Counter] = {}
+        for key, value in initial.items():
+            self[key] = value
+
+    def __setitem__(self, key, value) -> None:
+        dict.__setitem__(self, key, value)
+        c = self._series.get(key)
+        if c is None:
+            c = REGISTRY.counter(self._metric, self._help, **{self._label: str(key)})
+            self._series[key] = c
+        c.value = float(value)
+
+
+# -- built-in pull collectors (imports deferred to read time) ---------------------------
+
+
+def _optimizer_collector() -> list[tuple]:
+    from pathway_tpu_torch.optimize import optimizer_stats
+
+    return [
+        (
+            f"pathway_optimizer_{key}",
+            "gauge",
+            "graph-rewriter counter from the most recent optimize run",
+            {},
+            value,
+        )
+        for key, value in optimizer_stats().items()
+    ]
+
+
+def _device_ops_collector() -> list[tuple]:
+    """The device operators' launch and ns counters, and the placement policy's
+    current decision per operator (1 = card, 0 = host)."""
+    from pathway_tpu_torch.engine import device_ops
+    from pathway_tpu_torch.optimize import placement
+
+    out = []
+    for kernel, hits in device_ops.hit_counts().items():
+        out.append((
+            "pathway_device_ops_kernel_hits_total",
+            "counter",
+            "device operator calls (device_ops.hit_counts)",
+            {"kernel": kernel},
+            hits,
+        ))
+    for kernel, ns in device_ops.kernel_ns().items():
+        out.append((
+            "pathway_device_ops_kernel_ns_total",
+            "counter",
+            "cumulative host-observed nanoseconds per device operator",
+            {"kernel": kernel},
+            ns,
+        ))
+    for op, st in placement.POLICY.decisions().items():
+        out.append((
+            "pathway_device_ops_placement",
+            "gauge",
+            "current operator placement (1 = device, 0 = host)",
+            {"op": op},
+            1 if st["device"] else 0,
+        ))
+    return out
+
+
+REGISTRY.register_collector(_optimizer_collector)
+REGISTRY.register_collector(_device_ops_collector)

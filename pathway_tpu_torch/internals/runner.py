@@ -782,5 +782,9 @@ class GraphRunner:
     def capture(self, *tables: "Table") -> list[dict[Pointer, tuple]]:
         """Run the graph that ``tables`` reach and return each one's final state."""
         nodes = [self.build(t) for t in tables]
+        for node in nodes:
+            # capture reads node state with no SubscribeNode: the graph optimizer must
+            # treat these as observed (no fusion into a placeholder, no narrowing)
+            node._pw_observed = True
         self.run()
         return [node.snapshot() for node in nodes]

@@ -279,6 +279,8 @@ def test_match_pairs_declines_keys_without_an_int64_code_view(keys):
 
 
 def test_accounting_and_the_escape_hatch(monkeypatch):
+    # forced: in auto mode a CPU device keeps the host kernels
+    monkeypatch.setenv("PATHWAY_TPU_DEVICE_OPS", "1")
     inverse, diffs, vals, nu = _segment_case("nan_values")
     dops.segment_reduce_dispatch(inverse, diffs, vals, nu).fetch()
     dops.match_pairs(*_match_case("no_matches"))

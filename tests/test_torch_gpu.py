@@ -825,3 +825,70 @@ def test_rag_evaluator_on_card_matches_cpu(cuda):
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     assert ours.n_missing == 0 and ours.n_samples == len(samples)
     assert ours.answer_exact_match == ours.answer_token_f1 == ours.retrieval_hit_rate == 1.0
+
+
+@pytest.mark.parametrize("mode", ["auto", "forced"])
+def test_placed_groupby_and_join_on_the_card_give_the_host_bits(cuda, monkeypatch, mode):
+    """The groupby's and the join's placement on the card (auto: the policy probes both
+    sides; forced: every batch on the card) against the host kernels
+    (``PATHWAY_TPU_DEVICE_OPS=0``), bit for bit, over commits above and below
+    ``min_rows``."""
+    from pathway_tpu_torch.engine import device_ops as dops
+    from pathway_tpu_torch.engine import device_residency as dres
+    from pathway_tpu_torch.engine import graph as g
+    from pathway_tpu_torch.engine import reducers as red
+    from pathway_tpu_torch.engine.value import ref_scalar
+    from pathway_tpu_torch.optimize import placement
+
+    rng = np.random.default_rng(7)
+    sizes = [4000] * 8 + [100] * 4
+    commits = [
+        [(ref_scalar(10**6 * c + i), (int(k), int(a), float(f)))
+         for i, (k, a, f) in enumerate(zip(rng.integers(0, 301, n), rng.integers(-999, 999, n),
+                                           rng.standard_normal(n)))]
+        for c, n in enumerate(sizes)
+    ]
+
+    def run(flag):
+        if flag is None:
+            monkeypatch.delenv("PATHWAY_TPU_DEVICE_OPS", raising=False)
+        else:
+            monkeypatch.setenv("PATHWAY_TPU_DEVICE_OPS", flag)
+        dops.configure(device="cuda")
+        placement.POLICY.reset()
+        scope = g.Scope()
+        facts, dims = scope.input_session(3), scope.input_session(2)
+        gb = scope.group_by_table(facts, by_cols=[0], reducers=[
+            (red.make_reducer(red.ReducerKind.COUNT), []),
+            (red.make_reducer(red.ReducerKind.SUM), [1]),
+            (red.make_reducer(red.ReducerKind.SUM), [2]),
+        ])
+        j = scope.join_tables(facts, dims, [0], [0])
+        sched = g.Scheduler(scope)
+        for d in range(301):
+            dims.insert(ref_scalar(10**9 + d), (d, 3 * d))
+        for rows in commits:
+            for k, r in rows:
+                facts.insert(k, r)
+            sched.commit()
+        bits = [
+            sorted((int(k), tuple(np.float64(x).view(np.int64).item() if isinstance(x, float)
+                                  else x for x in row)) for k, row in node.current.items())
+            for node in (gb, j)
+        ]
+        return bits, placement.POLICY.decisions(), gb, j
+
+    try:
+        host, _dec0, _gb, _j = run("0")
+        dres.reset_counters()
+        got, dec, gb, j = run(None if mode == "auto" else "1")
+    finally:
+        dops.configure()
+    assert got == host
+    for key in (f"groupby:{gb.index}", f"join:{j.index}"):
+        if mode == "auto":
+            assert dec[key]["device_calls"] >= placement.PlacementPolicy.PROBE_CALLS
+            assert dec[key]["host_calls"] >= placement.PlacementPolicy.PROBE_CALLS
+        else:
+            assert dec[key]["host_calls"] == 0 and dec[key]["device_calls"] == len(sizes)
+    assert dres.stats()["h2d"]["bytes"] > 0 and dres.live_resident_batches() == 0

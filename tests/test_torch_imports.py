@@ -83,6 +83,17 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.xpacks.llm.document_store",
         "pathway_tpu_torch.xpacks.llm.vector_store",
         "pathway_tpu_torch.xpacks.llm.question_answering",
+        "pathway_tpu_torch.optimize",
+        "pathway_tpu_torch.optimize.pushdown",
+        "pathway_tpu_torch.optimize.elide",
+        "pathway_tpu_torch.optimize.fuse",
+        "pathway_tpu_torch.optimize.placement",
+        "pathway_tpu_torch.analysis",
+        "pathway_tpu_torch.analysis.runtime",
+        "pathway_tpu_torch.analysis.usage",
+        "pathway_tpu_torch.analysis.shards",
+        "pathway_tpu_torch.engine.sharded",
+        "pathway_tpu_torch.engine.device_residency",
     ):
         assert expected in names
 
