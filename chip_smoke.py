@@ -6,7 +6,9 @@ RAG, the cross-encoder reranker and the local decoder chat), the relational oper
 the xpack's RAG document pipeline (``VectorStoreServer`` over BGE-base, and the
 adaptive RAG question answerer over it), its ``rag_evals`` harness, the table
 operations (the expression namespaces, deduplicate, sort, having, ``apply_async``), the
-temporal operators (Nexmark queries 5, 7 and 8) and ``pw.iterate`` (PageRank).
+temporal operators (Nexmark queries 5, 7 and 8) and ``pw.iterate`` (PageRank); every
+engine path runs through the engine's C++ host kernels (``pathway_tpu_torch/native``),
+and each workload runs once more on their Python branches to compare.
 
     python3 chip_smoke.py
 
@@ -18,7 +20,9 @@ limit):
    with its build time and ``-Xptxas -v`` register, shared-memory and spill lines; any
    spill fails. sass: the tensor-core instructions (HMMA, HGMMA) of each kernel's bf16
    instances, counted in ``cuobjdump -sass``; every bf16 instance of the forward, dQ and
-   dK/dV must have some.
+   dK/dV must have some. native_build: ``pathway_tpu_torch/native/enginecore.cpp``
+   built with ``g++`` into ``_build/``: its seconds, ``g++ --version``, the host CPU
+   from ``/proc/cpuinfo``; a failed build fails the run.
 3. kernel: the flash-attention kernel against its plain PyTorch version on the card at
    the main path's shape and at the edge shapes (head dim 64, t not a multiple of the
    tile, multi-tile t, no mask, a fully masked row, the ViT-B/16 call: t = 197, d = 64,
@@ -61,6 +65,8 @@ limit):
    chain floor (the longest run times ``t_dadd``), with the whole dispatch (upload,
    kernels, fetch) timed apart; the device matcher at the join_inner shape against the
    host matcher, on the host clock and between CUDA events, against its byte bound.
+   Then native (relational_engine): groupby_sum and join_inner, the card's operators
+   forced, with the host kernels and under ``PATHWAY_TPU_DISABLE_NATIVE=1``.
 7. relational_engine: one ``pw.run`` program through the Table API at
    ``device_ops_leg``'s size: 200,000 rows through ``pw.io.python`` into
    ``groupby(k).reduce(k, s=sum(v), c=count())``, ``join_left`` with a 1,024-row table
@@ -198,10 +204,20 @@ limit):
    operators' upload and fetch tensors' bytes), the segment kernels' launches and the
    matcher's calls; in auto mode incremental_update's groupby probed on both sides; no
    resident batch outlives a commit; ``optimizer_stats()`` of engine_pipeline's graph.
-22. The kernels line (the three flash kernels and ``segment_reduce``; the forward's
-   ``launches_by_path`` includes ``rag_evals``, the segment reduction's ``table_ops``,
-   ``temporal``, ``iterate`` and ``optimizer``), the ``nvidia-smi`` line, and last
-   ``{"ok": true, ...}``.
+22. native: each workload with the C++ host kernels and once more on their Python
+   branches (``PATHWAY_TPU_DISABLE_NATIVE=1``), at the depths of ``NATIVE_*``: table_ops
+   (50,000 rows in 5 commits), temporal (20,000 Nexmark events in 2 commits), iterate
+   (PageRank at scale 10), serving (1,024 docs through the MiniLM-L6 embedder into the
+   index as 4 paced commits, 8 queries), the optimizer's auto mode (relational_engine's
+   program at its full depth) and engine_rows (the row-form paths: an upsert session, a
+   filter, an inner join after retractions, 6 commits). The outputs must be equal, every
+   kernel of the workload's path (``NATIVE_PATHS``) called with the kernels and none
+   without; wall seconds, units/s and each kernel's calls and ns, both ways.
+23. The native line (every phase's host kernel calls and ns, and the both-ways
+   comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
+   forward's ``launches_by_path`` includes ``rag_evals``, the segment reduction's
+   ``table_ops``, ``temporal``, ``iterate`` and ``optimizer``), the ``nvidia-smi`` line,
+   and last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
 its first batch, as in the JAX package. Phases that check a device route
@@ -231,7 +247,7 @@ import numpy as np
 import torch
 
 import pathway_tpu_torch as pw
-from pathway_tpu_torch import _build
+from pathway_tpu_torch import _build, native
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
 from pathway_tpu_torch.engine import device as hd
 from pathway_tpu_torch.engine import device_ops, device_pipeline, device_residency
@@ -2957,6 +2973,16 @@ def _nexmark_run(ev: dict, n_batch: int) -> tuple[dict, list]:
     return out, routes
 
 
+def _nexmark_final(o: dict) -> dict:
+    """The queries' final states of one Nexmark run, for comparisons."""
+    return {
+        "q5": {(s, a): (n, tot) for s, a, n, tot in o["q5"].values()},
+        "q7": {s: top for s, top in o["q7"].values()},
+        "q8": sorted(o["q8"].values()),
+        "interval": sorted(o["interval"].values()),
+    }
+
+
 def phase_temporal(card: Card) -> int:
     """Nexmark queries 5 (hot items: a sliding window of 10 s every 2 s per auction,
     count and sum of the price), 7 (highest bid: a tumbling 10 s window with
@@ -2987,16 +3013,7 @@ def phase_temporal(card: Card) -> int:
     by_kernel = _segment_launches()
     launches = sum(by_kernel.values())
     hits = device_ops.hit_counts()
-
-    def final(o: dict) -> dict:
-        return {
-            "q5": {(s, a): (n, tot) for s, a, n, tot in o["q5"].values()},
-            "q7": {s: top for s, top in o["q7"].values()},
-            "q8": sorted(o["q8"].values()),
-            "interval": sorted(o["interval"].values()),
-        }
-
-    got_f, host_f = final(got), final(host)
+    got_f, host_f = _nexmark_final(got), _nexmark_final(host)
     # commit times follow the connector's autocommit clock, not the data: Q7's updates
     # compare by row and sign, in order
     same_as_host = got_f == host_f and (
@@ -3392,7 +3409,7 @@ def _zero_segment_launches() -> None:
         k.launches = 0
 
 
-def phase_relational(card: Card) -> dict:
+def phase_relational(card: Card, rows: dict) -> dict:
     """bench_dataflow.py's workloads through the port's Scope and Scheduler, once on
     the host kernels (``PATHWAY_TPU_DEVICE_OPS=0``, the spec) and once on the card
     after a warm-up; the card's output state must be the host's bit for bit, and every
@@ -3400,9 +3417,6 @@ def phase_relational(card: Card) -> dict:
     its plain version and ``index_add_``, the whole dispatch, and the matcher alone
     against the host matcher."""
     device_ops.configure()
-    t0 = time.perf_counter()
-    rows = _relational_rows()
-    card.emit("relational_rows", seconds=time.perf_counter() - t0, rows=N_REL)
     launches = dict.fromkeys(sr.KERNELS, 0)  # the timed card runs' launches only
     for name in ("groupby_sum", "wordcount", "join_inner", "join_multikey", "incremental_update"):
         n, run = _workload(name, rows)
@@ -3442,7 +3456,6 @@ def phase_relational(card: Card) -> dict:
           f"the relational path left a segment kernel unlaunched: {launches}")
 
     profile_groupby(card, rows)
-    del rows
     gc.collect()
     kernel = segment_kernel_parity_and_time(card)
     matcher_alone(card)
@@ -3456,7 +3469,8 @@ def profile_groupby(card: Card, rows: dict) -> None:
     wall_ms, kernels, _ops = _profiled(lambda: _with_device_ops("1", sched.commit))
     busy = sum(ms for ms, _k, _c in kernels)
     card.emit("relational_profile", workload="groupby_sum", rows=N_REL, wall_ms=wall_ms,
-              device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+              device_busy_ms=busy if kernels else "not measured",
+              idle_share=1 - busy / wall_ms if kernels else "not measured",
               device_ms_by_kernel=[[k, ms, c] for ms, k, c in kernels[:12]])
 
 
@@ -3508,6 +3522,17 @@ def _once_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def _busy_ms_per_call(fn) -> tuple[float | str, list[tuple[float, str, int]]]:
+    """(the card's busy ms per call of ``fn`` over ``PROFILED_CALLS`` calls under the
+    profiler, its kernels); a window in which the profiler sees no device event is
+    profiled once more, and a second such window is "not measured"."""
+    for _ in range(2):
+        _wall, kernels, _ops = _profiled(lambda: [fn() for _ in range(PROFILED_CALLS)])
+        if kernels:
+            return sum(k_ms for k_ms, _k, _c in kernels) / PROFILED_CALLS, kernels
+    return "not measured", []
+
+
 def segment_kernel_parity_and_time(card: Card) -> dict:
     """``segment_reduce`` alone at each of ``SEGMENT_CASES``: bit for bit against its
     plain version on the card and against ``np.add.at`` / ``np.bincount``; its whole
@@ -3549,9 +3574,7 @@ def segment_kernel_parity_and_time(card: Card) -> dict:
         ms = cuda_ms(lambda: sr.segment_reduce(*args, groups), iters=20, warmup=2)
         # the card's own time by kernel (CUDA events above read the host's pace where
         # it enqueues more slowly than the card runs), and the host's time to enqueue
-        _wall, kernels, _ops = _profiled(
-            lambda: [sr.segment_reduce(*args, groups) for _ in range(PROFILED_CALLS)])
-        device_busy_ms = sum(k_ms for k_ms, _k, _c in kernels) / PROFILED_CALLS
+        device_busy_ms, kernels = _busy_ms_per_call(lambda: sr.segment_reduce(*args, groups))
         by_kernel = [[_kernel_name(k), k_ms / PROFILED_CALLS, c // PROFILED_CALLS]
                      for k_ms, k, c in kernels]
         t0 = time.perf_counter()
@@ -3566,15 +3589,14 @@ def segment_kernel_parity_and_time(card: Card) -> dict:
                     for w in columns]
 
         library_ms = cuda_ms(library, iters=20, warmup=2)
-        _wall, lib_kernels, _ops = _profiled(lambda: [library() for _ in range(PROFILED_CALLS)])
-        library_busy_ms = sum(k_ms for k_ms, _k, _c in lib_kernels) / PROFILED_CALLS
+        library_busy_ms, _lib_kernels = _busy_ms_per_call(library)
         longest = int(np.bincount(inverse, minlength=groups).max())
         chain_floor_ms = longest * t_dadd_ns * 1e-6 if nf else None
         bound_ms = _segment_bound_ms(n, groups, ni + nf)
         row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
                "library_ms": library_ms, "library_busy_ms": library_busy_ms,
                "roofline_share": bound_ms / ms,
-               "device_busy_ms": device_busy_ms, "busy_roofline_share": bound_ms / device_busy_ms,
+               "device_busy_ms": device_busy_ms, "busy_roofline_share": (bound_ms / device_busy_ms if kernels else "not measured"),
                "host_enqueue_ms": host_enqueue_ms, "device_ms_by_kernel": by_kernel,
                "chain_floor_ms": chain_floor_ms, "longest_run": longest,
                "passes": len(sr.radix_passes(groups)) if nf else 0, "stage_launches": stages}
@@ -3938,6 +3960,257 @@ def phase_optimizer(card: Card) -> int:
     return launches
 
 
+# -- the engine's C++ host kernels ----------------------------------------------------------
+
+#: the Python-branch reruns' depths (the kernel run of each comparison takes the same
+#: depth; the earlier phases run every workload at full depth with the kernels)
+NATIVE_OPS_ROWS, NATIVE_OPS_COMMITS = OPT_OPS_ROWS, OPT_OPS_COMMITS  # table_ops at a quarter
+NATIVE_NEXMARK_EVENTS, NATIVE_NEXMARK_COMMITS = NEXMARK_EVENTS // 5, 2  # 20,000 events
+NATIVE_GRAPH_SCALE = GRAPH_SCALE - 2  # PageRank over 1,024 vertices, 16,384 edges
+NATIVE_SERVING_DOCS, NATIVE_SERVING_QUERIES = 4 * CHUNK, 8  # four paced commits of 256
+NATIVE_SERVING_CAPACITY = 1 << 12
+NATIVE_ROWS, NATIVE_ROWS_COMMITS = 20_000, 6  # engine_rows: rows a commit, commits
+#: the host kernels each workload's path calls (every kernel with a caller in the port
+#: is on one of them; hash_tuples_batch and shard_values have none yet)
+NATIVE_PATHS = {
+    "relational_engine/groupby_sum": ("extract_column", "entry_diffs", "pointers_to_bytes"),
+    "relational_engine/join_inner": ("entries_to_side", "hash_join_pairs"),
+    "table_ops": ("extract_column", "entry_diffs", "consolidate", "apply_state",
+                  "bytes_to_pointers", "entry_keys_bytes", "columns_to_entries"),
+    "temporal": ("extract_column", "entry_diffs", "consolidate", "apply_state", "build_entries",
+                 "bytes_to_pointers", "entry_keys_bytes", "hash_join_pairs", "columns_to_entries",
+                 "entries_to_side"),
+    "iterate": ("extract_column", "consolidate", "apply_state", "entry_keys_bytes",
+                "hash_join_pairs", "columns_to_entries"),
+    "serving": ("extract_column", "consolidate", "apply_state", "bytes_to_pointers",
+                "entry_keys_bytes", "columns_to_entries"),
+    "optimizer_auto": ("extract_column", "consolidate", "apply_state", "bytes_to_pointers",
+                       "entry_keys_bytes", "hash_join_pairs", "columns_to_entries"),
+    "engine_rows": ("session_overlay", "filter_truthy", "join_insert_inner", "match_pairs_i64",
+                    "consolidate", "apply_state", "entries_to_side"),
+}
+
+
+def _host_cpu() -> dict:
+    """The host CPU as ``/proc/cpuinfo``'s first processor block gives it, and the
+    processor count."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _sep, value = line.partition(":")
+            if key.strip() in ("model name", "vendor_id", "cpu family", "model", "stepping", "cpu MHz"):
+                fields[key.strip()] = value.strip()
+    fields["processors"] = os.cpu_count()
+    return fields
+
+
+def phase_native_build(card: Card) -> None:
+    """``pathway_tpu_torch/native/enginecore.cpp`` built with g++ into ``_build/``, with
+    the build's seconds, ``g++ --version`` and the host CPU; every kernel of the
+    reference's table present, in its order. A failed build raises."""
+    gxx = subprocess.run([_build.GXX, "--version"], capture_output=True, text=True, check=True)
+    t0 = time.perf_counter()
+    kernels = native.get()
+    check(kernels is not None, f"native: the host kernels are disabled ({native.load_error()})")
+    card.emit("native_build", seconds=native.build_seconds, wall_s=time.perf_counter() - t0,
+              gxx=gxx.stdout.splitlines()[0], cpu=_host_cpu(), python=sys.version.split()[0],
+              numpy=np.__version__, kernels=list(kernels.hit_counts()))
+    check(list(kernels.hit_counts()) == list(NATIVE_KERNELS),
+          f"native: kernels {list(kernels.hit_counts())}")
+
+
+NATIVE_KERNELS = (
+    "extract_column", "entry_diffs", "consolidate", "apply_state", "build_entries",
+    "filter_truthy", "join_insert_inner", "pointers_to_bytes", "bytes_to_pointers",
+    "entry_keys_bytes", "hash_join_pairs", "columns_to_entries", "hash_tuples_batch",
+    "shard_values", "entries_to_side", "match_pairs_i64", "session_overlay",
+)
+
+
+class _NativeMark:
+    """The host kernels' calls and nanoseconds since this mark (the counters are never
+    reset, so a phase's counts and a comparison's stay apart)."""
+
+    def __init__(self) -> None:
+        self.hits, self.ns = native.hit_counts(), native.kernel_ns()
+
+    def since(self) -> tuple[dict, dict]:
+        hits, ns = native.hit_counts(), native.kernel_ns()
+        return ({k: v - self.hits.get(k, 0) for k, v in hits.items() if v - self.hits.get(k, 0)},
+                {k: v - self.ns.get(k, 0) for k, v in ns.items() if v - self.ns.get(k, 0)})
+
+
+def _state_bits(state: tuple) -> tuple:
+    """:func:`_final_state` as comparable values: numeric columns by dtype and bytes,
+    string and object columns by their values (the host kernels give exact-object
+    columns where the Python branch gives a str array)."""
+    if state[0] != "columns":
+        return state
+    cols = tuple(tuple(c.tolist()) if c.dtype.kind in "OU" else (c.dtype.str, c.tobytes())
+                 for c in state[2])
+    return "columns", state[1].tobytes(), cols
+
+
+def _native_both_ways(card: Card, workload: str, run, depth: dict, unit: str) -> dict:
+    """``run() -> (outputs, seconds, units)`` with the host kernels, then once more under
+    ``PATHWAY_TPU_DISABLE_NATIVE=1``. Checks: equal outputs, every kernel of the
+    workload's path called in the first run, none in the second. Reports wall seconds,
+    units/s and seconds a unit, and each kernel's calls and ns, both ways."""
+    mark = _NativeMark()
+    out_k, s_k, n = run()
+    hits, ns = mark.since()
+    gc.collect()
+    mark = _NativeMark()
+    out_p, s_p, n_p = _with_env({native.DISABLE_ENV: "1"}, run)
+    plain_hits, plain_ns = mark.since()
+    gc.collect()
+    same = out_k == out_p
+    card.emit("native", workload=workload, depth=depth, unit=unit, units=n,
+              kernels_s=s_k, plain_s=s_p, kernels_per_s=n / s_k, plain_per_s=n_p / s_p,
+              kernels_s_per_unit=s_k / n, plain_s_per_unit=s_p / n_p, plain_over_kernels=s_p / s_k,
+              hit_counts=hits, kernel_ns=ns, kernel_s_total=sum(ns.values()) / 1e9,
+              plain_hit_counts=plain_hits, plain_kernel_ns=plain_ns, equal_outputs=same)
+    check(same and n == n_p, f"native: {workload}: the outputs differ with and without the host kernels")
+    missing = [k for k in NATIVE_PATHS[workload] if not hits.get(k)]
+    check(not missing, f"native: {workload}: kernels of its path never called: {missing}; calls {hits}")
+    check(not plain_hits, f"native: {workload}: kernels ran under {native.DISABLE_ENV}=1: {plain_hits}")
+    return {"kernels_s": s_k, "plain_s": s_p, "hits": hits, "ns": ns}
+
+
+def phase_native_relational(card: Card, rows: dict) -> dict:
+    """``relational``'s 1M-row groupby_sum and 500,000 x 50,000 join_inner (the
+    device operators forced, as there), with the host kernels and on the Python
+    branches; the output states must be equal."""
+    phase_t0 = time.perf_counter()
+    out = {}
+    for name in ("groupby_sum", "join_inner"):
+        n, run = _workload(name, rows)
+
+        def timed(run=run, n=n):
+            seconds, node = run()
+            return _state_bits(_final_state(node)), seconds, n
+
+        out[f"relational_engine/{name}"] = _with_device_ops("1", lambda: _native_both_ways(
+            card, f"relational_engine/{name}", timed, {"rows": n}, "rows"))
+    card.emit("native_phase", part="relational", seconds=time.perf_counter() - phase_t0)
+    return out
+
+
+def _engine_rows_run() -> tuple:
+    """The engine's row-form paths at the Scope level, on the host operators: an upsert
+    session (its overlay) filtered on a bool column (the row-form filter sweep), joined
+    inner with a second session (the columnar join, and after the first retractions the
+    dict arrangements and the insert-only delta) and counted by key. Even commits insert
+    fresh keys, odd ones update the previous commit's rows."""
+    scope = Scope()
+    left, right = scope.input_session(3, upsert=True), scope.input_session(2)
+    kept = scope.filter_table(left, 2)
+    join = scope.join_tables(kept, right, [0], [0])
+    counts = scope.group_by_table(join, by_cols=[0], reducers=[(make_reducer(ReducerKind.COUNT), [])])
+    sched = Scheduler(scope)
+    rng = np.random.default_rng(SEED + 14)
+    t = 0.0
+    for c in range(NATIVE_ROWS_COMMITS):
+        ks = rng.integers(0, 4096, NATIVE_ROWS).tolist()
+        flags = (rng.random(NATIVE_ROWS) < 0.75).tolist()
+        for i in range(NATIVE_ROWS):
+            left.insert(pw.ref_scalar("l", c - c % 2, i), (ks[i], c, flags[i]))
+        for i in range(NATIVE_ROWS // 10):
+            right.insert(pw.ref_scalar("r", c, i), (ks[i], float(i)))
+        t0 = time.perf_counter()
+        sched.commit()
+        t += time.perf_counter() - t0
+    join.current  # noqa: B018 — apply the lazy state inside the comparison
+    out = {int(k): r for k, r in join.current.items()}, _state_bits(_final_state(counts))
+    return out, t, NATIVE_ROWS_COMMITS * NATIVE_ROWS * 11 // 10
+
+
+def phase_native(card: Card) -> dict:
+    """The other workloads both ways, at the depths of ``NATIVE_*``: table_ops (50,000
+    rows in 5 commits, forced device operators), temporal (Nexmark Q5, Q7, Q8 and the
+    interval join over 20,000 events in 2 commits, forced), iterate (PageRank, 20 rounds,
+    scale 10, forced), serving (1,024 docs through the MiniLM-L6 embedder into the index
+    as 4 paced commits, 8 queries) and the optimizer's auto mode (relational_engine's
+    program: 200,000 + 50,000 rows), and engine_rows (:func:`_engine_rows_run`, the host
+    operators: 6 commits of 22,000 rows)."""
+    phase_t0 = time.perf_counter()
+    out = {}
+
+    def table_ops():
+        res = _table_ops_run(NATIVE_OPS_ROWS, NATIVE_OPS_COMMITS)
+        check(all(res["same"].values()) and not res["failures"], f"native: table_ops {res['same']}")
+        return res["out"], res["run_s"], NATIVE_OPS_ROWS
+
+    out["table_ops"] = _with_device_ops("1", lambda: _native_both_ways(
+        card, "table_ops", table_ops, {"rows": NATIVE_OPS_ROWS, "commits": NATIVE_OPS_COMMITS}, "rows"))
+
+    ev = _nexmark_events(NATIVE_NEXMARK_EVENTS)
+
+    def temporal():
+        t0 = time.perf_counter()
+        got, _routes = _nexmark_run(ev, NATIVE_NEXMARK_EVENTS // NATIVE_NEXMARK_COMMITS)
+        seconds = time.perf_counter() - t0
+        check(not got["failures"], f"native: temporal {got['failures']}")
+        updates = [(r, a) for r, _t, a in got["q7_updates"]]
+        return (_nexmark_final(got), updates), got["last_row"] - got["first_event"] or seconds, NATIVE_NEXMARK_EVENTS
+
+    out["temporal"] = _with_device_ops("1", lambda: _native_both_ways(
+        card, "temporal", temporal, {"events": NATIVE_NEXMARK_EVENTS, "commits": NATIVE_NEXMARK_COMMITS},
+        "events"))
+
+    u, v = _kronecker_edges(NATIVE_GRAPH_SCALE, GRAPH_EDGE_FACTOR)
+    n_first = int(len(u) * PAGERANK_FIRST_SHARE)
+
+    def iterate():
+        got = _pagerank_run(u, v, n_first)
+        bits = [{k: np.float64(x).view(np.int64).item() for k, x in c.items()} for c in got["commits"]]
+        rounds = sum(r for _s, r in got["fixed_points"])
+        return bits, sum(s for s, _r in got["fixed_points"]), rounds
+
+    out["iterate"] = _with_device_ops("1", lambda: _native_both_ways(
+        card, "iterate", iterate, {"vertices": 1 << NATIVE_GRAPH_SCALE, "edges": len(u),
+                                   "rounds": PAGERANK_ROUNDS}, "rounds"))
+
+    corpus = [doc_text(i) for i in range(NATIVE_SERVING_DOCS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+
+    def serving():
+        factory = _KeptKnnFactory(dimensions=DIM, capacity=NATIVE_SERVING_CAPACITY)
+        obs, run = _engine_program(embedder, corpus, NATIVE_SERVING_DOCS, NATIVE_SERVING_QUERIES,
+                                   factory, wait_s=120.0, pace=CHUNK)
+        device_pipeline.PIPELINE.configure()
+        run()
+        check(not obs["failures"] and not obs["timeouts"], f"native: serving {obs['failures']}")
+        docs = {doc_id: emb.tobytes() for doc_id, emb in obs["docs"].values()}
+        answers = {q: tuple(map(int, ids)) for q, (ids, _e) in obs["answers"].items()}
+        check(len(docs) == NATIVE_SERVING_DOCS and len(answers) == NATIVE_SERVING_QUERIES,
+              f"native: serving {len(docs)} docs, {len(answers)} answers")
+        return (docs, answers), obs["ingest_end"] - obs["run_start"], NATIVE_SERVING_DOCS
+
+    out["serving"] = _native_both_ways(card, "serving", serving,
+                                       {"docs": NATIVE_SERVING_DOCS, "queries": NATIVE_SERVING_QUERIES},
+                                       "docs")
+    del embedder
+
+    def optimizer_auto():
+        res = _relational_engine_run()
+        check(res["out"] == res["want"], "native: optimizer auto: relational_engine's answer")
+        return res["out"], res["run_s"], res["rows"]
+
+    out["optimizer_auto"] = _with_env(
+        {"PATHWAY_TPU_OPTIMIZE": "1", "PATHWAY_TPU_DEVICE_OPS": None},
+        lambda: _native_both_ways(card, "optimizer_auto", optimizer_auto,
+                                  {"rows": N_ENGINE * 5 // 4}, "rows"))
+    out["engine_rows"] = _with_device_ops("0", lambda: _native_both_ways(
+        card, "engine_rows", _engine_rows_run,
+        {"rows_per_commit": NATIVE_ROWS * 11 // 10, "commits": NATIVE_ROWS_COMMITS}, "rows"))
+    card.emit("native_phase", part="the rest", seconds=time.perf_counter() - phase_t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3946,30 +4219,47 @@ def main() -> int:
     card.emit("device", name=card.name, count=card.count, torch=torch.__version__,
               cuda=torch.version.cuda)
     phase_build(card)
+    phase_native_build(card)
+    by_phase: dict = {}  # phase -> the host kernels' calls and ns during it
+
+    def counted(name: str, fn, *args):
+        mark = _NativeMark()
+        result = fn(*args)
+        hits, ns = mark.since()
+        by_phase[name] = {"hit_counts": hits, "kernel_ns": ns}
+        return result
+
     sass = phase_sass(card)
     fwd = phase_kernel(card)
     bwd = phase_train_kernel(card)
     phase_checkpoint(card)
-    relational = phase_relational(card)
-    relational_engine = phase_relational_engine(card)
-    serving = phase_main_path(card)
-    engine, parity = phase_engine_pipeline(card, serving["docs_per_s"])
-    train = phase_train(card)
+    t0 = time.perf_counter()
+    rel_rows = _relational_rows()
+    card.emit("relational_rows", seconds=time.perf_counter() - t0, rows=N_REL)
+    relational = counted("relational", phase_relational, card, rel_rows)
+    native_paths = phase_native_relational(card, rel_rows)
+    del rel_rows
+    gc.collect()
+    relational_engine = counted("relational_engine", phase_relational_engine, card)
+    serving = counted("main_path", phase_main_path, card)
+    engine, parity = counted("engine_pipeline", phase_engine_pipeline, card, serving["docs_per_s"])
+    train = counted("train", phase_train, card)
     image_embedder = ImageEmbedder("vit-b16", max_batch_size=IMAGE_BATCH, seed=SEED)
-    vision = phase_vision_parity(card, image_embedder)
-    multimodal = phase_multimodal_pipeline(card, image_embedder)
+    vision = counted("vision_parity", phase_vision_parity, card, image_embedder)
+    multimodal = counted("multimodal_pipeline", phase_multimodal_pipeline, card, image_embedder)
     del image_embedder
-    rerank = phase_rerank(card)
-    chat = phase_decode(card)
-    phase_chat_engine(card, chat)
-    bge, vector_store = phase_vector_store(card)
-    rag = phase_rag(card, chat, bge)
-    rag_evals = phase_rag_evals(card, chat, bge)
+    rerank = counted("rerank", phase_rerank, card)
+    chat = counted("decode", phase_decode, card)
+    counted("chat_engine", phase_chat_engine, card, chat)
+    bge, vector_store = counted("vector_store", phase_vector_store, card)
+    rag = counted("rag", phase_rag, card, chat, bge)
+    rag_evals = counted("rag_evals", phase_rag_evals, card, chat, bge)
     del chat, bge
-    table_ops = phase_table_ops(card)
-    temporal = phase_temporal(card)
-    iterate = phase_iterate(card)
-    optimizer = phase_optimizer(card)
+    table_ops = counted("table_ops", phase_table_ops, card)
+    temporal = counted("temporal", phase_temporal, card)
+    iterate = counted("iterate", phase_iterate, card)
+    optimizer = counted("optimizer", phase_optimizer, card)
+    native_paths.update(phase_native(card))
     fwd["launches"] = serving["launches"]
     fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
                                "engine_async_parity": parity,
@@ -3986,6 +4276,7 @@ def main() -> int:
                                       "relational_engine": relational_engine,
                                       "table_ops": table_ops, "temporal": temporal,
                                       "iterate": iterate, "optimizer": optimizer}
+    print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

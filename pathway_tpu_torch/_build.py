@@ -1,12 +1,15 @@
-"""Build the hand-written CUDA kernels under ``csrc/`` and bind them with ctypes.
+"""Build the hand-written CUDA kernels under ``csrc/`` and bind them with ctypes, and
+build the engine's C++ host kernels (``native/enginecore.cpp``) as a CPython extension.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface (headers shared between sources are
 ``csrc/*.cuh``), at first use, into ``_build/`` beside this file (listed in
 ``.gitignore``). A library's file name carries a hash of its source, the shared headers
-and the flags, so an edited source is rebuilt and a built one is reused. Nothing is compiled
-when the package is imported: the CPU tests import every module on machines with no
-``nvcc``.
+and the flags, so an edited source is rebuilt and a built one is reused. The host
+kernels compile the same way with ``g++`` (:func:`build_host`), against Python's and
+NumPy's headers; their library's name also carries the Python ABI tag and the NumPy
+version. Nothing is compiled when the package is imported: the CPU tests import every
+module on machines with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 from pathlib import Path
@@ -28,6 +33,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: the host compiler and flags of :func:`build_host`
+GXX = "g++"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -38,7 +46,7 @@ class BuildResult:
     name: str
     library: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output, with the -Xptxas -v register/shared-memory lines
+    log: str  # the compiler's output (nvcc's with the -Xptxas -v register/shared-memory lines)
 
 
 def _nvcc() -> str:
@@ -104,6 +112,47 @@ def sass(name: str) -> str:
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     library = build([name])[name].library
     return subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True).stdout
+
+
+def _host_library_path(source: Path) -> Path:
+    """The host library's path, named by a hash of its source, the flags, the Python ABI
+    tag and the NumPy version (the extension compiles against both's headers)."""
+    import numpy as np
+
+    abi = sysconfig.get_config_var("SOABI") or sys.implementation.cache_tag
+    digest = hashlib.blake2s(source.read_bytes(), digest_size=8)
+    digest.update(" ".join(HOST_FLAGS).encode())
+    digest.update(f"{abi} numpy-{np.__version__}".encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()}.so"
+
+
+def build_host(source: Path) -> BuildResult:
+    """Compile a CPython extension source with ``g++`` into ``_build/`` (reused when built
+    already). Raises ``RuntimeError`` with the compiler's output if the build fails."""
+    import numpy as np
+
+    lib = _host_library_path(source)
+    if lib.exists():
+        return BuildResult(source.stem, lib, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [
+        GXX, *HOST_FLAGS, f"-I{sysconfig.get_path('include')}", f"-I{np.get_include()}",
+        str(source), "-o", str(tmp),
+    ]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    except (OSError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f"host kernel build failed: {' '.join(cmd)}: {e!r}") from e
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"host kernel build failed: {' '.join(cmd)}: g++ exited {proc.returncode}\n{log}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    return BuildResult(source.stem, lib, time.perf_counter() - t0, log)
 
 
 def load(name: str) -> ctypes.CDLL:

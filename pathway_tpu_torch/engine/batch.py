@@ -14,9 +14,10 @@ Two physical forms share the :class:`DeltaBatch` interface:
   filter, the hash join, the groupby) produce and consume it array to array; rows
   materialise only when something row-oriented touches the batch.
 
-Where the JAX code branches on its C++ host kernels (``pathway_tpu.native``), this
-module takes the NumPy/Python branch, which the JAX package's own tests hold equal to
-the kernels.
+The per-row plumbing (key bytes and Pointers, row materialisation, consolidation, state
+application) runs in the engine's C++ host kernels (``pathway_tpu_torch.native``) where
+the JAX code calls them; the Python branch beside each call is the kernel's plain
+version, taken when a kernel bails or under ``PATHWAY_TPU_DISABLE_NATIVE=1``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 
+from pathway_tpu_torch import native as _native
 from pathway_tpu_torch.engine.value import Pointer
 
 Entry = tuple[Pointer, tuple, int]
@@ -70,18 +72,27 @@ class Columns:
                 self._kbytes = self._kb_thunk()
                 self._kb_thunk = None
                 return self._kbytes
-            buf = b"".join(int(k).to_bytes(16, "little") for k in self._kobjs)
-            self._kbytes = np.frombuffer(buf, np.uint8).reshape(self.n, 16)
+            kern = _native.get()
+            kb = kern.pointers_to_bytes(self._kobjs) if kern is not None else None
+            if kb is None:
+                buf = b"".join(int(k).to_bytes(16, "little") for k in self._kobjs)
+                kb = np.frombuffer(buf, np.uint8).reshape(self.n, 16)
+            self._kbytes = kb
         return self._kbytes
 
     def kobjs(self) -> list[Pointer]:
         """Keys as Pointer objects (materialised once, then cached)."""
         if self._kobjs is None:
-            mem = np.ascontiguousarray(self.kbytes()).tobytes()
-            self._kobjs = [
-                Pointer(int.from_bytes(mem[i * 16 : i * 16 + 16], "little"))
-                for i in range(self.n)
-            ]
+            kb = np.ascontiguousarray(self.kbytes())
+            kern = _native.get()
+            if kern is not None:
+                self._kobjs = kern.bytes_to_pointers(kb, Pointer)
+            else:
+                mem = kb.tobytes()
+                self._kobjs = [
+                    Pointer(int.from_bytes(mem[i * 16 : i * 16 + 16], "little"))
+                    for i in range(self.n)
+                ]
         return self._kobjs
 
     # -- transforms ---------------------------------------------------------
@@ -182,6 +193,13 @@ class Columns:
         """Materialise row-form entries (the per-row object cost lives here, paid only
         when a row-oriented consumer needs it)."""
         keys = self.kobjs()
+        kern = _native.get()
+        if kern is not None:
+            diffs = self.diffs
+            if diffs is not None:
+                diffs = np.ascontiguousarray(diffs, np.int64)
+            cols = [np.ascontiguousarray(c) for c in self.cols]
+            return kern.columns_to_entries(keys, cols, diffs)
         if self.cols:
             rows = zip(*[c.tolist() for c in self.cols])
         else:
@@ -296,6 +314,18 @@ class DeltaBatch:
             # no vectorized merge for this payload (object columns, NaN or -0.0
             # floats, unfetchable keys): materialise rows
             self.entries  # noqa: B018 — force the row form
+        kern = _native.get()
+        if kern is not None:
+            merged, insert_only = kern.consolidate(self._entries)
+            if merged is None:  # the precheck passed: consolidated as it is
+                self._consolidated = True
+                self._insert_only = insert_only
+                return self
+            out = DeltaBatch()
+            out._entries = merged
+            out._consolidated = True
+            self._ccache = out
+            return out
         # The dominant shape, insert-only with unique keys (connector ingest,
         # expression outputs): key uniqueness alone implies (key, row) uniqueness,
         # so the batch is already consolidated.
@@ -393,7 +423,15 @@ class DeltaBatch:
 
 def entry_keys_bytes(entries: list) -> np.ndarray | None:
     """The entries' keys as an (n, 16) little-endian byte matrix, or None when a key
-    is not a Pointer."""
+    is not exactly a Pointer."""
+    kern = _native.get()
+    if kern is not None:
+        return kern.entry_keys_bytes(entries, Pointer)
+    return _entry_keys_bytes_py(entries)
+
+
+def _entry_keys_bytes_py(entries: list) -> np.ndarray | None:
+    """The plain version of :func:`entry_keys_bytes`."""
     if any(type(e[0]) is not Pointer for e in entries):
         return None
     buf = b"".join(int(e[0]).to_bytes(16, "little") for e in entries)
@@ -430,6 +468,10 @@ def apply_batch_to_state(state: dict[Pointer, tuple], batch: DeltaBatch) -> None
     key to exactly one row; an in-place update arrives as a retraction of the old row
     and an insertion of the new one."""
     entries = batch.entries
+    kern = _native.get()
+    if kern is not None:
+        kern.apply_state(state, entries, batch._insert_only)
+        return
     if batch._insert_only:
         state.update((key, row) for key, row, _d in entries)
         return

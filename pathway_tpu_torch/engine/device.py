@@ -26,7 +26,8 @@ only waits on events and drops references; every copy is enqueued on the schedul
 thread, whose stream produced the batch.
 
 The rest is the columnar bridge of the JAX package's ``device.py``: a column-major
-view of a batch's rows (:class:`ColumnarView`, :class:`PayloadView`), the vectorized
+view of a batch's rows (:class:`ColumnarView`, :class:`PayloadView`; a list's clean
+numeric columns come out of the C++ host kernel ``extract_column``), the vectorized
 NumPy evaluator of engine expressions (:func:`eval_columnar`), and the host kernels
 behind the groupby and the join: :func:`factorize`, :func:`factorize_multi`, and the
 segment reductions :func:`segment_count` and :func:`segment_sum`, which are the spec
@@ -42,6 +43,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from pathway_tpu_torch import native as _native
 from pathway_tpu_torch.engine import expression as ex
 
 #: device batches produced since the last commit boundary (weak: a batch no row
@@ -323,12 +325,19 @@ class ColumnarView:
         got = self._cols.get(index, _MISSING)
         if got is not _MISSING:
             return got
-        values = (
-            [e[1][index] for e in self.rows]
-            if self._entries
-            else [row[index] for row in self.rows]
-        )
-        arr = _extract(values)
+        arr = None
+        kern = _native.get() if isinstance(self.rows, list) else None
+        if kern is not None:
+            # one C pass for int64, float64 and bool columns; None for strings and
+            # anything not clean (the Python branch below decides those)
+            arr = kern.extract_column(self.rows, index, self._entries)
+        if arr is None:
+            values = (
+                [e[1][index] for e in self.rows]
+                if self._entries
+                else [row[index] for row in self.rows]
+            )
+            arr = _extract(values)
         self._cols[index] = arr
         return arr
 

@@ -18,11 +18,13 @@ under the columnar groupby and join the device operators of ``engine/device_ops.
 matcher in torch ops), held bit for bit to the host kernels; the placement policy
 (``optimize/placement.py``) picks the card or the host per batch. The scheduler runs the
 graph optimizer (``pathway_tpu_torch.optimize``) on its scope before the first batch.
-Where the JAX code branches on its C++ host kernels (``pathway_tpu.native``), this
-module takes the NumPy/Python branch. The scheduler ends each commit in the device pipeline's commit
-boundary (``engine.device_pipeline.commit_boundary``), which stages the commit's device
-batches for completion on its own thread, or completes them inline under
-``PATHWAY_TPU_ASYNC_DEVICE=0``. ``Scheduler(probe=True)`` keeps per-operator counts and
+Where the JAX code calls its C++ host kernels, this module calls the port's
+(``pathway_tpu_torch.native``: the session overlay, the filter sweep, row building, the
+join's sides, pair keys, insert-only delta and matcher, the groupby's diffs), with the
+Python branch beside each call as its plain version. The scheduler ends each commit in
+the device pipeline's commit boundary (``engine.device_pipeline.commit_boundary``),
+which stages the commit's device batches for completion on its own thread, or completes
+them inline under ``PATHWAY_TPU_ASYNC_DEVICE=0``. ``Scheduler(probe=True)`` keeps per-operator counts and
 times (:class:`OperatorStats`).
 
 The temporal operators live in ``engine/temporal.py`` and ``pw.iterate``'s node in
@@ -39,6 +41,7 @@ from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 
+from pathway_tpu_torch import native as _native
 from pathway_tpu_torch.engine import device as _device
 from pathway_tpu_torch.engine import device_ops as _device_ops
 from pathway_tpu_torch.engine import device_pipeline
@@ -216,6 +219,16 @@ class InputSession(Node):
             self._has_removals = False
             return out
         state = self.current
+        kern = _native.get()
+        if kern is not None and type(state) is dict:
+            # the whole overlay (upsert retractions, row-less removals resolved against
+            # this commit's earlier updates) in one call
+            entries = kern.session_overlay(self._buffer, state, self.upsert)
+            if entries is not None:
+                self._buffer.clear()
+                self._has_removals = False
+                self._has_rowless_removals = False
+                return DeltaBatch(entries).consolidate()
         out = DeltaBatch()
         # overlay of keys touched this commit: key -> row | None (absent row)
         overlay: dict[Pointer, tuple | None] = {}
@@ -330,7 +343,10 @@ class ExpressionNode(Node):
             )
             if cols is not None:
                 fresh = not out.entries
-                if not cols:  # arity-0 select: one () row per key
+                kern = _native.get()
+                if kern is not None:
+                    out.entries.extend(kern.build_entries(inserts, cols))
+                elif not cols:  # arity-0 select: one () row per key
                     out.entries.extend((key, (), diff) for key, _row, diff in inserts)
                 else:
                     out.entries.extend(
@@ -426,6 +442,15 @@ class FilterNode(Node):
                     insert_only=batch._insert_only,
                 )
                 out._raw_insert_only = batch._raw_insert_only or out._insert_only
+                return out
+            kern = _native.get()
+            kept = kern.filter_truthy(batch.entries, c) if kern is not None else None
+            if kept is not None:  # every condition a bool, no errors
+                out = DeltaBatch()
+                out.entries = kept
+                out._consolidated = batch._insert_only
+                out._insert_only = batch._insert_only
+                out._raw_insert_only = True
                 return out
             if not any(is_error(e[1][c]) for e in batch.entries):
                 # no retractions and no error conditions: one comprehension
@@ -793,7 +818,16 @@ def _as_match_codes(arr: np.ndarray) -> np.ndarray | None:
 def _match_join_pairs_multi(l_arrays: "list[np.ndarray]", r_arrays: "list[np.ndarray]"):
     """Multi-column matching: key tuples reduce to joint integer codes (factorized
     over both sides together, so equal tuples get equal codes), then the single-array
-    matcher runs. The columns arrive dtype-unified."""
+    matcher runs. The columns arrive dtype-unified. Where every key column has an int64
+    code view, the host kernel's hash table replaces the factorize, argsort and
+    searchsorted; its pairs come in the sort-based matcher's order, pair for pair."""
+    kern = _native.get()
+    if kern is not None:
+        lc = [_as_match_codes(a) for a in l_arrays]
+        if all(c is not None for c in lc):
+            rc = [_as_match_codes(a) for a in r_arrays]
+            if all(c is not None for c in rc):
+                return kern.match_pairs_i64(lc, rc)
     if len(l_arrays) == 1:
         return _match_join_pairs(l_arrays[0], r_arrays[0])
     nl = len(l_arrays[0])
@@ -926,6 +960,16 @@ class JoinNode(Node):
                 return None
             return _JoinSide(n, jks, kb, list(payload.cols))
         entries = batch.entries
+        kern = _native.get()
+        if kern is not None:
+            # one pass screens the diffs and keys and fills every column, typed
+            # (int64, float64, bool) or exact objects
+            got = kern.entries_to_side(entries, list(on_cols), arity, Pointer)
+            if got is not None:
+                kb, cols = got
+                if not batch._insert_only and not _keys_unique(kb, n):
+                    return None
+                return _JoinSide(n, [cols[c] for c in on_cols], kb, cols)
         view = _device.ColumnarView(entries, from_entries=True)
         jks = []
         for c in on_cols:
@@ -933,7 +977,10 @@ class JoinNode(Node):
             if jk is None or jk.dtype.kind not in "bifU":
                 return None
             jks.append(jk)
-        if any(e[2] != 1 for e in entries):
+        if kern is not None:
+            if not (kern.entry_diffs(entries) == 1).all():
+                return None
+        elif any(e[2] != 1 for e in entries):
             return None
         kb = entry_keys_bytes(entries)
         if kb is None:
@@ -951,6 +998,9 @@ class JoinNode(Node):
         def pair_keys() -> np.ndarray:
             # the pair-key hash is the join's largest fixed cost: it runs only when
             # the output keys are observed (a sink, a state read, downstream keying)
+            kern = _native.get()
+            if kern is not None:
+                return kern.hash_join_pairs(lkb, rkb)
             return _hash_join_pairs_py(lkb, rkb)
 
         cols = [c[l_idx] for c in lside.cols] + [c[r_idx] for c in rside.cols]
@@ -1101,6 +1151,28 @@ class JoinNode(Node):
         """Incremental inner join of insert-only deltas, ``dL*R + L*(R+dR)``: no
         per-group recompute, no old/new diffing, no consolidation (result keys are
         unique pair hashes). None (state untouched) for multiplicities above 1."""
+        kern = _native.get()
+        if kern is not None:
+            entries = kern.join_insert_inner(
+                left_batch.entries,
+                right_batch.entries,
+                self.left_on,
+                self.right_on,
+                self.left_arr,
+                self.right_arr,
+                ERROR,
+                Pointer,
+                None,  # the node state stays lazy: the scheduler applies it
+                join_result_key,
+            )
+            if entries is not None:
+                out = DeltaBatch()
+                out.entries = entries
+                out._consolidated = True
+                out._insert_only = True
+                return out
+            # a non-scalar or ERROR join key, or a multiplicity above 1: the Python
+            # branch keeps the exact semantics
         if any(e[2] != 1 for e in left_batch.entries) or any(
             e[2] != 1 for e in right_batch.entries
         ):
@@ -1262,7 +1334,11 @@ def _groupby_batch_arrays(
             if by is None or by.dtype.kind not in "bifU":
                 return None
             bys.append(by)
-        diffs = np.fromiter((d for _k, _r, d in entries), np.int64, len(entries))
+        kern = _native.get()
+        if kern is not None:
+            diffs = kern.entry_diffs(entries)
+        else:
+            diffs = np.fromiter((d for _k, _r, d in entries), np.int64, len(entries))
         getcol = view.column
     if any(by.dtype.kind == "f" and np.isnan(by).any() for by in bys):
         return None

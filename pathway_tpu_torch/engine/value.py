@@ -1,10 +1,12 @@
 """Engine values: row keys, the error sentinel, and the stable hash behind keys.
 
-Counterpart of ``pathway_tpu/engine/value.py``, its pure-Python digest path: keys are
-128-bit ints from a BLAKE2b-128 of a deterministic serialization of the values, equal
-bit for bit to the JAX package's keys for the same values (the C++ host kernels there
-are held to this Python path, so it is the spec). ``ERROR`` is a poisoning sentinel that
-propagates through expressions instead of raising.
+Counterpart of ``pathway_tpu/engine/value.py``: keys are 128-bit ints from a
+BLAKE2b-128 of a deterministic serialization of the values, equal bit for bit to the
+JAX package's keys for the same values. The Python digest path (:func:`_digest16`) is
+the spec; :func:`hash_values_batch` runs many rows through the C++ host kernel
+``hash_tuples_batch``, which hands every value outside its exact-type set back to it.
+``ERROR`` is a poisoning sentinel that propagates through expressions instead of
+raising.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Any, Iterable
 
 import numpy as np
 
+from pathway_tpu_torch import native as _native
+
 __all__ = [
     "ERROR",
     "Error",
@@ -27,6 +31,7 @@ __all__ = [
     "PyObjectWrapper",
     "Type",
     "hash_values",
+    "hash_values_batch",
     "is_error",
     "ref_scalar",
     "rows_differ",
@@ -355,6 +360,67 @@ def _digest16(values: Iterable[Any], salt: bytes) -> bytes:
 def hash_values(values: Iterable[Any], *, salt: bytes = b"") -> Pointer:
     """Stable 128-bit key from a sequence of values (Key::for_values analog)."""
     return Pointer(int.from_bytes(_digest16(values, salt), "little"))
+
+
+def hash_values_batch(
+    rows: "Iterable[Iterable[Any]]",
+    *,
+    salt: bytes = b"",
+    on_type_error: str = "raise",
+) -> np.ndarray:
+    """Digest matrix of many value tuples in one call: row ``i`` of the returned
+    ``(len(rows), 16)`` uint8 array is the little-endian digest of
+    ``hash_values(rows[i], salt=salt)``. ``on_type_error="repr"`` hashes ``repr`` of a
+    row's values where its digest raises TypeError (the per-row partitioners' rule).
+
+    A list, or a contiguous 1-D object array, goes through the host kernel
+    ``hash_tuples_batch``; a row with a value outside the kernel's exact-type set comes
+    back here through the fallback, so both paths give the same digests."""
+    repr_fallback = on_type_error == "repr"
+    kern = _native.get()
+    if kern is not None and (
+        isinstance(rows, list)
+        or (
+            isinstance(rows, np.ndarray)
+            and rows.dtype == object
+            and rows.ndim == 1
+            and rows.flags.c_contiguous
+        )
+    ):
+
+        def _row_fallback(row: Any) -> bytes:
+            try:
+                return _digest16(row, salt)
+            except TypeError:
+                if not repr_fallback:
+                    raise
+                return _digest16(tuple(repr(v) for v in row), salt)
+
+        return kern.hash_tuples_batch(rows, salt, False, Pointer, ERROR, _row_fallback)
+    return _hash_values_batch_py(rows, salt=salt, on_type_error=on_type_error)
+
+
+def _hash_values_batch_py(
+    rows: "Iterable[Iterable[Any]]",
+    *,
+    salt: bytes = b"",
+    on_type_error: str = "raise",
+) -> np.ndarray:
+    """The plain version of :func:`hash_values_batch`: a row loop over
+    :func:`_digest16`."""
+    repr_fallback = on_type_error == "repr"
+    out = bytearray()
+    n = 0
+    for row in rows:
+        try:
+            d = _digest16(row, salt)
+        except TypeError:
+            if not repr_fallback:
+                raise
+            d = _digest16(tuple(repr(v) for v in row), salt)
+        out += d
+        n += 1
+    return np.frombuffer(bytes(out), np.uint8).reshape(n, 16)
 
 
 def ref_scalar(*values: Any, instance: Any = None) -> Pointer:

@@ -8,8 +8,10 @@ keeps its queue depth, occupancy, dispatch-to-completion latency and commit coun
 here. Instrument handles are made once, under the registry's lock, and cached by the
 call site; a bump is a plain attribute add. The residency plane's event counters are a
 :class:`MirroredCounterDict`. Pull collectors (:meth:`Registry.register_collector`, read
-by :meth:`Registry.collect`) report the optimizer's counters and the device operators'
-launches, times and placement (``pathway_device_ops_placement``, 1 = card, 0 = host).
+by :meth:`Registry.collect`) report the C++ host kernels' calls and nanoseconds
+(``pathway_native_kernel_hits_total``, ``pathway_native_kernel_ns_total``), the
+optimizer's counters and the device operators' launches, times and placement
+(``pathway_device_ops_placement``, 1 = card, 0 = host).
 The snapshots, the Prometheus exposition, the flight recorder and the request log are
 not ported yet (ROADMAP queue 1 item 12).
 """
@@ -184,6 +186,31 @@ class MirroredCounterDict(dict):
 # -- built-in pull collectors (imports deferred to read time) ---------------------------
 
 
+def _native_collector() -> list[tuple]:
+    """The C++ host kernels' calls and cumulative nanoseconds, per kernel (none before
+    the kernels are first built: reading the registry builds nothing)."""
+    from pathway_tpu_torch import native
+
+    out = []
+    for kernel, hits in native.hit_counts().items():
+        out.append((
+            "pathway_native_kernel_hits_total",
+            "counter",
+            "C++ kernel engagements (native.hit_counts)",
+            {"kernel": kernel},
+            hits,
+        ))
+    for kernel, ns in native.kernel_ns().items():
+        out.append((
+            "pathway_native_kernel_ns_total",
+            "counter",
+            "cumulative nanoseconds inside each C++ kernel",
+            {"kernel": kernel},
+            ns,
+        ))
+    return out
+
+
 def _optimizer_collector() -> list[tuple]:
     from pathway_tpu_torch.optimize import optimizer_stats
 
@@ -233,5 +260,6 @@ def _device_ops_collector() -> list[tuple]:
     return out
 
 
+REGISTRY.register_collector(_native_collector)
 REGISTRY.register_collector(_optimizer_collector)
 REGISTRY.register_collector(_device_ops_collector)

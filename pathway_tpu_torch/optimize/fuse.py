@@ -136,12 +136,6 @@ class FusedChainNode(g.Node):
 
     # -- columnar sweep -----------------------------------------------------------
 
-    @staticmethod
-    def _entry_kbytes(entries: list):
-        # the JAX package asks its C++ host kernel first; the port takes the
-        # Python branch (ROADMAP queue 1 item 13)
-        return entry_keys_bytes(entries)
-
     def _columnar_sweep(self, batch: DeltaBatch) -> DeltaBatch | None:
         """An insert-only batch through the whole chain with no intermediate batch;
         None falls back to the row path."""
@@ -204,7 +198,7 @@ class FusedChainNode(g.Node):
             if payload is not None:
                 out_payload = Columns.with_keys_of(payload, arrays)
             else:
-                kb = self._entry_kbytes(entries)
+                kb = entry_keys_bytes(entries)
                 if kb is None:
                     return None  # non-Pointer keys: row path
                 out_payload = Columns(n_cur, arrays, kbytes=kb)
@@ -213,7 +207,7 @@ class FusedChainNode(g.Node):
             if payload is not None:
                 kb, kobjs = payload.keys_gather(sel)
             else:
-                kb = self._entry_kbytes(entries)
+                kb = entry_keys_bytes(entries)
                 if kb is None:
                     return None
                 kb = kb[sel]

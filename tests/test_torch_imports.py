@@ -94,6 +94,7 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.analysis.shards",
         "pathway_tpu_torch.engine.sharded",
         "pathway_tpu_torch.engine.device_residency",
+        "pathway_tpu_torch.native",
     ):
         assert expected in names
 
@@ -143,6 +144,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "assert BWD_DQ_KERNEL._fn is None and BWD_DKV_KERNEL._fn is None",
             "from pathway_tpu_torch.ops.segment_reduce import DADD_CHAIN, KERNELS",
             "assert all(k._fn is None and k.launches == 0 for k in [*KERNELS.values(), DADD_CHAIN])",
+            "from pathway_tpu_torch import native",
+            "assert native._module is None and native.hit_counts() == {}",
             "print('clean')",
         ]
     )
@@ -251,3 +254,62 @@ def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
     first = _build._library_path(src)
     header.write_text("// two")
     assert _build._library_path(src) != first
+
+
+def test_host_kernels_import_no_jax():
+    """``pathway_tpu_torch.native`` builds and runs its kernels without JAX or the JAX
+    package, and its source includes nothing of the JAX package."""
+    code = "\n".join(
+        [
+            "import sys",
+            f"sys.path.insert(0, {REPO!r})",
+            "from pathway_tpu_torch import native",
+            "k = native.get()",
+            "assert k.entry_diffs([(1, (), 3)]).tolist() == [3]",
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))",
+            "assert not bad, bad",
+            "print('clean')",
+        ]
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=REPO,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+    from pathway_tpu_torch import native
+
+    includes = [
+        line.split(None, 1)[1].strip()
+        for line in native.SOURCE.read_text().splitlines()
+        if line.startswith("#include")
+    ]
+    assert includes and all(inc.startswith("<") and inc.endswith(">") for inc in includes), includes
+    assert not any("pathway_tpu" in inc for inc in includes)
+
+
+def test_host_kernel_build_raises_instead_of_falling_back(tmp_path, monkeypatch):
+    """A host build with an unusable compiler raises a RuntimeError carrying the
+    command; the kernels are never quietly replaced by the Python branches."""
+    from pathway_tpu_torch import _build, native
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "GXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(native, "_module", None)
+    monkeypatch.delenv(native.DISABLE_ENV, raising=False)
+    with pytest.raises(RuntimeError, match="no-such-g"):
+        native.get()
+    with pytest.raises(RuntimeError, match="host kernel build failed"):
+        native.available()
+    assert native._module is None
+    # a compiler that runs and fails: its output is in the error
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "GXX", "g++")
+    with pytest.raises(RuntimeError, match="g\\+\\+ exited"):
+        _build.build_host(bad)
+    assert not list((tmp_path / "build").glob("*.so"))
+    # only the explicit switch reaches the Python branches
+    monkeypatch.setenv(native.DISABLE_ENV, "1")
+    assert native.get() is None and native._module is None
