@@ -6,7 +6,8 @@ RAG, the cross-encoder reranker and the local decoder chat), the relational oper
 the xpack's RAG document pipeline (``VectorStoreServer`` over BGE-base, and the
 adaptive RAG question answerer over it), its ``rag_evals`` harness, the table
 operations (the expression namespaces, deduplicate, sort, having, ``apply_async``), the
-temporal operators (Nexmark queries 5, 7 and 8) and ``pw.iterate`` (PageRank); every
+temporal operators (Nexmark queries 5, 7 and 8), ``pw.iterate`` (PageRank) and two
+programs killed and resumed under persistence; every
 engine path runs through the engine's C++ host kernels (``pathway_tpu_torch/native``),
 and each workload runs once more on their Python branches to compare.
 
@@ -204,7 +205,27 @@ limit):
    operators' upload and fetch tensors' bytes), the segment kernels' launches and the
    matcher's calls; in auto mode incremental_update's groupby probed on both sides; no
    resident batch outlives a commit; ``optimizer_stats()`` of engine_pipeline's graph.
-22. native: each workload with the C++ host kernels and once more on their Python
+22. persistence: two programs under persistence, each in PERSISTING (input journals) and
+   OPERATOR_PERSISTING (operator snapshots), three ways: fault-free, in a child process
+   (``chip_smoke.py --persistence-child``) that SIGKILLs itself after half its input
+   files' commits and that commit's checkpoint, and resumed over the killed run's files
+   and store. ``persistence_rag``: engine_pipeline's program (MiniLM-L6, DataIndex over
+   1,048,576 slots) with its 20,000 docs read from 40 JSON-lines files by
+   ``pw.io.jsonlines.read(persistent_id="docs")``, one file a commit, then 64 as-of-now
+   queries; ``persistence_wordcount``: the Pathway persistence tutorial's
+   ``pw.io.plaintext.read`` -> groupby count -> ``pw.io.csv.write`` over 1,000,000 words
+   of 4,096 keys in 100 files, the groupby on the card. Checks: every doc stored once,
+   every query answered with the exact f32 search's hits, recall@10 against the
+   fault-free run >= 0.99; under operator snapshots the restored index on the card and
+   equal to the snapshot's bits, no doc embedded twice and no word read twice; the word
+   counts (the csv log, resumed under one ``PATHWAY_RUN_ID``) equal to ``np.unique``'s
+   in every run; the groupby's device route on every commit after the resume. A fifth
+   word-count run under operator snapshots is killed between two interval snapshots
+   (none forced) and resumed from the older one: its folded sink file equal to the
+   fault-free run's, the words read again counted. Reports docs/s and rows/s, journal bytes, events replayed and replay seconds, snapshot bytes
+   and write seconds, restore seconds (the index's upload among them) and the time to
+   recover.
+23. native: each workload with the C++ host kernels and once more on their Python
    branches (``PATHWAY_TPU_DISABLE_NATIVE=1``), at the depths of ``NATIVE_*``: table_ops
    (50,000 rows in 5 commits), temporal (20,000 Nexmark events in 2 commits), iterate
    (PageRank at scale 10), serving (1,024 docs through the MiniLM-L6 embedder into the
@@ -213,11 +234,11 @@ limit):
    filter, an inner join after retractions, 6 commits). The outputs must be equal, every
    kernel of the workload's path (``NATIVE_PATHS``) called with the kernels and none
    without; wall seconds, units/s and each kernel's calls and ns, both ways.
-23. The native line (every phase's host kernel calls and ns, and the both-ways
+24. The native line (every phase's host kernel calls and ns, and the both-ways
    comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
-   forward's ``launches_by_path`` includes ``rag_evals``, the segment reduction's
-   ``table_ops``, ``temporal``, ``iterate`` and ``optimizer``), the ``nvidia-smi`` line,
-   and last ``{"ok": true, ...}``.
+   forward's ``launches_by_path`` includes ``rag_evals`` and ``persistence``, the
+   segment reduction's ``table_ops``, ``temporal``, ``iterate``, ``optimizer`` and
+   ``persistence``), the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
 its first batch, as in the JAX package. Phases that check a device route
@@ -238,8 +259,11 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -3960,6 +3984,772 @@ def phase_optimizer(card: Card) -> int:
     return launches
 
 
+# -- persistence: killed and resumed ------------------------------------------------------
+
+PERSIST_MODES = ("PERSISTING", "OPERATOR_PERSISTING")
+PERSIST_RAG_FILES = 40  # N_DOCS in files of 500 docs
+PERSIST_WC_FILES = 100  # bench_dataflow.py wordcount's 1,000,000 words, 10,000 lines a file
+PERSIST_WC_LINES = 10_000
+PERSIST_WC_KEYS = 4096
+#: snapshot intervals: the 1.61 GB index's snapshot amortized over 30 s of commits, the
+#: word count's (its input session and per-file rows grow to 1M rows each) over 15 s
+PERSIST_RAG_INTERVAL_MS = 30_000
+PERSIST_WC_INTERVAL_MS = 15_000
+PERSIST_AUTOCOMMIT_MS = 20  # a file arrives whole in one poll
+PERSIST_WAIT_S = 300.0
+
+
+class _Paced:
+    """One persistence run's harness. ``files`` ([(name, text)]) are written into
+    ``root/in`` one at a time, each once the one before has reached the sink, so each is
+    a commit of its own; files already there (a killed run's) are skipped.
+    ``FsReader.poll`` is wrapped to record what it read and to end the streaming read
+    once ``root/stop`` exists, which the pacer writes after the last file's commit and
+    ``after_all()``. With ``kill_after`` the run SIGKILLs its own process once the
+    ``kill_after``-th file's commit has reached the sink and that commit's checkpoint
+    (its journal segment, or a snapshot forced at that commit) is written, after writing
+    ``report()`` to ``root/child.json``. With ``force_checkpoint=False`` no snapshot is
+    forced: the kill falls on the first such commit that its interval did not snapshot,
+    so the resume starts from an older snapshot, as after a crash."""
+
+    def __init__(self, root: str, files: list, kill_after: int | None = None,
+                 force_checkpoint: bool = True) -> None:
+        self.root, self.files, self.kill_after = root, files, kill_after
+        self.force_checkpoint = force_checkpoint
+        self.last_snapshot_time: int | None = None
+        self.indir = os.path.join(root, "in")
+        self.stop = os.path.join(root, "stop")
+        os.makedirs(self.indir, exist_ok=True)
+        self.cv = threading.Condition()
+        self.reads = 0  # polls that returned entries
+        self.committed = 0  # self.reads as of the last commit at the sink
+        self.read_at: dict[str, int] = {}  # path -> the poll that read it
+        self.lines_read = 0
+        self.all_seen = False
+        self.commit_walls: list[float] = []
+        self.first_data_commit = 0.0
+        self.t_start = 0.0
+        self.kill_pending = False
+        self.failures: list[str] = []
+        self.after_all = None
+        self.report = lambda: {}
+
+    def files_committed(self) -> int:
+        return sum(1 for r in self.read_at.values() if r <= self.committed)
+
+    def on_time_end(self, _time: int) -> None:
+        with self.cv:
+            self.commit_walls.append(time.perf_counter())
+            if self.reads > self.committed:
+                self.committed = self.reads
+                if not self.first_data_commit:
+                    self.first_data_commit = self.commit_walls[-1]
+                self.cv.notify_all()
+                if self.kill_after is not None and self.files_committed() >= self.kill_after:
+                    self.kill_pending = True
+
+    def _poll(self, orig):
+        def poll(reader):
+            entries, done = orig(reader)
+            with self.cv:
+                if entries:
+                    self.reads += 1
+                    for payload, path, _meta in entries:
+                        if payload is not None:
+                            self.read_at[path] = self.reads
+                            self.lines_read += payload.count("\n")
+                if len(reader._seen) == len(self.files):
+                    self.all_seen = True
+                    self.cv.notify_all()
+            return entries, done or (not entries and os.path.exists(self.stop))
+
+        return poll
+
+    def _die(self, time_: int) -> None:
+        with open(os.path.join(self.root, "child.json"), "w") as fh:
+            json.dump({"files_committed": self.files_committed(), "lines_read": self.lines_read,
+                       "killed_at_time": time_, "last_snapshot_time": self.last_snapshot_time,
+                       **self.report()}, fh)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    def _kill_after_journal(self, orig):
+        def on_commit(driver, time_):
+            orig(driver, time_)
+            if self.kill_pending:
+                self._die(time_)
+
+        return on_commit
+
+    def _kill_after_snapshot(self, orig):
+        def on_commit(mgr, scope, drivers, time_):
+            written = len(mgr.write_seconds)
+            orig(mgr, scope, drivers, time_)
+            if self.kill_pending and self.force_checkpoint and len(mgr.write_seconds) == written:
+                mgr.snapshot(scope, drivers, time_)  # this commit's checkpoint
+            if len(mgr.write_seconds) > written:
+                self.last_snapshot_time = time_
+                if not self.force_checkpoint:
+                    return  # an interval snapshot of this commit: die at a later one
+            if self.kill_pending:
+                self._die(time_)
+
+        return on_commit
+
+    def _pace(self) -> None:
+        try:
+            for name, text in self.files:
+                path = os.path.join(self.indir, name)
+                if os.path.exists(path):
+                    continue
+                part = os.path.join(self.root, "part")
+                with open(part, "w") as fh:
+                    fh.write(text)
+                os.replace(part, path)  # the reader never sees half a file
+                with self.cv:
+                    if not self.cv.wait_for(
+                        lambda: self.read_at.get(path, math.inf) <= self.committed,
+                        timeout=PERSIST_WAIT_S,
+                    ):
+                        self.failures.append(f"{name} never reached the sink")
+                        return
+            with self.cv:
+                if not self.cv.wait_for(lambda: self.all_seen and self.committed == self.reads,
+                                        timeout=PERSIST_WAIT_S):
+                    self.failures.append("the last file's commit never reached the sink")
+                    return
+            if self.after_all is not None:
+                self.after_all()
+        finally:
+            open(self.stop, "w").close()
+
+    def run(self, config, extra_patches: list = ()) -> None:
+        """``pw.run(persistence_config=config)`` with the harness's wraps in place and
+        the pacer running; the wraps are undone and the pacer joined after."""
+        from pathway_tpu_torch.engine.connectors import FsReader
+        from pathway_tpu_torch.engine.persistence import OperatorSnapshotManager, PersistentDriver
+
+        patches = [(FsReader, "poll", self._poll(FsReader.poll)), *extra_patches]
+        if self.kill_after is not None:
+            patches += [
+                (PersistentDriver, "on_commit", self._kill_after_journal(PersistentDriver.on_commit)),
+                (OperatorSnapshotManager, "on_commit",
+                 self._kill_after_snapshot(OperatorSnapshotManager.on_commit)),
+            ]
+        saved = [(cls, name, cls.__dict__[name]) for cls, name, _fn in patches]
+        for cls, name, fn in patches:
+            setattr(cls, name, fn)
+        self.t_start = time.perf_counter()
+        pacer = threading.Thread(target=self._pace, daemon=True, name="pw-persist-pacer")
+        pacer.start()
+        try:
+            pw.run(persistence_config=config)
+        finally:
+            for cls, name, fn in saved:
+                setattr(cls, name, fn)
+            open(self.stop, "w").close()  # a failed run leaves no pacer waiting
+            pacer.join(timeout=PERSIST_WAIT_S)
+
+
+def _persist_config(store: str, mode: str, interval_ms: int):
+    return pw.persistence.Config(
+        pw.persistence.Backend.filesystem(store), snapshot_interval_ms=interval_ms,
+        persistence_mode=pw.persistence.PersistenceMode[mode],
+    )
+
+
+def _persist_rag_files() -> list:
+    per = N_DOCS // PERSIST_RAG_FILES
+    return [
+        (f"docs{f:03d}.jsonl",
+         "".join(json.dumps({"doc_id": i, "text": doc_text(i)}) + "\n"
+                 for i in range(f * per, (f + 1) * per)))
+        for f in range(PERSIST_RAG_FILES)
+    ]
+
+
+def _persist_embedders():
+    """The docs' embedder and the queries' (the same seeded weights), so that the docs'
+    embedded rows are counted apart from the queries'."""
+    return tuple(EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                                 seq_bucket_min=SEQ_LEN, seed=SEED) for _ in range(2))
+
+
+def _persist_rag_run(paced: _Paced, store: str, mode: str, embedder, qembedder,
+                     restore_watch: dict | None = None) -> dict:
+    """The streaming-RAG program (BASELINE #1) with its docs read by
+    ``pw.io.jsonlines.read(..., persistent_id="docs")`` under persistence: the embedder
+    UDF, DataIndex over 1,048,576 slots on the card, N_QUERIES as-of-now queries once
+    every doc is in the index; then the stop file ends the read. ``restore_watch``
+    collects the index as restored."""
+    obs = {"answers": {}, "latencies": [], "timeouts": [], "ingest_end": 0.0}
+    factory = _KeptKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    go, queries_done, answer_seen = threading.Event(), threading.Event(), threading.Event()
+    doc_texts = [0]
+    embed_batch = embedder.embed_batch
+
+    def counted(texts):
+        doc_texts[0] += len(texts)
+        return embed_batch(texts)
+
+    embedder.embed_batch = counted
+    paced.report = lambda: {"docs_embedded": doc_texts[0]}
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            if not go.wait(timeout=PERSIST_WAIT_S):
+                obs["timeouts"].append("the docs never all reached the index")
+                return
+            for i in range(N_QUERIES):
+                answer_seen.clear()
+                t0 = time.perf_counter()
+                self.next(query_id=i, text=doc_text(i * 37 % N_DOCS))
+                if answer_seen.wait(timeout=PERSIST_WAIT_S):
+                    obs["latencies"].append(time.perf_counter() - t0)
+                else:
+                    obs["timeouts"].append(i)
+            queries_done.set()
+
+    def after_all() -> None:
+        deadline = time.monotonic() + PERSIST_WAIT_S
+        while len(factory.built.key_to_slot) < N_DOCS:
+            if time.monotonic() > deadline:
+                paced.failures.append("the index never held every doc")
+                return
+            time.sleep(0.005)
+        obs["ingest_end"] = time.perf_counter()
+        go.set()
+        queries_done.wait(timeout=PERSIST_WAIT_S)
+
+    paced.after_all = after_all
+    docs = pw.io.jsonlines.read(paced.indir, schema=pw.schema_from_types(doc_id=int, text=str),
+                                mode="streaming", persistent_id="docs",
+                                autocommit_duration_ms=PERSIST_AUTOCOMMIT_MS)
+    docs = docs.select(doc_id=pw.this.doc_id, emb=embedder(pw.this.text))
+    queries = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(query_id=int, text=str),
+                                autocommit_duration_ms=None)
+    queries = queries.select(query_id=pw.this.query_id, qemb=qembedder(pw.this.text))
+    res = DataIndex(docs, factory, docs.emb).query_as_of_now(queries, queries.qemb,
+                                                             number_of_matches=K)
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            obs["answers"][row["query_id"]] = (tuple(row["_pw_index_reply_ids"]),
+                                               np.asarray(row["qemb"], np.float32))
+            answer_seen.set()
+
+    pw.io.subscribe(res, on_change=on_answer, on_time_end=paced.on_time_end)
+    from pathway_tpu_torch.engine.persistence import FileBackend
+
+    patches = [_timed(DeviceKnnIndex, "op_state", obs.setdefault("index_copy_s", [])),
+               _timed(FileBackend, "write", obs.setdefault("file_write_s", []))]
+    if restore_watch is not None:
+        # the index as restored: a device copy of its tensors beside the snapshot's
+        # arrays (compared after the run), the upload's seconds, the tensors' device
+        from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+
+        orig_restore = ExternalIndexNode.restore_op_state
+
+        def restore(node, state):
+            _sync()
+            t0 = time.perf_counter()
+            orig_restore(node, state)
+            _sync()
+            idx = node.ext_index
+            restore_watch.update(
+                upload_s=time.perf_counter() - t0, snapshot=state["index"],
+                device=str(idx.state.vectors.device), clone=[t.clone() for t in idx.state],
+                docs=len(idx.key_to_slot))
+
+        patches.append((ExternalIndexNode, "restore_op_state", restore))
+    device_pipeline.PIPELINE.configure()
+    with _KeptRunner() as kept:
+        paced.run(_persist_config(store, mode, PERSIST_RAG_INTERVAL_MS), patches)
+    embedder.embed_batch = embed_batch
+    return {"obs": obs, "index": factory.built, "runner": kept.runners[0],
+            "docs_embedded": doc_texts[0], "run_s": time.perf_counter() - paced.t_start}
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _timed(cls, name: str, into: list) -> tuple:
+    """A patch of ``cls.name`` that appends each call's seconds to ``into``."""
+    orig = cls.__dict__[name]
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        into.append(time.perf_counter() - t0)
+        return out
+
+    return (cls, name, timed)
+
+
+def _lazy_rows_snapshot(runner) -> dict:
+    """The share of a snapshot that the lazy device rows (the embedder's output, held by
+    the nodes downstream of it) take: the distinct rows, and the bytes and seconds of
+    pickling those nodes' states in one pass, as a snapshot does (a row that several
+    nodes hold is pickled once)."""
+    import pickle
+
+    from pathway_tpu_torch.engine.device import LazyDeviceVector
+
+    states, rows = [], set()
+    for node in runner.scope.nodes:
+        lazy = [v for row in node.current.values() for v in row if isinstance(v, LazyDeviceVector)]
+        if lazy:
+            states.append(node.op_state())
+            rows.update(map(id, lazy))
+    t0 = time.perf_counter()
+    size = len(pickle.dumps(states, protocol=4))
+    return {"rows": len(rows), "nodes": len(states), "bytes": size,
+            "pickle_s": time.perf_counter() - t0}
+
+
+def _persist_wc_files() -> tuple[list, dict]:
+    """The word count's 100 files of 10,000 lines (a seeded draw over 4,096 words) and
+    ``np.unique``'s counts of all of them."""
+    ids = np.random.default_rng(SEED).integers(0, PERSIST_WC_KEYS, PERSIST_WC_FILES * PERSIST_WC_LINES)
+    words, counts = np.unique(ids, return_counts=True)
+    want = {f"w{w}": int(c) for w, c in zip(words.tolist(), counts.tolist())}
+    files = [
+        (f"words{f:03d}.txt",
+         "".join(f"w{x}\n" for x in ids[f * PERSIST_WC_LINES:(f + 1) * PERSIST_WC_LINES].tolist()))
+        for f in range(PERSIST_WC_FILES)
+    ]
+    return files, want
+
+
+def _persist_wc_run(paced: _Paced, store: str, mode: str, out_csv: str) -> dict:
+    """The Pathway persistence tutorial's program: ``pw.io.plaintext.read(...,
+    persistent_id="w")``, a groupby and count (on the card), ``pw.io.csv.write``."""
+    words = pw.io.plaintext.read(paced.indir, mode="streaming", persistent_id="w",
+                                 autocommit_duration_ms=PERSIST_AUTOCOMMIT_MS)
+    counts = words.groupby(words.data).reduce(word=words.data, cnt=pw.reducers.count())
+    pw.io.csv.write(counts, out_csv)
+    from pathway_tpu_torch.engine.connectors import FileWriter
+
+    orig_time_end = FileWriter.on_time_end
+
+    def on_time_end(writer, time_):  # the sink's commit end (no second subscriber)
+        orig_time_end(writer, time_)
+        paced.on_time_end(time_)
+
+    device_ops.configure()
+    device_ops.reset_counters()
+    device_pipeline.PIPELINE.configure()
+    with _KeptRunner() as kept:
+        paced.run(_persist_config(store, mode, PERSIST_WC_INTERVAL_MS),
+                  [(FileWriter, "on_time_end", on_time_end)])
+    runner = kept.runners[0]
+    routes = [dict(n.routes) for n in runner.scope.nodes if type(n).__name__ == "GroupbyNode"]
+    return {"runner": runner, "routes": routes, "run_s": time.perf_counter() - paced.t_start}
+
+
+def _fold_csv(path: str) -> dict:
+    """The state a csv update log leaves (a row in on +1, out on -1 of the same row)."""
+    import csv as _csv
+
+    state: dict = {}
+    with open(path, newline="") as fh:
+        for row in _csv.DictReader(fh):
+            cnt = int(row["cnt"])
+            if int(row["diff"]) > 0:
+                state[row["word"]] = cnt
+            elif state.get(row["word"]) == cnt:
+                del state[row["word"]]
+    return state
+
+
+def _starts_with(path: str, prefix: bytes) -> bool:
+    with open(path, "rb") as fh:
+        return fh.read(len(prefix)) == prefix and len(fh.read(1)) == 1
+
+
+def _persistence_child(args: list[str]) -> int:
+    """``chip_smoke.py --persistence-child <program> <mode> <root> <kill_after>
+    [interval]``: one of the two programs in a process of its own, which SIGKILLs itself
+    after the commit of file ``kill_after`` and that commit's checkpoint (with
+    ``interval``: at the first commit from there that its snapshot interval did not
+    checkpoint). It makes its models and inputs, then waits for ``root/go`` (so its
+    start-up overlaps the parent's fault-free run) before it touches ``root``. Returns
+    only if it was not killed (which the parent counts as a failure)."""
+    program, mode, root, kill_after = args[0], args[1], args[2], int(args[3])
+    force = args[4:5] != ["interval"]
+    store = os.path.join(root, f"store-kr-{mode}")
+    if program == "rag":
+        files = _persist_rag_files()
+        embedder, qembedder = _persist_embedders()
+    else:
+        files, _want = _persist_wc_files()
+    deadline = time.monotonic() + PERSIST_WAIT_S
+    while not os.path.exists(os.path.join(root, "go")):
+        if time.monotonic() > deadline:
+            return 4
+        time.sleep(0.01)
+    paced = _Paced(root, files, kill_after=kill_after, force_checkpoint=force)
+    if program == "rag":
+        _persist_rag_run(paced, store, mode, embedder, qembedder)
+    else:
+        _persist_wc_run(paced, store, mode, os.path.join(root, f"out-kr-{mode}.csv"))
+    return 3
+
+
+#: the persistence children started, so that a failed phase leaves none behind
+_CHILDREN: list = []
+
+
+def _spawn_persistence_child(args: list[str], env: dict) -> subprocess.Popen:
+    """Start ``_persistence_child(args)`` in a fresh interpreter."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--persistence-child", *args]
+    _CHILDREN.append(subprocess.Popen(cmd, env=env))
+    return _CHILDREN[-1]
+
+
+def _release_child(root: str, child: subprocess.Popen) -> tuple[int, float, dict]:
+    """Let a started child run over fresh inputs in ``root`` -> (its return code, its
+    seconds from the release to its end, its report)."""
+    _fresh_inputs(root)
+    t0 = time.perf_counter()
+    open(os.path.join(root, "go"), "w").close()
+    try:
+        rc = child.wait(timeout=PERSIST_WAIT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        os.remove(os.path.join(root, "go"))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(root, "child.json")) as fh:
+        return rc, seconds, json.load(fh)
+
+
+def _fresh_inputs(root: str) -> None:
+    """An empty input directory at the same path (the connector's keys hash the path,
+    so every run of a program gives its docs the same keys) and no stop file."""
+    shutil.rmtree(os.path.join(root, "in"), ignore_errors=True)
+    for name in ("stop", "child.json", "part"):
+        if os.path.exists(os.path.join(root, name)):
+            os.remove(os.path.join(root, name))
+
+
+def _persistence_stats(runner, paced: _Paced) -> dict:
+    """What the persistence layer did in a run: the journal's bytes and replay, the
+    snapshots' writes and restore; and the time to recover: from the run's start to its
+    first commit at the sink (the replayed history's, or the first after the restore),
+    and to its first commit of new input."""
+    from pathway_tpu_torch.engine.persistence import PersistentDriver
+
+    out: dict = {"commits_at_sink": len(paced.commit_walls), "lines_read": paced.lines_read}
+    journals = [d for d in runner.drivers if isinstance(d, PersistentDriver)]
+    if journals:
+        out.update(journal_bytes=sum(d.journal_bytes for d in journals),
+                   events_replayed=sum(d.events_replayed for d in journals),
+                   replay_s=sum(d.replay_seconds for d in journals))
+    mgr = runner.snapshot_manager
+    if mgr is not None:
+        out.update(snapshot_interval_ms=int(mgr.interval * 1000), snapshots=len(mgr.write_seconds),
+                   snapshot_bytes=mgr.write_bytes[-1] if mgr.write_bytes else 0,
+                   snapshot_write_median_s=float(np.median(mgr.write_seconds)) if mgr.write_seconds else None,
+                   snapshot_write_s=mgr.write_seconds, restore_s=mgr.restore_seconds,
+                   restore_bytes=mgr.restore_bytes)
+    if paced.commit_walls:
+        out["recover_to_first_commit_s"] = paced.commit_walls[0] - paced.t_start
+    if paced.first_data_commit:
+        out["to_first_new_input_commit_s"] = paced.first_data_commit - paced.t_start
+    return out
+
+
+def _snapshot_breakdown(run: dict) -> dict:
+    """Where a RAG run's snapshot writes went: the index's copy to the host and the
+    file writes (fsync included) by medians; the lazy rows' share of a snapshot."""
+    out = {"index_copy_s": run["obs"]["index_copy_s"], "file_write_s": run["obs"]["file_write_s"]}
+    if run["runner"].snapshot_manager is not None:
+        out["lazy_rows"] = _lazy_rows_snapshot(run["runner"])
+    return out
+
+
+def _rag_checks(run: dict, mode: str) -> tuple[dict, dict]:
+    """Every doc stored once, every query answered with the exact f32 search's hits
+    over the vectors the index holds -> (the checks, {key: stored vector})."""
+    obs, index = run["obs"], run["index"]
+    keys = list(index.key_to_slot)
+    slots = torch.tensor([index.key_to_slot[k] for k in keys], device=index.state.vectors.device)
+    mat = index.state.vectors.index_select(0, slots).cpu().numpy()
+    valid = int(index.state.valid.sum().item())
+    norms = np.linalg.norm(mat, axis=1)
+    row_of = {k: i for i, k in enumerate(keys)}
+    worst = 0.0
+    answered_exact = True
+    for _qid, (hit_keys, qvec) in obs["answers"].items():
+        cos = mat @ qvec / np.maximum(norms * np.linalg.norm(qvec), np.float32(1e-30))
+        top = np.sort(cos)[::-1][:K]
+        got = np.sort(np.array([cos[row_of[k]] for k in hit_keys], np.float32))[::-1]
+        err = float(np.abs(got - top).max()) if len(got) == len(top) else math.inf
+        worst = max(worst, err)
+        answered_exact &= err <= DIST_TOL
+    checks = {
+        "docs_stored_once": len(keys) == N_DOCS and valid == N_DOCS,
+        "every_query_answered": len(obs["answers"]) == N_QUERIES and not obs["timeouts"],
+        "hits_are_exact_f32_top_k": answered_exact,
+    }
+    return {**checks, "max_top_k_cos_err": worst, "index_rows": len(keys), "valid_slots": valid}, \
+        {k: mat[i] for i, k in enumerate(keys)}
+
+
+def _persistence_rag(card: Card, base: str) -> int:
+    root = os.path.join(base, "rag")
+    os.makedirs(root, exist_ok=True)
+    files = _persist_rag_files()
+    kill_after = PERSIST_RAG_FILES // 2
+    embedder, qembedder = _persist_embedders()
+    calls = [_count_embed_calls(embedder)[0], _count_embed_calls(qembedder)[0]]
+    launches_before = fa.KERNEL.launches
+    fault_free = None
+    for mode in PERSIST_MODES:
+        # the killed run's process starts now and waits for its inputs
+        child_proc = _spawn_persistence_child(["rag", mode, root, str(kill_after)],
+                                              dict(os.environ, PATHWAY_RUN_ID=f"rag-{mode}"))
+        # 1. fault-free, with persistence on, into a fresh store
+        _fresh_inputs(root)
+        paced = _Paced(root, files)
+        ff = _persist_rag_run(paced, os.path.join(root, f"store-ff-{mode}"), mode, embedder, qembedder)
+        ff_checks, ff_vectors = _rag_checks(ff, mode)
+        ff_stats = _persistence_stats(ff["runner"], paced)
+        ff_docs_per_s = N_DOCS / (ff["obs"]["ingest_end"] - paced.t_start)
+        ff_breakdown = _snapshot_breakdown(ff)
+        ff_run_s, ff_failures = ff["run_s"], paced.failures
+        if fault_free is None:
+            fault_free = (ff["obs"]["answers"], ff_vectors)
+        del ff
+        gc.collect()
+        # 2. the same program in the child process, which kills itself after commit k
+        rc, child_s, child = _release_child(root, child_proc)
+        # 3. the resumed run over the killed run's files and store
+        watch: dict = {}
+        paced = _Paced(root, files)
+        rs = _persist_rag_run(paced, os.path.join(root, f"store-kr-{mode}"), mode, embedder,
+                              qembedder, restore_watch=watch if mode == "OPERATOR_PERSISTING" else None)
+        rs_checks, rs_vectors = _rag_checks(rs, mode)
+        rs_stats = _persistence_stats(rs["runner"], paced)
+        index = rs["index"]
+        new_docs = N_DOCS - watch.get("docs", 0)
+        rs_docs_per_s = rs["docs_embedded"] / max(rs["obs"]["ingest_end"] - paced.t_start, 1e-9)
+        # recall@10 against the fault-free run, and how many stored rows are the same bits
+        ff_answers, ff_vecs = fault_free
+        recalls = [len(set(hits) & set(ff_answers[q][0])) / K
+                   for q, (hits, _v) in rs["obs"]["answers"].items() if q in ff_answers]
+        recall = float(np.mean(recalls)) if recalls else float("nan")
+        same_bits = sum(1 for k, v in rs_vectors.items()
+                        if k in ff_vecs and np.array_equal(v.view(np.int32), ff_vecs[k].view(np.int32)))
+        checks = {**{f"resumed_{k}": v for k, v in rs_checks.items() if isinstance(v, bool)},
+                  **{f"fault_free_{k}": v for k, v in ff_checks.items() if isinstance(v, bool)},
+                  "child_killed": rc == -signal.SIGKILL,
+                  "recall_vs_fault_free_ge_0.99": recall >= 0.99}
+        fields: dict = {}
+        if mode == "OPERATOR_PERSISTING":
+            snap = watch.get("snapshot")
+            restored_bits = snap is not None and all(
+                np.array_equal(t.cpu().numpy(), np.asarray(snap[name]))
+                for t, name in zip(watch["clone"], ("vectors", "valid", "norms")))
+            checks.update(
+                restored_index_bit_equal_to_snapshot=bool(restored_bits),
+                restored_index_on_card=watch.get("device", "").startswith("cuda"),
+                no_doc_embedded_twice=child["docs_embedded"] + rs["docs_embedded"] == N_DOCS,
+                resumed_embedded_only_new_docs=rs["docs_embedded"] == new_docs,
+                new_docs_by_device_route=index.rows_device == new_docs and index.rows_host == 0)
+            fields.update(restored_docs=watch.get("docs"), upload_s=watch.get("upload_s"),
+                          index_rows_device_route=index.rows_device,
+                          index_rows_host_route=index.rows_host)
+            del watch["clone"], watch["snapshot"]
+        else:
+            checks.update(replayed_docs_embedded_again=rs["docs_embedded"] == N_DOCS,
+                          docs_by_device_route=index.rows_device == N_DOCS and index.rows_host == 0)
+        lat_ms = sorted(1e3 * x for x in rs["obs"]["latencies"])
+        failures = ff_failures + paced.failures
+        card.emit(
+            "persistence", program="persistence_rag", mode=mode,
+            source=f"BASELINE #1 (bench.py::pipeline_leg) with its docs read from "
+                   f"{PERSIST_RAG_FILES} JSON-lines files",
+            docs=N_DOCS, files=PERSIST_RAG_FILES, kill_after_file=kill_after,
+            fault_free_docs_per_s=ff_docs_per_s, resumed_docs_per_s=rs_docs_per_s,
+            fault_free=ff_stats, fault_free_run_s=ff_run_s, child_s=child_s, child=child,
+            fault_free_snapshot_parts=ff_breakdown, resumed_snapshot_parts=_snapshot_breakdown(rs),
+            resumed=rs_stats, resumed_run_s=rs["run_s"], resumed_docs_embedded=rs["docs_embedded"],
+            resumed_query_p50_ms=lat_ms[len(lat_ms) // 2] if lat_ms else None,
+            recall_at_10_vs_fault_free=recall, stored_rows_bit_equal_to_fault_free=same_bits,
+            max_top_k_cos_err=rs_checks["max_top_k_cos_err"], checks=checks, failures=failures,
+            **fields)
+        check(not failures, f"persistence_rag {mode}: {failures}")
+        check(all(checks.values()), f"persistence_rag {mode}: {checks}")
+        del rs, index
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = fa.KERNEL.launches - launches_before
+    embed_calls = calls[0][0] + calls[1][0]
+    check(launches == LAYERS * embed_calls,
+          f"persistence: flash launches {launches} != {LAYERS} x {embed_calls} embed calls")
+    return launches
+
+
+def _persistence_wordcount(card: Card, base: str) -> int:
+    root = os.path.join(base, "wordcount")
+    os.makedirs(root, exist_ok=True)
+    files, want = _persist_wc_files()
+    kill_after = PERSIST_WC_FILES // 2
+    n_words = PERSIST_WC_FILES * PERSIST_WC_LINES
+    _zero_segment_launches()
+    fault_free = None
+    iroot = os.path.join(base, "wordcount-interval")
+    os.makedirs(iroot, exist_ok=True)
+    for mode in PERSIST_MODES:
+        child_proc = _spawn_persistence_child(
+            ["wordcount", mode, root, str(kill_after)],
+            dict(os.environ, PATHWAY_RUN_ID=f"wc-{mode}", PATHWAY_TPU_DEVICE_OPS="1"))
+        if mode == "OPERATOR_PERSISTING":
+            # the crash between interval snapshots, run after this loop
+            interval_child = _spawn_persistence_child(
+                ["wordcount", mode, iroot, str(kill_after), "interval"],
+                dict(os.environ, PATHWAY_RUN_ID="wc-interval", PATHWAY_TPU_DEVICE_OPS="1"))
+        _fresh_inputs(root)
+        paced = _Paced(root, files)
+        ff_out = os.path.join(root, f"out-ff-{mode}.csv")
+        ff = _with_device_ops("1", lambda: _persist_wc_run(paced, os.path.join(root, f"store-ff-{mode}"),
+                                                          mode, ff_out))
+        ff_stats = _persistence_stats(ff["runner"], paced)
+        ff_state = _fold_csv(ff_out)
+        failures = list(paced.failures)
+        if fault_free is None:
+            fault_free = ff_state
+        rc, child_s, child = _release_child(root, child_proc)
+        out = os.path.join(root, f"out-kr-{mode}.csv")
+        with open(out, "rb") as fh:
+            killed_log = fh.read()
+        paced = _Paced(root, files)
+        rs = _with_env({"PATHWAY_TPU_DEVICE_OPS": "1", "PATHWAY_RUN_ID": f"wc-{mode}"},
+                       lambda: _persist_wc_run(paced, os.path.join(root, f"store-kr-{mode}"), mode, out))
+        rs_stats = _persistence_stats(rs["runner"], paced)
+        rs_state = _fold_csv(out)
+        failures += paced.failures
+        (routes,) = rs["routes"]
+        checks = {
+            "child_killed": rc == -signal.SIGKILL,
+            "fault_free_counts_equal_np_unique": ff_state == want,
+            "resumed_counts_equal_np_unique": rs_state == want,
+            "resumed_state_equals_fault_free": rs_state == fault_free,
+            "groupby_device_route_every_commit": routes["device"] > 0 and routes["host"] == 0
+            and routes["rows"] == 0,
+            "sink_file_resumed_past_the_killed_runs_lines": _starts_with(out, killed_log)
+            and killed_log.count(b"\n") > 1,
+        }
+        if mode == "OPERATOR_PERSISTING":
+            checks["no_word_read_twice"] = child["lines_read"] + paced.lines_read == n_words
+        else:
+            checks["journal_replayed_the_killed_runs_words"] = (
+                rs_stats.get("events_replayed") == child["lines_read"])
+        card.emit(
+            "persistence", program="persistence_wordcount", mode=mode,
+            source="Pathway's persistence tutorial (plaintext -> groupby count -> csv) at "
+                   "bench_dataflow.py::wordcount's size",
+            words=n_words, keys=PERSIST_WC_KEYS, files=PERSIST_WC_FILES, kill_after_file=kill_after,
+            fault_free_rows_per_s=n_words / ff["run_s"], fault_free_run_s=ff["run_s"],
+            resumed_rows_per_s=paced.lines_read / rs["run_s"], resumed_run_s=rs["run_s"],
+            fault_free=ff_stats, child_s=child_s, child=child, resumed=rs_stats,
+            groupby_routes_after_resume=routes, sink_lines_before_resume=killed_log.count(b"\n"),
+            checks=checks, failures=failures)
+        check(not failures, f"persistence_wordcount {mode}: {failures}")
+        check(all(checks.values()), f"persistence_wordcount {mode}: {checks}")
+        del ff, rs
+        gc.collect()
+    _wordcount_between_snapshots(card, iroot, interval_child, files, want, fault_free, kill_after)
+    launches = sum(_segment_launches().values())
+    check(launches > 0, "persistence_wordcount launched no segment kernel")
+    return launches
+
+
+def _wordcount_between_snapshots(card: Card, root: str, child_proc, files: list, want: dict,
+                                 fault_free: dict, kill_after: int) -> None:
+    """The word count under operator snapshots killed as a crash would kill it: at the
+    first commit from file ``kill_after`` on that its 15 s interval did not snapshot.
+    The resume starts from the older snapshot, reads the files after it again and
+    writes their commits to the sink again; the folded sink file must still equal the
+    fault-free run's state and ``np.unique``'s counts."""
+    mode = "OPERATOR_PERSISTING"
+    n_words = PERSIST_WC_FILES * PERSIST_WC_LINES
+    rc, child_s, child = _release_child(root, child_proc)
+    out = os.path.join(root, f"out-kr-{mode}.csv")
+    with open(out, "rb") as fh:
+        killed_log = fh.read()
+    paced = _Paced(root, files)
+    rs = _with_env({"PATHWAY_TPU_DEVICE_OPS": "1", "PATHWAY_RUN_ID": "wc-interval"},
+                   lambda: _persist_wc_run(paced, os.path.join(root, f"store-kr-{mode}"), mode, out))
+    rs_stats = _persistence_stats(rs["runner"], paced)
+    rs_state = _fold_csv(out)
+    (routes,) = rs["routes"]
+    last, killed_at = child["last_snapshot_time"], child["killed_at_time"]
+    read_again = child["lines_read"] + paced.lines_read - n_words
+    checks = {
+        "child_killed": rc == -signal.SIGKILL,
+        "killed_after_its_last_snapshot": last is not None and last < killed_at,
+        "resumed_from_an_older_snapshot_read_words_again": read_again > 0,
+        "resumed_counts_equal_np_unique": rs_state == want,
+        "resumed_state_equals_fault_free": rs_state == fault_free,
+        "groupby_device_route_every_commit": routes["device"] > 0 and routes["host"] == 0
+        and routes["rows"] == 0,
+        "sink_file_resumed_past_the_killed_runs_lines": _starts_with(out, killed_log)
+        and killed_log.count(b"\n") > 1,
+    }
+    card.emit(
+        "persistence", program="persistence_wordcount", mode=mode,
+        kill="between_interval_snapshots", words=n_words, kill_after_file=kill_after,
+        snapshot_interval_ms=PERSIST_WC_INTERVAL_MS, child_s=child_s, child=child,
+        words_read_again=read_again, resumed_rows_per_s=paced.lines_read / rs["run_s"],
+        resumed_run_s=rs["run_s"], resumed=rs_stats, groupby_routes_after_resume=routes,
+        sink_lines_before_resume=killed_log.count(b"\n"), checks=checks,
+        failures=paced.failures)
+    check(not paced.failures, f"persistence_wordcount between snapshots: {paced.failures}")
+    check(all(checks.values()), f"persistence_wordcount between snapshots: {checks}")
+
+
+def phase_persistence(card: Card) -> dict:
+    """The two programs under persistence, each in both modes (PERSISTING: input
+    journals; OPERATOR_PERSISTING: operator snapshots), three ways: a fault-free run,
+    a run in a child process that SIGKILLs itself after the commit of its k-th file
+    (half the files) and that commit's checkpoint, and the resumed run over the killed
+    run's files and store. The fault-free and resumed runs run here, so their kernel
+    launches are counted. ``persistence_rag``: BASELINE #1's streaming RAG (MiniLM-L6
+    bf16 through the flash forward kernel, DataIndex over 1,048,576 slots, k = 10) fed
+    20,000 docs from 40 JSON-lines files one file a commit, then 64 as-of-now queries;
+    every doc stored once, every query answered with the exact f32 search's hits over
+    the vectors the index holds, recall@10 against the fault-free run >= 0.99; under
+    operator snapshots the resumed run embeds only the docs after the snapshot, its
+    index restored on the card equal to the snapshot's bit for bit.
+    ``persistence_wordcount``: the Pathway persistence tutorial's plaintext -> groupby
+    count -> csv program at bench_dataflow.py::wordcount's size (1,000,000 words over
+    4,096 keys in 100 files of 10,000 lines), the groupby forced onto the card; the sink
+    file resumed under one ``PATHWAY_RUN_ID`` folds to ``np.unique``'s counts, as the
+    fault-free run's does; under operator snapshots no word is read twice. A fifth run
+    of the word count kills it between two interval snapshots instead, and resumes it
+    from the older one. Inputs and stores live in a temporary directory, removed
+    after."""
+    phase_t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="pw-persistence-")
+    try:
+        rag = _persistence_rag(card, base)
+        wordcount = _persistence_wordcount(card, base)
+    finally:
+        for child in _CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(base, ignore_errors=True)
+    card.emit("persistence_total", phase_s=time.perf_counter() - phase_t0,
+              flash_launches=rag, segment_launches=wordcount)
+    return {"flash": rag, "segment": wordcount}
+
+
 # -- the engine's C++ host kernels ----------------------------------------------------------
 
 #: the Python-branch reruns' depths (the kernel run of each comparison takes the same
@@ -4215,6 +5005,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--persistence-child"]:
+        return _persistence_child(sys.argv[2:])
     card = Card()
     card.emit("device", name=card.name, count=card.count, torch=torch.__version__,
               cuda=torch.version.cuda)
@@ -4259,6 +5051,7 @@ def main() -> int:
     temporal = counted("temporal", phase_temporal, card)
     iterate = counted("iterate", phase_iterate, card)
     optimizer = counted("optimizer", phase_optimizer, card)
+    persistence = counted("persistence", phase_persistence, card)
     native_paths.update(phase_native(card))
     fwd["launches"] = serving["launches"]
     fwd["launches_by_path"] = {"serving": serving["launches"], "engine": engine,
@@ -4266,7 +5059,7 @@ def main() -> int:
                                "train": train[fwd["name"]], "vision": vision,
                                "multimodal": multimodal, "rerank": rerank,
                                "vector_store": vector_store, "rag": rag,
-                               "rag_evals": rag_evals}
+                               "rag_evals": rag_evals, "persistence": persistence["flash"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
@@ -4275,7 +5068,8 @@ def main() -> int:
     relational["launches_by_path"] = {"relational": relational["launches"],
                                       "relational_engine": relational_engine,
                                       "table_ops": table_ops, "temporal": temporal,
-                                      "iterate": iterate, "optimizer": optimizer}
+                                      "iterate": iterate, "optimizer": optimizer,
+                                      "persistence": persistence["segment"]}
     print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)

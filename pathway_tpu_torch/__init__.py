@@ -3,7 +3,9 @@ engine, and its embedder's contrastive trainer.
 
 The JAX package ``pathway_tpu`` is the reference; this package imports nothing of it
 and no JAX. It holds the engine (``pw.run``, ``pw.io.python``, ``pw.io.subscribe``,
-``pw.debug``'s static tables, tables with ``select``, ``filter``, ``groupby`` /
+``pw.debug``'s static tables, the file connectors (``pw.io.fs``, ``csv``,
+``jsonlines``, ``plaintext``, ``null``), persistence (``pw.persistence``: input
+journals, operator snapshots, UDF caching), tables with ``select``, ``filter``, ``groupby`` /
 ``reduce`` with ``pw.reducers``, the joins with ``pw.left`` / ``pw.right``, ``concat``,
 ``flatten``, ``ix``, ``deduplicate``, ``sort``, ``having`` and the other relational
 operations, the temporal operators (``pw.temporal``: windows, behaviors, the interval,
@@ -23,7 +25,7 @@ unless the caller passes ``device="cpu"``. The reference's names that are not po
 yet raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
-from pathway_tpu_torch import io
+from pathway_tpu_torch import io, persistence
 from pathway_tpu_torch.internals import reducers
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
 from pathway_tpu_torch.engine.value import (
@@ -115,8 +117,8 @@ __getattr__ = _module_getattr(__name__, {
         "8: the rest of the package (the row transformers)",
     ),
     **dict.fromkeys(
-        ("persistence", "MonitoringLevel", "set_monitoring_config"),
-        "12: persistence, tracing, metrics and monitoring",
+        ("MonitoringLevel", "set_monitoring_config"),
+        "12: tracing, metrics and monitoring",
     ),
 })
 
@@ -162,6 +164,7 @@ __all__ = [
     "left",
     "local_error_log",
     "make_tuple",
+    "persistence",
     "reducers",
     "ref_scalar",
     "require",

@@ -297,23 +297,28 @@ class DeviceKnnIndex:
     # -- operator persistence -------------------------------------------------
 
     def op_state(self) -> dict:
-        """Host copies of the device state, so snapshots pickle and never alias
-        the live buffers (which ``knn_update`` writes in place)."""
+        """Host copies of the whole capacity's state, so snapshots pickle and never
+        alias the live buffers (which ``knn_update`` writes in place)."""
         return {
-            "vectors": np.array(self.state.vectors.cpu()),
-            "valid": np.array(self.state.valid.cpu()),
-            "norms": np.array(self.state.norms.cpu()),
+            "vectors": self.state.vectors.to("cpu", copy=True).numpy(),
+            "valid": self.state.valid.to("cpu", copy=True).numpy(),
+            "norms": self.state.norms.to("cpu", copy=True).numpy(),
             "key_to_slot": dict(self.key_to_slot),
             "free": list(self._free),
             "capacity": self.capacity,
         }
 
     def restore_op_state(self, state: dict) -> None:
+        """The snapshot's state, uploaded to the index's own device."""
         self.capacity = state["capacity"]
+
+        def up(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, dtype, copy=True)
+
         self.state = DeviceKnnState(
-            vectors=torch.tensor(state["vectors"], dtype=self.dtype, device=self.device),
-            valid=torch.tensor(state["valid"], dtype=torch.bool, device=self.device),
-            norms=torch.tensor(state["norms"], dtype=torch.float32, device=self.device),
+            vectors=up(state["vectors"], self.dtype),
+            valid=up(state["valid"], torch.bool),
+            norms=up(state["norms"], torch.float32),
         )
         self.key_to_slot = dict(state["key_to_slot"])
         self.slot_to_key = {s: k for k, s in self.key_to_slot.items()}
@@ -565,6 +570,25 @@ class ExternalIndexNode(Node):
         self.query_col = query_col
         self.k = k
         self.limit_col = limit_col
+
+    def op_state(self) -> dict:
+        state = super().op_state()
+        index_state = getattr(self.ext_index, "op_state", None)
+        if index_state is None:
+            # skipping it would resume with an empty index while the readers have moved
+            # past the rows that filled it
+            raise TypeError(
+                f"{type(self.ext_index).__name__} does not implement "
+                "op_state/restore_op_state, so it cannot be used with "
+                "PersistenceMode.OPERATOR_PERSISTING"
+            )
+        state["index"] = index_state()
+        return state
+
+    def restore_op_state(self, state: dict) -> None:
+        super().restore_op_state(state)
+        if "index" in state and hasattr(self.ext_index, "restore_op_state"):
+            self.ext_index.restore_op_state(state["index"])
 
     def process(self, time: int) -> DeltaBatch:
         index_batch = self.take(0)

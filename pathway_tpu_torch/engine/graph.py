@@ -24,7 +24,9 @@ join's sides, pair keys, insert-only delta and matcher, the groupby's diffs), wi
 Python branch beside each call as its plain version. The scheduler ends each commit in
 the device pipeline's commit boundary (``engine.device_pipeline.commit_boundary``),
 which stages the commit's device batches for completion on its own thread, or completes
-them inline under ``PATHWAY_TPU_ASYNC_DEVICE=0``. ``Scheduler(probe=True)`` keeps per-operator counts and
+them inline under ``PATHWAY_TPU_ASYNC_DEVICE=0``. Every node's ``op_state`` /
+``restore_op_state`` (``current`` and its ``STATE_ATTRS``) is what an operator snapshot
+keeps of it (``engine/persistence.py``). ``Scheduler(probe=True)`` keeps per-operator counts and
 times (:class:`OperatorStats`).
 
 The temporal operators live in ``engine/temporal.py`` and ``pw.iterate``'s node in
@@ -164,9 +166,30 @@ class Node:
     def snapshot(self) -> dict[Pointer, tuple]:
         return dict(self.current)
 
+    # -- operator persistence (engine/persistence.py) ---------------------------
+
+    #: the attributes beyond ``current`` that make up the operator's state, captured
+    #: at commit boundaries by the OperatorSnapshotManager
+    STATE_ATTRS: tuple = ()
+
+    def op_state(self) -> dict:
+        state: dict = {"current": dict(self.current)}
+        for name in self.STATE_ATTRS:
+            state[name] = getattr(self, name)
+        return state
+
+    def restore_op_state(self, state: dict) -> None:
+        self.current = dict(state["current"])
+        for name in self.STATE_ATTRS:
+            if name in state:
+                setattr(self, name, state[name])
+
 
 class StaticSource(Node):
     """A table fully known when the graph is built."""
+
+    #: a restored snapshot holds these rows already: a resumed run does not emit them
+    STATE_ATTRS = ("_emitted",)
 
     def __init__(self, scope: "Scope", rows: Iterable[tuple[Pointer, tuple]], arity: int):
         super().__init__(scope, [], arity)
@@ -623,8 +646,9 @@ class OverrideUniverseNode(Node):
 
 class InputMirrors:
     """Input-state access for operators that peek at their inputs' state. A scope on
-    one worker reads each input's complete ``current`` directly; the sharded scopes
-    that need own mirrors are not ported yet."""
+    one worker reads each input's complete ``current`` directly, so these operators'
+    snapshot state is their own ``current``; the sharded scopes that need own mirrors
+    are not ported yet."""
 
     def _input_state(self, port: int) -> dict:
         return self.inputs[port].current
@@ -904,6 +928,29 @@ class JoinNode(Node):
         )
         self.routes = {"device": 0, "host": 0, "rows": 0}
 
+    STATE_ATTRS = ("left_arr", "right_arr")
+
+    def op_state(self) -> dict:
+        """A dict view of the arrangements, with the live columnar blocks left as they
+        are (the snapshot does not degrade them)."""
+        state: dict = {"current": dict(self.current)}
+        if self._columnar_ok and (self._blocks_left or self._blocks_right):
+            left = {k: dict(v) for k, v in self.left_arr.items()}
+            right = {k: dict(v) for k, v in self.right_arr.items()}
+            self._materialize_blocks_into(left, right)
+            state["left_arr"], state["right_arr"] = left, right
+        else:
+            state["left_arr"], state["right_arr"] = self.left_arr, self.right_arr
+        return state
+
+    def restore_op_state(self, state: dict) -> None:
+        # a restored join runs on its dict arrangements
+        super().restore_op_state(state)
+        self._blocks_left.clear()
+        self._blocks_right.clear()
+        if self.left_arr or self.right_arr:
+            self._columnar_ok = False
+
     def _okey(
         self,
         lk: Pointer | None,
@@ -1080,16 +1127,17 @@ class JoinNode(Node):
         if not self._columnar_ok:
             return
         self._columnar_ok = False
-        for blocks, arr in (
-            (self._blocks_left, self.left_arr),
-            (self._blocks_right, self.right_arr),
-        ):
+        self._materialize_blocks_into(self.left_arr, self.right_arr)
+        self._blocks_left.clear()
+        self._blocks_right.clear()
+
+    def _materialize_blocks_into(self, left_arr: dict, right_arr: dict) -> None:
+        for blocks, arr in ((self._blocks_left, left_arr), (self._blocks_right, right_arr)):
             for side in blocks:
                 entries = Columns(side.n, side.cols, kbytes=side.kb).to_entries()
                 jk_lists = zip(*(a.tolist() for a in side.jks))
                 for (key, row, _d), jkv in zip(entries, jk_lists):
                     arr.setdefault(jkv, {})[key] = row
-            blocks.clear()
 
     # -- row path ----------------------------------------------------------------
 
@@ -1635,6 +1683,38 @@ class _ColumnarGroups:
         self.index = {k: i for i, (k, _gi) in enumerate(order)}
         self.size = live
 
+    @classmethod
+    def from_groups(
+        cls, groups: dict[Pointer, list[Any]], node: "GroupbyNode"
+    ) -> "_ColumnarGroups | None":
+        """The array state of a dict-of-states groupby (a restored snapshot), or None
+        where the arrays cannot hold it exactly: a sum column mixing ints and floats
+        across groups, or an int past the accumulator's headroom."""
+        cg = cls(node.by_cols, node.reducers, gkey_salt=node._gkey_salt)
+        n = len(groups)
+        cg._grow(max(n, 1))
+        sums: list[list[Any]] = [[] for _ in cg.sum_cols]
+        for gi, (gkey, (by_vals, states, count)) in enumerate(groups.items()):
+            raw = by_vals[0] if cg._single else tuple(by_vals)
+            cg.index[cg._norm(raw)] = gi
+            cg.by_raw.append(raw)
+            cg.gkeys.append(gkey)
+            cg.member[gi] = count
+            for ri, c in enumerate(cg.sum_cols):
+                if c >= 0:
+                    sums[ri].append(states[ri].acc)
+        cg.size = n
+        for ri, vals in enumerate(sums):
+            if cg.sum_cols[ri] < 0:
+                continue
+            # no groups keeps the int64 accumulator the live path starts from
+            if vals and all(isinstance(v, float) for v in vals):
+                cg.accs[ri] = np.zeros(len(cg.member), np.float64)
+            elif not all(type(v) is int and abs(v) <= (1 << 62) for v in vals):
+                return None
+            cg.accs[ri][:n] = vals
+        return cg
+
     def materialize(self, node: "GroupbyNode") -> dict[Pointer, list[Any]]:
         """The row path's dict-of-states form (degradation)."""
         groups: dict[Pointer, list[Any]] = {}
@@ -1704,6 +1784,31 @@ class GroupbyNode(Node):
             self._groups = self._cg.materialize(self)
             self._cg = None
         return self._groups
+
+    STATE_ATTRS = ("groups",)
+
+    def op_state(self) -> dict:
+        """A dict view of the columnar groups, which stay live (the snapshot does not
+        degrade them)."""
+        groups = self._cg.materialize(self) if self._cg is not None else self._groups
+        return {"current": dict(self.current), "groups": groups}
+
+    def restore_op_state(self, state: dict) -> None:
+        """Count and sum groupbys go back to the array state, so the commits after a
+        resume take the device or host-kernel route as before; others, and groups the
+        arrays cannot hold exactly, keep the dict of states."""
+        self.current = dict(state["current"])
+        groups = state["groups"]
+        self._groups, self._cg = groups, None
+        self._gkey_cache.clear()
+        if (
+            not self.set_id
+            and self.by_cols
+            and all(r.kind in (ReducerKind.COUNT, ReducerKind.SUM) for r, _c in self.reducers)
+        ):
+            cg = _ColumnarGroups.from_groups(groups, self)
+            if cg is not None:
+                self._groups, self._cg = {}, cg
 
     def _group_key(self, by_vals: tuple) -> Pointer:
         if self.set_id:
@@ -1839,6 +1944,8 @@ class DeduplicateNode(Node):
     raising acceptor is reported and the row skipped; a retraction removes the
     instance's row only if it is that row."""
 
+    STATE_ATTRS = ("accepted",)
+
     def __init__(
         self,
         scope: "Scope",
@@ -1931,6 +2038,8 @@ class SortNode(Node):
     compared orders by type name and ``repr``. Output row ``(prev, next)`` keyed by the
     source row id. Each commit recomputes the order of every instance it touches."""
 
+    STATE_ATTRS = ("members",)
+
     def __init__(
         self, scope: "Scope", source: Node, key_col: int, instance_col: int | None
     ) -> None:
@@ -1992,6 +2101,8 @@ class SortNode(Node):
 class IxNode(InputMirrors, Node):
     """Pointer-lookup join: for each input row, the source row its key column points
     to (ix)."""
+
+    STATE_ATTRS = ("forward", "reverse")
 
     def __init__(
         self,
@@ -2529,12 +2640,12 @@ class Scheduler:
         self.time = 1
         self._end_nodes()
 
-    def commit(self) -> int:
-        """Streaming mode: the static sources' rows (in the first commit) and every
-        input session's buffer, as one commit."""
+    def commit(self, statics: bool = True) -> int:
+        """Streaming mode: the static sources' rows (in the first commit, unless
+        ``statics`` is False) and every input session's buffer, as one commit."""
         for node in self.scope.nodes:
             if isinstance(node, StaticSource):
-                batch = node.initial_batch()
+                batch = node.initial_batch() if statics else None
             elif isinstance(node, InputSession):
                 batch = node.flush()
             else:

@@ -8,7 +8,8 @@ delivery and the time column orders the data. Every operator recomputes the grou
 batch (:func:`~pathway_tpu_torch.engine.graph.emit_local_group_diffs`), so the output
 stays an incremental update stream without arrangements. These nodes run on the host:
 the device work of a temporal program happens downstream, in the groupby and the join
-that ``windowby`` and ``window_join`` lower to.
+that ``windowby`` and ``window_join`` lower to. Each node's ``STATE_ATTRS`` are what
+an operator snapshot keeps of it (``engine/persistence.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ def _hashable(v: Any) -> Any:
 class BufferNode(Node):
     """Holds rows back until the watermark reaches their threshold column (the delay of
     a behavior). ``flush_on_end`` releases everything still held when the stream ends."""
+
+    STATE_ATTRS = ("watermark", "held", "_heap", "_seq", "_ended")
 
     def __init__(
         self,
@@ -125,6 +128,8 @@ class ForgetNode(Node):
     ``mark_forgetting_records`` appends a bool column that marks the forgetting
     retractions."""
 
+    STATE_ATTRS = ("watermark", "live", "_heap", "_seq")
+
     def __init__(
         self,
         scope: Scope,
@@ -191,6 +196,8 @@ class FreezeNode(Node):
     watermark has passed: that stretch of event time is immutable (the cutoff of a
     behavior that keeps its results)."""
 
+    STATE_ATTRS = ("watermark",)
+
     def __init__(self, scope: Scope, source: Node, threshold_col: int, time_col: int) -> None:
         super().__init__(scope, [source], source.arity)
         self.threshold_col = threshold_col
@@ -218,6 +225,8 @@ class SessionAssignNode(Node):
     """Appends ``(session_start, session_end)`` to each row: within an instance, a gap
     larger than ``max_gap`` between consecutive times starts a new session. Keyed by the
     source key; each commit recomputes the instances it touches."""
+
+    STATE_ATTRS = ("members",)
 
     def __init__(
         self,
@@ -285,6 +294,8 @@ class SessionAssignNode(Node):
 class _TimedJoin(Node):
     """Two sides held per instance value; each commit recomputes the instances it
     touches with ``_local``. The interval and asof joins differ only there."""
+
+    STATE_ATTRS = ("left_rows", "right_rows")
 
     def __init__(
         self,
@@ -459,6 +470,8 @@ class AsofNowJoinNode(Node):
     never changes when the right side does later; retracting the left row retracts its
     result."""
 
+    STATE_ATTRS = ("right_index", "answered")
+
     def __init__(
         self,
         scope: Scope,
@@ -529,6 +542,8 @@ class GradualBroadcastNode(Node):
     ``upper``, the rest ``lower``. When the value moves, only the rows that cross the
     cutoff are emitted again.
     """
+
+    STATE_ATTRS = ("triplet",)
 
     _KEY_SPACE = float(2**64)
 

@@ -2,9 +2,11 @@
 
 Counterpart of ``pathway_tpu/internals/parse_graph.py``: sinks (``pw.io.subscribe``)
 register here; ``pw.run`` lowers everything they reach onto one engine scope and runs
-the streaming loop until every connector is done. One worker in one process: the
-sharded and distributed runners (ROADMAP queue 1 item 14) and persistence (item 12)
-are not ported yet, and a configuration that asks for them raises.
+the streaming loop until every connector is done, under ``persistence_config`` (or the
+one the environment implies, ``PATHWAY_PERSISTENT_STORAGE`` and
+``PATHWAY_PERSISTENCE_MODE``) where one is given. One worker in one process: the
+sharded and distributed runners (ROADMAP queue 1 item 14) are not ported yet, nor are
+monitoring and tracing (item 12), and a configuration that asks for them raises.
 """
 
 from __future__ import annotations
@@ -41,10 +43,12 @@ G = ParseGraph()
 
 def run(**kwargs: Any) -> None:
     """Execute the captured graph: build every sink's table, attach the sinks, and
-    pump the connectors through commits until all of them are done. With
-    ``PATHWAY_PROCESS_METRICS`` set, the scheduler keeps per-operator probe stats
-    (``GraphRunner.scheduler.stats``). The device pipeline's completion thread is
-    reaped and the graph cleared afterwards, whether the run ends or raises."""
+    pump the connectors through commits until all of them are done. ``persistence_config``
+    (``pw.persistence.Config``) journals, snapshots or caches as its mode says; without
+    one, the environment's ``replay_config`` applies. With ``PATHWAY_PROCESS_METRICS``
+    set, the scheduler keeps per-operator probe stats (``GraphRunner.scheduler.stats``).
+    The device pipeline's completion thread is reaped and the graph cleared afterwards,
+    whether the run ends or raises."""
     from pathway_tpu_torch.engine import device_pipeline
     from pathway_tpu_torch.internals.config import get_pathway_config
     from pathway_tpu_torch.internals.runner import GraphRunner
@@ -66,14 +70,11 @@ def run(**kwargs: Any) -> None:
             "more than one worker needs the sharded or distributed runner, which is "
             "not ported yet (ROADMAP queue 1 item 14)"
         )
-    if kwargs.get("persistence_config") is not None or (
-        config.persistent_storage or config.replay_storage
-    ):
-        raise NotImplementedError(
-            "persistence is not ported yet (ROADMAP queue 1 item 12)"
-        )
+    persistence_config = kwargs.get("persistence_config")
+    if persistence_config is None:
+        persistence_config = config.replay_config
     try:
-        runner = GraphRunner()
+        runner = GraphRunner(persistence_config=persistence_config)
         if os.environ.get("PATHWAY_PROCESS_METRICS"):
             runner.probe_stats = True
         for sink in G.sinks:

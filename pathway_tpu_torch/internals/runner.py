@@ -17,23 +17,32 @@ spec raises ``NotImplementedError`` naming its ROADMAP item (queue 1 item 8).
 
 from __future__ import annotations
 
+import os
 import time as _time
 from typing import TYPE_CHECKING, Any, Callable, Sequence
 
+from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine import expression as eex
 from pathway_tpu_torch.engine import temporal
 from pathway_tpu_torch.engine.external_index import ExternalIndexNode
 from pathway_tpu_torch.engine.graph import Node, Scheduler, Scope
 from pathway_tpu_torch.engine.iterate import IterateNode
+from pathway_tpu_torch.engine.persistence import (
+    FileBackend,
+    OperatorSnapshotManager,
+    PersistentDriver,
+)
 from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
 from pathway_tpu_torch.engine.value import Pointer
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as pex
 from pathway_tpu_torch.internals.desugaring import substitute
 from pathway_tpu_torch.internals.expression import ColumnExpression, ColumnReference
+from pathway_tpu_torch.internals.udfs.caches import set_udf_cache_root
 from pathway_tpu_torch.internals.udfs.executors import make_kw_fn as _make_kw_fn
 from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
 from pathway_tpu_torch.internals.universe import solver
+from pathway_tpu_torch.persistence import PersistenceMode
 
 if TYPE_CHECKING:
     from pathway_tpu_torch.internals.table import Table
@@ -109,8 +118,16 @@ def _pump_drivers(drivers: list, on_data: Callable[[], Any]) -> None:
 
 
 class GraphRunner:
-    def __init__(self, scope: Scope | None = None) -> None:
+    def __init__(self, scope: Scope | None = None, persistence_config: Any = None) -> None:
         self.scope = scope if scope is not None else Scope()
+        #: ``pw.persistence.Config`` or None; its backend's root also holds the UDFs'
+        #: disk caches
+        self.persistence = persistence_config
+        if persistence_config is not None:
+            self._wire_udf_cache(persistence_config)
+        #: the run's OperatorSnapshotManager under operator persistence (its write and
+        #: restore times and sizes), else None
+        self.snapshot_manager: OperatorSnapshotManager | None = None
         self.nodes: dict[int, Node] = {}
         self.drivers: list[Any] = []  # connector drivers (streaming mode)
         self._local_logs: dict[int, Node] = {}  # local error logs by id
@@ -120,6 +137,24 @@ class GraphRunner:
         #: the rows of ``pw.iterate``'s parameter tables, by slot, in an inner run
         self.iterate_params: list[list[tuple[Pointer, tuple]]] | None = None
         self.scheduler: Scheduler | None = None
+
+    @staticmethod
+    def _wire_udf_cache(config: Any) -> None:
+        """Route the default ``DiskCache`` of UDFs under a filesystem backend's root
+        (every persistence mode; ``UDF_CACHING`` does only this)."""
+        backend = getattr(config, "backend", None)
+        if isinstance(backend, FileBackend):
+            set_udf_cache_root(os.path.join(backend.root, "udf-cache"))
+
+    def _operator_snapshot_manager(self) -> OperatorSnapshotManager | None:
+        if self.persistence is None or (
+            getattr(self.persistence, "persistence_mode", None)
+            != PersistenceMode.OPERATOR_PERSISTING
+        ):
+            return None
+        return OperatorSnapshotManager(
+            self.persistence.backend, getattr(self.persistence, "snapshot_interval_ms", 0)
+        )
 
     # -- expression compilation --------------------------------------------
 
@@ -285,6 +320,13 @@ class GraphRunner:
         if kind == "input":
             # connector-backed table: the io layer supplies an attach function
             node, driver = spec.params["attach"](scope)
+            persistent_id = spec.params.get("persistent_id")
+            if (
+                persistent_id is not None
+                and self.persistence is not None
+                and self.persistence.persistence_mode == PersistenceMode.PERSISTING
+            ):
+                driver = PersistentDriver(driver, self.persistence.backend, persistent_id)
             self.drivers.append(driver)
             return node
 
@@ -759,22 +801,56 @@ class GraphRunner:
     def run(self) -> Scheduler:
         """Run to completion: with no connector, one static commit and the end;
         otherwise the static tables' rows as a first commit (time 0, empty when there
-        is no static table), the streaming loop (poll
-        the drivers, commit, until all of them report done), then the final commit and
-        the sinks' end hooks. The scheduler stays on ``self.scheduler``, where its
-        probe stats are read. The async UDFs' event-loop thread is stopped when the run
-        ends or raises."""
+        is no static table), the streaming loop (poll the drivers, commit, until all of
+        them report done), then the final commit and the sinks' end hooks. The
+        scheduler stays on ``self.scheduler``, where its probe stats are read. The async
+        UDFs' event-loop thread is stopped when the run ends or raises.
+
+        Under persistence, the journals replay first, as a commit of their own; or the
+        operator snapshot is restored and the clock resumes after its commit time. A
+        commit's journal segments and snapshot are cut only once the device pipeline
+        has completed that commit (``drain_until``), and the run ends with a last
+        journal flush and a snapshot."""
         sched = Scheduler(self.scope, probe=self.probe_stats)
         self.scheduler = sched
         try:
             if not self.drivers:
                 sched.run_static()
                 return sched
-            # the static tables' rows (if any) at time 0, so streamed commits count
-            # from 1, as in the JAX engine
+            persistent = [d for d in self.drivers if isinstance(d, PersistentDriver)]
+            for driver in persistent:
+                driver.replay()
+            if persistent:
+                # the replayed events as a commit of their own, so the state downstream
+                # is rebuilt even if no new input arrives
+                sched.commit(statics=False)
+            self.snapshot_manager = snapshot_mgr = self._operator_snapshot_manager()
+            if snapshot_mgr is not None:
+                restored_time = snapshot_mgr.restore(self.scope, self.drivers)
+                if restored_time is not None:
+                    # sink times stay monotonic across the restart
+                    sched.time = max(sched.time, restored_time + 1)
+            # the static tables' rows (if any), so streamed commits count from 1 on a
+            # fresh start, as in the JAX engine
             sched.commit()
-            _pump_drivers(self.drivers, sched.commit)
+
+            def on_data() -> None:
+                time = sched.commit()
+                if persistent or snapshot_mgr is not None:
+                    # exactly once: the checkpoint of commit N waits for N's staged
+                    # device work
+                    device_pipeline.drain_until(time)
+                for driver in persistent:
+                    driver.on_commit(time)
+                if snapshot_mgr is not None:
+                    snapshot_mgr.on_commit(self.scope, self.drivers, time)
+
+            _pump_drivers(self.drivers, on_data)
             sched.finish()
+            for driver in persistent:
+                driver.on_commit(sched.time)
+            if snapshot_mgr is not None:
+                snapshot_mgr.snapshot(self.scope, self.drivers, sched.time)
             return sched
         finally:
             stop_event_loop()

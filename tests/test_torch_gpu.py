@@ -892,3 +892,89 @@ def test_placed_groupby_and_join_on_the_card_give_the_host_bits(cuda, monkeypatc
         else:
             assert dec[key]["host_calls"] == 0 and dec[key]["device_calls"] == len(sizes)
     assert dres.stats()["h2d"]["bytes"] > 0 and dres.live_resident_batches() == 0
+
+
+def test_knn_index_snapshot_restores_on_the_card_bit_for_bit(cuda):
+    """A ``DeviceKnnIndex`` on the card, pickled through ``op_state`` and restored into a
+    fresh index: its tensors are on the card and equal to the snapshot's bits, and the
+    same queries give the same ids and scores bit for bit."""
+    import pickle
+
+    from pathway_tpu_torch.engine.value import ref_scalar
+
+    rng = np.random.default_rng(5)
+    dim, cap = 64, 4096
+    idx = DeviceKnnIndex(dim=dim, capacity=cap)
+    keys = [ref_scalar(i) for i in range(3000)]
+    idx.add(keys, list(rng.standard_normal((3000, dim)).astype(np.float32)))
+    idx.remove(keys[:100])
+    queries = list(rng.standard_normal((16, dim)).astype(np.float32))
+    before = idx.search(queries, k=10)
+    state = pickle.loads(pickle.dumps(idx.op_state(), protocol=4))
+    twin = DeviceKnnIndex(dim=dim, capacity=cap)
+    twin.restore_op_state(state)
+    assert all(t.device.type == "cuda" for t in twin.state)
+    assert np.array_equal(twin.state.vectors.cpu().numpy(), state["vectors"])
+    assert np.array_equal(twin.state.valid.cpu().numpy(), state["valid"])
+    after = twin.search(queries, k=10)
+    bits = lambda hits: [(int(k), np.float32(s).view(np.int32).item()) for k, s in hits]  # noqa: E731
+    assert [bits(h) for h in after] == [bits(h) for h in before]
+    assert all(len(h) == 10 for h in after)
+
+
+def test_forced_device_groupby_snapshot_and_restore(cuda, monkeypatch):
+    """A count and sum groupby with every batch on the card, snapshotted after two
+    commits and restored into a fresh graph: the restored node keeps its columnar state,
+    its next commit takes the device route, and the output equals the uninterrupted
+    run's bit for bit."""
+    import pickle
+
+    from pathway_tpu_torch.engine import device_ops as dops
+    from pathway_tpu_torch.engine import graph as g
+    from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
+    from pathway_tpu_torch.engine.value import ref_scalar
+
+    monkeypatch.setenv("PATHWAY_TPU_DEVICE_OPS", "1")
+    rng = np.random.default_rng(9)
+    commits = [
+        [(ref_scalar(c, i), (int(rng.integers(0, 300)), float(rng.integers(-9, 9)) / 4))
+         for i in range(4000)]
+        for c in range(3)
+    ]
+
+    def build():
+        scope = g.Scope()
+        sess = scope.input_session(2)
+        gb = scope.group_by_table(sess, [0], [(make_reducer(ReducerKind.COUNT), []),
+                                              (make_reducer(ReducerKind.SUM), [1])])
+        gb._pw_observed = True
+        return scope, sess, gb
+
+    def bits(node):
+        return sorted((int(k), tuple(np.float64(x).view(np.int64).item() if isinstance(x, float)
+                                     else x for x in row)) for k, row in node.current.items())
+
+    dops.configure(device="cuda")
+    try:
+        scope, sess, gb = build()
+        sched = g.Scheduler(scope)
+        for c, rows in enumerate(commits):
+            for k, r in rows:
+                sess.insert(k, r)
+            sched.commit()
+            if c == 1:
+                blob = pickle.dumps([n.op_state() for n in scope.nodes], protocol=4)
+        want = bits(gb)
+        scope2, sess2, gb2 = build()
+        for node, state in zip(scope2.nodes, pickle.loads(blob)):
+            node.restore_op_state(state)
+        assert gb2._cg is not None
+        sched2 = g.Scheduler(scope2)
+        sched2.time = 2
+        for k, r in commits[2]:
+            sess2.insert(k, r)
+        sched2.commit()
+        assert gb2.routes == {"device": 1, "host": 0, "rows": 0}
+        assert bits(gb2) == want
+    finally:
+        dops.configure()

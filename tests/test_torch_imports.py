@@ -95,6 +95,13 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.engine.sharded",
         "pathway_tpu_torch.engine.device_residency",
         "pathway_tpu_torch.native",
+        "pathway_tpu_torch.persistence",
+        "pathway_tpu_torch.engine.persistence",
+        "pathway_tpu_torch.io.fs",
+        "pathway_tpu_torch.io.csv",
+        "pathway_tpu_torch.io.jsonlines",
+        "pathway_tpu_torch.io.plaintext",
+        "pathway_tpu_torch.io.null",
     ):
         assert expected in names
 
@@ -112,7 +119,9 @@ def test_engine_api_imports_no_jax_and_touches_no_card():
             "    VectorStoreServer, mocks, parsers, splitters)",
             "names = [pw.run, pw.io.python.read, pw.io.python.ConnectorSubject,",
             "         pw.io.subscribe, pw.this.x, pw.schema_from_types, pw.Table, pw.udf, pw.UDF,",
-            "         pw.reducers.sum, pw.left.x, pw.right.x, pw.debug.table_from_markdown]",
+            "         pw.reducers.sum, pw.left.x, pw.right.x, pw.debug.table_from_markdown,",
+            "         pw.io.fs.read, pw.io.csv.write, pw.io.jsonlines.read, pw.io.plaintext.read,",
+            "         pw.io.null.write, pw.persistence.Config, pw.persistence.Backend.filesystem]",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))",
             "assert not bad, bad",
             "import torch",

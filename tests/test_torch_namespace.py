@@ -101,12 +101,14 @@ def test_getattr_shadows_no_submodule_on_first_import():
         "import pathway_tpu_torch as pw\n"
         "assert pw.io.python is python and pw.stdlib.indexing is indexing\n"
         "assert pw.stdlib.stateful.deduplicate\n"
+        "from pathway_tpu_torch.io import csv\n"
+        "assert pw.io.csv is csv and pw.persistence.Config\n"
         "try:\n"
-        "    from pathway_tpu_torch.io import csv\n"
+        "    from pathway_tpu_torch.io import kafka\n"
         "except NotImplementedError as e:\n"
         "    assert 'item 15' in str(e)\n"
         "else:\n"
-        "    raise AssertionError('pw.io.csv imported')\n"
+        "    raise AssertionError('pw.io.kafka imported')\n"
     )
     env = {**os.environ, "PYTHONPATH": REPO}
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO, timeout=120)
