@@ -109,6 +109,34 @@ limit):
    probe on, beside the device-path loop over the same docs (wall and device-busy ms,
    idle share, per-node batches, insertions, deletions and time, and the engine's own
    host time per 256 docs: in-commit wall less the batch-apply node's time).
+   observability: (a) the same program (20,000 docs, 64 queries, 1,048,576 slots) with
+   the tracer on every 4th commit (``TRACER.configure(enabled=True, sample=4)``, as
+   ``bench.py``'s pipeline leg runs it) and the sampling profiler at its default 50 Hz,
+   exporting into a temporary directory: every doc and query answered, recall@10 >=
+   0.99 and every query its own doc; each trace's four critical-path buckets summing to
+   its wall within 4e-6 s (a clamped trace keeps no host time; clamped traces are
+   counted and printed), the Chrome trace valid, the spans holding ``ingest-wait``,
+   ``knn-update``, ``knn-search``, ``op`` and ``sink``; the latency histogram's count
+   equal to the sinks' rows, the connectors' entries equal to docs plus queries, 64 KNN
+   queries and at least 20,000 KNN updates; the exported profile valid with ``cuda:0``'s
+   allocator in it, and the registry's exposition (``full_snapshot`` of the run's
+   scheduler) valid with ``pathway_device_memory_bytes{device="cuda:0"}``; traced docs/s
+   beside engine_pipeline's untraced docs/s, the median bucket shares, the profile's
+   phase totals. (b) groupby_sum's 1M-row commit on the card (``PATHWAY_TPU_DEVICE_OPS=1``)
+   untraced, then traced at every commit: ``device_ops.segment_reduce`` in the trace's
+   device bucket, its device seconds above 0, the output's bits unchanged. (c)
+   ``bench_dataflow.py``'s fused_chain shape (8 stages, 20,000 base rows, 60 commits of
+   1,000 changes) through the port's Scope and Scheduler, 4 runs, each gate in a child
+   process (``chip_smoke.py --overhead-gate trace|profile|null``; ``null`` runs both
+   ways off): two graphs whose commits alternate, the gate on for one of them
+   (alternating between runs), the collector off inside a run; the overhead is the mean
+   over the runs of each run's on-over-off total, printed beside the best-of-4 and the
+   per-commit median readings; the tracer at 1/16 and the profiler at 50 Hz each at
+   most 5% over off (the profiler's reading retried once past the gate); then
+   a streamed ``pw.run`` whose UDF raises on one row (an error row) and whose sink
+   raises in the same commit: the flight dump holds ``run_start``, ``commit``,
+   ``error`` and ``run_error`` and the id of the trace in flight. The phase prints its
+   seconds.
 10. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
    steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
@@ -236,9 +264,10 @@ limit):
    without; wall seconds, units/s and each kernel's calls and ns, both ways.
 24. The native line (every phase's host kernel calls and ns, and the both-ways
    comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
-   forward's ``launches_by_path`` includes ``rag_evals`` and ``persistence``, the
-   segment reduction's ``table_ops``, ``temporal``, ``iterate``, ``optimizer`` and
-   ``persistence``), the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+   forward's ``launches_by_path`` includes ``rag_evals``, ``persistence`` and
+   ``observability``, the segment reduction's ``table_ops``, ``temporal``, ``iterate``,
+   ``optimizer``, ``persistence`` and ``observability``), the ``nvidia-smi`` line, and
+   last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
 its first batch, as in the JAX package. Phases that check a device route
@@ -251,6 +280,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import gc
@@ -279,6 +309,9 @@ from pathway_tpu_torch.engine.batch import Columns
 from pathway_tpu_torch.engine.device import TRANSFERS, device_batches_held, lazy_rows
 from pathway_tpu_torch.engine.graph import Scheduler, Scope, _match_join_pairs
 from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
+from pathway_tpu_torch.engine import expression as eex
+from pathway_tpu_torch.internals import metrics as pmetrics
+from pathway_tpu_torch.internals import profiling, tracing
 from pathway_tpu_torch.internals.runner import GraphRunner
 from pathway_tpu_torch.models import (
     ContrastiveBatch,
@@ -1026,6 +1059,24 @@ def _engine_program(embedder: EncoderEmbedder, corpus, n_docs: int, n_queries: i
     return obs, pw.run
 
 
+def _engine_recall(obs: dict) -> tuple[float, bool]:
+    """Recall@10 of an ``_engine_program`` run's answers against exact f32 search over
+    the vectors its doc subscriber received (as pipeline_leg computes it), and whether
+    every query found its own doc."""
+    docs, answers = obs["docs"], obs["answers"]
+    keys = list(docs)
+    mat = np.stack([docs[k][1] for k in keys])
+    norms = np.linalg.norm(mat, axis=1)
+    recalls, self_hit = [], True
+    key_of = {doc_id: key for key, (doc_id, _emb) in docs.items()}
+    for qid, (hit_keys, qvec) in answers.items():
+        scores = mat @ qvec / np.maximum(norms * np.linalg.norm(qvec), 1e-30)
+        exact = {keys[j] for j in np.argsort(-scores)[:K]}
+        recalls.append(len(exact & set(hit_keys)) / len(exact))
+        self_hit &= key_of.get(qid * 37 % N_DOCS) in hit_keys
+    return (float(np.mean(recalls)) if recalls else float("nan")), self_hit
+
+
 def _count_embed_calls(embedder: EncoderEmbedder) -> tuple[list[int], list[int]]:
     """Count the embed calls the UDF makes (one per chunk of at most CHUNK texts; the
     device pipeline's controller may narrow the chunks) -> ([calls], the texts handed
@@ -1084,7 +1135,7 @@ def _pipe_since(mark: tuple[float, list[int]]) -> dict:
             "dispatch_complete_p99_ms_in_run": 1e3 * hist.quantile(0.99)}
 
 
-def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
+def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> tuple[int, int, float]:
     """The streaming-RAG pipeline through the port's own engine, as ``bench.py::
     pipeline_leg`` drives the JAX package: 20,000 docs through the python connector
     (100 ms autocommit), the embedder UDF (256-doc chunks, lazy device rows) and
@@ -1125,20 +1176,9 @@ def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
     weight_bytes = sum(p.numel() * p.element_size() for p in embedder.encoder.parameters())
     after_bytes = torch.cuda.memory_allocated()
 
-    # recall@10 of the streamed index against exact search over the same vectors,
-    # computed as pipeline_leg computes it
     docs, answers = obs["docs"], obs["answers"]
     keys = list(docs)
-    mat = np.stack([docs[k][1] for k in keys])
-    norms = np.linalg.norm(mat, axis=1)
-    recalls, self_hit = [], True
-    key_of = {doc_id: key for key, (doc_id, _emb) in docs.items()}
-    for qid, (hit_keys, qvec) in answers.items():
-        scores = mat @ qvec / np.maximum(norms * np.linalg.norm(qvec), 1e-30)
-        exact = {keys[j] for j in np.argsort(-scores)[:K]}
-        recalls.append(len(exact & set(hit_keys)) / len(exact))
-        self_hit &= key_of.get(qid * 37 % N_DOCS) in hit_keys
-    recall = float(np.mean(recalls)) if recalls else float("nan")
+    recall, self_hit = _engine_recall(obs)
     # a sample of the subscriber's rows (host twins) against the index's stored rows
     rng = np.random.default_rng(SEED)
     sample = [keys[i] for i in rng.choice(len(keys), 256, replace=False)]
@@ -1188,10 +1228,10 @@ def phase_engine_pipeline(card: Card, main_path_docs_per_s: float) -> int:
     check(pipe["completed_commits_in_run"] > 0, f"device pipeline: {pipe}")
     check(pipe["inflight"] == 0, f"{pipe['inflight']} commits in flight after pw.run")
     check(not threads_after, f"completion threads alive after pw.run: {threads_after}")
-    del factory, index, obs, docs, answers, mat
+    del factory, index, obs, docs, answers
     parity = phase_engine_async_parity(card, embedder, corpus)
     phase_engine_host_cost(card, embedder, corpus)
-    return launches, parity
+    return launches, parity, docs_per_s
 
 
 def _gil_check() -> dict:
@@ -1423,6 +1463,355 @@ def phase_engine_host_cost(card: Card, embedder: EncoderEmbedder, corpus) -> Non
               engine=engine, device_path_loop=device_path, nodes=nodes,
               engine_top=[{"kernel": k[:80], "device_ms": ms, "launches": c} for ms, k, c in kernels[:8]])
     del index
+
+
+OBS_TRACE_SAMPLE = 4  # bench.py's pipeline leg traces every 4th commit
+OBS_CHAIN = dict(stages=8, base=20_000, commits=60, delta=1000)  # bench_dataflow.py's fused_chain shape
+OBS_OVERHEAD_SAMPLE = 16  # the tracer's default interval, at which its overhead gate runs
+OBS_GATE_PCT = 5.0
+OBS_BLOCK = 4  # commits a side runs in turn in the overhead gates (a few sampler periods)
+OBS_GATE_RUNS = 8  # runs an overhead gate averages (the graph with the gate on alternating)
+BUCKETS = ("host_compute_s", "exchange_s", "queue_wait_s", "device_s")
+
+
+def _family_total(name: str) -> float:
+    """The sum over every label set of a family in the registry's snapshot."""
+    fam = pmetrics.REGISTRY.snapshot().get(name)
+    return sum(e["value"] for e in fam["series"]) if fam else 0.0
+
+
+def _obs_marks() -> dict:
+    """The process-wide counters the traced run is held to, read before and after it."""
+    reg = pmetrics.REGISTRY
+    return {
+        "latency_count": reg.histogram("pathway_ingest_to_sink_latency_seconds").count,
+        "output_rows": reg.counter("pathway_output_rows_total").value,
+        "connector_entries": _family_total("pathway_connector_entries_total"),
+        "knn_updates": reg.counter("pathway_device_knn_updates_total").value,
+        "knn_queries": reg.counter("pathway_device_knn_queries_total").value,
+    }
+
+
+def _only_file(directory: str, prefix: str) -> dict:
+    names = [n for n in os.listdir(directory) if n.startswith(prefix)] if os.path.isdir(directory) else []
+    check(len(names) == 1, f"{directory}: {names} (one {prefix}* file expected)")
+    with open(os.path.join(directory, names[0])) as fh:
+        return json.load(fh)
+
+
+def _observability_traced_run(card: Card, untraced_docs_per_s: float, out: str) -> int:
+    """engine_pipeline's program with the tracer on (every 4th commit, as bench.py's
+    pipeline leg runs it) and the sampling profiler at its default rate, each exporting
+    into ``out``: the answers, the traces, the exported files and the registry's
+    exposition checked; -> the forward kernel's launches."""
+    corpus = [doc_text(i) for i in range(N_DOCS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    embed_calls, _sizes = _count_embed_calls(embedder)
+    factory = _KeptKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    obs, run = _engine_program(embedder, corpus, N_DOCS, N_QUERIES, factory, wait_s=300.0)
+    trace_dir, profile_dir = os.path.join(out, "traces"), os.path.join(out, "profiles")
+    gc.collect()
+    device_pipeline.PIPELINE.configure()
+    before = _obs_marks()
+    fa.KERNEL.launches = 0
+    tracing.TRACER.configure(enabled=True, sample=OBS_TRACE_SAMPLE, clear=True)
+    profiling.PROFILER.configure(enabled=True, clear=True)  # PATHWAY_TPU_PROFILE_HZ: 50
+    try:
+        with _KeptRunner() as kept:
+            t0 = time.perf_counter()
+            _with_env({"PATHWAY_TPU_TRACE_DIR": trace_dir, "PATHWAY_TPU_PROFILE_DIR": profile_dir}, run)
+            run_s = time.perf_counter() - t0
+        traces = tracing.TRACER.traces()
+        interval = tracing.TRACER.interval
+    finally:
+        tracing.TRACER.configure(enabled=False, clear=True)
+        profiling.PROFILER.configure(enabled=False, clear=True)
+    launches = fa.KERNEL.launches
+    delta = {k: v - before[k] for k, v in _obs_marks().items()}
+    recall, self_hit = _engine_recall(obs)
+    ingest_s = obs["ingest_end"] - obs["run_start"]
+    docs_per_s = N_DOCS / ingest_s if ingest_s > 0 else float("nan")
+
+    chrome = tracing.chrome_trace(traces)
+    tracing.validate_chrome_trace(chrome)
+    exported = _only_file(trace_dir, "pathway_trace_p")
+    tracing.validate_chrome_trace(exported)
+    doc = _only_file(profile_dir, "pathway_profile_p")
+    profiling.validate_profile(doc)
+    memory = doc["workers"]["0"]["device"].get("memory", {})
+    text = pmetrics.render_snapshots({"0": pmetrics.full_snapshot(kept.runners[0].scheduler)})
+    families = pmetrics.validate_exposition(text)
+    mem_series = {(la["device"], la["stat"]) for _n, la, _v
+                  in families.get("pathway_device_memory_bytes", {"samples": []})["samples"]}
+
+    clamped = [t["commit_time"] for t in traces if t["critical_path"]["clamped"]]
+    sums_off = [abs(sum(t["critical_path"][b] for b in BUCKETS) - t["critical_path"]["wall_s"])
+                for t in traces if not t["critical_path"]["clamped"]]
+    names = {s["name"] for t in traces for s in t["spans"]}
+    cats = collections.Counter(s["cat"] for t in traces for s in t["spans"])
+    shares = {b: float(np.median([t["critical_path"]["shares"][b] for t in traces]))
+              for b in ("host_compute", "exchange", "queue_wait", "device")} if traces else {}
+    card.emit(
+        "observability_traced_run",
+        model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded)", capacity=CAPACITY,
+        n_docs=len(obs["docs"]), n_answers=len(obs["answers"]), query_timeouts=len(obs["timeouts"]),
+        docs_per_s_traced=docs_per_s, docs_per_s_untraced_engine_pipeline=untraced_docs_per_s,
+        traced_over_untraced=docs_per_s / untraced_docs_per_s, run_s=run_s,
+        recall_at_10=recall, self_hit=self_hit, traces=len(traces), sample_interval_at_end=interval,
+        median_bucket_shares=shares, clamped_traces=len(clamped), clamped_commit_times=clamped,
+        largest_bucket_sum_error_s=max(sums_off, default=0.0), span_categories=dict(cats),
+        span_names=sorted(names), registry_deltas=delta, profile_phase_totals_s=doc["phases"],
+        profile_samples=doc["workers"]["0"]["sample_count"], profile_rate_hz=doc["workers"]["0"]["rate_hz"],
+        profile_memory=memory, exposition_families=len(families), flash_launches=launches,
+        embed_calls=embed_calls[0], failures=obs["failures"],
+    )
+    check(not obs["failures"], f"observability: {obs['failures']}")
+    check(len(obs["docs"]) == N_DOCS, f"observability: {len(obs['docs'])} of {N_DOCS} docs arrived")
+    check(len(obs["answers"]) == N_QUERIES and not obs["timeouts"],
+          f"observability: {len(obs['answers'])} answers, timeouts {obs['timeouts']}")
+    check(recall >= 0.99 and self_hit, f"observability: recall@10 {recall}, self hit {self_hit}")
+    check(len(traces) > 0 and max(sums_off, default=0.0) <= 4e-6,
+          f"observability: bucket sums off the wall by {max(sums_off, default=0.0)} s")
+    check(all(t["critical_path"]["host_compute_s"] == 0.0 for t in traces if t["critical_path"]["clamped"]),
+          "observability: a clamped trace kept host time")
+    check({"ingest-wait", "knn-update", "knn-search"} <= names and cats["op"] > 0 and cats["sink"] > 0,
+          f"observability: spans {sorted(names)}, categories {dict(cats)}")
+    check(delta["latency_count"] == delta["output_rows"] > 0,
+          f"observability: latency count {delta['latency_count']} != sink rows {delta['output_rows']}")
+    check(delta["connector_entries"] == N_DOCS + N_QUERIES,
+          f"observability: connector entries {delta['connector_entries']}")
+    check(delta["knn_queries"] == N_QUERIES and delta["knn_updates"] >= N_DOCS,
+          f"observability: knn counters {delta}")
+    check(memory.get("cuda:0", {}).get("bytes_in_use", 0) > 0, f"observability: profile memory {memory}")
+    check({("cuda:0", st) for st in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")} <= mem_series,
+          f"observability: device memory series {sorted(mem_series)}")
+    check(launches > 0 and launches == LAYERS * embed_calls[0],
+          f"observability: flash launches {launches} != {LAYERS} x {embed_calls[0]} embed calls")
+    return launches
+
+
+def _traced_groupby(rows: list, traced: bool) -> tuple[dict | None, tuple]:
+    """One groupby_sum commit of ``rows`` on the card, in the tracer's commit bracket
+    (every commit sampled when ``traced``) -> (its trace, the output state)."""
+    sched, node = _groupby_prepared(rows, _sum_count(), 2)
+    tracing.TRACER.configure(enabled=traced, sample=1, clear=True)
+    try:
+        ctx = tracing.TRACER.begin(sched.time, origin_mono=time.monotonic())
+        t = sched.commit()
+        trace = tracing.TRACER.end(t) if ctx is not None else None
+    finally:
+        tracing.TRACER.configure(enabled=False, clear=True)
+    return trace, _final_state(node)
+
+
+def _observability_device_bucket(card: Card, rows: list) -> int:
+    """groupby_sum's 1M-row commit on the card, untraced then traced: the trace's device
+    bucket holds the segment reduction's ns and the output keeps its bits; -> the
+    segment kernels' launches in the traced commit."""
+    _none, plain = _with_device_ops("1", lambda: _traced_groupby(rows, False))
+    _zero_segment_launches()
+    trace, traced = _with_device_ops("1", lambda: _traced_groupby(rows, True))
+    launches = _segment_launches()
+    cp = trace["critical_path"]
+    card.emit("observability_device_bucket", workload="groupby_sum", rows=len(rows),
+              device_kernel_ns=trace["device_kernel_ns"], device_s=trace["device_s"],
+              critical_path={k: v for k, v in cp.items() if k != "chain"},
+              spans=[(s["name"], s["cat"], s["dur"]) for s in trace["spans"]],
+              segment_launches=launches, bit_identical=_same_state(plain, traced))
+    check("device_ops.segment_reduce" in trace["device_kernel_ns"] and trace["device_s"] > 0,
+          f"observability: device bucket {trace['device_kernel_ns']}")
+    check(_same_state(plain, traced), "observability: the traced groupby's output differs")
+    check(sum(launches.values()) > 0, f"observability: segment launches {launches}")
+    return sum(launches.values())
+
+
+def _fused_chain() -> tuple:
+    """bench_dataflow.py's fused_chain graph on the port's Scope and Scheduler: an
+    expression, a filter, 8 expression stages -> (its scheduler, its input session)."""
+    scope = Scope()
+    sess = scope.input_session(2)
+    cur = scope.expression_table(sess, [eex.ColumnRef(0), eex.ColumnRef(1),
+                                        eex.Binary(">", eex.ColumnRef(0), eex.Const(100))])
+    cur = scope.filter_table(cur, 2)
+    for _ in range(OBS_CHAIN["stages"]):
+        cur = scope.expression_table(cur, [eex.ColumnRef(0), eex.Binary(
+            "+", eex.Binary("*", eex.ColumnRef(1), eex.Const(1.0000001)), eex.Const(0.5))])
+    return Scheduler(scope), sess
+
+
+def _fused_chain_pair(rows: list, gate: str, on_side: int) -> tuple[list, list]:
+    """Two fused_chain graphs over the same rows, their commits in blocks of
+    ``OBS_BLOCK`` in turn (the side that leads a pair of blocks alternating): the base
+    rows, then commits of retractions and inserts. Graph ``on_side``'s commits run with
+    ``gate`` on: ``trace``, each in the tracer's commit bracket at 1/16; ``profile``,
+    with the profiler's 50 Hz sampler thread running over each of its blocks (started
+    before the block and stopped after it, both outside the timed commits; a block holds
+    several of the thread's periods, so the tick a start forgoes is a small share);
+    ``null``, as the other.
+    -> each commit's seconds ([off], [on]). Interleaving blocks of commits, not whole
+    runs, puts both sides under the same pace of the host, whose CPU throughput swings
+    by tens of percent within a second: on the card's host, runs of the same work a run
+    apart differ by more than the 5% gate, so no comparison of separate runs resolves
+    it. The heap is collected before the run and the collector is off during it: a
+    collection inside the run (a fifth of its time, in steps of milliseconds) would land
+    on whichever graph's commit crossed its threshold."""
+    gc.collect()
+    gc.disable()
+    graphs = [_fused_chain(), _fused_chain()]
+    tracing.TRACER.configure(enabled=gate == "trace", sample=OBS_OVERHEAD_SAMPLE, clear=True)
+    profiling.PROFILER.configure(enabled=gate == "profile", clear=True)
+    try:
+        for sched, sess in graphs:
+            for key, row in rows:
+                sess.insert(key, row)
+            sched.commit()
+        times: list[list[float]] = [[], []]
+        base_n, delta = OBS_CHAIN["base"], OBS_CHAIN["delta"]
+        for b in range(0, OBS_CHAIN["commits"], OBS_BLOCK):
+            for side in ((0, 1) if (b // OBS_BLOCK) % 2 == 0 else (1, 0)):
+                sched, sess = graphs[side]
+                on = side == on_side
+                if on:
+                    check(profiling.PROFILER.maybe_start() == (gate == "profile"),
+                          "the profiler's thread did not start")
+                for c in range(b, min(b + OBS_BLOCK, OBS_CHAIN["commits"])):
+                    base = (c * delta) % (base_n - delta)
+                    for i in range(base, base + delta):
+                        key, row = rows[i]
+                        sess.remove(key, row)
+                        sess.insert(key, (row[0], row[1] + 1.0))
+                    t0 = time.perf_counter()
+                    ctx = tracing.TRACER.begin(sched.time, origin_mono=time.monotonic()) if on else None
+                    sched.commit()
+                    if ctx is not None:
+                        tracing.TRACER.end(sched.time - 1)
+                    times[on].append(time.perf_counter() - t0)
+                profiling.PROFILER.stop()
+        check(gate != "profile" or profiling.PROFILER._samples > 0, "the profiler took no sample")
+        return times[0], times[1]
+    finally:
+        profiling.PROFILER.stop()
+        tracing.TRACER.configure(enabled=False, clear=True)
+        profiling.PROFILER.configure(enabled=False, clear=True)
+        gc.enable()
+
+
+def _overhead(rows: list, gate: str) -> dict:
+    """``OBS_GATE_RUNS`` runs, the two ways' blocks of commits interleaved in each run
+    and the graph that runs with the gate on alternating between runs -> the overhead:
+    the mean over the runs of each run's total on over its total off, less 1. Beside
+    it, two readings the gate does not use: the best of the runs each way (each
+    commit's best run, summed over the 60 commits), and the median of all commits'
+    on/off ratios, which cannot see a cost that only the sampled commits carry."""
+    runs = [_fused_chain_pair(rows, gate, on_side=r % 2) for r in range(OBS_GATE_RUNS)]
+    paired = [sum(on) / sum(off) for off, on in runs]
+    t_off, t_on = (sum(min(col) for col in zip(*(r[way] for r in runs))) for way in (0, 1))
+    ratios = sorted(b / a for r in runs for a, b in zip(r[0], r[1]))
+    return {"overhead_pct": 100.0 * (sum(paired) / len(paired) - 1.0),
+            "runs_pct": [100.0 * (p - 1.0) for p in paired],
+            "off_s": [sum(off) for off, _on in runs], "on_s": [sum(on) for _off, on in runs],
+            "best_of_runs_pct": 100.0 * (t_on - t_off) / t_off,
+            "commit_median_pct": 100.0 * (ratios[len(ratios) // 2] - 1.0)}
+
+
+def _overhead_child(kind: str) -> int:
+    """``chip_smoke.py --overhead-gate trace|profile|null``: one gate's reading, printed as the
+    last line, in a fresh process (the parent's heap, a million rows and the models,
+    would make its garbage collections set the pace)."""
+    rows = [(pw.ref_scalar(i), (i, float(i) * 0.5)) for i in range(OBS_CHAIN["base"])]
+    print(json.dumps(_overhead(rows, kind)), flush=True)
+    return 0
+
+
+def _overhead_gate(kind: str) -> dict:
+    """One gate's reading from a child process (as the JAX package's gates run theirs)."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--overhead-gate", kind],
+                         capture_output=True, text=True, timeout=600, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _observability_flight(card: Card, out: str) -> dict:
+    """A streamed pw.run with every commit traced whose UDF raises on one row (an
+    error row and a flight ``error`` event: a UDF's exception does not end a run, in
+    either package) and whose sink then raises on the same commit: the flight dump in
+    PATHWAY_TPU_FLIGHT_DIR must hold run_start, commit, error and run_error, and carry
+    the trace in flight."""
+    flight_dir = os.path.join(out, "flight")
+    landed = threading.Event()
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            for c in range(2):
+                landed.clear()
+                for i in range(8):
+                    self.next(x=c * 8 + i)
+                if not landed.wait(timeout=60.0):
+                    return
+
+    @pw.udf
+    def checked(x: int) -> int:
+        if x == 9:
+            raise ValueError("the UDF raised on x = 9")
+        return x
+
+    def on_change(key, row, time, is_addition):
+        if row["x"] == 15:
+            raise RuntimeError("the sink raised on x = 15")
+        if row["x"] == 7:
+            landed.set()
+
+    t = pw.io.python.read(Feed(), schema=pw.schema_from_types(x=int), autocommit_duration_ms=50)
+    pw.io.subscribe(t.select(x=pw.this.x, y=checked(pw.this.x)), on_change=on_change)
+    pmetrics.FLIGHT.clear()
+    tracing.TRACER.configure(enabled=True, sample=1, clear=True)
+    tracing.TRACER._adapt = lambda *a: None  # every commit sampled, the raising one too
+    raised = None
+    try:
+        _with_env({"PATHWAY_TPU_FLIGHT_DIR": flight_dir}, pw.run)
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        del tracing.TRACER._adapt
+        tracing.TRACER.configure(enabled=False, clear=True)
+    dump = _only_file(flight_dir, "pathway_flight_p")
+    kinds = [e["kind"] for e in dump["events"]]
+    run_error = [e for e in dump["events"] if e["kind"] == "run_error"]
+    got = {"raised": raised, "reason": dump["reason"], "kinds": kinds, "trace_id": dump["trace_id"],
+           "run_error_trace_id": run_error[0].get("trace_id") if run_error else None}
+    check(raised is not None and "x = 15" in raised, f"observability: pw.run raised {raised!r}")
+    check({"run_start", "commit", "error", "run_error"} <= set(kinds), f"observability: flight {kinds}")
+    check(dump["trace_id"] is not None and got["run_error_trace_id"] == dump["trace_id"],
+          f"observability: flight trace ids {got}")
+    return got
+
+
+def phase_observability(card: Card, untraced_docs_per_s: float, groupby_rows: list) -> dict:
+    """The why plane on the card: (a) engine_pipeline's program traced and profiled,
+    (b) the device bucket of a 1M-row groupby commit, (c) the tracer's and the
+    profiler's overhead on bench_dataflow.py's fused_chain (each must stay at or under
+    5%) and a raising run's flight dump. -> the forward kernel's and the segment
+    kernels' launches."""
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="pw_observability_")
+    try:
+        flash = _observability_traced_run(card, untraced_docs_per_s, out)
+        segment = _observability_device_bucket(card, groupby_rows)
+        trace_gate = _overhead_gate("trace")
+        profile_gate = _overhead_gate("profile")
+        if profile_gate["overhead_pct"] > OBS_GATE_PCT:
+            # the sampler steals time only through the GIL: one reading past the gate
+            # is retried, as the JAX package's profile gate does
+            profile_gate = dict(_overhead_gate("profile"), retried_after=profile_gate)
+        flight = _observability_flight(card, out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    card.emit("observability", seconds=time.perf_counter() - t_phase,
+              chain=OBS_CHAIN, trace_overhead=dict(trace_gate, sample=OBS_OVERHEAD_SAMPLE),
+              profile_overhead=profile_gate, flight=flight)
+    check(trace_gate["overhead_pct"] <= OBS_GATE_PCT, f"trace overhead {trace_gate}")
+    check(profile_gate["overhead_pct"] <= OBS_GATE_PCT, f"profile overhead {profile_gate}")
+    return {"flash": flash, "segment": segment}
 
 
 def train_batch(n: int, vocab_size: int) -> ContrastiveBatch:
@@ -5007,6 +5396,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--persistence-child"]:
         return _persistence_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--overhead-gate"]:
+        return _overhead_child(sys.argv[2])
     card = Card()
     card.emit("device", name=card.name, count=card.count, torch=torch.__version__,
               cuda=torch.version.cuda)
@@ -5030,11 +5421,16 @@ def main() -> int:
     card.emit("relational_rows", seconds=time.perf_counter() - t0, rows=N_REL)
     relational = counted("relational", phase_relational, card, rel_rows)
     native_paths = phase_native_relational(card, rel_rows)
+    groupby_rows = rel_rows["groupby"]  # the observability phase's groupby commit
     del rel_rows
     gc.collect()
     relational_engine = counted("relational_engine", phase_relational_engine, card)
     serving = counted("main_path", phase_main_path, card)
-    engine, parity = counted("engine_pipeline", phase_engine_pipeline, card, serving["docs_per_s"])
+    engine, parity, engine_docs_per_s = counted("engine_pipeline", phase_engine_pipeline, card,
+                                                serving["docs_per_s"])
+    observability = counted("observability", phase_observability, card, engine_docs_per_s,
+                            groupby_rows)
+    del groupby_rows
     train = counted("train", phase_train, card)
     image_embedder = ImageEmbedder("vit-b16", max_batch_size=IMAGE_BATCH, seed=SEED)
     vision = counted("vision_parity", phase_vision_parity, card, image_embedder)
@@ -5059,7 +5455,8 @@ def main() -> int:
                                "train": train[fwd["name"]], "vision": vision,
                                "multimodal": multimodal, "rerank": rerank,
                                "vector_store": vector_store, "rag": rag,
-                               "rag_evals": rag_evals, "persistence": persistence["flash"]}
+                               "rag_evals": rag_evals, "persistence": persistence["flash"],
+                               "observability": observability["flash"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
@@ -5069,7 +5466,8 @@ def main() -> int:
                                       "relational_engine": relational_engine,
                                       "table_ops": table_ops, "temporal": temporal,
                                       "iterate": iterate, "optimizer": optimizer,
-                                      "persistence": persistence["segment"]}
+                                      "persistence": persistence["segment"],
+                                      "observability": observability["segment"]}
     print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)

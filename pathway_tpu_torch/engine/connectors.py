@@ -16,9 +16,15 @@ and paths give the same keys in both packages. The sinks' side: :class:`JsonLine
 a process relaunched under the same ``PATHWAY_RUN_ID`` resume its file past the last
 durable commit.
 
+Each driver counts its entries and poll batches (``pathway_connector_entries_total``,
+``pathway_connector_batches_total``, labelled by connector), stamps its oldest
+uncommitted row (``first_pending_wall``, the start of the ingest-to-sink latency and of
+a trace's ``ingest-wait`` span), and retries a reader poll that raises ``OSError``
+(``PATHWAY_TPU_CONNECTOR_RETRIES``, ``pathway_connector_retries_total``).
+
 Not ported yet: the message buses, databases and object stores, the synchronization
-groups (ROADMAP queue 1 item 15), the connectors' metrics (item 12), and the writers'
-rollback of a mesh to a common commit (item 14). :class:`BatchScheduleDriver` feeds
+groups (ROADMAP queue 1 item 15), and the writers' rollback of a mesh to a common
+commit (item 14). :class:`BatchScheduleDriver` feeds
 ``pw.debug``'s ``StreamGenerator``.
 """
 
@@ -30,12 +36,15 @@ import io as _io
 import json as _json
 import os
 import queue
+import random
+import time as _time
 from typing import Any, Callable, Sequence
 
 from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine.batch import Columns
 from pathway_tpu_torch.engine.graph import InputSession
 from pathway_tpu_torch.engine.value import Json, Pointer, hash_values_batch, ref_scalar
+from pathway_tpu_torch.internals import metrics as _metrics
 
 # -- parsed events ----------------------------------------------------------
 
@@ -300,6 +309,22 @@ class InputDriver:
         self._per_source_rows: dict[str, list[tuple[Pointer, tuple]]] = {}
         self._seq = 0
         self.done = False
+        self.entries_total = 0
+        self.batches_total = 0
+        self.last_entry_wall: float | None = None
+        #: monotonic stamp of the oldest row fed to the session and not yet committed;
+        #: the runner pops it per commit for the ingest-to-sink latency
+        self.first_pending_wall: float | None = None
+        self._m_entries = _metrics.REGISTRY.counter(
+            "pathway_connector_entries_total",
+            "entries ingested per connector",
+            connector=self.source_name,
+        )
+        self._m_batches = _metrics.REGISTRY.counter(
+            "pathway_connector_batches_total",
+            "reader poll batches per connector",
+            connector=self.source_name,
+        )
 
     def effective_autocommit_s(self) -> float:
         """The autocommit window scaled by the device pipeline's pressure: a congested
@@ -353,11 +378,45 @@ class InputDriver:
         else:
             self.session.remove(key, values)
 
+    def _poll_reader(self) -> tuple[list, bool]:
+        """``reader.poll()``, with ``PATHWAY_TPU_CONNECTOR_RETRIES`` (default 3, 0
+        disables) retries of a poll that raises ``OSError`` (a network filesystem
+        hiccup, a refused socket), backing off exponentially with jitter and counted in
+        ``pathway_connector_retries_total``. When the retries are spent the error
+        raises; any other error is never retried."""
+        try:
+            return self.reader.poll()
+        except OSError:
+            retries = int(os.environ.get("PATHWAY_TPU_CONNECTOR_RETRIES", "3"))
+            if retries <= 0:
+                raise
+            counter = _metrics.REGISTRY.counter(
+                "pathway_connector_retries_total",
+                "connector reader polls retried after transient I/O errors",
+            )
+            delay = 0.05
+            for attempt in range(retries):
+                counter.inc(1)
+                _time.sleep(delay * (0.5 + random.random()))
+                delay = min(delay * 2, 2.0)
+                try:
+                    return self.reader.poll()
+                except OSError:
+                    if attempt == retries - 1:
+                        raise
+            raise  # unreachable: the last attempt returns or raises
+
     def poll(self) -> str:
         if self.done:
             return "done"
         produced = False
-        entries, done = self.reader.poll()
+        entries, done = self._poll_reader()
+        if entries:
+            self.entries_total += len(entries)
+            self.batches_total += 1
+            self.last_entry_wall = _time.monotonic()
+            self._m_entries.inc(len(entries))
+            self._m_batches.inc(1)
         replaces = self.reader.replaces_sources
         notify_source = getattr(self.session, "on_source", None)
         for payload, source_id, metadata in entries:
@@ -386,6 +445,8 @@ class InputDriver:
                 produced = True
             if replaces and events:
                 self._per_source_rows[source_id] = new_rows
+        if produced and self.first_pending_wall is None:
+            self.first_pending_wall = _time.monotonic()
         if done:
             self.done = True
             return "done"

@@ -30,9 +30,10 @@ next staging, ``drain_until`` or ``drain``; only ``reset`` drops it. Each bounda
 drain first decays the residency plane's resident batches
 (``device_residency.decay_resident_batches``; none on one card). :meth:`stats` reports
 the device operators and the residency plane beside the pipeline; the collective
-exchange is absent until the sharded runners (ROADMAP queue 1 item 14). The tracer's
-spans and critical-path samples are not ported yet (item 12): with no tracer the
-controller reads no critical path, as the JAX package does with tracing off.
+exchange is absent until the sharded runners (ROADMAP queue 1 item 14). With tracing
+on (``PATHWAY_TPU_TRACE=1``) the controller reads the last traced commit's critical
+path, and a staging blocked on the in-flight limit records a ``device-backpressure``
+span (``cat="wait"``, the queue-wait bucket); with tracing off it reads none.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from pathway_tpu_torch.engine import device as _device
 from pathway_tpu_torch.engine import device_ops as _dops
 from pathway_tpu_torch.engine import device_residency as _dres
 from pathway_tpu_torch.internals import metrics as _metrics
+from pathway_tpu_torch.internals import tracing as _tracing
 
 __all__ = [
     "AdaptiveBatchController",
@@ -139,9 +141,11 @@ class AdaptiveBatchController:
 
     @staticmethod
     def _last_critical_path() -> dict | None:
-        """The last traced commit's critical-path buckets; the port has no tracer yet
-        (ROADMAP queue 1 item 12), so there is none."""
-        return None
+        """The last traced commit's critical-path buckets; None with tracing off."""
+        if not _tracing.TRACER.enabled:
+            return None
+        traces = _tracing.TRACER.traces()
+        return traces[-1]["critical_path"] if traces else None
 
     def observe(self, *, staged_depth: int, blocked: bool, occupancy: float) -> None:
         """One device-commit tick of the feedback loop."""
@@ -288,13 +292,20 @@ class DevicePipeline:
             handle.prefetch()  # enqueue the copy here; never wait for it here
         self._ensure_worker()
         blocked = False
+        ctx = _tracing.current()
         with self._cv:
             while (
                 len(self._staged) + (1 if self._active_time is not None else 0)
                 >= self.controller.depth
             ):
                 blocked = True
+                if ctx is not None:
+                    bp0 = _time.perf_counter()
                 self._cv.wait(timeout=60.0)
+                if ctx is not None:
+                    # the host blocked on the device stage: the queue-wait bucket
+                    ctx.span("device-backpressure", "wait", bp0, _time.perf_counter(),
+                             inflight=len(self._staged))
                 err = self._take_error_locked()
                 if err is not None:
                     raise err

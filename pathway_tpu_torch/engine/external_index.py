@@ -13,11 +13,14 @@ the engine's lazy device rows (``engine.device.LazyDeviceVector``, the embedder 
 output), or row views of such tensors. Rows already on the card are gathered and
 scattered there, with no host round trip, one gather and scatter per parent batch; a
 search comes back in one packed device-to-host copy. ``rows_device`` and ``rows_host``
-count the rows each add took through the two routes.
+count the rows each add took through the two routes. The node counts
+``pathway_device_knn_updates_total`` and ``pathway_device_knn_queries_total`` and, in a
+sampled commit, records the ``knn-update`` and ``knn-search`` spans.
 """
 
 from __future__ import annotations
 
+import time as _walltime
 from typing import Any, Hashable, NamedTuple, Sequence
 
 import numpy as np
@@ -28,7 +31,19 @@ from pathway_tpu_torch.engine.batch import DeltaBatch
 from pathway_tpu_torch.engine.device import LazyDeviceVector
 from pathway_tpu_torch.engine.graph import Node, Scope
 from pathway_tpu_torch.engine.value import is_error
+from pathway_tpu_torch.internals import metrics as _metrics
+from pathway_tpu_torch.internals import tracing as _tracing
 from pathway_tpu_torch.ops.knn import DeviceKnnState, knn_init, knn_search, knn_update
+
+#: the volume each commit pushes through the KNN index: mutations and query probes
+_KNN_UPDATES = _metrics.REGISTRY.counter(
+    "pathway_device_knn_updates_total",
+    "key add/remove mutations dispatched to the device KNN index",
+)
+_KNN_QUERIES = _metrics.REGISTRY.counter(
+    "pathway_device_knn_queries_total",
+    "query vectors dispatched to the device KNN search",
+)
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -609,11 +624,19 @@ class ExternalIndexNode(Node):
             else:
                 rm_keys.append(key)
         # removes first, so a delete and insert of a key in one commit nets to an add
-        if rm_keys:
-            add_set = set(add_keys)
-            self.ext_index.remove([k_ for k_ in rm_keys if k_ not in add_set])
-        if add_keys:
-            self.ext_index.add(add_keys, add_vecs)
+        if rm_keys or add_keys:
+            t0 = _walltime.perf_counter()
+            if rm_keys:
+                add_set = set(add_keys)
+                self.ext_index.remove([k_ for k_ in rm_keys if k_ not in add_set])
+            if add_keys:
+                self.ext_index.add(add_keys, add_vecs)
+            _KNN_UPDATES.inc(len(rm_keys) + len(add_keys))
+            ctx = _tracing.current()
+            if ctx is not None:
+                # ends at the enqueue: the scatter may still run on the card
+                ctx.span("knn-update", "pipeline", t0, _walltime.perf_counter(),
+                         adds=len(add_keys), removes=len(rm_keys))
 
         # 2. answer new queries as of now; retract the answers of deleted queries
         out = DeltaBatch()
@@ -638,7 +661,14 @@ class ExternalIndexNode(Node):
             pending.append((key, vec, limit))
         if pending:
             max_k = max(limit for _k, _v, limit in pending)
+            t0 = _walltime.perf_counter()
             results = self.ext_index.search([v for _k, v, _l in pending], max_k)
+            _KNN_QUERIES.inc(len(pending))
+            ctx = _tracing.current()
+            if ctx is not None:
+                # ends after the results' device-to-host copy: covers the search
+                ctx.span("knn-search", "pipeline", t0, _walltime.perf_counter(),
+                         queries=len(pending), k=max_k)
             for (key, _vec, limit), hits in zip(pending, results):
                 hits = hits[:limit]
                 # a query of a live key again replaces its previous answer (unless

@@ -27,7 +27,10 @@ which stages the commit's device batches for completion on its own thread, or co
 them inline under ``PATHWAY_TPU_ASYNC_DEVICE=0``. Every node's ``op_state`` /
 ``restore_op_state`` (``current`` and its ``STATE_ATTRS``) is what an operator snapshot
 keeps of it (``engine/persistence.py``). ``Scheduler(probe=True)`` keeps per-operator counts and
-times (:class:`OperatorStats`).
+times (:class:`OperatorStats`). In a commit the tracer samples (``internals/tracing.py``)
+every ``process()`` records an ``op`` span (``sink`` for a subscribe sink); the sinks
+count ``pathway_output_rows_total``, and the flight recorder gets the sinks' retractions
+and the error log's messages.
 
 The temporal operators live in ``engine/temporal.py`` and ``pw.iterate``'s node in
 ``engine/iterate.py``; both share this module's Node and :func:`emit_local_group_diffs`.
@@ -64,6 +67,14 @@ from pathway_tpu_torch.engine.value import (
     rows_differ,
 )
 from pathway_tpu_torch.internals import metrics as _metrics
+from pathway_tpu_torch.internals import tracing as _tracing
+
+#: sink-side row counter; one shared series: the per-commit delta is what stamps the
+#: ingest-to-sink latency histogram (internals/runner.py)
+_OUTPUT_ROWS = _metrics.REGISTRY.counter(
+    "pathway_output_rows_total",
+    "rows delivered to subscribe sinks (insertions and retractions)",
+)
 
 
 class Node:
@@ -2255,12 +2266,24 @@ class SubscribeNode(Node):
 
     def process(self, time: int) -> DeltaBatch:
         batch = self.take(0)
+        rows = 0
+        retractions = 0
         for key, row, diff in batch:
             if self.skip_errors and any(is_error(v) for v in row):
                 self.report(key, "error value in output row")
                 continue
+            rows += 1
+            if diff < 0:
+                retractions += 1
             if self._on_change is not None:
                 self._on_change(key, row, time, diff)
+        if rows:
+            _OUTPUT_ROWS.inc(rows)
+            tr = _tracing.current()
+            if tr is not None:
+                tr.note_sink(rows)
+        if retractions:
+            _metrics.FLIGHT.record("retractions", time=time, count=retractions, sink=self.index)
         return batch
 
     def on_time_end(self, time: int) -> None:
@@ -2285,6 +2308,7 @@ class ErrorLogNode(Node):
     def log(self, message: str) -> None:
         key = hash_values((next(self._counter), message), salt=b"errlog")
         self.buffered.append((key, (message,), 1))
+        _metrics.FLIGHT.record("error", message=message)
 
     def flush_buffer(self) -> DeltaBatch | None:
         if not self.buffered:
@@ -2562,6 +2586,8 @@ class Scheduler:
     def propagate(self, time: int) -> None:
         scope = self.scope
         probe = self.probe
+        trace = _tracing.current()
+        timed = probe or trace is not None
         while True:
             dirty = [n for n in scope.nodes if n.has_pending()]
             if probe:
@@ -2581,13 +2607,21 @@ class Scheduler:
             for node in scope.nodes:
                 if not node.has_pending():
                     continue
-                if probe:
+                if timed:
                     t0 = _walltime.perf_counter()
                 out = node.process(time)
                 if out is None:
                     out = DeltaBatch()
                 # consumers consolidate in take(); state applies lazily
                 node._defer_state(out)
+                if trace is not None:
+                    trace.span(
+                        getattr(node, "name", None) or type(node).__name__,
+                        "sink" if isinstance(node, SubscribeNode) else "op",
+                        t0,
+                        _walltime.perf_counter(),
+                        node=node.index,
+                    )
                 if probe:
                     st = self._stats_of(node)
                     st.time_spent += _walltime.perf_counter() - t0

@@ -38,6 +38,8 @@ from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as pex
 from pathway_tpu_torch.internals.desugaring import substitute
 from pathway_tpu_torch.internals.expression import ColumnExpression, ColumnReference
+from pathway_tpu_torch.internals import metrics as _metrics
+from pathway_tpu_torch.internals import tracing as _tracing
 from pathway_tpu_torch.internals.udfs.caches import set_udf_cache_root
 from pathway_tpu_torch.internals.udfs.executors import make_kw_fn as _make_kw_fn
 from pathway_tpu_torch.internals.udfs.executors import stop_event_loop
@@ -68,6 +70,47 @@ _CAST_NAMES = {
     dt.BOOL: "Bool",
     dt.STR: "String",
 }
+
+
+#: ingest-to-sink latency, observed once per commit, weighted by the rows the commit
+#: delivered to the subscribe sinks
+_INGEST_LATENCY = _metrics.REGISTRY.histogram(
+    "pathway_ingest_to_sink_latency_seconds",
+    "end-to-end ingest->sink latency stamped per delta batch",
+)
+#: the series the sink nodes bump (engine/graph.py SubscribeNode)
+_OUT_ROWS = _metrics.REGISTRY.counter("pathway_output_rows_total")
+
+
+def _take_ingest_stamp(drivers: list) -> tuple[float | None, list[str]]:
+    """Pop the oldest pending-row stamp across the connector drivers (``InputDriver.poll``
+    sets it when rows enter a session); the commit that follows delivers those rows,
+    closing the latency window. Also returns the names of the sources whose stamps were
+    popped: the trace's ``ingest-wait`` span carries them."""
+    best = None
+    sources: list[str] = []
+    for d in drivers:
+        inner = getattr(d, "driver", d)
+        stamp = getattr(inner, "first_pending_wall", None)
+        if stamp is not None:
+            inner.first_pending_wall = None
+            name = getattr(inner, "source_name", None)
+            if name:
+                sources.append(str(name))
+            if best is None or stamp < best:
+                best = stamp
+    return best, sources
+
+
+def _observe_commit_latency(stamp: float | None, commit_started: float, rows_before: float) -> None:
+    """Stamp the latency histogram with this commit's sink-row delta. Rows without an
+    ingest stamp fall back to the commit's start, so the histogram's count always
+    equals the rows the sinks produced."""
+    rows = int(_OUT_ROWS.value - rows_before)
+    if rows <= 0:
+        return
+    origin = stamp if stamp is not None else commit_started
+    _INGEST_LATENCY.observe_n(max(0.0, _time.monotonic() - origin), rows)
 
 
 def _pump_drivers(drivers: list, on_data: Callable[[], Any]) -> None:
@@ -810,7 +853,12 @@ class GraphRunner:
         operator snapshot is restored and the clock resumes after its commit time. A
         commit's journal segments and snapshot are cut only once the device pipeline
         has completed that commit (``drain_until``), and the run ends with a last
-        journal flush and a snapshot."""
+        journal flush and a snapshot.
+
+        Each streamed commit is offered to the tracer (``TRACER.begin`` / ``end``, its
+        time zero the connectors' oldest pending row), stamps the ingest-to-sink
+        latency histogram with the rows it delivered and records a ``commit`` flight
+        event; the traces are exported when the stream ends."""
         sched = Scheduler(self.scope, probe=self.probe_stats)
         self.scheduler = sched
         try:
@@ -835,7 +883,15 @@ class GraphRunner:
             sched.commit()
 
             def on_data() -> None:
+                commit_started = _time.monotonic()
+                stamp, sources = _take_ingest_stamp(self.drivers)
+                rows_before = _OUT_ROWS.value
+                ctx = _tracing.TRACER.begin(sched.time, origin_mono=stamp, sources=sources)
                 time = sched.commit()
+                _observe_commit_latency(stamp, commit_started, rows_before)
+                _metrics.FLIGHT.record("commit", time=time)
+                if ctx is not None:
+                    _tracing.TRACER.end(time)
                 if persistent or snapshot_mgr is not None:
                     # exactly once: the checkpoint of commit N waits for N's staged
                     # device work
@@ -847,6 +903,7 @@ class GraphRunner:
 
             _pump_drivers(self.drivers, on_data)
             sched.finish()
+            _tracing.TRACER.export()
             for driver in persistent:
                 driver.on_commit(sched.time)
             if snapshot_mgr is not None:

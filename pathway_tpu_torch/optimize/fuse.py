@@ -19,10 +19,13 @@ Correctness rests on two properties of the member kinds:
   nondeterministic UDFs (the argument ``ExpressionNode.process`` makes for itself).
 
 Errors are reported through the *original* stage nodes (kept inside ``_stages``), so
-error-log names match the unfused graph exactly.
+error-log names match the unfused graph exactly. In a commit the tracer samples, a
+columnar sweep records a ``fused-sweep:<name or index>`` span.
 """
 
 from __future__ import annotations
+
+import time as _walltime
 
 import numpy as np
 
@@ -31,6 +34,7 @@ from pathway_tpu_torch.engine import graph as g
 from pathway_tpu_torch.engine.batch import Columns, DeltaBatch, entry_keys_bytes
 from pathway_tpu_torch.engine.expression import EvalContext
 from pathway_tpu_torch.engine.value import is_error
+from pathway_tpu_torch.internals import tracing as _tracing
 
 #: exact types (not subclasses) eligible for chain membership
 _MEMBER_TYPES = (g.ExpressionNode, g.FilterNode)
@@ -88,10 +92,20 @@ class FusedChainNode(g.Node):
             batch = batch.consolidate()
         insert_only = batch._insert_only or batch._raw_insert_only
         if insert_only and len(batch) >= device.VECTOR_THRESHOLD:
-            # the tracer's ``fused-sweep`` span wraps this sweep in the JAX package;
-            # the tracer is not ported yet (ROADMAP queue 1 item 12)
+            trace = _tracing.current()
+            t0 = _walltime.perf_counter() if trace is not None else 0.0
             fast = self._columnar_sweep(batch)
             if fast is not None:
+                if trace is not None:
+                    trace.span(
+                        f"fused-sweep:{getattr(self, 'name', '') or self.index}",
+                        "op",
+                        t0,
+                        _walltime.perf_counter(),
+                        mode="columnar",
+                        rows=len(batch),
+                        stages=len(self._stages),
+                    )
                 return fast
         out = DeltaBatch()
         if not insert_only:

@@ -18,6 +18,9 @@ and resized on the host, sent to the card as uint8 ``[b, 224, 224, 3]`` (a quart
 f32 pixels' bytes), normalised there (``normalize_u8``, where the JAX package fuses it
 into the jitted forward) and embedded by the ViT of ``models/vision.py``, the batch
 padded to a power of two of at least 8.
+
+The remote embedders (``OpenAIEmbedder``, ``LiteLLMEmbedder``, ``GeminiEmbedder``) are
+not ported yet, and raise ``NotImplementedError`` naming ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine.device import lazy_rows
 from pathway_tpu_torch.internals.udfs import UDF, CacheStrategy, batch_executor
+from pathway_tpu_torch.internals.unported import module_getattr
 from pathway_tpu_torch.models.hf_import import load_sentence_transformer
 from pathway_tpu_torch.models.transformer import (
     Encoder,
@@ -57,6 +61,11 @@ from pathway_tpu_torch.xpacks.llm._tokenizer import (
     pad_to_buckets,
 )
 from pathway_tpu_torch.xpacks.llm.llms import _checkpoint_digest
+
+__getattr__ = module_getattr(__name__, dict.fromkeys(
+    ("OpenAIEmbedder", "LiteLLMEmbedder", "GeminiEmbedder"),
+    "8: the remote embedders, over an injected client",
+))
 
 _ENCODER_PRESETS = {
     "all-MiniLM-L6-v2": "minilm_l6",

@@ -978,3 +978,23 @@ def test_forced_device_groupby_snapshot_and_restore(cuda, monkeypatch):
         assert bits(gb2) == want
     finally:
         dops.configure()
+
+
+def test_device_counters_read_the_card_allocator(cuda):
+    """After one allocation the profiler's telemetry reads ``cuda:0``'s allocator, and the
+    registry renders it as ``pathway_device_memory_bytes``."""
+    from pathway_tpu_torch.internals import metrics as tm
+    from pathway_tpu_torch.internals import profiling as tpr
+
+    x = torch.empty(1 << 20, dtype=torch.float32, device=cuda)
+    tpr._TELEMETRY_CACHE[0] = float("-inf")
+    mem = tpr.device_counters()["memory"]["cuda:0"]
+    assert mem["bytes_in_use"] >= x.numel() * 4
+    assert mem["peak_bytes_in_use"] >= mem["bytes_in_use"]
+    assert mem["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+    text = tm.render_snapshots({"0": tm.REGISTRY.snapshot()})
+    fams = tm.validate_exposition(text)
+    stats = {la["stat"] for _n, la, _v in fams["pathway_device_memory_bytes"]["samples"]
+             if la["device"] == "cuda:0"}
+    assert stats == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    del x

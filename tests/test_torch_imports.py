@@ -43,6 +43,8 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.engine.device",
         "pathway_tpu_torch.engine.device_pipeline",
         "pathway_tpu_torch.internals.metrics",
+        "pathway_tpu_torch.internals.tracing",
+        "pathway_tpu_torch.internals.profiling",
         "pathway_tpu_torch.engine.graph",
         "pathway_tpu_torch.engine.connectors",
         "pathway_tpu_torch.internals.dtype",

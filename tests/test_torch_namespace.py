@@ -10,7 +10,11 @@ results."""
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
+import inspect
 import os
+import pkgutil
 import re
 import subprocess
 import sys
@@ -75,6 +79,54 @@ def test_every_reference_stdlib_module_is_ported_or_names_its_item(name):
 @pytest.mark.parametrize("name", sorted(jindexing.__all__))
 def test_every_reference_indexing_name_is_ported_or_names_its_item(name):
     _ported_or_names_its_item(tpw.stdlib.indexing, name)
+
+
+#: the port's names for the xpack's (ROADMAP: deliberate differences, names)
+XPACK_RENAMED = {"TpuEncoderEmbedder": "EncoderEmbedder", "TpuImageEmbedder": "ImageEmbedder",
+                 "TpuPipelineChat": "PipelineChat"}
+
+
+def _xpack_names() -> list[tuple[str, str]]:
+    """(module, name) of every public class and function that each module of
+    ``pathway_tpu.xpacks.llm`` defines; (module, "") for a module the port lacks."""
+    import pathway_tpu.xpacks.llm as jllm
+
+    out = []
+    for info in pkgutil.iter_modules(jllm.__path__):
+        if importlib.util.find_spec(f"pathway_tpu_torch.xpacks.llm.{info.name}") is None:
+            out.append((info.name, ""))
+            continue
+        jmod = importlib.import_module(f"pathway_tpu.xpacks.llm.{info.name}")
+        for name, obj in sorted(vars(jmod).items()):
+            if (not name.startswith("_") and (inspect.isclass(obj) or inspect.isfunction(obj))
+                    and obj.__module__ == jmod.__name__):
+                out.append((info.name, name))
+    return out
+
+
+@pytest.mark.parametrize("module,name", _xpack_names())
+def test_every_xpack_name_is_ported_or_names_its_item(module, name):
+    import pathway_tpu_torch.xpacks.llm as tllm
+
+    if not name:
+        # a module of the reference the port lacks: the package's attribute raises
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+            getattr(tllm, module)
+        return
+    tmod = importlib.import_module(f"pathway_tpu_torch.xpacks.llm.{module}")
+    try:
+        getattr(tmod, XPACK_RENAMED.get(name, name))
+    except NotImplementedError as e:
+        assert ITEM.search(str(e)) and name in str(e), str(e)
+    assert not hasattr(tmod, "no_such_name")
+
+
+def test_the_remote_embedders_and_the_servers_name_item_8():
+    for code in ("from pathway_tpu_torch.xpacks.llm.embedders import OpenAIEmbedder",
+                 "from pathway_tpu_torch.xpacks.llm import servers",
+                 "import pathway_tpu_torch.xpacks.llm as x; x.servers"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+            exec(code, {})
 
 
 def test_the_names_reference_programs_call_first():
