@@ -137,6 +137,33 @@ limit):
    raises in the same commit: the flight dump holds ``run_start``, ``commit``,
    ``error`` and ``run_error`` and the id of the trace in flight. The phase prints its
    seconds.
+   watch: (a) the same program with 256-doc paced commits under
+   ``pw.run(monitoring_level=ALL if rich imports else NONE, with_http_server=True,
+   monitoring_server_port=<a free port>)`` with the profiler, the timeseries loop at
+   0.1 s, the telemetry sampler at 0.5 s and two SLOs (``WATCH_SLO``: an ingest p95
+   latency bound of 1e-6 s that must burn, a 1 row/s floor on the connectors' entries
+   that must not), while a thread scrapes ``/metrics`` every 0.25 s and, once ingest
+   ends, ``/timeseries`` (the index, a family, a bad window), ``/requests`` and
+   ``/profile``: every doc and query answered, recall@10 >= 0.99 and every query its
+   own doc; at least 10 scrapes while docs embed, every body a valid exposition,
+   ``pathway_commits_total`` never falling, the first scrape after the monitor synced
+   the last doc showing 20,000 entries for the doc connector; the family's points
+   (>= 5) never falling, the bad window 400; ``/profile`` valid with ``cuda:0``'s
+   allocator, ``/requests`` JSON; one ``slo_burn`` event and one breach, both the
+   latency SLO's; a process sample with RSS and an operator of >= 20,000 insertions; no
+   watch thread alive after the run and its port bindable again. Watched docs/s beside
+   engine_pipeline's, scrape and tick p50/p99, which of ``rich``, ``psutil``,
+   ``aiohttp`` and ``requests`` import. (b) the metrics plane's cost on fused_chain
+   (``--overhead-gate metrics``: probe stats, ``StatsMonitor(ALL).on_commit``,
+   ``observe_n``, a flight event a commit) at most 5%, retried once. (c) two children
+   (``chip_smoke.py --lockwatch-child <dir>``, one with ``PATHWAY_TPU_LOCKWATCH=1``)
+   run (a)'s program at 4,096 docs and 16 queries with every background thread on
+   (the endpoint and a scraper, the timeseries loop, the profiler, the telemetry
+   sampler, tracing at every 4th commit, the async device pipeline): the watched child
+   installs the watcher before torch's locks, records no cycle and writes no report,
+   counts acquisitions of the port's metrics, timeseries and device-pipeline locks, and
+   answers every query with the plain child's top-10 doc ids; their walls printed, not
+   gated. The phase prints its seconds.
 10. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
    steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
@@ -264,10 +291,10 @@ limit):
    without; wall seconds, units/s and each kernel's calls and ns, both ways.
 24. The native line (every phase's host kernel calls and ns, and the both-ways
    comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
-   forward's ``launches_by_path`` includes ``rag_evals``, ``persistence`` and
-   ``observability``, the segment reduction's ``table_ops``, ``temporal``, ``iterate``,
-   ``optimizer``, ``persistence`` and ``observability``), the ``nvidia-smi`` line, and
-   last ``{"ok": true, ...}``.
+   forward's ``launches_by_path`` includes ``rag_evals``, ``persistence``,
+   ``observability`` and ``watch``, the segment reduction's ``table_ops``,
+   ``temporal``, ``iterate``, ``optimizer``, ``persistence`` and ``observability``),
+   the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
 its first batch, as in the JAX package. Phases that check a device route
@@ -281,6 +308,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import datetime
 import gc
@@ -291,16 +319,22 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
+
+# first: under PATHWAY_TPU_LOCKWATCH=1 the package installs its lock-order watcher
+# before torch (and numpy) make their locks, as a program that imports it first does
+import pathway_tpu_torch as pw  # noqa: I001
 
 import numpy as np
 import torch
 
-import pathway_tpu_torch as pw
 from pathway_tpu_torch import _build, native
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
 from pathway_tpu_torch.engine import device as hd
@@ -1041,8 +1075,8 @@ def _engine_program(embedder: EncoderEmbedder, corpus, n_docs: int, n_queries: i
                 obs["first_doc_seen"] = perf_counter()
             obs["docs"][key] = (row["doc_id"], np.asarray(row["emb"], np.float32))
             obs["doc_times"].add(time)
-            if pace and len(obs["docs"]) % pace == 0:
-                batch_seen.set()
+            if pace and (len(obs["docs"]) % pace == 0 or len(obs["docs"]) == n_docs):
+                batch_seen.set()  # a full batch, or the last, shorter one
             if len(obs["docs"]) == n_docs:
                 obs["ingest_end"] = perf_counter()
                 ingest_done.set()
@@ -1626,9 +1660,10 @@ def _observability_device_bucket(card: Card, rows: list) -> int:
     return sum(launches.values())
 
 
-def _fused_chain() -> tuple:
+def _fused_chain(probe: bool = False) -> tuple:
     """bench_dataflow.py's fused_chain graph on the port's Scope and Scheduler: an
-    expression, a filter, 8 expression stages -> (its scheduler, its input session)."""
+    expression, a filter, 8 expression stages -> (its scheduler, with per-operator probe
+    stats when ``probe``, and its input session)."""
     scope = Scope()
     sess = scope.input_session(2)
     cur = scope.expression_table(sess, [eex.ColumnRef(0), eex.ColumnRef(1),
@@ -1637,7 +1672,7 @@ def _fused_chain() -> tuple:
     for _ in range(OBS_CHAIN["stages"]):
         cur = scope.expression_table(cur, [eex.ColumnRef(0), eex.Binary(
             "+", eex.Binary("*", eex.ColumnRef(1), eex.Const(1.0000001)), eex.Const(0.5))])
-    return Scheduler(scope), sess
+    return Scheduler(scope, probe=probe), sess
 
 
 def _fused_chain_pair(rows: list, gate: str, on_side: int) -> tuple[list, list]:
@@ -1648,7 +1683,10 @@ def _fused_chain_pair(rows: list, gate: str, on_side: int) -> tuple[list, list]:
     with the profiler's 50 Hz sampler thread running over each of its blocks (started
     before the block and stopped after it, both outside the timed commits; a block holds
     several of the thread's periods, so the tick a start forgoes is a small share);
-    ``null``, as the other.
+    ``metrics``, ``bench_dataflow.py::metrics_overhead_leg``'s per-commit work (the
+    graph's scheduler probing every operator, then ``StatsMonitor(ALL).on_commit``, the
+    ingest-to-sink histogram's ``observe_n`` and a ``commit`` flight event, all inside
+    the timed commit); ``null``, as the other.
     -> each commit's seconds ([off], [on]). Interleaving blocks of commits, not whole
     runs, puts both sides under the same pace of the host, whose CPU throughput swings
     by tens of percent within a second: on the card's host, runs of the same work a run
@@ -1658,7 +1696,14 @@ def _fused_chain_pair(rows: list, gate: str, on_side: int) -> tuple[list, list]:
     on whichever graph's commit crossed its threshold."""
     gc.collect()
     gc.disable()
-    graphs = [_fused_chain(), _fused_chain()]
+    graphs = [_fused_chain(probe=gate == "metrics" and side == on_side) for side in (0, 1)]
+    monitor = hist = None
+    if gate == "metrics":
+        from pathway_tpu_torch.internals.monitoring import MonitoringLevel, StatsMonitor
+
+        monitor = StatsMonitor(MonitoringLevel.ALL)
+        monitor.scheduler = graphs[on_side][0]
+        hist = pmetrics.REGISTRY.histogram("pathway_ingest_to_sink_latency_seconds")
     tracing.TRACER.configure(enabled=gate == "trace", sample=OBS_OVERHEAD_SAMPLE, clear=True)
     profiling.PROFILER.configure(enabled=gate == "profile", clear=True)
     try:
@@ -1682,10 +1727,15 @@ def _fused_chain_pair(rows: list, gate: str, on_side: int) -> tuple[list, list]:
                         sess.remove(key, row)
                         sess.insert(key, (row[0], row[1] + 1.0))
                     t0 = time.perf_counter()
-                    ctx = tracing.TRACER.begin(sched.time, origin_mono=time.monotonic()) if on else None
+                    wall = time.monotonic()
+                    ctx = tracing.TRACER.begin(sched.time, origin_mono=wall) if on else None
                     sched.commit()
                     if ctx is not None:
                         tracing.TRACER.end(sched.time - 1)
+                    if on and monitor is not None:
+                        monitor.on_commit(c, wall)
+                        hist.observe_n(time.monotonic() - wall, 2 * delta)
+                        pmetrics.FLIGHT.record("commit", time=c)
                     times[on].append(time.perf_counter() - t0)
                 profiling.PROFILER.stop()
         check(gate != "profile" or profiling.PROFILER._samples > 0, "the profiler took no sample")
@@ -1716,9 +1766,9 @@ def _overhead(rows: list, gate: str) -> dict:
 
 
 def _overhead_child(kind: str) -> int:
-    """``chip_smoke.py --overhead-gate trace|profile|null``: one gate's reading, printed as the
-    last line, in a fresh process (the parent's heap, a million rows and the models,
-    would make its garbage collections set the pace)."""
+    """``chip_smoke.py --overhead-gate trace|profile|metrics|null``: one gate's reading,
+    printed as the last line, in a fresh process (the parent's heap, a million rows and
+    the models, would make its garbage collections set the pace)."""
     rows = [(pw.ref_scalar(i), (i, float(i) * 0.5)) for i in range(OBS_CHAIN["base"])]
     print(json.dumps(_overhead(rows, kind)), flush=True)
     return 0
@@ -1812,6 +1862,382 @@ def phase_observability(card: Card, untraced_docs_per_s: float, groupby_rows: li
     check(trace_gate["overhead_pct"] <= OBS_GATE_PCT, f"trace overhead {trace_gate}")
     check(profile_gate["overhead_pct"] <= OBS_GATE_PCT, f"profile overhead {profile_gate}")
     return {"flash": flash, "segment": segment}
+
+
+# -- watch: the monitoring plane on the card ---------------------------------------
+
+WATCH_SCRAPE_S = 0.25  # the scraper's period: Prometheus' fastest common interval, x4
+WATCH_SLO = [
+    # must burn: no commit delivers its rows within a microsecond
+    {"name": "watch_ingest_p95", "kind": "latency", "family": "pathway_ingest_to_sink_latency_seconds",
+     "bound": 1e-6, "quantile": "p95"},
+    # must hold: the connectors' rows/s stay above 1 while the run feeds them
+    {"name": "watch_entries_floor", "kind": "throughput", "family": "pathway_connector_entries_total",
+     "bound": 1.0, "labels": {"connector": "python-connector"}},
+]
+WATCH_LOCK_DOCS = 4096  # the lock-order children's docs and queries
+WATCH_LOCK_QUERIES = 16
+WATCH_PACKAGES = ("rich", "psutil", "aiohttp", "requests")
+WATCH_FLIGHT_EVENTS = 4096  # the phase's flight ring: every commit's event and the SLO's
+
+
+def _imports(name: str) -> bool:
+    try:
+        __import__(name)
+    except ImportError:
+        return False
+    return True
+
+
+def _free_port() -> int:
+    """A port no one listens on (bound at 0, then released)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http_get(port: int, path: str) -> tuple[int, bytes, float]:
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+            code, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, time.perf_counter() - t0
+
+
+def _watch_threads() -> list[str]:
+    """The watch plane's threads still alive: the timeseries loop, the telemetry
+    sampler, the HTTP server's accept loop and its handler threads."""
+    return [t.name for t in threading.enumerate() if t.is_alive() and (
+        t.name in ("pathway-timeseries", "pw-telemetry") or "serve_forever" in t.name
+        or "process_request_thread" in t.name)]
+
+
+class _Scraper(threading.Thread):
+    """GETs ``/metrics`` every ``WATCH_SCRAPE_S`` while the run lasts (until ``done()``
+    or ``halt``), keeping each scrape's start, end, status and body; once ``after()``
+    holds, GETs ``/timeseries`` (the index, a family, a bad window), ``/requests`` and
+    ``/profile`` once."""
+
+    def __init__(self, port: int, done, after) -> None:
+        super().__init__(name="watch-scraper", daemon=True)
+        self.port, self.done, self.after = port, done, after
+        self.halt = threading.Event()
+        self.scrapes: list[tuple[float, float, int, str]] = []
+        self.errors: list[tuple[float, str]] = []
+        self.once: dict | None = None
+
+    def run(self) -> None:
+        while not self.halt.is_set() and not self.done():
+            t0 = time.perf_counter()
+            try:
+                code, body, _s = _http_get(self.port, "/metrics")
+                self.scrapes.append((t0, time.perf_counter(), code, body.decode()))
+                if self.once is None and self.after():
+                    fam = "/timeseries?family=pathway_connector_entries_total&window=600&worker=0"
+                    self.once = {path: _http_get(self.port, path)[:2] for path in (
+                        "/timeseries", fam, fam.replace("window=600", "window=soon"), "/requests",
+                        "/profile")}
+            except OSError as e:  # refused before the server starts; kept, judged by time
+                self.errors.append((t0, repr(e)))
+            self.halt.wait(max(0.0, WATCH_SCRAPE_S - (time.perf_counter() - t0)))
+
+
+class _MonitorCommits:
+    """Records, while open, the end of each ``StatsMonitor.on_commit`` and the
+    entries its connector rows held: when the monitor synced the last doc."""
+
+    def __enter__(self):
+        from pathway_tpu_torch.internals.monitoring import StatsMonitor
+
+        self.cls, self.commits = StatsMonitor, []
+        self._on_commit = on_commit = StatsMonitor.on_commit
+        seen = self.commits
+
+        def recorded(monitor, time_, wall_start):
+            on_commit(monitor, time_, wall_start)
+            seen.append((time.perf_counter(), time.time(),
+                         {n: st.entries for n, st in monitor.connectors.items()}))
+
+        StatsMonitor.on_commit = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.on_commit = self._on_commit
+
+
+def _unlabelled(text: str, family: str) -> list[tuple[dict, float]]:
+    fams = pmetrics.validate_exposition(text)
+    return [(la, v) for _n, la, v in fams.get(family, {"samples": []})["samples"] if "worker" not in la]
+
+
+def _watched_run(n_docs: int, n_queries: int, out: str, slo: list | None, trace: bool) -> dict:
+    """engine_pipeline's program (MiniLM-L6, the 1,048,576-slot index, 256-doc paced
+    commits) under ``pw.run(monitoring_level=ALL if rich imports else NONE,
+    with_http_server=True)`` on a free port, with the profiler, the timeseries loop
+    (0.1 s), the telemetry sampler (0.5 s), the SLO specs ``slo``, tracing at every 4th
+    commit when ``trace``, the async device pipeline, and a scraper thread; -> what the
+    run and the scraper saw."""
+    from pathway_tpu_torch.internals import telemetry, timeseries
+
+    corpus = [doc_text(i) for i in range(n_docs)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    embed_calls, _sizes = _count_embed_calls(embedder)
+    factory = _KeptKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    obs, run = _engine_program(embedder, corpus, n_docs, n_queries, factory, wait_s=300.0, pace=CHUNK)
+    rich_ok = _imports("rich")
+    port = _free_port()
+    env = {"PATHWAY_TPU_PROFILE": "1", "PATHWAY_TPU_PROFILE_DIR": os.path.join(out, "profiles"),
+           "PATHWAY_TPU_TRACE_DIR": os.path.join(out, "traces"),
+           "PATHWAY_TPU_FLIGHT_DIR": os.path.join(out, "flight"), "PATHWAY_TPU_TS_INTERVAL": "0.1",
+           "PATHWAY_PROCESS_METRICS": "1", "PATHWAY_TELEMETRY_INTERVAL_S": "0.5",
+           "PATHWAY_TPU_SLO": json.dumps(slo) if slo else None}
+    scraper = _Scraper(port, done=lambda: len(obs["answers"]) + len(obs["timeouts"]) >= n_queries
+                       or bool(obs["failures"]), after=lambda: bool(obs["ingest_end"]))
+    gc.collect()
+    device_pipeline.PIPELINE.configure()
+    check(device_pipeline.async_enabled(), "watch: the device pipeline must run async here")
+    timeseries.STORE.clear()
+    flight, pmetrics.FLIGHT = pmetrics.FLIGHT, pmetrics.FlightRecorder(WATCH_FLIGHT_EVENTS)
+    fa.KERNEL.launches = 0
+    dashboard = io.StringIO()
+
+    def watched() -> None:
+        timeseries.SENTINEL.configure()  # PATHWAY_TPU_SLO, the burn states re-armed
+        profiling.PROFILER.configure(clear=True)  # PATHWAY_TPU_PROFILE=1
+        if trace:
+            tracing.TRACER.configure(enabled=True, sample=OBS_TRACE_SAMPLE, clear=True)
+        scraper.start()
+        try:
+            with contextlib.redirect_stdout(dashboard):  # rich's live table, if any
+                run(monitoring_level=pw.MonitoringLevel.ALL if rich_ok else pw.MonitoringLevel.NONE,
+                    with_http_server=True, monitoring_server_port=port)
+        finally:
+            scraper.halt.set()
+            scraper.join(timeout=60.0)
+            tracing.TRACER.configure(enabled=False, clear=True)
+            profiling.PROFILER.configure(enabled=False, clear=True)
+
+    try:
+        with _MonitorCommits() as commits:
+            t0 = time.perf_counter()
+            _with_env(env, watched)
+            run_s = time.perf_counter() - t0
+        events = pmetrics.FLIGHT.snapshot()
+    finally:
+        pmetrics.FLIGHT = flight
+        timeseries.SENTINEL.configure([])
+    launches = fa.KERNEL.launches
+    deadline = time.monotonic() + 2.0  # a handler thread closing its last connection
+    while _watch_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    threads_after = _watch_threads()
+    with socket.socket() as s:
+        # the run released its port: a server binds it again (with SO_REUSEADDR, as
+        # http.server does: the closed scrapes' connections linger in TIME_WAIT)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", port))
+        s.listen()
+    recall, self_hit = _engine_recall(obs)
+    ingest_s = obs["ingest_end"] - obs["run_start"]
+    ids = {qid: sorted(obs["docs"][k][0] for k in hit if k in obs["docs"])
+           for qid, (hit, _q) in obs["answers"].items()}
+    return {"obs": obs, "run_s": run_s, "ingest_s": ingest_s, "port": port, "recall": recall,
+            "self_hit": self_hit, "answers": ids, "launches": launches, "embed_calls": embed_calls[0],
+            "scraper": scraper, "commits": commits.commits, "events": events,
+            "threads_after": threads_after, "rich": rich_ok, "dashboard_chars": len(dashboard.getvalue()),
+            "process": telemetry.latest_process_metrics()}
+
+
+def _watch_main_run(card: Card, engine_docs_per_s: float, out: str) -> int:
+    """(a): the main path watched live at 20,000 docs and 64 queries, its scrapes,
+    routes, SLO verdicts, process samples and threads checked; -> the forward kernel's
+    launches."""
+    got = _watched_run(N_DOCS, N_QUERIES, out, WATCH_SLO, trace=False)
+    obs, scraper = got["obs"], got["scraper"]
+    run_start, ingest_end = obs["run_start"], obs["ingest_end"]
+    # the first monitor commit whose doc row held every doc, and the first scrape after it
+    synced = next((t for t, _w, entries in got["commits"] if entries.get("python-connector") == N_DOCS),
+                  None)
+    scrapes = [(t0, t1, code, body) for t0, t1, code, body in scraper.scrapes]
+    during = [s for s in scrapes if run_start <= s[0] and s[1] <= ingest_end]
+    bad = [(i, code) for i, (_a, _b, code, _t) in enumerate(scrapes) if code != 200]
+    commits_seen, invalid = [], []
+    for _t0, _t1, _code, body in scrapes:
+        try:
+            commits_seen.append(_unlabelled(body, "pathway_commits_total")[0][1])
+        except ValueError as e:
+            invalid.append(repr(e))
+    after_sync = next((s for s in scrapes if synced is not None and s[0] >= synced), None)
+    doc_entries = ({la["connector"]: v for la, v in _unlabelled(after_sync[3], "pathway_input_entries_total")}
+                   if after_sync else {})
+    once = scraper.once or {}
+    fam = "/timeseries?family=pathway_connector_entries_total&window=600&worker=0"
+    series = json.loads(once[fam][1])["series"] if once.get(fam, (0,))[0] == 200 else []
+    points = [v for s in series for _t, v in s["points"]]
+    profile = json.loads(once["/profile"][1]) if once.get("/profile", (0,))[0] == 200 else {}
+    if profile:
+        profiling.validate_profile(profile)
+    memory = profile.get("workers", {}).get("0", {}).get("device", {}).get("memory", {})
+    burns = [e for e in got["events"] if e["kind"] == "slo_burn"]
+    # the floor is first evaluated over the ring's first two ticks (0.1 s apart): when
+    # the paced feed's second batch lands after both, it reads 0 rows/s there, before
+    # the monitor's second commit; any other burn of the floor is a real breach
+    second_commit = got["commits"][1][1] if len(got["commits"]) > 1 else float("inf")
+    floor_burns = [e for e in burns if e["slo"] == "watch_entries_floor"]
+    startup = [e for e in floor_burns if e["measured"] == 0.0 and e["wall"] <= second_commit]
+    breaches = {e["labels"]["slo"]: e["value"] for e in (pmetrics.REGISTRY.snapshot().get(
+        "pathway_slo_breaches_total") or {"series": []})["series"]}
+    tick = pmetrics.REGISTRY.histogram("pathway_timeseries_tick_seconds")
+    lat = sorted(t1 - t0 for t0, t1, _c, _b in scrapes)
+    proc = got["process"]
+    top_ops = max((st["insertions"] for st in proc.get("operators", {}).values()), default=0)
+    errors_in_run = [e for t, e in scraper.errors if run_start <= t <= ingest_end]
+    docs_per_s = N_DOCS / got["ingest_s"] if got["ingest_s"] > 0 else float("nan")
+    card.emit(
+        "watch_main_path", model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded)",
+        capacity=CAPACITY, n_docs=len(obs["docs"]), n_answers=len(obs["answers"]),
+        query_timeouts=len(obs["timeouts"]), docs_per_s_watched=docs_per_s,
+        docs_per_s_engine_pipeline=engine_docs_per_s,
+        watched_over_engine_pipeline=docs_per_s / engine_docs_per_s,
+        run_s=got["run_s"], ingest_s=got["ingest_s"], recall_at_10=got["recall"], self_hit=got["self_hit"],
+        monitoring_level="ALL" if got["rich"] else "NONE", dashboard_chars=got["dashboard_chars"],
+        imports={name: _imports(name) for name in WATCH_PACKAGES},
+        scrapes=len(scrapes), scrapes_while_embedding=len(during), scrape_errors_in_ingest=errors_in_run,
+        scrape_errors=len(scraper.errors), non_200=bad, invalid_bodies=invalid,
+        scrape_p50_ms=1e3 * lat[len(lat) // 2] if lat else None,
+        scrape_p99_ms=1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else None,
+        commits_first_last=[commits_seen[0], commits_seen[-1]] if commits_seen else None,
+        entries_after_ingest=doc_entries, once_codes={p: c for p, (c, _b) in once.items()},
+        timeseries_points=len(points),
+        slo_burns=[(e["slo"], e["burn"], e["measured"], e["wall"] - second_commit) for e in burns],
+        floor_startup_burns=len(startup),
+        slo_breaches=breaches, tick_count=tick.count, tick_p50_ms=1e3 * tick.quantile(0.5),
+        tick_p99_ms=1e3 * tick.quantile(0.99), profile_memory=memory,
+        process_rss_bytes=proc.get("memory_rss_bytes"), process_threads=proc.get("num_threads"),
+        largest_operator_insertions=top_ops, threads_after_run=got["threads_after"],
+        flash_launches=got["launches"], embed_calls=got["embed_calls"], failures=obs["failures"],
+    )
+    check(not obs["failures"], f"watch: {obs['failures']}")
+    check(len(obs["docs"]) == N_DOCS, f"watch: {len(obs['docs'])} of {N_DOCS} docs arrived")
+    check(len(obs["answers"]) == N_QUERIES and not obs["timeouts"],
+          f"watch: {len(obs['answers'])} answers, timeouts {obs['timeouts']}")
+    check(got["recall"] >= 0.99 and got["self_hit"],
+          f"watch: recall@10 {got['recall']}, self hit {got['self_hit']}")
+    check(len(during) >= 10, f"watch: {len(during)} scrapes landed while docs were embedded")
+    check(not bad and not invalid and not errors_in_run, f"watch: scrapes {bad} {invalid} {errors_in_run}")
+    check(all(b >= a for a, b in zip(commits_seen, commits_seen[1:])), f"watch: commits fell: {commits_seen}")
+    check(doc_entries.get("python-connector") == N_DOCS, f"watch: entries after ingest {doc_entries}")
+    check(len(points) >= 5 and all(b >= a for a, b in zip(points, points[1:])),
+          f"watch: /timeseries points {points}")
+    check(once.get(fam.replace("window=600", "window=soon"), (0,))[0] == 400, f"watch: bad window {once}")
+    check(once.get("/requests", (0,))[0] == 200 and "requests" in json.loads(once["/requests"][1]),
+          f"watch: /requests {once.get('/requests')}")
+    check(once.get("/timeseries", (0,))[0] == 200, f"watch: /timeseries {once.get('/timeseries')}")
+    check(memory.get("cuda:0", {}).get("bytes_in_use", 0) > 0, f"watch: /profile memory {memory}")
+    check([e["slo"] for e in burns if e["slo"] != "watch_entries_floor"] == ["watch_ingest_p95"],
+          f"watch: slo_burn events {burns}")
+    check(floor_burns == startup and len(startup) <= 1, f"watch: the floor burned while rows flowed {burns}")
+    check(breaches.get("watch_ingest_p95") == 1 and breaches.get("watch_entries_floor", 0) == len(startup),
+          f"watch: breaches {breaches}")
+    check((proc.get("memory_rss_bytes") or 0) > 0 and top_ops >= N_DOCS, f"watch: process sample {proc}")
+    check(not got["threads_after"], f"watch: threads alive after pw.run: {got['threads_after']}")
+    check(got["launches"] > 0 and got["launches"] == LAYERS * got["embed_calls"],
+          f"watch: flash launches {got['launches']} != {LAYERS} x {got['embed_calls']} embed calls")
+    return got["launches"]
+
+
+def _lockwatch_child(args: list[str]) -> int:
+    """``chip_smoke.py --lockwatch-child <dir>``: the watched program at 4,096 docs and
+    16 queries with every background thread on, in a fresh process whose environment
+    says whether the lock-order watcher runs; prints what it saw as the last line."""
+    from pathway_tpu_torch.internals import lockwatch, timeseries
+
+    got = _watched_run(WATCH_LOCK_DOCS, WATCH_LOCK_QUERIES, args[0], None, trace=True)
+    sites = {}
+    if lockwatch._INSTALLED:
+        acquired = {s["labels"]["lock"]: s["value"] for s in
+                    pmetrics.REGISTRY.snapshot()["pathway_lock_acquisitions_total"]["series"]}
+        for what, lock in (("metrics", pmetrics.REGISTRY._lock), ("timeseries", timeseries.STORE._lock),
+                           ("device_pipeline", device_pipeline.PIPELINE._lock)):
+            sites[what] = (lock._name, acquired.get(lock._name, 0.0))
+    print(json.dumps({
+        "installed": lockwatch._INSTALLED,
+        "torch_lock_watched": isinstance(getattr(torch.cuda, "_initialization_lock", None),
+                                         lockwatch._WatchedLock),
+        "cycles": lockwatch.cycles(), "sites": sites, "run_s": got["run_s"],
+        "docs": len(got["obs"]["docs"]), "answers": got["answers"], "timeouts": got["obs"]["timeouts"],
+        "failures": got["obs"]["failures"], "recall": got["recall"], "self_hit": got["self_hit"],
+        "scrapes": len(got["scraper"].scrapes), "threads_after": got["threads_after"],
+        "launches": got["launches"]}), flush=True)
+    return 0
+
+
+def _lockwatch_children(card: Card, out: str) -> dict:
+    """(c): the watched and the plain child, one after the other; -> their readings."""
+    got = {}
+    for mode in ("watched", "plain"):
+        d = os.path.join(out, mode)
+        os.makedirs(d)
+        env = dict(os.environ, PATHWAY_TPU_LOCKWATCH="1" if mode == "watched" else "0",
+                   PATHWAY_TPU_LOCKWATCH_DIR=d)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--lockwatch-child", d],
+                              env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"lockwatch {mode} child exit {proc.returncode}: {proc.stderr[-4000:]}")
+        got[mode] = dict(json.loads(proc.stdout.strip().splitlines()[-1]), process_s=wall,
+                         reports=[n for n in os.listdir(d) if n.startswith("pathway_lockwatch_cycle_p")])
+    w, p = got["watched"], got["plain"]
+    same = {q: w["answers"].get(q) == ids for q, ids in p["answers"].items()}
+    card.emit("watch_lockwatch", docs=WATCH_LOCK_DOCS, queries=WATCH_LOCK_QUERIES,
+              watched_process_s=w["process_s"], plain_process_s=p["process_s"],
+              watched_run_s=w["run_s"], plain_run_s=p["run_s"],
+              watched_over_plain_run=w["run_s"] / p["run_s"], cycles=w["cycles"], reports=w["reports"],
+              lock_sites=w["sites"], torch_lock_watched=w["torch_lock_watched"],
+              installed={"watched": w["installed"], "plain": p["installed"]},
+              scrapes={"watched": w["scrapes"], "plain": p["scrapes"]},
+              recall={"watched": w["recall"], "plain": p["recall"]},
+              same_top10=sum(same.values()), launches={"watched": w["launches"], "plain": p["launches"]},
+              threads_after={"watched": w["threads_after"], "plain": p["threads_after"]})
+    for mode, g in got.items():
+        check(not g["failures"] and g["docs"] == WATCH_LOCK_DOCS and not g["timeouts"]
+              and len(g["answers"]) == WATCH_LOCK_QUERIES and g["self_hit"] and not g["threads_after"],
+              f"lockwatch {mode} child: {g}")
+    check(w["installed"] and not p["installed"] and w["torch_lock_watched"], f"lockwatch: installs {got}")
+    check(not w["cycles"] and not w["reports"], f"lockwatch: cycles {w['cycles']}, reports {w['reports']}")
+    check(all(v > 0 for _name, v in w["sites"].values()) and len(w["sites"]) == 3,
+          f"lockwatch: acquisitions {w['sites']}")
+    check(all(same.values()) and len(same) == WATCH_LOCK_QUERIES, f"lockwatch: top-10 differ {same}")
+    return got
+
+
+def phase_watch(card: Card, engine_docs_per_s: float) -> dict:
+    """The watch plane on the card: (a) the main path under pw.run's monitoring
+    options, scraped live; (b) the metrics plane's cost on fused_chain (at most 5%, one
+    retry); (c) the lock-order watcher over every background thread, in two child
+    processes. -> the forward kernel's launches in (a)."""
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="pw_watch_")
+    try:
+        flash = _watch_main_run(card, engine_docs_per_s, out)
+        t_gate = time.perf_counter()
+        metrics_gate = _overhead_gate("metrics")
+        if metrics_gate["overhead_pct"] > OBS_GATE_PCT:
+            metrics_gate = dict(_overhead_gate("metrics"), retried_after=metrics_gate)
+        gate_s = time.perf_counter() - t_gate
+        t_lock = time.perf_counter()
+        children = _lockwatch_children(card, out)
+        lock_s = time.perf_counter() - t_lock
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    card.emit("watch", seconds=time.perf_counter() - t_phase, gate_s=gate_s, lockwatch_s=lock_s,
+              chain=OBS_CHAIN, metrics_overhead=metrics_gate,
+              lockwatch_cycles=len(children["watched"]["cycles"]))
+    check(metrics_gate["overhead_pct"] <= OBS_GATE_PCT, f"metrics overhead {metrics_gate}")
+    return {"flash": flash}
 
 
 def train_batch(n: int, vocab_size: int) -> ContrastiveBatch:
@@ -5398,6 +5824,8 @@ def main() -> int:
         return _persistence_child(sys.argv[2:])
     if sys.argv[1:2] == ["--overhead-gate"]:
         return _overhead_child(sys.argv[2])
+    if sys.argv[1:2] == ["--lockwatch-child"]:
+        return _lockwatch_child(sys.argv[2:])
     card = Card()
     card.emit("device", name=card.name, count=card.count, torch=torch.__version__,
               cuda=torch.version.cuda)
@@ -5431,6 +5859,7 @@ def main() -> int:
     observability = counted("observability", phase_observability, card, engine_docs_per_s,
                             groupby_rows)
     del groupby_rows
+    watch = counted("watch", phase_watch, card, engine_docs_per_s)
     train = counted("train", phase_train, card)
     image_embedder = ImageEmbedder("vit-b16", max_batch_size=IMAGE_BATCH, seed=SEED)
     vision = counted("vision_parity", phase_vision_parity, card, image_embedder)
@@ -5456,7 +5885,7 @@ def main() -> int:
                                "multimodal": multimodal, "rerank": rerank,
                                "vector_store": vector_store, "rag": rag,
                                "rag_evals": rag_evals, "persistence": persistence["flash"],
-                               "observability": observability["flash"]}
+                               "observability": observability["flash"], "watch": watch["flash"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}

@@ -20,15 +20,25 @@ the ``rag_evals`` harness; UDFs may be async, cached and retried), the encoder a
 train step (``models``, ``models.make_train_step``), and the flash-attention kernels for
 Hopper (``ops.flash_attention``: the forward in ``csrc/flash_attention_fwd.cu``, the
 backward in ``csrc/flash_attention_bwd.cu``) and the ordered segment sum under the
-groupby (``ops.segment_reduce``, ``csrc/segment_reduce.cu``). Entry points run on CUDA
-unless the caller passes ``device="cpu"``. The reference's names that are not ported
-yet raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+groupby (``ops.segment_reduce``, ``csrc/segment_reduce.cu``), and the observability
+planes: metrics, traces and profiles, the monitoring dashboard and HTTP endpoint
+(``pw.MonitoringLevel``, ``pw.run(with_http_server=True)``), the metrics history and
+its SLOs, OpenTelemetry spans (``pw.set_monitoring_config``) and the lock-order
+watcher. Entry points run on CUDA unless the caller passes ``device="cpu"``. The
+reference's names that are not ported yet raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
-from pathway_tpu_torch import io, persistence
-from pathway_tpu_torch.internals import reducers
-from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
-from pathway_tpu_torch.engine.value import (
+from pathway_tpu_torch.internals import lockwatch as _lockwatch
+
+# PATHWAY_TPU_LOCKWATCH=1: wrap Lock/RLock creation BEFORE the modules below (and torch,
+# which they import) make theirs, so the order recorder sees them all
+_lockwatch.maybe_install()
+
+from pathway_tpu_torch import io, persistence  # noqa: E402
+from pathway_tpu_torch.internals import reducers  # noqa: E402
+from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex  # noqa: E402
+from pathway_tpu_torch.engine.value import (  # noqa: E402
     ERROR,
     DateTimeNaive,
     DateTimeUtc,
@@ -39,9 +49,9 @@ from pathway_tpu_torch.engine.value import (
     ref_scalar,
     unsafe_make_pointer,
 )
-from pathway_tpu_torch.internals import universe as _universe_mod
-from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
-from pathway_tpu_torch.internals.expression import (
+from pathway_tpu_torch.internals import universe as _universe_mod  # noqa: E402
+from pathway_tpu_torch.internals.errors import global_error_log, local_error_log  # noqa: E402
+from pathway_tpu_torch.internals.expression import (  # noqa: E402
     ColumnExpression,
     ColumnReference,
     apply,
@@ -56,8 +66,8 @@ from pathway_tpu_torch.internals.expression import (
     require,
     unwrap,
 )
-from pathway_tpu_torch.internals.parse_graph import G, run, run_all
-from pathway_tpu_torch.internals.schema import (
+from pathway_tpu_torch.internals.parse_graph import G, run, run_all  # noqa: E402
+from pathway_tpu_torch.internals.schema import (  # noqa: E402
     Schema,
     assert_table_has_schema,
     column_definition,
@@ -66,19 +76,21 @@ from pathway_tpu_torch.internals.schema import (
     schema_from_dict,
     schema_from_types,
 )
-from pathway_tpu_torch.internals.table import JoinMode, Table
-from pathway_tpu_torch.internals.thisclass import left, right, this
-from pathway_tpu_torch.internals import udfs
-from pathway_tpu_torch.internals.udfs import UDF, udf
-from pathway_tpu_torch.internals.unported import module_getattr as _module_getattr
-from pathway_tpu_torch.models import Encoder, EncoderConfig, embed
-from pathway_tpu_torch.ops import knn_search, knn_update
-from pathway_tpu_torch.ops.flash_attention import flash_attention
-from pathway_tpu_torch.xpacks.llm import EncoderEmbedder, SentenceTransformerEmbedder
+from pathway_tpu_torch.internals.table import JoinMode, Table  # noqa: E402
+from pathway_tpu_torch.internals.thisclass import left, right, this  # noqa: E402
+from pathway_tpu_torch.internals import udfs  # noqa: E402
+from pathway_tpu_torch.internals.udfs import UDF, udf  # noqa: E402
+from pathway_tpu_torch.internals.unported import module_getattr as _module_getattr  # noqa: E402
+from pathway_tpu_torch.models import Encoder, EncoderConfig, embed  # noqa: E402
+from pathway_tpu_torch.ops import knn_search, knn_update  # noqa: E402
+from pathway_tpu_torch.ops.flash_attention import flash_attention  # noqa: E402
+from pathway_tpu_torch.xpacks.llm import EncoderEmbedder, SentenceTransformerEmbedder  # noqa: E402
 
 from pathway_tpu_torch import debug  # noqa: E402  (imports Table)
 from pathway_tpu_torch import stdlib  # noqa: E402
 from pathway_tpu_torch.internals.iterate import iterate  # noqa: E402
+from pathway_tpu_torch.internals.monitoring import MonitoringLevel  # noqa: E402
+from pathway_tpu_torch.internals.telemetry import set_monitoring_config  # noqa: E402
 from pathway_tpu_torch.stdlib import temporal  # noqa: E402
 
 
@@ -116,10 +128,6 @@ __getattr__ = _module_getattr(__name__, {
         ),
         "8: the rest of the package (the row transformers)",
     ),
-    **dict.fromkeys(
-        ("MonitoringLevel", "set_monitoring_config"),
-        "12: tracing, metrics and monitoring",
-    ),
 })
 
 __all__ = [
@@ -137,6 +145,7 @@ __all__ = [
     "HostKnnIndex",
     "JoinMode",
     "Json",
+    "MonitoringLevel",
     "Pointer",
     "PyObjectWrapper",
     "Schema",
@@ -175,6 +184,7 @@ __all__ = [
     "schema_from_csv",
     "schema_from_dict",
     "schema_from_types",
+    "set_monitoring_config",
     "stdlib",
     "temporal",
     "this",

@@ -177,9 +177,41 @@ class GraphRunner:
         #: run the scheduler with per-operator probe stats (``pw.run`` sets it when
         #: process metrics are asked for)
         self.probe_stats = False
+        #: the run's ``StatsMonitor`` (``internals/monitoring.py``), or None; ``pw.run``
+        #: sets it when a dashboard, the HTTP endpoint or the timeseries loop reads it
+        self.monitor: Any = None
         #: the rows of ``pw.iterate``'s parameter tables, by slot, in an inner run
         self.iterate_params: list[list[tuple[Pointer, tuple]]] | None = None
         self.scheduler: Scheduler | None = None
+
+    def _sync_monitor_connectors(self) -> None:
+        """Copy each connector driver's counters onto the monitor's connector rows
+        (a second driver with the same source name gets the suffix ``#1``, and so on,
+        so their counters do not fight)."""
+        if self.monitor is None:
+            return
+        seen: dict[str, int] = {}
+        for d in self.drivers:
+            inner = getattr(d, "driver", d)
+            name = getattr(inner, "source_name", None)
+            if name is None:
+                continue
+            n = seen.get(name, 0)
+            seen[name] = n + 1
+            if n:
+                name = f"{name}#{n}"
+            st = self.monitor.connector(name)
+            st.entries = getattr(inner, "entries_total", 0)
+            st.batches = getattr(inner, "batches_total", 0)
+            wall = getattr(inner, "last_entry_wall", None)
+            if wall is not None:
+                st.last_entry_at = wall
+            st.finished = getattr(inner, "done", False)
+
+    def _on_monitor_commit(self, time: int, commit_started: float) -> None:
+        if self.monitor is not None:
+            self._sync_monitor_connectors()
+            self.monitor.on_commit(time, commit_started)
 
     @staticmethod
     def _wire_udf_cache(config: Any) -> None:
@@ -858,12 +890,25 @@ class GraphRunner:
         Each streamed commit is offered to the tracer (``TRACER.begin`` / ``end``, its
         time zero the connectors' oldest pending row), stamps the ingest-to-sink
         latency histogram with the rows it delivered and records a ``commit`` flight
-        event; the traces are exported when the stream ends."""
-        sched = Scheduler(self.scope, probe=self.probe_stats)
+        event; the traces are exported when the stream ends.
+
+        With a monitor (``self.monitor``), the scheduler probes every operator when
+        the monitor wants operator stats, and the static commit and each streamed
+        commit update the monitor's connector rows and commit count."""
+        monitor = self.monitor
+        sched = Scheduler(
+            self.scope,
+            probe=self.probe_stats
+            or (monitor is not None and getattr(monitor, "wants_operator_stats", True)),
+        )
         self.scheduler = sched
+        if monitor is not None:
+            monitor.scheduler = sched
         try:
             if not self.drivers:
+                t0 = _time.monotonic()
                 sched.run_static()
+                self._on_monitor_commit(0, t0)
                 return sched
             persistent = [d for d in self.drivers if isinstance(d, PersistentDriver)]
             for driver in persistent:
@@ -900,6 +945,7 @@ class GraphRunner:
                     driver.on_commit(time)
                 if snapshot_mgr is not None:
                     snapshot_mgr.on_commit(self.scope, self.drivers, time)
+                self._on_monitor_commit(time, commit_started)
 
             _pump_drivers(self.drivers, on_data)
             sched.finish()

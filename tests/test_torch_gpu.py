@@ -998,3 +998,27 @@ def test_device_counters_read_the_card_allocator(cuda):
              if la["device"] == "cuda:0"}
     assert stats == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
     del x
+
+
+def test_a_metrics_scrape_shows_the_card_allocator(cuda):
+    """After one allocation on the card, a ``/metrics`` scrape of the monitoring
+    endpoint shows ``pathway_device_memory_bytes`` for ``cuda:0``."""
+    import urllib.request
+
+    from pathway_tpu_torch.internals import metrics as tm
+    from pathway_tpu_torch.internals import monitoring as tmon
+    from pathway_tpu_torch.internals import profiling as tpr
+
+    x = torch.empty(1 << 20, dtype=torch.float32, device=cuda)
+    tpr._TELEMETRY_CACHE[0] = float("-inf")
+    server = tmon.MonitoringHttpServer(tmon.StatsMonitor(), port=0)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=30) as r:
+            text = r.read().decode()
+    finally:
+        server.stop()
+    fams = tm.validate_exposition(text)
+    stats = {la["stat"] for _n, la, _v in fams["pathway_device_memory_bytes"]["samples"]
+             if la["device"] == "cuda:0"}
+    assert stats == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    del x

@@ -45,6 +45,10 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.internals.metrics",
         "pathway_tpu_torch.internals.tracing",
         "pathway_tpu_torch.internals.profiling",
+        "pathway_tpu_torch.internals.lockwatch",
+        "pathway_tpu_torch.internals.timeseries",
+        "pathway_tpu_torch.internals.monitoring",
+        "pathway_tpu_torch.internals.telemetry",
         "pathway_tpu_torch.engine.graph",
         "pathway_tpu_torch.engine.connectors",
         "pathway_tpu_torch.internals.dtype",

@@ -372,8 +372,8 @@ def test_backends_and_refusals(tmp_path):
     mgr = tp.OperatorSnapshotManager(mem)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
         mgr.snapshot([scope, scope], [], 1)
-    with pytest.raises(NotImplementedError, match="12"):
-        tpw.set_monitoring_config  # noqa: B018
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        tpw.run(strict=True)
 
 
 def test_journal_segments_equal_the_reference_segments(tmp_path):
