@@ -6,8 +6,9 @@ RAG, the cross-encoder reranker and the local decoder chat), the relational oper
 the xpack's RAG document pipeline (``VectorStoreServer`` over BGE-base, and the
 adaptive RAG question answerer over it), its ``rag_evals`` harness, the table
 operations (the expression namespaces, deduplicate, sort, having, ``apply_async``), the
-temporal operators (Nexmark queries 5, 7 and 8), ``pw.iterate`` (PageRank) and two
-programs killed and resumed under persistence; every
+temporal operators (Nexmark queries 5, 7 and 8), ``pw.iterate`` (PageRank), two
+programs killed and resumed under persistence, and the in-process connectors (RAG served
+over HTTP from an object store, SQLite into the card's groupby, Delta Lake); every
 engine path runs through the engine's C++ host kernels (``pathway_tpu_torch/native``),
 and each workload runs once more on their Python branches to compare.
 
@@ -137,7 +138,7 @@ limit):
    raises in the same commit: the flight dump holds ``run_start``, ``commit``,
    ``error`` and ``run_error`` and the id of the trace in flight. The phase prints its
    seconds.
-   watch: (a) the same program with 256-doc paced commits under
+   watch: (a) the same program at 10,000 docs with 256-doc paced commits under
    ``pw.run(monitoring_level=ALL if rich imports else NONE, with_http_server=True,
    monitoring_server_port=<a free port>)`` with the profiler, the timeseries loop at
    0.1 s, the telemetry sampler at 0.5 s and two SLOs (``WATCH_SLO``: an ingest p95
@@ -164,6 +165,29 @@ limit):
    counts acquisitions of the port's metrics, timeseries and device-pipeline locks, and
    answers every query with the plain child's top-10 doc ids; their walls printed, not
    gated. The phase prints its seconds.
+   connectors: (a) rest_rag, the same program served over HTTP: its 20,000 docs read by
+   ``pw.io.s3.read(format="json")`` from a ``DictObjectStore`` that a feeder thread fills
+   with 40 JSON-lines objects of 500 while the run is live, the embedder and DataIndex
+   on the card, 64 queries POSTed by 8 client threads (``urllib``) to a
+   ``pw.io.http.rest_connector`` route on a free port once every doc has reached the doc
+   subscriber, the run wired as the reference's ``BaseRestServer.run`` wires it
+   (``GraphRunner()``, ``attach(result, runner)``, ``runner.run()`` on a thread), the
+   answers also sent through ``pw.io.http.write`` to an in-process ``http.server``
+   collector; docs/s (the first object put to the last doc at the subscriber), request
+   p50/p95 on the client's clock, the store's polls and ms a poll, recall@10 against
+   exact f32 search over the subscriber's vectors, the forward's launches, peak device
+   memory; every doc by the device route, every request 200 with its own doc at top-1,
+   recall@10 >= 0.99, each answer at the collector once (and its retraction once),
+   ``/_schema`` valid JSON naming the route, the port closed after the run. (b) sqlite:
+   relational_engine's groupby (``groupby(k).reduce(k, s=sum(v), c=count())``) over
+   200,000 rows read by ``pw.io.sqlite.read`` from a database file, the groupby forced
+   onto the card, then 10 rounds of 1,000 UPDATEs, 1,000 DELETEs and 1,000 INSERTs from
+   another connection; after the load and every round the subscriber's state must equal
+   NumPy's groupby over a ``SELECT`` of the table exactly, and every groupby commit take
+   the device route; rows/s, each round's rescan seconds, the segment kernels' launches.
+   (c) deltalake: where pyarrow imports, (b)'s final state through
+   ``pw.io.deltalake.write`` and back through ``pw.io.deltalake.read`` in a second
+   ``pw.run``, equal to it; else the line says ``"pyarrow absent"``.
 10. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
    steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
@@ -292,8 +316,9 @@ limit):
 24. The native line (every phase's host kernel calls and ns, and the both-ways
    comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
    forward's ``launches_by_path`` includes ``rag_evals``, ``persistence``,
-   ``observability`` and ``watch``, the segment reduction's ``table_ops``,
-   ``temporal``, ``iterate``, ``optimizer``, ``persistence`` and ``observability``),
+   ``observability``, ``watch`` and ``connectors``, the segment reduction's
+   ``table_ops``, ``temporal``, ``iterate``, ``optimizer``, ``persistence``,
+   ``observability`` and ``connectors``),
    the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
@@ -1875,6 +1900,7 @@ WATCH_SLO = [
     {"name": "watch_entries_floor", "kind": "throughput", "family": "pathway_connector_entries_total",
      "bound": 1.0, "labels": {"connector": "python-connector"}},
 ]
+WATCH_DOCS = 10_000  # (a)'s docs: half of engine_pipeline's, since its pace waits out each commit
 WATCH_LOCK_DOCS = 4096  # the lock-order children's docs and queries
 WATCH_LOCK_QUERIES = 16
 WATCH_PACKAGES = ("rich", "psutil", "aiohttp", "requests")
@@ -2052,14 +2078,14 @@ def _watched_run(n_docs: int, n_queries: int, out: str, slo: list | None, trace:
 
 
 def _watch_main_run(card: Card, engine_docs_per_s: float, out: str) -> int:
-    """(a): the main path watched live at 20,000 docs and 64 queries, its scrapes,
+    """(a): the main path watched live at 10,000 docs and 64 queries, its scrapes,
     routes, SLO verdicts, process samples and threads checked; -> the forward kernel's
     launches."""
-    got = _watched_run(N_DOCS, N_QUERIES, out, WATCH_SLO, trace=False)
+    got = _watched_run(WATCH_DOCS, N_QUERIES, out, WATCH_SLO, trace=False)
     obs, scraper = got["obs"], got["scraper"]
     run_start, ingest_end = obs["run_start"], obs["ingest_end"]
     # the first monitor commit whose doc row held every doc, and the first scrape after it
-    synced = next((t for t, _w, entries in got["commits"] if entries.get("python-connector") == N_DOCS),
+    synced = next((t for t, _w, entries in got["commits"] if entries.get("python-connector") == WATCH_DOCS),
                   None)
     scrapes = [(t0, t1, code, body) for t0, t1, code, body in scraper.scrapes]
     during = [s for s in scrapes if run_start <= s[0] and s[1] <= ingest_end]
@@ -2095,7 +2121,7 @@ def _watch_main_run(card: Card, engine_docs_per_s: float, out: str) -> int:
     proc = got["process"]
     top_ops = max((st["insertions"] for st in proc.get("operators", {}).values()), default=0)
     errors_in_run = [e for t, e in scraper.errors if run_start <= t <= ingest_end]
-    docs_per_s = N_DOCS / got["ingest_s"] if got["ingest_s"] > 0 else float("nan")
+    docs_per_s = WATCH_DOCS / got["ingest_s"] if got["ingest_s"] > 0 else float("nan")
     card.emit(
         "watch_main_path", model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded)",
         capacity=CAPACITY, n_docs=len(obs["docs"]), n_answers=len(obs["answers"]),
@@ -2121,7 +2147,7 @@ def _watch_main_run(card: Card, engine_docs_per_s: float, out: str) -> int:
         flash_launches=got["launches"], embed_calls=got["embed_calls"], failures=obs["failures"],
     )
     check(not obs["failures"], f"watch: {obs['failures']}")
-    check(len(obs["docs"]) == N_DOCS, f"watch: {len(obs['docs'])} of {N_DOCS} docs arrived")
+    check(len(obs["docs"]) == WATCH_DOCS, f"watch: {len(obs['docs'])} of {WATCH_DOCS} docs arrived")
     check(len(obs["answers"]) == N_QUERIES and not obs["timeouts"],
           f"watch: {len(obs['answers'])} answers, timeouts {obs['timeouts']}")
     check(got["recall"] >= 0.99 and got["self_hit"],
@@ -2129,7 +2155,7 @@ def _watch_main_run(card: Card, engine_docs_per_s: float, out: str) -> int:
     check(len(during) >= 10, f"watch: {len(during)} scrapes landed while docs were embedded")
     check(not bad and not invalid and not errors_in_run, f"watch: scrapes {bad} {invalid} {errors_in_run}")
     check(all(b >= a for a, b in zip(commits_seen, commits_seen[1:])), f"watch: commits fell: {commits_seen}")
-    check(doc_entries.get("python-connector") == N_DOCS, f"watch: entries after ingest {doc_entries}")
+    check(doc_entries.get("python-connector") == WATCH_DOCS, f"watch: entries after ingest {doc_entries}")
     check(len(points) >= 5 and all(b >= a for a, b in zip(points, points[1:])),
           f"watch: /timeseries points {points}")
     check(once.get(fam.replace("window=600", "window=soon"), (0,))[0] == 400, f"watch: bad window {once}")
@@ -2142,7 +2168,7 @@ def _watch_main_run(card: Card, engine_docs_per_s: float, out: str) -> int:
     check(floor_burns == startup and len(startup) <= 1, f"watch: the floor burned while rows flowed {burns}")
     check(breaches.get("watch_ingest_p95") == 1 and breaches.get("watch_entries_floor", 0) == len(startup),
           f"watch: breaches {breaches}")
-    check((proc.get("memory_rss_bytes") or 0) > 0 and top_ops >= N_DOCS, f"watch: process sample {proc}")
+    check((proc.get("memory_rss_bytes") or 0) > 0 and top_ops >= WATCH_DOCS, f"watch: process sample {proc}")
     check(not got["threads_after"], f"watch: threads alive after pw.run: {got['threads_after']}")
     check(got["launches"] > 0 and got["launches"] == LAYERS * got["embed_calls"],
           f"watch: flash launches {got['launches']} != {LAYERS} x {got['embed_calls']} embed calls")
@@ -2238,6 +2264,457 @@ def phase_watch(card: Card, engine_docs_per_s: float) -> dict:
               lockwatch_cycles=len(children["watched"]["cycles"]))
     check(metrics_gate["overhead_pct"] <= OBS_GATE_PCT, f"metrics overhead {metrics_gate}")
     return {"flash": flash}
+
+
+# -- the in-process connectors: RAG served over HTTP, SQLite, Delta Lake ---------------------
+
+CONN_OBJECTS = 40  # the docs reach the connector as 40 JSON-lines objects of 500
+CONN_CLIENTS = 8  # client threads POSTing the queries
+CONN_ROUTE = "/v1/retrieve"
+CONN_WAIT_S = 300.0
+SQLITE_ROWS = 200_000  # relational_engine's rows (N_ENGINE)
+SQLITE_ROUNDS = 10
+SQLITE_ROUND_ROWS = 1_000  # UPDATEs, DELETEs and INSERTs a round, each
+SQLITE_GROUPS = 1024 + 64  # relational_engine's keys: N_DIM, and 64 more
+
+
+class _Collector:
+    """An in-process ``http.server`` that keeps the JSON body of every POST."""
+
+    def __init__(self) -> None:
+        import http.server
+
+        bodies, lock = [], threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — http.server's name
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                with lock:
+                    bodies.append(json.loads(body))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.bodies, self.lock = bodies, lock
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/answers"
+        self.thread = threading.Thread(target=self.server.serve_forever, name="connectors-collector",
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(30.0)
+
+
+class _TimedPolls:
+    """Wraps ``cls.poll`` while open: times every poll, and once ``stop`` is set reports
+    the reader done (a streaming reader never ends by itself)."""
+
+    def __init__(self, cls) -> None:
+        self.cls, self.stop = cls, threading.Event()
+        self.seconds: list[float] = []
+        self.with_entries: list[float] = []
+
+    def __enter__(self):
+        self._poll = orig = self.cls.poll
+        me = self
+
+        def poll(reader):
+            t0 = time.perf_counter()
+            entries, done = orig(reader)
+            dt = time.perf_counter() - t0
+            me.seconds.append(dt)
+            if entries:
+                me.with_entries.append(dt)
+            return entries, done or me.stop.is_set()
+
+        self.cls.poll = poll
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.poll = self._poll
+
+
+def _wait_for(cond, thread: threading.Thread, timeout: float = CONN_WAIT_S) -> bool:
+    """Wait until ``cond()`` holds, at most ``timeout`` s and only while the run's
+    ``thread`` lives -> whether it held."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline or not thread.is_alive():
+            return cond()
+        time.sleep(0.01)
+    return True
+
+
+def _attach_sinks(runner) -> None:
+    """Build and attach every registered sink (``pw.io.subscribe``, ``pw.io.http.write``)
+    in ``runner``, as ``pw.run`` does before its run."""
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    for sink in G.sinks:
+        driver = sink.attach(runner.scope, runner.build(sink.table))
+        if driver is not None:
+            runner.drivers.append(driver)
+
+
+def _post_json(port: int, path: str, payload: dict) -> tuple[int, object, float]:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=CONN_WAIT_S) as resp:
+            code, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, json.loads(body), time.perf_counter() - t0
+
+
+def _connectors_rest_rag(card: Card) -> int:
+    """(a): BASELINE #1's program served over HTTP: docs from ``pw.io.s3.read`` over a
+    ``DictObjectStore`` that a feeder thread fills while the run is live, the embedder
+    UDF and DataIndex on the card, queries POSTed to a ``rest_connector`` route by
+    client threads, the run wired as ``BaseRestServer.run`` wires it (``GraphRunner()``,
+    ``attach``, ``runner.run()`` on a thread), the answers also sent through
+    ``pw.io.http.write`` to a collector; -> the forward kernel's launches."""
+    from pathway_tpu_torch.engine.storage import ObjectStoreReader
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    corpus = [doc_text(i) for i in range(N_DOCS)]
+    per_object = N_DOCS // CONN_OBJECTS
+    objects = [(f"docs/part-{j:03d}.jsonl",
+                "".join(json.dumps({"doc_id": i, "text": corpus[i]}) + "\n"
+                        for i in range(j * per_object, (j + 1) * per_object)))
+               for j in range(CONN_OBJECTS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    embed_calls, _sizes = _count_embed_calls(embedder)
+    factory = _KeptKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    store = pw.io.s3.DictObjectStore()
+    collector = _Collector()
+    port = _free_port()
+    server = pw.io.http.PathwayWebserver("127.0.0.1", port)
+    obs = {"docs": {}, "answers": {}, "first_put": 0.0, "ingest_end": 0.0}
+    ingest_done = threading.Event()
+
+    docs = pw.io.s3.read("docs/", format="json", schema=pw.schema_from_types(doc_id=int, text=str),
+                         client=store)
+    docs = docs.select(doc_id=pw.this.doc_id, emb=embedder(pw.this.text))
+    queries, attach = pw.io.http.rest_connector(
+        schema=pw.schema_from_types(qid=int, text=str), route=CONN_ROUTE, webserver=server)
+    queries = queries.select(qid=pw.this.qid, qemb=embedder(pw.this.text))
+    res = DataIndex(docs, factory, docs.emb).query_as_of_now(queries, queries.qemb,
+                                                             number_of_matches=K)
+    result = res.select(qid=pw.this.qid, ids=pw.this._pw_index_reply_ids,
+                        scores=pw.this._pw_index_reply_scores)
+    perf_counter = time.perf_counter
+
+    def on_doc(key, row, time, is_addition):
+        if is_addition:
+            obs["docs"][key] = (row["doc_id"], np.asarray(row["emb"], np.float32))
+            if len(obs["docs"]) == N_DOCS:
+                obs["ingest_end"] = perf_counter()
+                ingest_done.set()
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            obs["answers"][row["qid"]] = np.asarray(row["qemb"], np.float32)
+
+    pw.io.subscribe(docs, on_change=on_doc)
+    pw.io.subscribe(res, on_change=on_answer)
+    pw.io.http.write(result, collector.url)
+
+    def feed() -> None:
+        obs["first_put"] = time.perf_counter()
+        for name, text in objects:
+            store.put_object(name, text)
+            time.sleep(0.01)
+
+    run_error: list = []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    device_pipeline.PIPELINE.configure()
+    fa.KERNEL.launches = 0
+    t_run = time.perf_counter()
+    with _TimedPolls(ObjectStoreReader) as polls:
+        runner = GraphRunner()
+        attach(result, runner)  # builds the route's graph and starts the webserver
+        _attach_sinks(runner)
+        G.clear()
+
+        def run() -> None:
+            try:
+                runner.run()
+            except BaseException as e:  # noqa: BLE001 — raised below, on the main thread
+                run_error.append(e)
+
+        thread = threading.Thread(target=run, name="connectors-rest-run")
+        thread.start()
+        feeder = threading.Thread(target=feed, name="connectors-feeder")
+        feeder.start()
+        try:
+            arrived = _wait_for(ingest_done.is_set, thread)
+            feeder.join(CONN_WAIT_S)
+            schema = _http_get(port, "/_schema?format=json")
+            replies: list = [None] * N_QUERIES
+
+            def client(c: int) -> None:
+                for qid in range(c, N_QUERIES, CONN_CLIENTS):
+                    replies[qid] = _post_json(port, CONN_ROUTE,
+                                              {"qid": qid, "text": doc_text(qid * 37 % N_DOCS)})
+
+            clients = [threading.Thread(target=client, args=(c,)) for c in range(CONN_CLIENTS)]
+            t_q = time.perf_counter()
+            if arrived:
+                for t in clients:
+                    t.start()
+                for t in clients:
+                    t.join(CONN_WAIT_S)
+            queries_s = time.perf_counter() - t_q
+            # each answer once as an insertion, and its retraction once the request's
+            # row is deleted (delete_completed_queries)
+            _wait_for(lambda: len(collector.bodies) >= 2 * N_QUERIES, thread, timeout=60.0)
+        finally:
+            server.stop()  # closes the port and ends the query stream
+            polls.stop.set()  # ends the object-store read
+            thread.join(CONN_WAIT_S)
+            collector.close()
+    run_s = time.perf_counter() - t_run
+    if run_error:
+        raise run_error[0]
+    check(not thread.is_alive(), "rest_rag: the run did not end")
+    launches = fa.KERNEL.launches
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    index = factory.built
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=5).close()
+        port_closed = False
+    except ConnectionRefusedError:
+        port_closed = True
+
+    key_of_text = {str(k): k for k in obs["docs"]}
+    key_of_doc = {doc_id: k for k, (doc_id, _e) in obs["docs"].items()}
+    statuses = [r[0] if r else None for r in replies]
+    answers, top1 = {}, []
+    for qid, r in enumerate(replies):
+        if r and r[0] == 200 and qid in obs["answers"]:
+            hits = tuple(key_of_text.get(i) for i in r[1]["ids"])
+            answers[qid] = (hits, obs["answers"][qid])
+            top1.append(bool(hits) and hits[0] == key_of_doc.get(qid * 37 % N_DOCS))
+    recall, _self_hit = _engine_recall({"docs": obs["docs"], "answers": answers})
+    posted = collections.Counter((b["qid"], b["diff"]) for b in collector.bodies)
+    lat_ms = sorted(1e3 * r[2] for r in replies if r)
+    desc = json.loads(schema[1]) if schema[0] == 200 else {}
+    ingest_s = obs["ingest_end"] - obs["first_put"]
+    card.emit(
+        "connectors_rest_rag", model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded)",
+        capacity=index.capacity, n_docs=len(obs["docs"]), objects=CONN_OBJECTS,
+        docs_per_s=N_DOCS / ingest_s if ingest_s > 0 else None, ingest_s=ingest_s, run_s=run_s,
+        requests=len(lat_ms), clients=CONN_CLIENTS, queries_s=queries_s,
+        request_p50_ms=lat_ms[len(lat_ms) // 2] if lat_ms else None,
+        request_p95_ms=lat_ms[int(0.95 * len(lat_ms))] if lat_ms else None,
+        request_ms_by_qid=[1e3 * r[2] if r else None for r in replies],
+        statuses=dict(collections.Counter(statuses)), recall_at_10=recall, top1_own_doc=sum(top1),
+        store_polls=len(polls.seconds), store_poll_ms_mean=1e3 * float(np.mean(polls.seconds)),
+        store_poll_ms_p50=1e3 * float(np.median(polls.seconds)),
+        store_poll_ms_max=1e3 * max(polls.seconds),
+        store_polls_with_entries=len(polls.with_entries),
+        collector_posts=len(collector.bodies), collector_inserts=sum(v for (q, d), v in posted.items() if d > 0),
+        flash_launches=launches, embed_calls=embed_calls[0],
+        index_rows_device_route=index.rows_device, index_rows_host_route=index.rows_host,
+        peak_device_gib=peak_gib, schema_paths=sorted(desc.get("paths", {})), port_closed=port_closed,
+    )
+    check(len(obs["docs"]) == N_DOCS, f"rest_rag: {len(obs['docs'])} of {N_DOCS} docs arrived")
+    check(statuses == [200] * N_QUERIES, f"rest_rag: statuses {statuses}")
+    check(len(top1) == N_QUERIES and all(top1), f"rest_rag: {sum(top1)} of {N_QUERIES} own docs at top-1")
+    check(recall >= 0.99, f"rest_rag: recall@10 {recall}")
+    check(all(posted[(q, 1)] == 1 for q in range(N_QUERIES)) and all(
+        d in (1, -1) and n == 1 for (q, d), n in posted.items()), f"rest_rag: collector {posted}")
+    check(CONN_ROUTE in desc.get("paths", {}) and desc.get("openapi") == "3.0.3",
+          f"rest_rag: /_schema {schema[:2]}")
+    check(index.rows_device == N_DOCS and index.rows_host == 0,
+          f"rest_rag: index routes {index.rows_device} device, {index.rows_host} host")
+    check(launches > 0 and launches == LAYERS * embed_calls[0],
+          f"rest_rag: flash launches {launches} != {LAYERS} x {embed_calls[0]} embed calls")
+    check(port_closed, f"rest_rag: port {port} still accepts connections after the run")
+    return launches
+
+
+def _sqlite_expected(conn) -> dict:
+    """NumPy's groupby over a ``SELECT`` of the table: {k: (k, sum's bits, count)}."""
+    rows = np.array(conn.execute("SELECT k, v FROM t").fetchall(), dtype=np.float64).reshape(-1, 2)
+    k = rows[:, 0].astype(np.int64)
+    counts = np.bincount(k, minlength=SQLITE_GROUPS)
+    sums = np.bincount(k, weights=rows[:, 1], minlength=SQLITE_GROUPS)
+    return {int(g): (int(g), np.float64(sums[g]).view(np.int64).item(), int(counts[g]))
+            for g in np.nonzero(counts)[0]}
+
+
+def _connectors_sqlite(card: Card, root: str) -> tuple[int, dict]:
+    """(b): relational_engine's groupby (``groupby(k).reduce(k, s=sum(v), c=count())``)
+    over 200,000 rows read by ``pw.io.sqlite.read`` from a database file, on the card;
+    then 10 rounds of 1,000 UPDATEs, DELETEs and INSERTs from another connection, the
+    subscriber's state equal to NumPy's over a ``SELECT`` after every round; -> (the
+    segment kernels' launches, the final state)."""
+    import sqlite3
+
+    from pathway_tpu_torch.engine.storage import SqliteReader
+
+    db = os.path.join(root, "rel.sqlite")
+    rng = np.random.default_rng(SEED)
+    conn = sqlite3.connect(db)
+    conn.execute("CREATE TABLE t (k INTEGER, v REAL)")
+    conn.executemany("INSERT INTO t VALUES (?, ?)", zip(
+        rng.integers(0, SQLITE_GROUPS, SQLITE_ROWS).tolist(),
+        (rng.integers(-4000, 4000, SQLITE_ROWS) * 0.125).tolist()))
+    conn.commit()
+    state: dict = {}
+    lock = threading.Lock()
+
+    def on_change(key, row, time, is_addition):
+        value = (row["k"], np.float64(row["s"]).view(np.int64).item(), row["c"])
+        with lock:
+            if is_addition:
+                state[row["k"]] = value
+            elif state.get(row["k"]) == value:  # a retraction of the row it holds
+                del state[row["k"]]
+
+    t = pw.io.sqlite.read(db, "t", pw.schema_from_types(k=int, v=float))
+    g = t.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v), c=pw.reducers.count())
+    pw.io.subscribe(g, on_change=on_change)
+    run_error: list = []
+
+    def wait_equal(want: dict) -> bool:
+        def equal() -> bool:
+            with lock:
+                return state == want
+
+        return _wait_for(equal, thread)
+
+    rounds = []
+    device_ops.configure()
+    device_ops.reset_counters()
+    device_pipeline.PIPELINE.configure()
+    _zero_segment_launches()
+    with _TimedPolls(SqliteReader) as polls, _KeptRunner() as kept:
+        def run() -> None:
+            try:
+                _with_device_ops("1", pw.run)
+            except BaseException as e:  # noqa: BLE001 — raised below, on the main thread
+                run_error.append(e)
+
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=run, name="connectors-sqlite-run")
+        thread.start()
+        try:
+            loaded = wait_equal(_sqlite_expected(conn))
+            load_s = time.perf_counter() - t0
+            for r in range(SQLITE_ROUNDS if loaded else 0):
+                rowids = [x for (x,) in conn.execute("SELECT rowid FROM t")]
+                picks = rng.choice(len(rowids), 2 * SQLITE_ROUND_ROWS, replace=False)
+                upd = [rowids[i] for i in picks[:SQLITE_ROUND_ROWS]]
+                dele = [rowids[i] for i in picks[SQLITE_ROUND_ROWS:]]
+                n_scans = len(polls.with_entries)
+                t_r = time.perf_counter()
+                conn.executemany("UPDATE t SET k = ?, v = ? WHERE rowid = ?", zip(
+                    rng.integers(0, SQLITE_GROUPS, SQLITE_ROUND_ROWS).tolist(),
+                    (rng.integers(-4000, 4000, SQLITE_ROUND_ROWS) * 0.125).tolist(), upd))
+                conn.executemany("DELETE FROM t WHERE rowid = ?", [(x,) for x in dele])
+                conn.executemany("INSERT INTO t VALUES (?, ?)", zip(
+                    rng.integers(0, SQLITE_GROUPS, SQLITE_ROUND_ROWS).tolist(),
+                    (rng.integers(-4000, 4000, SQLITE_ROUND_ROWS) * 0.125).tolist()))
+                conn.commit()
+                ok = wait_equal(_sqlite_expected(conn))
+                rounds.append({"equal": ok, "s": time.perf_counter() - t_r,
+                               "rescan_s": sum(polls.with_entries[n_scans:])})
+                if not ok:
+                    break
+        finally:
+            polls.stop.set()
+            thread.join(CONN_WAIT_S)
+            conn.close()
+    if run_error:
+        raise run_error[0]
+    check(not thread.is_alive(), "sqlite: the run did not end")
+    by_kernel = _segment_launches()
+    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in kept.runners[0].scope.nodes
+              if hasattr(n, "routes")}
+    groupbys = [r for name, r in routes.items() if name.startswith("GroupbyNode")]
+    card.emit("connectors_sqlite", rows=SQLITE_ROWS, groups=SQLITE_GROUPS, rounds=len(rounds),
+              round_rows=SQLITE_ROUND_ROWS, load_s=load_s, rows_per_s=SQLITE_ROWS / load_s,
+              first_scan_s=polls.with_entries[0] if polls.with_entries else None,
+              round_s=[x["s"] for x in rounds], rescan_s_per_round=[x["rescan_s"] for x in rounds],
+              rounds_equal=[x["equal"] for x in rounds], polls=len(polls.seconds),
+              routes=routes, segment_launches=by_kernel)
+    check(loaded, "sqlite: the loaded groupby differs from NumPy's")
+    check(len(rounds) == SQLITE_ROUNDS and all(x["equal"] for x in rounds),
+          f"sqlite: rounds {rounds}")
+    check(len(groupbys) == 1 and groupbys[0]["device"] > SQLITE_ROUNDS and groupbys[0]["host"] == 0
+          and groupbys[0]["rows"] == 0, f"sqlite: groupby routes {groupbys}")
+    check(all(by_kernel[k] > 0 for k in SEGMENT_PATH_KERNELS), f"sqlite: segment launches {by_kernel}")
+    return sum(by_kernel.values()), dict(state)
+
+
+def _connectors_deltalake(card: Card, root: str, final: dict) -> dict:
+    """(c): (b)'s final groupby state written by ``pw.io.deltalake.write`` and read back
+    by ``pw.io.deltalake.read`` in a second ``pw.run``, where pyarrow imports."""
+    if not _imports("pyarrow"):
+        card.emit("connectors_deltalake", deltalake="pyarrow absent")
+        return {"deltalake": "pyarrow absent"}
+    lake = os.path.join(root, "lake")
+    rows = [(k, np.int64(s).view(np.float64).item(), c) for k, s, c in final.values()]
+    t0 = time.perf_counter()
+    pw.io.deltalake.write(pw.debug.table_from_rows(pw.schema_from_types(k=int, s=float, c=int), rows),
+                          lake)
+    pw.run()
+    write_s = time.perf_counter() - t0
+
+    class S(pw.Schema):
+        k: int = pw.column_definition(primary_key=True)
+        s: float
+        c: int
+
+    back: dict = {}
+    pw.io.subscribe(pw.io.deltalake.read(lake, schema=S, mode="static"),
+                    on_change=lambda key, row, time, is_addition: back.update(
+                        {row["k"]: (row["k"], np.float64(row["s"]).view(np.int64).item(), row["c"])}))
+    t0 = time.perf_counter()
+    pw.run()
+    read_s = time.perf_counter() - t0
+    log = sorted(os.listdir(os.path.join(lake, "_delta_log")))
+    card.emit("connectors_deltalake", deltalake="pyarrow", rows=len(rows), write_s=write_s,
+              read_s=read_s, log=log, equal=back == final)
+    check(back == final, f"deltalake: {len(back)} rows read back, {len(final)} written, not equal")
+    return {"deltalake": "pyarrow", "rows": len(rows)}
+
+
+def phase_connectors(card: Card) -> dict:
+    """The in-process connectors on the card: (a) RAG served over HTTP, (b) SQLite into
+    the card's groupby, (c) Delta Lake; -> the forward kernel's and the segment
+    reduction's launches."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pw_connectors_")
+    try:
+        t0 = time.perf_counter()
+        flash = _connectors_rest_rag(card)
+        rest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        segment, final = _connectors_sqlite(card, root)
+        sqlite_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lake = _connectors_deltalake(card, root, final)
+        lake_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    card.emit("connectors", seconds=time.perf_counter() - t_phase, rest_rag_s=rest_s,
+              sqlite_s=sqlite_s, deltalake_s=lake_s, **lake)
+    return {"flash": flash, "segment": segment}
 
 
 def train_batch(n: int, vocab_size: int) -> ContrastiveBatch:
@@ -5860,6 +6337,7 @@ def main() -> int:
                             groupby_rows)
     del groupby_rows
     watch = counted("watch", phase_watch, card, engine_docs_per_s)
+    connectors = counted("connectors", phase_connectors, card)
     train = counted("train", phase_train, card)
     image_embedder = ImageEmbedder("vit-b16", max_batch_size=IMAGE_BATCH, seed=SEED)
     vision = counted("vision_parity", phase_vision_parity, card, image_embedder)
@@ -5885,7 +6363,8 @@ def main() -> int:
                                "multimodal": multimodal, "rerank": rerank,
                                "vector_store": vector_store, "rag": rag,
                                "rag_evals": rag_evals, "persistence": persistence["flash"],
-                               "observability": observability["flash"], "watch": watch["flash"]}
+                               "observability": observability["flash"], "watch": watch["flash"],
+                               "connectors": connectors["flash"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
@@ -5896,7 +6375,8 @@ def main() -> int:
                                       "table_ops": table_ops, "temporal": temporal,
                                       "iterate": iterate, "optimizer": optimizer,
                                       "persistence": persistence["segment"],
-                                      "observability": observability["segment"]}
+                                      "observability": observability["segment"],
+                                      "connectors": connectors["segment"]}
     print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)

@@ -22,14 +22,17 @@ uncommitted row (``first_pending_wall``, the start of the ingest-to-sink latency
 a trace's ``ingest-wait`` span), and retries a reader poll that raises ``OSError``
 (``PATHWAY_TPU_CONNECTOR_RETRIES``, ``pathway_connector_retries_total``).
 
-Not ported yet: the message buses, databases and object stores, the synchronization
-groups (ROADMAP queue 1 item 15), and the writers' rollback of a mesh to a common
-commit (item 14). :class:`BatchScheduleDriver` feeds
-``pw.debug``'s ``StreamGenerator``.
+An :class:`InputDriver` may belong to a synchronization group (``io/_synchronization.py``):
+an event whose sync column runs more than the group's ``max_difference`` ahead of the
+slowest member waits in its backlog, in order, until the group admits it. The readers
+over databases and object stores are in ``engine/storage.py``. Not ported yet: the
+message buses (ROADMAP queue 1 item 15) and the writers' rollback of a mesh to a common
+commit (item 14). :class:`BatchScheduleDriver` feeds ``pw.debug``'s ``StreamGenerator``.
 """
 
 from __future__ import annotations
 
+import collections
 import csv as _csv
 import glob as _glob
 import io as _io
@@ -325,6 +328,14 @@ class InputDriver:
             "reader poll batches per connector",
             connector=self.source_name,
         )
+        # synchronization-group pacing (io/_synchronization.py): events whose sync
+        # column runs ahead of the group wait in ``_sync_backlog``, in order, as
+        # (kind, key, values, track, source_id)
+        self.sync_group: Any = None
+        self.sync_col: int | None = None
+        self._sync_backlog: collections.deque = collections.deque()
+        #: the reader finished while the group still held events back
+        self._done_pending = False
 
     def effective_autocommit_s(self) -> float:
         """The autocommit window scaled by the device pipeline's pressure: a congested
@@ -378,6 +389,43 @@ class InputDriver:
         else:
             self.session.remove(key, values)
 
+    def _sync_admit(self, values: tuple | None) -> bool:
+        """The synchronization group's gate: once anything is held back, later events
+        queue behind it to keep their order; an event with no sync time (None) is not
+        paced."""
+        if self.sync_group is None:
+            return True
+        if self._sync_backlog:
+            return False
+        if values is None or values[self.sync_col] is None:
+            return True
+        return self.sync_group.admit(self, values[self.sync_col])
+
+    def _drain_backlog(self) -> bool:
+        """Release the held events the group now admits, in order."""
+        produced = False
+        while self._sync_backlog:
+            kind, key, values, track, _src = self._sync_backlog[0]
+            t = values[self.sync_col] if values is not None else None
+            if t is not None and not self.sync_group.admit(self, t):
+                break
+            self._sync_backlog.popleft()
+            self._feed(kind, key, values, track)
+            produced = True
+        self._note_pending()
+        return produced
+
+    def _note_pending(self) -> None:
+        """Tell the group the time of this source's next held event (None: none)."""
+        if self.sync_group is None:
+            return
+        head_t = None
+        if self._sync_backlog:
+            head_values = self._sync_backlog[0][2]
+            if head_values is not None:
+                head_t = head_values[self.sync_col]
+        self.sync_group.note_pending(self, head_t)
+
     def _poll_reader(self) -> tuple[list, bool]:
         """``reader.poll()``, with ``PATHWAY_TPU_CONNECTOR_RETRIES`` (default 3, 0
         disables) retries of a poll that raises ``OSError`` (a network filesystem
@@ -410,7 +458,12 @@ class InputDriver:
         if self.done:
             return "done"
         produced = False
-        entries, done = self._poll_reader()
+        if self._sync_backlog:
+            produced = self._drain_backlog()
+        if self._done_pending:
+            entries, done = [], True
+        else:
+            entries, done = self._poll_reader()
         if entries:
             self.entries_total += len(entries)
             self.batches_total += 1
@@ -428,6 +481,12 @@ class InputDriver:
                 for key, row in old_rows:
                     self.session.remove(key, row)
                 produced = True
+            if replaces and self._sync_backlog:
+                # the held events of a replaced source version never surface: they
+                # were superseded before they were emitted
+                self._sync_backlog = collections.deque(
+                    e for e in self._sync_backlog if e[4] != source_id
+                )
             if metadata.get("deleted"):
                 continue
             reset = getattr(self.parser, "reset", None)
@@ -441,14 +500,26 @@ class InputDriver:
             new_rows: list[tuple[Pointer, tuple]] = []
             for event, values, key in zip(events, rows, self._keys_for(events, rows, source_id)):
                 track = new_rows if (event.kind == INSERT and replaces) else None
-                self._feed(event.kind, key, values, track)
-                produced = True
+                if self._sync_admit(values):
+                    self._feed(event.kind, key, values, track)
+                    produced = True
+                else:
+                    self._sync_backlog.append((event.kind, key, values, track, source_id))
             if replaces and events:
+                # held inserts append to this same list when they are released
                 self._per_source_rows[source_id] = new_rows
+        self._note_pending()
         if produced and self.first_pending_wall is None:
             self.first_pending_wall = _time.monotonic()
         if done:
+            if self._sync_backlog:
+                # the group still holds events back: idle until the other sources
+                # release them
+                self._done_pending = True
+                return "data" if produced else "idle"
             self.done = True
+            if self.sync_group is not None:
+                self.sync_group.mark_done(self)
             return "done"
         return "data" if produced else "idle"
 

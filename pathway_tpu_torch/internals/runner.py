@@ -395,6 +395,13 @@ class GraphRunner:
         if kind == "input":
             # connector-backed table: the io layer supplies an attach function
             node, driver = spec.params["attach"](scope)
+            sync_group = spec.params.get("sync_group")
+            if sync_group is not None:
+                # io/_synchronization.py: membership is per run
+                sync_group.ensure_run(id(self))
+                driver.sync_group = sync_group
+                driver.sync_col = table._column_names.index(spec.params["sync_column"])
+                sync_group.register(driver)
             persistent_id = spec.params.get("persistent_id")
             if (
                 persistent_id is not None

@@ -1,8 +1,11 @@
 """Shared io plumbing: connector-backed input tables, the text converters of the
 typed readers, and the writers' sinks.
 
-Counterpart of ``converter_for``, ``input_table`` and ``attach_writer`` in
-``pathway_tpu/io/_utils.py``.
+Counterpart of ``pathway_tpu/io/_utils.py``: ``converter_for``, ``input_table`` and
+``attach_writer``; ``post_json``, the JSON POST behind the REST writers; ``require``,
+which gates a connector on its client library unless a client is injected; and
+``lake_parquet_events``, the data lakes' parquet read leg (pyarrow), whose rows with
+``diff = -1`` become retractions keyed by the schema's primary key.
 """
 
 from __future__ import annotations
@@ -107,3 +110,73 @@ def attach_writer(table: Table, make_writer: Callable[[Sequence[str]], Any]) -> 
         return None
 
     G.add_sink(table, attach)
+
+
+def post_json(
+    url: str,
+    payload: dict,
+    token: str | None = None,
+    timeout: float = 60.0,
+    content_type: str = "application/json",
+) -> dict:
+    """POST a JSON body and parse the JSON response: the shared transport of the REST
+    write connectors."""
+    import urllib.request
+
+    headers = {"Content-Type": content_type}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(), headers=headers, method="POST"
+    )
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read().decode())
+
+
+def require(module_names: str, feature: str, injected: Any = None) -> Any:
+    """The client library ``module_names`` of ``feature``, or ``injected`` when a client
+    is given; a missing library raises ``ImportError`` saying how to run without it."""
+    if injected is not None:
+        return injected
+    import importlib
+
+    try:
+        return importlib.import_module(module_names)
+    except ImportError as e:
+        raise ImportError(
+            f"{feature} needs the {module_names!r} client library, which is "
+            f"not installed; pass an explicit client/transport object to run "
+            f"without it"
+        ) from e
+
+
+def lake_parquet_events(
+    path: str,
+    column_names: Sequence[str],
+    key_indices: Sequence[int] | None,
+    lake_kind: str,
+) -> list:
+    """One parquet data file of a data lake (Delta, Iceberg) -> ParsedEvents. Files a
+    Pathway writer wrote carry ``time`` and ``diff`` columns; a row with ``diff < 0``
+    becomes a retraction, which needs the primary-key columns to find the row it
+    cancels (a ``ValueError`` without them)."""
+    import pyarrow.parquet as pq
+
+    from pathway_tpu_torch.engine.connectors import DELETE, INSERT, ParsedEvent
+
+    table = pq.read_table(path)
+    data = {c: table.column(c).to_pylist() for c in table.column_names}
+    absent = [None] * table.num_rows
+    events = []
+    for i in range(table.num_rows):
+        values = tuple(data.get(name, absent)[i] for name in column_names)
+        diff = data["diff"][i] if "diff" in data else 1
+        key = tuple(values[j] for j in key_indices) if key_indices else None
+        if diff < 0 and key is None:
+            raise ValueError(
+                f"{lake_kind} table contains retractions (diff=-1); declare "
+                "primary_key columns in the read schema so they key the "
+                "update stream"
+            )
+        events.append(ParsedEvent(INSERT if diff >= 0 else DELETE, values, key=key))
+    return events

@@ -45,23 +45,22 @@ class Backend:
 
     @staticmethod
     def s3(root_path: Any = None, bucket_settings: Any = None, *, client: Any = None) -> PersistenceBackend:
-        """An S3-shaped object store through an injected ``client`` (``get_object``,
-        ``put_object``, ``list_objects``). Bucket settings that make their own client
-        (``AwsS3Settings``) come with the S3 connector."""
+        """An S3-shaped object store: an injected ``client`` (``get_object``,
+        ``put_object``, ``list_objects``: ``pw.io.s3.DictObjectStore``, say), or the
+        client that ``bucket_settings`` (``pw.io.s3.AwsS3Settings``) makes."""
         if client is None:
-            raise NotImplementedError(
-                "pw.persistence.Backend.s3 without client= needs AwsS3Settings, which is "
-                "not ported yet (ROADMAP queue 1 item 15)"
-            )
+            if bucket_settings is None:
+                raise ValueError("pass client= or bucket_settings=")
+            client = bucket_settings.create_client()
         return ObjectStoreBackend(client, str(root_path or "pathway-persistence"))
 
     @staticmethod
     def azure(root_path: Any = None, account: Any = None, *, client: Any = None) -> PersistenceBackend:
-        """Azure blobs through the same object-store seam."""
+        """Azure blobs through the same object-store seam; the client is injected."""
         if client is None:
-            raise NotImplementedError(
-                "pw.persistence.Backend.azure without client= needs the blob connector, "
-                "which is not ported yet (ROADMAP queue 1 item 15)"
+            raise ImportError(
+                "pw.persistence.Backend.azure needs an injected blob client "
+                "(get_object/put_object/list_objects seam)"
             )
         return ObjectStoreBackend(client, str(root_path or "pathway-persistence"))
 

@@ -68,6 +68,17 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.io.python",
         "pathway_tpu_torch.io._subscribe",
         "pathway_tpu_torch.io._utils",
+        "pathway_tpu_torch.io._synchronization",
+        "pathway_tpu_torch.io.http",
+        "pathway_tpu_torch.io.logstash",
+        "pathway_tpu_torch.io.sqlite",
+        "pathway_tpu_torch.io.s3",
+        "pathway_tpu_torch.io.minio",
+        "pathway_tpu_torch.io.s3_csv",
+        "pathway_tpu_torch.io.pyfilesystem",
+        "pathway_tpu_torch.io.gdrive",
+        "pathway_tpu_torch.io.deltalake",
+        "pathway_tpu_torch.engine.storage",
         "pathway_tpu_torch.stdlib.indexing.data_index",
         "pathway_tpu_torch.engine.device_ops",
         "pathway_tpu_torch.engine.reducers",
@@ -127,7 +138,12 @@ def test_engine_api_imports_no_jax_and_touches_no_card():
             "         pw.io.subscribe, pw.this.x, pw.schema_from_types, pw.Table, pw.udf, pw.UDF,",
             "         pw.reducers.sum, pw.left.x, pw.right.x, pw.debug.table_from_markdown,",
             "         pw.io.fs.read, pw.io.csv.write, pw.io.jsonlines.read, pw.io.plaintext.read,",
-            "         pw.io.null.write, pw.persistence.Config, pw.persistence.Backend.filesystem]",
+            "         pw.io.null.write, pw.persistence.Config, pw.persistence.Backend.filesystem,",
+            "         pw.io.http.rest_connector, pw.io.http.write, pw.io.logstash.write,",
+            "         pw.io.sqlite.read, pw.io.s3.read, pw.io.minio.read, pw.io.s3_csv.read,",
+            "         pw.io.pyfilesystem.read, pw.io.gdrive.read, pw.io.deltalake.read,",
+            "         pw.io.register_input_synchronization_group, pw.persistence.Backend.s3]",
+            "assert 'aiohttp' not in sys.modules and 'pyarrow' not in sys.modules",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))",
             "assert not bad, bad",
             "import torch",

@@ -65,7 +65,9 @@ def test_every_reference_name_is_ported_or_names_its_item(name):
 
 @pytest.mark.parametrize("name", sorted(jio.__all__))
 def test_every_reference_connector_is_ported_or_names_item_15(name):
-    if not _ported_or_names_its_item(tpw.io, name):
+    if _ported_or_names_its_item(tpw.io, name):
+        assert name in tpw.io.__all__, f"{name} is ported but not exported"
+    else:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
             getattr(tpw.io, name)
 
