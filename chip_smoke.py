@@ -7,8 +7,10 @@ the xpack's RAG document pipeline (``VectorStoreServer`` over BGE-base, and the
 adaptive RAG question answerer over it), its ``rag_evals`` harness, the table
 operations (the expression namespaces, deduplicate, sort, having, ``apply_async``), the
 temporal operators (Nexmark queries 5, 7 and 8), ``pw.iterate`` (PageRank), two
-programs killed and resumed under persistence, and the in-process connectors (RAG served
-over HTTP from an object store, SQLite into the card's groupby, Delta Lake); every
+programs killed and resumed under persistence, the in-process connectors (RAG served
+over HTTP from an object store, SQLite into the card's groupby, Delta Lake) and the
+message buses (RAG fed and answered through Kafka, a Debezium change stream into the
+card's groupby, NATS), all over local sockets; every
 engine path runs through the engine's C++ host kernels (``pathway_tpu_torch/native``),
 and each workload runs once more on their Python branches to compare.
 
@@ -188,6 +190,30 @@ limit):
    (c) deltalake: where pyarrow imports, (b)'s final state through
    ``pw.io.deltalake.write`` and back through ``pw.io.deltalake.read`` in a second
    ``pw.run``, equal to it; else the line says ``"pyarrow absent"``.
+   buses, over a ``FakeKafkaBroker`` and a ``FakeNatsServer`` on local ports (the port's
+   own Kafka and NATS wire code; no client library, nothing downloaded): (a)
+   kafka_rag, the same program fed and answered through Kafka: a feeder produces the
+   20,000 docs as JSON to ``docs`` in 4 record batches while ``pw.io.kafka.read``
+   reads them, the embedder and DataIndex on the card over 1,000,000 live rows (main
+   path's 980,000 bulk vectors put into the index as it is built), then, once every
+   doc has reached the doc subscriber, 64 queries (each its doc less the last word)
+   produced one at a time to ``queries``, answered as of now and written by
+   ``pw.io.kafka.write(format="json", key="qid")`` to ``answers``, which a
+   ``KafkaWireClient`` fetches; the run ends when the two read transports are closed.
+   docs/s (the first fetch with docs to the last doc at the subscriber), the answer
+   latency from produce to fetch (p50, p95); every query answered exactly once under
+   its key, its own doc at top-1, recall@10 of 1.0 against a ``HostKnnIndex`` over the
+   same 1,000,000 rows, every row by the device route, 6 forward launches an embed
+   call. (b) debezium: a Postgres Debezium topic with a 50,000-row snapshot (``op:
+   "r"``) in 10 record batches, then 10 rounds of 1,000 ``u`` (before and after
+   images), 1,000 ``d`` and 1,000 ``c`` envelopes with their key payloads, read by
+   ``pw.io.debezium.read`` into the count and sum groupby over 1,088 keys with the
+   device operators forced; after the snapshot and every round the subscriber's state
+   must equal NumPy's exactly, and every groupby commit take the device route. (c)
+   nats: ``pw.io.nats.write`` publishes (b)'s groupby update stream, which a
+   ``NatsConnection`` subscriber on the script's thread folds; its final state must
+   equal (b)'s. The phase prints each leg's seconds, the bytes that crossed each broker
+   and the peak device memory.
 10. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
    steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
@@ -316,9 +342,9 @@ limit):
 24. The native line (every phase's host kernel calls and ns, and the both-ways
    comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
    forward's ``launches_by_path`` includes ``rag_evals``, ``persistence``,
-   ``observability``, ``watch`` and ``connectors``, the segment reduction's
+   ``observability``, ``watch``, ``connectors`` and ``buses``, the segment reduction's
    ``table_ops``, ``temporal``, ``iterate``, ``optimizer``, ``persistence``,
-   ``observability`` and ``connectors``),
+   ``observability``, ``connectors`` and ``buses``),
    the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
@@ -2548,7 +2574,13 @@ def _connectors_rest_rag(card: Card) -> int:
 
 def _sqlite_expected(conn) -> dict:
     """NumPy's groupby over a ``SELECT`` of the table: {k: (k, sum's bits, count)}."""
-    rows = np.array(conn.execute("SELECT k, v FROM t").fetchall(), dtype=np.float64).reshape(-1, 2)
+    return _groupby_expected(conn.execute("SELECT k, v FROM t").fetchall())
+
+
+def _groupby_expected(kv) -> dict:
+    """NumPy's ``groupby(k).reduce(k, s=sum(v), c=count())`` over (k, v) pairs: {k: (k,
+    sum's bits, count)}."""
+    rows = np.array(kv, dtype=np.float64).reshape(-1, 2)
     k = rows[:, 0].astype(np.int64)
     counts = np.bincount(k, minlength=SQLITE_GROUPS)
     sums = np.bincount(k, weights=rows[:, 1], minlength=SQLITE_GROUPS)
@@ -2714,6 +2746,429 @@ def phase_connectors(card: Card) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     card.emit("connectors", seconds=time.perf_counter() - t_phase, rest_rag_s=rest_s,
               sqlite_s=sqlite_s, deltalake_s=lake_s, **lake)
+    return {"flash": flash, "segment": segment}
+
+
+# -- the message buses: RAG through Kafka, Debezium CDC into the card's groupby, NATS -------
+
+BUS_DOC_BATCHES = 4  # the feeder produces the docs as 4 record batches of 5,000
+BUS_AUTOCOMMIT_MS = 100  # engine_pipeline's doc connector window, for the docs and the CDC
+BUS_WAIT_S = 300.0
+DEBEZIUM_ROWS = 50_000  # the snapshot's rows (``op: "r"``)
+DEBEZIUM_SNAPSHOT_BATCHES = 10  # produced as 10 record batches of 5,000
+DEBEZIUM_ROUNDS = 10
+DEBEZIUM_ROUND_ROWS = 1_000  # ``u``, ``d`` and ``c`` envelopes a round, each
+DEBEZIUM_TOPIC = "pg.public.t"  # Debezium's <server>.<schema>.<table>
+NATS_SUBJECT = "groups"
+
+
+def _bus_query_text(qid: int) -> str:
+    """Query ``qid``'s text: a prefix of its own doc (``qid * 37 % N_DOCS``), the doc
+    less its last word."""
+    return " ".join(doc_text(qid * 37 % N_DOCS).split()[:-1])
+
+
+class _BulkKnnFactory(_KeptKnnFactory):
+    """The pipeline's index factory that puts main_path's 980,000 seeded unit vectors
+    into the index it builds, under keys of their own (ints), so that the docs join
+    1,000,000 live rows at ``CAPACITY`` slots; keeps the bulk vectors for the host check."""
+
+    def build(self) -> DeviceKnnIndex:
+        index = super().build()
+        gen = torch.Generator(device=index.device).manual_seed(SEED)
+        bulk = torch.randn((N_BULK, DIM), generator=gen, device=index.device)
+        bulk /= torch.linalg.vector_norm(bulk, dim=1, keepdim=True)
+        index.add(range(N_DOCS, N_DOCS + N_BULK), bulk)
+        self.bulk = bulk
+        return index
+
+
+def _run_thread(name: str, errors: list, fn=None) -> threading.Thread:
+    """``pw.run`` (or ``fn``) started on a thread of its own; what it raises lands in
+    ``errors``, to be raised on the main thread."""
+
+    def run() -> None:
+        try:
+            (fn or pw.run)()
+        except BaseException as e:  # noqa: BLE001 — raised on the main thread
+            errors.append(e)
+
+    thread = threading.Thread(target=run, name=name)
+    thread.start()
+    return thread
+
+
+def _buses_kafka_rag(card: Card, broker) -> int:
+    """(a): BASELINE #1's program fed and answered through Kafka: a feeder produces the
+    20,000 docs as JSON to ``docs`` while ``pw.run`` reads them with
+    ``pw.io.kafka.read(format="json")``, embeds them at full MiniLM-L6 width and puts
+    them into the 1M-row index; once every doc has reached the doc subscriber, 64
+    queries (each a prefix of its own doc) are produced one at a time to ``queries``,
+    answered as of now and written by ``pw.io.kafka.write(format="json", key="qid")`` to
+    ``answers``, which a ``KafkaWireClient`` fetches; the run ends when the script
+    closes the two read transports; -> the forward kernel's launches."""
+    from pathway_tpu_torch.io._kafka_wire import KafkaWireClient, KafkaWireTransport, WireRecord
+
+    bootstrap = f"{broker.host}:{broker.port}"
+    settings = {"bootstrap.servers": bootstrap}
+    corpus = [doc_text(i) for i in range(N_DOCS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    embed_calls, _sizes = _count_embed_calls(embedder)
+    factory = _BulkKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    docs_tr = KafkaWireTransport(bootstrap, "docs")
+    queries_tr = KafkaWireTransport(bootstrap, "queries")
+    fetches: list[float] = []  # the perf_counter of each docs poll that read messages
+    poll_docs = docs_tr.poll_messages
+
+    def timed_poll():
+        msgs = poll_docs()
+        if msgs:
+            fetches.append(time.perf_counter())
+        return msgs
+
+    docs_tr.poll_messages = timed_poll
+    obs = {"docs": {}, "qembs": {}, "ingest_end": 0.0, "produce_s": 0.0}
+    ingest_done = threading.Event()
+    perf_counter = time.perf_counter  # the callbacks' ``time`` argument shadows the module
+
+    docs = pw.io.kafka.read(settings, "docs", format="json", transport=docs_tr,
+                            schema=pw.schema_from_types(doc_id=int, text=str),
+                            autocommit_duration_ms=BUS_AUTOCOMMIT_MS)
+    docs = docs.select(doc_id=pw.this.doc_id, emb=embedder(pw.this.text))
+    queries = pw.io.kafka.read(settings, "queries", format="json", transport=queries_tr,
+                               schema=pw.schema_from_types(qid=int, text=str),
+                               autocommit_duration_ms=None)
+    queries = queries.select(qid=pw.this.qid, qemb=embedder(pw.this.text))
+    res = DataIndex(docs, factory, docs.emb).query_as_of_now(queries, queries.qemb,
+                                                             number_of_matches=K)
+    answers = res.select(qid=pw.this.qid, ids=pw.this._pw_index_reply_ids,
+                         scores=pw.this._pw_index_reply_scores)
+
+    def on_doc(key, row, time, is_addition):
+        if is_addition:
+            obs["docs"][key] = (row["doc_id"], np.asarray(row["emb"], np.float32))
+            if len(obs["docs"]) == N_DOCS:
+                obs["ingest_end"] = perf_counter()
+                ingest_done.set()
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            obs["qembs"][row["qid"]] = np.asarray(row["qemb"], np.float32)
+
+    pw.io.subscribe(docs, on_change=on_doc)
+    pw.io.subscribe(res, on_change=on_answer)
+    pw.io.kafka.write(answers, settings, "answers", format="json", key="qid")
+
+    def feed() -> None:
+        client = KafkaWireClient(broker.host, broker.port)
+        per = N_DOCS // BUS_DOC_BATCHES
+        t0 = time.perf_counter()
+        for j in range(BUS_DOC_BATCHES):
+            client.produce("docs", 0, [
+                WireRecord(value=json.dumps({"doc_id": i, "text": corpus[i]}).encode())
+                for i in range(j * per, (j + 1) * per)])
+        obs["produce_s"] = time.perf_counter() - t0
+        client.close()
+
+    errors: list = []
+    gc.collect()
+    torch.cuda.synchronize()
+    device_pipeline.PIPELINE.configure()
+    fa.KERNEL.launches = 0
+    bytes0 = (broker.bytes_received, broker.bytes_sent)
+    t_run = time.perf_counter()
+    thread = _run_thread("buses-kafka-run", errors)
+    feeder = threading.Thread(target=feed, name="buses-kafka-feeder")
+    feeder.start()
+    fetched: dict[int, list] = collections.defaultdict(list)  # qid -> [(diff, msg, t)]
+    lat_s: list[float] = []
+    producer = KafkaWireClient(broker.host, broker.port)
+    fetcher = KafkaWireClient(broker.host, broker.port)
+    offset = 0
+    try:
+        arrived = _wait_for(ingest_done.is_set, thread, timeout=BUS_WAIT_S)
+        feeder.join(BUS_WAIT_S)
+        ingest_s = obs["ingest_end"] - fetches[0] if arrived and fetches else float("nan")
+        t_q = time.perf_counter()
+        for qid in range(N_QUERIES if arrived else 0):
+            t0 = time.perf_counter()
+            producer.produce("queries", 0, [WireRecord(
+                value=json.dumps({"qid": qid, "text": _bus_query_text(qid)}).encode(),
+                key=str(qid).encode())])
+            deadline = t0 + BUS_WAIT_S
+            while not fetched[qid] and time.perf_counter() < deadline and thread.is_alive():
+                recs, _high = fetcher.fetch("answers", 0, offset)
+                now = time.perf_counter()
+                for rec in recs:
+                    offset = rec.offset + 1
+                    msg = json.loads(rec.value)
+                    fetched[msg["qid"]].append((msg["diff"], msg, now, rec.key))
+                if not recs:
+                    time.sleep(0.001)
+            if not fetched[qid]:
+                break
+            lat_s.append(fetched[qid][0][2] - t0)
+        queries_s = time.perf_counter() - t_q
+    finally:
+        queries_tr.close()  # ends both reads: the run drains its last commit and stops
+        docs_tr.close()
+        thread.join(BUS_WAIT_S)
+        producer.close()
+    run_s = time.perf_counter() - t_run
+    if errors:
+        raise errors[0]
+    check(not thread.is_alive(), "kafka_rag: the run did not end")
+    # every answer the writer produced, read once more from the start after the run
+    every, _high = fetcher.fetch("answers", 0, 0)
+    fetcher.close()
+    launches = fa.KERNEL.launches
+    torch.cuda.synchronize()
+    index = factory.built
+    answered = collections.Counter((json.loads(r.value)["qid"], json.loads(r.value)["diff"])
+                                   for r in every)
+    keys_ok = all(r.key == str(json.loads(r.value)["qid"]).encode() for r in every)
+
+    # top-1 and recall@10 against exact f32 search in a HostKnnIndex over the same
+    # 1,000,000 rows: the subscriber's doc vectors and the bulk vectors
+    key_of_text = {repr(k): k for k in obs["docs"]}
+    key_of_doc = {doc_id: k for k, (doc_id, _e) in obs["docs"].items()}
+    doc_keys = list(obs["docs"])
+    host = HostKnnIndex(dim=DIM, capacity=CAPACITY)
+    host.add(doc_keys + list(range(N_DOCS, N_DOCS + N_BULK)),
+             np.concatenate([np.stack([obs["docs"][k][1] for k in doc_keys]),
+                             factory.bulk.cpu().numpy()]))
+    qids = [q for q in range(N_QUERIES) if fetched[q] and q in obs["qembs"]]
+    exact = host.search([obs["qembs"][q] for q in qids], k=K) if qids else []
+    top1, recalls = [], []
+    for q, e in zip(qids, exact):
+        hits = [key_of_text.get(i, i) for i in fetched[q][0][1]["ids"]]
+        top1.append(bool(hits) and hits[0] == key_of_doc.get(q * 37 % N_DOCS))
+        recalls.append(len({k for k, _ in e} & set(hits)) / K)
+    del host
+    recall = float(np.mean(recalls)) if recalls else float("nan")
+    lat_ms = sorted(1e3 * x for x in lat_s)
+    card.emit(
+        "buses_kafka_rag", model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded)",
+        capacity=index.capacity, live_rows=len(index), n_docs=len(obs["docs"]),
+        doc_batches=BUS_DOC_BATCHES, produce_s=obs["produce_s"],
+        docs_per_s=N_DOCS / ingest_s if ingest_s > 0 else None, ingest_s=ingest_s,
+        doc_fetches=len(fetches), run_s=run_s, queries_s=queries_s, answered=len(lat_ms),
+        answer_p50_ms=lat_ms[len(lat_ms) // 2] if lat_ms else None,
+        answer_p95_ms=lat_ms[int(0.95 * len(lat_ms))] if lat_ms else None,
+        answer_ms_by_qid=[1e3 * x for x in lat_s], answer_messages=len(every),
+        recall_at_10=recall, top1_own_doc=sum(top1), flash_launches=launches,
+        embed_calls=embed_calls[0], index_rows_device_route=index.rows_device,
+        index_rows_host_route=index.rows_host,
+        broker_bytes_received=broker.bytes_received - bytes0[0],
+        broker_bytes_sent=broker.bytes_sent - bytes0[1],
+    )
+    check(len(obs["docs"]) == N_DOCS, f"kafka_rag: {len(obs['docs'])} of {N_DOCS} docs arrived")
+    check(answered == collections.Counter({(q, 1): 1 for q in range(N_QUERIES)}) and keys_ok,
+          f"kafka_rag: answers {sorted(answered.items())[:8]}, keys {keys_ok}")
+    check(len(top1) == N_QUERIES and all(top1), f"kafka_rag: {sum(top1)} of {N_QUERIES} own docs at top-1")
+    check(recall == 1.0, f"kafka_rag: recall@10 {recall} against HostKnnIndex")
+    check(index.rows_device == N_DOCS + N_BULK and index.rows_host == 0 and len(index) == N_DOCS + N_BULK,
+          f"kafka_rag: index routes {index.rows_device} device, {index.rows_host} host")
+    check(launches > 0 and launches == LAYERS * embed_calls[0],
+          f"kafka_rag: flash launches {launches} != {LAYERS} x {embed_calls[0]} embed calls")
+    return launches
+
+
+def _debezium_envelope(op: str, before, after, lsn: int) -> bytes:
+    """A Debezium Postgres change event as its JSON converter writes the value."""
+    return json.dumps({"payload": {
+        "before": before, "after": after, "op": op, "ts_ms": 1_700_000_000_000 + lsn,
+        "source": {"connector": "postgresql", "db": "bench", "schema": "public", "table": "t",
+                   "lsn": lsn}}}).encode()
+
+
+class _Fold:
+    """A groupby's update stream folded into its state: {k: (k, sum's bits, count)}."""
+
+    def __init__(self) -> None:
+        self.state: dict = {}
+        self.lock = threading.Lock()
+
+    def apply(self, row: dict, is_addition: bool) -> None:
+        value = (row["k"], np.float64(row["s"]).view(np.int64).item(), row["c"])
+        with self.lock:
+            if is_addition:
+                self.state[row["k"]] = value
+            elif self.state.get(row["k"]) == value:  # a retraction of the row it holds
+                del self.state[row["k"]]
+
+    def equals(self, want: dict) -> bool:
+        with self.lock:
+            return self.state == want
+
+
+def _buses_debezium(card: Card, broker, nats) -> tuple[int, dict]:
+    """(b) and (c): a Debezium Postgres stream over the Kafka wire into the card's
+    groupby: a 50,000-row snapshot (``op: "r"``), then 10 rounds of 1,000 ``u`` (before
+    and after images), 1,000 ``d`` and 1,000 ``c`` envelopes with their key payloads,
+    read by ``pw.io.debezium.read`` into ``groupby(k).reduce(k, s=sum(v), c=count())``
+    with the device operators forced; the subscriber's state equal to NumPy's after the
+    snapshot and every round. (c): ``pw.io.nats.write`` publishes the groupby's update
+    stream to a ``FakeNatsServer``, and a ``NatsConnection`` subscriber on this thread
+    folds it; its final state must equal (b)'s. -> (the segment kernels' launches, the
+    phase's figures)."""
+    from pathway_tpu_torch.io._kafka_wire import KafkaWireClient, KafkaWireTransport, WireRecord
+    from pathway_tpu_torch.io._nats_wire import NatsConnection
+
+    rng = np.random.default_rng(SEED)
+    rows: dict[int, tuple[int, float]] = {}  # the source table: id -> (k, v)
+    lsn = [0]
+
+    def draw() -> tuple[int, float]:
+        return int(rng.integers(0, SQLITE_GROUPS)), float(rng.integers(-4000, 4000)) * 0.125
+
+    def record(op: str, rid: int, before, after) -> WireRecord:
+        lsn[0] += 1
+        img = lambda r: None if r is None else {"id": rid, "k": r[0], "v": r[1]}  # noqa: E731
+        return WireRecord(value=_debezium_envelope(op, img(before), img(after), lsn[0]),
+                          key=json.dumps({"payload": {"id": rid}}).encode())
+
+    client = KafkaWireClient(broker.host, broker.port)
+    bytes0 = (broker.bytes_received, broker.bytes_sent)
+    t0 = time.perf_counter()
+    per = DEBEZIUM_ROWS // DEBEZIUM_SNAPSHOT_BATCHES
+    for j in range(DEBEZIUM_SNAPSHOT_BATCHES):
+        batch = []
+        for rid in range(j * per, (j + 1) * per):
+            rows[rid] = draw()
+            batch.append(record("r", rid, None, rows[rid]))
+        client.produce(DEBEZIUM_TOPIC, 0, batch)
+    snapshot_produce_s = time.perf_counter() - t0
+    next_id = DEBEZIUM_ROWS
+
+    class S(pw.Schema):
+        id: int = pw.column_definition(primary_key=True)
+        k: int
+        v: float
+
+    fold, nats_fold = _Fold(), _Fold()
+    cdc_tr = KafkaWireTransport(f"{broker.host}:{broker.port}", DEBEZIUM_TOPIC)
+    t = pw.io.debezium.read({"bootstrap.servers": f"{broker.host}:{broker.port}"}, DEBEZIUM_TOPIC,
+                            schema=S, db_type="postgres", transport=cdc_tr,
+                            autocommit_duration_ms=BUS_AUTOCOMMIT_MS)
+    g = t.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v), c=pw.reducers.count())
+    pw.io.subscribe(g, on_change=lambda key, row, time, is_addition: fold.apply(row, is_addition))
+    pw.io.nats.write(g, f"nats://127.0.0.1:{nats.port}", NATS_SUBJECT)
+    sub = NatsConnection("127.0.0.1", nats.port)
+    sub.subscribe(NATS_SUBJECT, sid=1)
+    sub.flush()
+    nats_msgs = [0]
+
+    def drain_nats() -> None:
+        for _subject, _sid, payload in sub.drain(0.001):
+            msg = json.loads(payload)
+            nats_msgs[0] += 1
+            nats_fold.apply(msg, msg["diff"] > 0)
+
+    def wait_equal(want: dict, thread) -> bool:
+        def equal() -> bool:
+            drain_nats()
+            return fold.equals(want)
+
+        return _wait_for(equal, thread, timeout=BUS_WAIT_S)
+
+    rounds: list[dict] = []
+    errors: list = []
+    device_ops.configure()
+    device_ops.reset_counters()
+    device_pipeline.PIPELINE.configure()
+    _zero_segment_launches()
+    with _KeptRunner() as kept:
+        t0 = time.perf_counter()
+        thread = _run_thread("buses-debezium-run", errors, lambda: _with_device_ops("1", pw.run))
+        try:
+            loaded = wait_equal(_groupby_expected(list(rows.values())), thread)
+            load_s = time.perf_counter() - t0
+            for _r in range(DEBEZIUM_ROUNDS if loaded else 0):
+                picks = rng.choice(np.fromiter(rows, np.int64, len(rows)), 2 * DEBEZIUM_ROUND_ROWS,
+                                   replace=False)
+                batch = []
+                for rid in picks[:DEBEZIUM_ROUND_ROWS].tolist():
+                    before, rows[rid] = rows[rid], draw()
+                    batch.append(record("u", rid, before, rows[rid]))
+                for rid in picks[DEBEZIUM_ROUND_ROWS:].tolist():
+                    batch.append(record("d", rid, rows.pop(rid), None))
+                for rid in range(next_id, next_id + DEBEZIUM_ROUND_ROWS):
+                    rows[rid] = draw()
+                    batch.append(record("c", rid, None, rows[rid]))
+                next_id += DEBEZIUM_ROUND_ROWS
+                t_r = time.perf_counter()
+                client.produce(DEBEZIUM_TOPIC, 0, batch)
+                produced_s = time.perf_counter() - t_r
+                ok = wait_equal(_groupby_expected(list(rows.values())), thread)
+                rounds.append({"equal": ok, "s": time.perf_counter() - t_r, "produce_s": produced_s})
+                if not ok:
+                    break
+        finally:
+            cdc_tr.close()  # ends the read: the run drains its last commit and stops
+            thread.join(BUS_WAIT_S)
+            client.close()
+        debezium_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    check(not thread.is_alive(), "debezium: the run did not end")
+    final = dict(fold.state)
+    t0 = time.perf_counter()
+    nats_equal = _wait_for(lambda: (drain_nats(), nats_fold.equals(final))[1], threading.main_thread(),
+                           timeout=60.0)
+    nats_tail_s = time.perf_counter() - t0
+    sub.close()
+    by_kernel = _segment_launches()
+    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in kept.runners[0].scope.nodes
+              if hasattr(n, "routes")}
+    groupbys = [r for name, r in routes.items() if name.startswith("GroupbyNode")]
+    out = {"debezium_s": debezium_s, "nats_tail_s": nats_tail_s,
+           "kafka_bytes_received": broker.bytes_received - bytes0[0],
+           "kafka_bytes_sent": broker.bytes_sent - bytes0[1],
+           "nats_bytes_received": nats.bytes_received, "nats_bytes_sent": nats.bytes_sent}
+    card.emit("buses_debezium", rows=DEBEZIUM_ROWS, groups=SQLITE_GROUPS, rounds=len(rounds),
+              round_rows=DEBEZIUM_ROUND_ROWS, snapshot_produce_s=snapshot_produce_s, load_s=load_s,
+              rows_per_s=DEBEZIUM_ROWS / load_s, round_s=[x["s"] for x in rounds],
+              round_produce_s=[x["produce_s"] for x in rounds],
+              rounds_equal=[x["equal"] for x in rounds], routes=routes, segment_launches=by_kernel,
+              final_groups=len(final), nats_messages=nats_msgs[0], nats_equal=nats_equal, **out)
+    check(loaded, "debezium: the snapshot's groupby differs from NumPy's")
+    check(len(rounds) == DEBEZIUM_ROUNDS and all(x["equal"] for x in rounds), f"debezium: rounds {rounds}")
+    check(final == _groupby_expected(list(rows.values())), "debezium: the final state differs from NumPy's")
+    check(len(groupbys) == 1 and groupbys[0]["device"] > DEBEZIUM_ROUNDS and groupbys[0]["host"] == 0
+          and groupbys[0]["rows"] == 0, f"debezium: groupby routes {groupbys}")
+    check(all(by_kernel[k] > 0 for k in SEGMENT_PATH_KERNELS), f"debezium: segment launches {by_kernel}")
+    check(nats_equal, f"nats: the folded state ({len(nats_fold.state)} groups) differs from (b)'s")
+    return sum(by_kernel.values()), out
+
+
+def phase_buses(card: Card) -> dict:
+    """The message buses on the card, over an in-process ``FakeKafkaBroker`` and
+    ``FakeNatsServer`` on local ports: (a) RAG fed and answered through Kafka, (b) a
+    Debezium CDC stream into the card's groupby, (c) (b)'s groupby through NATS; -> the
+    forward kernel's and the segment reduction's launches."""
+    from pathway_tpu_torch.io._kafka_wire import FakeKafkaBroker
+    from pathway_tpu_torch.io._nats_wire import FakeNatsServer
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    broker, nats = FakeKafkaBroker(), FakeNatsServer()
+    try:
+        t0 = time.perf_counter()
+        rag_bytes0 = (broker.bytes_received, broker.bytes_sent)
+        flash = _buses_kafka_rag(card, broker)
+        kafka_rag_s = time.perf_counter() - t0
+        rag_bytes = (broker.bytes_received - rag_bytes0[0], broker.bytes_sent - rag_bytes0[1])
+        segment, cdc = _buses_debezium(card, broker, nats)
+    finally:
+        broker.close()
+        nats.close()
+    torch.cuda.synchronize()
+    card.emit("buses", seconds=time.perf_counter() - t_phase, kafka_rag_s=kafka_rag_s,
+              kafka_rag_bytes_received=rag_bytes[0], kafka_rag_bytes_sent=rag_bytes[1],
+              peak_device_gib=torch.cuda.max_memory_allocated() / 2**30, **cdc)
     return {"flash": flash, "segment": segment}
 
 
@@ -6338,6 +6793,7 @@ def main() -> int:
     del groupby_rows
     watch = counted("watch", phase_watch, card, engine_docs_per_s)
     connectors = counted("connectors", phase_connectors, card)
+    buses = counted("buses", phase_buses, card)
     train = counted("train", phase_train, card)
     image_embedder = ImageEmbedder("vit-b16", max_batch_size=IMAGE_BATCH, seed=SEED)
     vision = counted("vision_parity", phase_vision_parity, card, image_embedder)
@@ -6364,7 +6820,7 @@ def main() -> int:
                                "vector_store": vector_store, "rag": rag,
                                "rag_evals": rag_evals, "persistence": persistence["flash"],
                                "observability": observability["flash"], "watch": watch["flash"],
-                               "connectors": connectors["flash"]}
+                               "connectors": connectors["flash"], "buses": buses["flash"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
@@ -6376,7 +6832,8 @@ def main() -> int:
                                       "iterate": iterate, "optimizer": optimizer,
                                       "persistence": persistence["segment"],
                                       "observability": observability["segment"],
-                                      "connectors": connectors["segment"]}
+                                      "connectors": connectors["segment"],
+                                      "buses": buses["segment"]}
     print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)

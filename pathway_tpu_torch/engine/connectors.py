@@ -25,9 +25,9 @@ a trace's ``ingest-wait`` span), and retries a reader poll that raises ``OSError
 An :class:`InputDriver` may belong to a synchronization group (``io/_synchronization.py``):
 an event whose sync column runs more than the group's ``max_difference`` ahead of the
 slowest member waits in its backlog, in order, until the group admits it. The readers
-over databases and object stores are in ``engine/storage.py``. Not ported yet: the
-message buses (ROADMAP queue 1 item 15) and the writers' rollback of a mesh to a common
-commit (item 14). :class:`BatchScheduleDriver` feeds ``pw.debug``'s ``StreamGenerator``.
+over databases, message buses and object stores are in ``engine/storage.py``, and the
+Debezium parser in ``engine/formats.py``. Not ported yet: the databases (ROADMAP queue 1
+item 15) and the writers' rollback of a mesh to a common commit (item 14). :class:`BatchScheduleDriver` feeds ``pw.debug``'s ``StreamGenerator``.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Database and object-store readers and writers over injected clients.
+"""Database, message-queue and object-store readers and writers over injected clients.
 
 Counterpart of the first part of ``pathway_tpu/engine/storage.py``:
 
@@ -13,10 +13,18 @@ Counterpart of the first part of ``pathway_tpu/engine/storage.py``:
   key inserts, a new signature replaces the key's rows, a vanished key retracts them)
   and :class:`ObjectStoreWriter` puts one JSON-lines object a commit.
 
+- :class:`Message` is one queue record; a :class:`MessageTransport` (``poll_messages``,
+  ``finished``, and ``produce`` for writes) is what a Kafka, Redpanda or NATS consumer
+  provides (``io/_kafka_wire.py``, ``io/_nats_wire.py``), with
+  :class:`InMemoryTransport` in memory; :class:`MessageQueueReader` hands the parser
+  ``(key, value)`` pairs and keeps each (topic, partition)'s last offset in ``state()``,
+  so that after ``restore_state`` it drops what a transport delivers again (a
+  transport with ``seek`` is also moved past it); :class:`MessageQueueWriter` produces
+  one message a change.
+
 ``DictObjectStore.list_objects`` hashes every object on every poll, as the reference
-does: its signature is the md5 of the bytes. The message transports and the Postgres,
-Elasticsearch, Mongo and message-queue writers are not ported yet (ROADMAP queue 1
-item 15, second slice).
+does: its signature is the md5 of the bytes. The Postgres, Elasticsearch and Mongo
+writers wait for the databases (ROADMAP queue 1 item 15, third slice).
 """
 
 from __future__ import annotations
@@ -30,6 +38,11 @@ from pathway_tpu_torch.engine.value import Pointer
 
 __all__ = [
     "DictObjectStore",
+    "InMemoryTransport",
+    "Message",
+    "MessageQueueReader",
+    "MessageQueueWriter",
+    "MessageTransport",
     "ObjectStoreClient",
     "ObjectStoreReader",
     "ObjectStoreWriter",
@@ -127,6 +140,142 @@ class SqliteReader(Reader):
     def restore_state(self, state: dict) -> None:
         self._state = {int(k): tuple(v) for k, v in state.get("rows", {}).items()}
         self._done_static = bool(state.get("done_static", False))
+
+
+# -- message transports ---------------------------------------------------------
+
+
+class Message:
+    """One queue record: its key and value bytes and where it came from."""
+
+    __slots__ = ("key", "value", "topic", "partition", "offset")
+
+    def __init__(
+        self,
+        value: bytes | str | None,
+        key: bytes | str | None = None,
+        topic: str = "",
+        partition: int = 0,
+        offset: int = 0,
+    ) -> None:
+        self.key = key
+        self.value = value
+        self.topic = topic
+        self.partition = partition
+        self.offset = offset
+
+
+class MessageTransport(Protocol):
+    """What a Kafka, Redpanda or NATS consumer provides; tests inject
+    :class:`InMemoryTransport`."""
+
+    def poll_messages(self) -> list[Message]: ...
+
+    def finished(self) -> bool: ...
+
+
+class InMemoryTransport:
+    """An in-memory :class:`MessageTransport`: produce messages, then optionally close
+    it; it is finished once closed and read to its end. One producer thread."""
+
+    def __init__(self, topic: str = "topic") -> None:
+        self.topic = topic
+        self._messages: list[Message] = []
+        self._offset = 0
+        self._closed = False
+
+    def produce(self, value: Any, key: Any = None) -> None:
+        self._messages.append(
+            Message(value, key=key, topic=self.topic, partition=0, offset=len(self._messages))
+        )
+
+    def close(self) -> None:
+        self._closed = True
+
+    def poll_messages(self) -> list[Message]:
+        out = self._messages[self._offset :]
+        self._offset = len(self._messages)
+        return out
+
+    def finished(self) -> bool:
+        return self._closed and self._offset == len(self._messages)
+
+
+class MessageQueueReader(Reader):
+    """A reader over a :class:`MessageTransport`: each message becomes one ``(key,
+    value)`` payload, its source ``<topic>:<partition>``. A message at or below the
+    last offset seen on its (topic, partition) is dropped: a resumed transport that
+    reads from the start again emits only what is new."""
+
+    def __init__(self, transport: Any) -> None:
+        self.transport = transport
+        self._offsets: dict[tuple[str, int], int] = {}
+
+    def poll(self) -> tuple[list[tuple[Any, str, dict]], bool]:
+        entries = []
+        offsets = self._offsets
+        for msg in self.transport.poll_messages():
+            coord = (msg.topic, msg.partition)
+            seen = offsets.get(coord)
+            if seen is not None and msg.offset <= seen:
+                continue  # consumed before a resume
+            offsets[coord] = msg.offset
+            entries.append(
+                (
+                    (msg.key, msg.value),
+                    f"{msg.topic}:{msg.partition}",
+                    {"topic": msg.topic, "partition": msg.partition, "offset": msg.offset},
+                )
+            )
+        return entries, self.transport.finished()
+
+    # -- persistence (engine/persistence.py) ----------------------------------
+
+    def state(self) -> dict:
+        return {"offsets": {f"{t}\x00{p}": o for (t, p), o in self._offsets.items()}}
+
+    def restore_state(self, state: dict) -> None:
+        self._offsets = {}
+        for k, o in state.get("offsets", {}).items():
+            topic, _, part = k.partition("\x00")
+            self._offsets[(topic, int(part))] = int(o)
+        seek = getattr(self.transport, "seek", None)
+        if seek is not None:
+            for (topic, part), o in self._offsets.items():
+                seek(topic, part, o + 1)
+
+
+class MessageQueueWriter:
+    """Produce one message a change onto a transport (``produce(value, key=)``); the
+    message key is the ``key_index`` column's text, else None. A transport with
+    ``flush`` is flushed at the end of every commit."""
+
+    def __init__(
+        self,
+        transport: Any,
+        formatter: Any,
+        column_names: Sequence[str],
+        key_index: int | None = None,
+    ) -> None:
+        self.transport = transport
+        self.formatter = formatter
+        self.column_names = list(column_names)
+        self.key_index = key_index
+
+    def on_change(self, key: Pointer, values: tuple, time: int, diff: int) -> None:
+        payload = self.formatter.format(key, values, self.column_names, time, diff)
+        msg_key = None
+        if self.key_index is not None:
+            msg_key = str(values[self.key_index]).encode()
+        self.transport.produce(payload, key=msg_key)
+
+    def on_time_end(self, time: int) -> None:
+        flush = getattr(self.transport, "flush", None)
+        if flush is not None:
+            flush()
+
+    def on_end(self) -> None:
+        self.on_time_end(-1)
 
 
 # -- object store (S3-shaped) --------------------------------------------------

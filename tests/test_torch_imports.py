@@ -119,6 +119,15 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.io.jsonlines",
         "pathway_tpu_torch.io.plaintext",
         "pathway_tpu_torch.io.null",
+        "pathway_tpu_torch.engine.formats",
+        "pathway_tpu_torch.io._kafka_wire",
+        "pathway_tpu_torch.io._avro",
+        "pathway_tpu_torch.io.kafka",
+        "pathway_tpu_torch.io.redpanda",
+        "pathway_tpu_torch.io.debezium",
+        "pathway_tpu_torch.io._nats_wire",
+        "pathway_tpu_torch.io.nats",
+        "pathway_tpu_torch.io.pubsub",
     ):
         assert expected in names
 
@@ -142,7 +151,9 @@ def test_engine_api_imports_no_jax_and_touches_no_card():
             "         pw.io.http.rest_connector, pw.io.http.write, pw.io.logstash.write,",
             "         pw.io.sqlite.read, pw.io.s3.read, pw.io.minio.read, pw.io.s3_csv.read,",
             "         pw.io.pyfilesystem.read, pw.io.gdrive.read, pw.io.deltalake.read,",
-            "         pw.io.register_input_synchronization_group, pw.persistence.Backend.s3]",
+            "         pw.io.register_input_synchronization_group, pw.persistence.Backend.s3,",
+            "         pw.io.kafka.read, pw.io.kafka.write, pw.io.redpanda.read, pw.io.debezium.read,",
+            "         pw.io.nats.read, pw.io.nats.write, pw.io.pubsub.write]",
             "assert 'aiohttp' not in sys.modules and 'pyarrow' not in sys.modules",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))",
             "assert not bad, bad",

@@ -158,11 +158,11 @@ def test_getattr_shadows_no_submodule_on_first_import():
         "from pathway_tpu_torch.io import csv\n"
         "assert pw.io.csv is csv and pw.persistence.Config\n"
         "try:\n"
-        "    from pathway_tpu_torch.io import kafka\n"
+        "    from pathway_tpu_torch.io import postgres\n"
         "except NotImplementedError as e:\n"
         "    assert 'item 15' in str(e)\n"
         "else:\n"
-        "    raise AssertionError('pw.io.kafka imported')\n"
+        "    raise AssertionError('pw.io.postgres imported')\n"
     )
     env = {**os.environ, "PYTHONPATH": REPO}
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO, timeout=120)
