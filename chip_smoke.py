@@ -10,7 +10,9 @@ temporal operators (Nexmark queries 5, 7 and 8), ``pw.iterate`` (PageRank), two
 programs killed and resumed under persistence, the in-process connectors (RAG served
 over HTTP from an object store, SQLite into the card's groupby, Delta Lake) and the
 message buses (RAG fed and answered through Kafka, a Debezium change stream into the
-card's groupby, NATS), all over local sockets; every
+card's groupby, NATS) and the databases (RAG fed by Airbyte and answered into Postgres,
+an Iceberg table streamed into the card's groupby and kept live in Postgres, MongoDB and
+Elasticsearch), all over local sockets; every
 engine path runs through the engine's C++ host kernels (``pathway_tpu_torch/native``),
 and each workload runs once more on their Python branches to compare.
 
@@ -214,6 +216,31 @@ limit):
    ``NatsConnection`` subscriber on the script's thread folds; its final state must
    equal (b)'s. The phase prints each leg's seconds, the bytes that crossed each broker
    and the peak device memory.
+   databases, over a ``FakePostgresServer`` (SCRAM-SHA-256), ``FakeMongoServer``,
+   ``FakeElasticsearchServer`` (Basic auth) and ``FakeIcebergRestServer`` on local ports
+   and an Airbyte-protocol source script the phase writes to a temporary directory (the
+   port's own wire code; no client library): (a) airbyte_rag, the same program fed by
+   ``pw.io.airbyte.read(execution_type="local")`` in two incremental syncs of 10,000
+   docs, the second resuming from the first one's STATE, into the 1,000,000-row index,
+   64 queries (each its doc less the last word) pushed one at a time once every doc has
+   reached the doc subscriber, the answers written by ``pw.io.postgres.write`` (the
+   update log) over the v3 wire; docs/s (the first RECORD's ``emitted_at`` to the last
+   doc at the subscriber), each sync's seconds, the answer latency from a query's
+   arrival to its COMMIT on the server (p50, p95); every doc embedded once, each query
+   one row in the server's committed table, its own doc at top-1 and recall@10 of 1.0
+   against exact f32 search (on the card) over the docs received and the bulk vectors,
+   6 forward launches an embed call. (b) iceberg_groupby: (b) of buses' source table
+   (1,088 keys, a 50,000-row start, 10 rounds of 1,000 updates, 1,000 deletes and 1,000
+   inserts) committed by an outside ``IcebergWriter`` over a ``RestCatalog`` on the
+   script's thread, one snapshot for the start and one a round, read by
+   ``pw.io.iceberg.read(mode="streaming")`` (``id`` the primary key) into the count and
+   sum groupby over 1,088 keys with the device operators forced, its result written by
+   ``pw.io.postgres.write_snapshot(primary_key=["k"])``, ``pw.io.mongodb.write`` and
+   ``pw.io.elasticsearch.write``; after the start and every round the server's committed
+   Postgres table must equal NumPy's state exactly, at the end the Mongo and ES update
+   logs folded by (time, diff) must equal it too, and every groupby commit take the
+   device route; rows/s, each round's seconds from its Iceberg commit to its Postgres
+   COMMIT, the statements, commits, inserts and ``_bulk`` requests.
 10. train: ``make_train_step(minilm_l6())`` at full width (seeded weights) takes 20 AdamW
    steps on one batch of 1,024 (query, positive) pairs of 128 tokens (a doc's first
    3-8 words, and the doc). Reports the per-step ms, pairs/s, peak memory, the loss
@@ -276,7 +303,7 @@ limit):
    direct batch-1 reply to ``prompt_qa`` of the same retrieved docs, hit rate 1.0, none
    missing); both reports, each run's seconds, the forward's launches (12 per embed
    call).
-18. table_ops: one streamed ``pw.run`` of 200,000 seeded rows in 20 commits through the
+18. table_ops: one streamed ``pw.run`` of 100,000 seeded rows in 20 commits through the
    expression namespaces (``.str``, ``.dt``, ``.num``), ``deduplicate`` (4,096
    instances), ``sort`` (1,024 instances), ``having`` and a groupby (count and sum) over
    the deduplicated rows on the card's segment reduction, with a 4,096-row stream
@@ -285,7 +312,7 @@ limit):
 19. temporal: Nexmark queries 5 (a sliding 10 s window every 2 s per auction, count
    and sum of the price), 7 (the highest bid of each tumbling 10 s window, exactly once)
    and 8 (persons and the auctions they open in the same tumbling 10 s window, a
-   ``window_join``) and an interval join of bids to their auction, over 100,000 events
+   ``window_join``) and an interval join of bids to their auction, over 50,000 events
    of Beam's generator (1 : 3 : 46 persons, auctions and bids at 1,000 events/s of
    event time) as one streamed ``pw.run`` through ``pw.io.python`` in 10 commits; once
    on the host kernels and once on the card, both equal to a plain Python computation
@@ -293,7 +320,7 @@ limit):
    on the card. Reports events/s, the commits, the segment kernels' launches, the
    matcher calls and each query's rows.
 20. iterate: ``pw.stdlib.graphs.pagerank`` (20 rounds at most) through one ``pw.run``
-   over a Graph500 Kronecker graph of scale 12 (4,096 vertices, 65,536 edges) in two
+   over a Graph500 Kronecker graph of scale 11 (2,048 vertices, 32,768 edges) in two
    commits of a StreamGenerator table (90% of the edges, then the rest); once on the
    host kernels and once on the card: the ranks after each commit bit for bit equal,
    within 1e-9 of a NumPy power iteration with the same rounding and rounds; the
@@ -318,8 +345,8 @@ limit):
    1,048,576 slots) with its 20,000 docs read from 40 JSON-lines files by
    ``pw.io.jsonlines.read(persistent_id="docs")``, one file a commit, then 64 as-of-now
    queries; ``persistence_wordcount``: the Pathway persistence tutorial's
-   ``pw.io.plaintext.read`` -> groupby count -> ``pw.io.csv.write`` over 1,000,000 words
-   of 4,096 keys in 100 files, the groupby on the card. Checks: every doc stored once,
+   ``pw.io.plaintext.read`` -> groupby count -> ``pw.io.csv.write`` over 250,000 words
+   of 4,096 keys in 25 files, the groupby on the card. Checks: every doc stored once,
    every query answered with the exact f32 search's hits, recall@10 against the
    fault-free run >= 0.99; under operator snapshots the restored index on the card and
    equal to the snapshot's bits, no doc embedded twice and no word read twice; the word
@@ -332,19 +359,20 @@ limit):
    recover.
 23. native: each workload with the C++ host kernels and once more on their Python
    branches (``PATHWAY_TPU_DISABLE_NATIVE=1``), at the depths of ``NATIVE_*``: table_ops
-   (50,000 rows in 5 commits), temporal (20,000 Nexmark events in 2 commits), iterate
-   (PageRank at scale 10), serving (1,024 docs through the MiniLM-L6 embedder into the
+   (25,000 rows in 5 commits), temporal (10,000 Nexmark events in 2 commits), iterate
+   (PageRank at scale 9), serving (1,024 docs through the MiniLM-L6 embedder into the
    index as 4 paced commits, 8 queries), the optimizer's auto mode (relational_engine's
    program at its full depth) and engine_rows (the row-form paths: an upsert session, a
    filter, an inner join after retractions, 6 commits). The outputs must be equal, every
    kernel of the workload's path (``NATIVE_PATHS``) called with the kernels and none
    without; wall seconds, units/s and each kernel's calls and ns, both ways.
-24. The native line (every phase's host kernel calls and ns, and the both-ways
+24. The script line (the seconds since the script started), the native line (every
+   phase's host kernel calls and ns, and the both-ways
    comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
    forward's ``launches_by_path`` includes ``rag_evals``, ``persistence``,
-   ``observability``, ``watch``, ``connectors`` and ``buses``, the segment reduction's
-   ``table_ops``, ``temporal``, ``iterate``, ``optimizer``, ``persistence``,
-   ``observability``, ``connectors`` and ``buses``),
+   ``observability``, ``watch``, ``connectors``, ``buses`` and ``databases``, the segment
+   reduction's ``table_ops``, ``temporal``, ``iterate``, ``optimizer``, ``persistence``,
+   ``observability``, ``connectors``, ``buses`` and ``databases``),
    the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
@@ -3172,6 +3200,441 @@ def phase_buses(card: Card) -> dict:
     return {"flash": flash, "segment": segment}
 
 
+# -- the databases: RAG fed by Airbyte into Postgres, Iceberg into the card's groupby -------
+
+DB_SYNCS = 2  # the docs arrive in two incremental Airbyte syncs of 10,000
+DB_REFRESH_MS = 200  # the Airbyte reader's refresh interval between syncs
+DB_WAIT_S = 300.0
+DB_PASSWORD = "pw-bench"
+DB_ES_USER = ("elastic", "pw-bench")
+LAKE_ROWS = DEBEZIUM_ROWS  # buses (b)'s source table: the start ...
+LAKE_ROUNDS = DEBEZIUM_ROUNDS  # ... and its rounds of updates, deletes and inserts
+LAKE_ROUND_ROWS = DEBEZIUM_ROUND_ROWS
+
+_AIRBYTE_DOCS_SOURCE = """
+import argparse, json, time
+
+p = argparse.ArgumentParser()
+p.add_argument("command")
+p.add_argument("--config")
+p.add_argument("--catalog")
+p.add_argument("--state")
+a = p.parse_args()
+if a.command == "spec":
+    print(json.dumps({"type": "SPEC", "spec": {"connectionSpecification": {}}}))
+elif a.command == "check":
+    print(json.dumps({"type": "CONNECTION_STATUS", "connectionStatus": {"status": "SUCCEEDED"}}))
+elif a.command == "discover":
+    print(json.dumps({"type": "CATALOG", "catalog": {"streams": [
+        {"name": "docs", "json_schema": {"type": "object"},
+         "supported_sync_modes": ["full_refresh", "incremental"]}]}}))
+elif a.command == "read":
+    config = json.load(open(a.config))
+    cursor = json.load(open(a.state))["cursor"] if a.state else 0
+    with open(config["docs_file"]) as f:
+        lines = f.read().splitlines()[cursor:cursor + config["per_sync"]]
+    out = []
+    for line in lines:
+        out.append(json.dumps({"type": "RECORD", "record": {
+            "stream": "docs", "data": json.loads(line), "emitted_at": int(time.time() * 1000)}}))
+    out.append(json.dumps({"type": "STATE", "state": {"data": {"cursor": cursor + len(lines)}}}))
+    print("\\n".join(out))
+"""
+
+
+class _Syncs:
+    """Wraps the Airbyte reader's ``poll`` and its source's ``extract`` while open: times
+    each sync, keeps each STATE handed in and out, stops syncing after ``n`` syncs, and
+    reports the reader done once ``stop`` is set."""
+
+    def __init__(self, n: int) -> None:
+        from pathway_tpu_torch.io import airbyte
+
+        self.airbyte, self.n, self.stop = airbyte, n, threading.Event()
+        self.syncs: list[dict] = []
+
+    def __enter__(self):
+        reader_cls, source_cls = self.airbyte._AirbyteReader, self.airbyte.ExecutableAirbyteSource
+        self._poll, self._extract = poll, extract = reader_cls.poll, source_cls.extract
+        me = self
+
+        def timed_extract(source, state=None):
+            t0 = time.perf_counter()
+            records, final = extract(source, state)
+            me.syncs.append({"s": time.perf_counter() - t0, "records": len(records),
+                             "state_in": state, "state_out": final,
+                             "first_emitted_ms": records[0]["emitted_at"] if records else None})
+            return records, final
+
+        def limited_poll(reader):
+            if len(me.syncs) >= me.n:
+                return [], me.stop.is_set()
+            entries, done = poll(reader)
+            return entries, done or me.stop.is_set()
+
+        reader_cls.poll, source_cls.extract = limited_poll, timed_extract
+        return self
+
+    def __exit__(self, *exc):
+        self.airbyte._AirbyteReader.poll = self._poll
+        self.airbyte.ExecutableAirbyteSource.extract = self._extract
+
+
+def _pg_settings(srv) -> dict:
+    return {"host": "127.0.0.1", "port": srv.port, "user": "pathway", "password": DB_PASSWORD,
+            "dbname": "bench", "sslmode": "prefer"}
+
+
+def _pg_array(text: str) -> list:
+    """A Postgres array literal of quoted items, as the wire's text params spell a tuple
+    -> the items' texts."""
+    body = text[1:-1]
+    return [item.strip('"') for item in body.split(",")] if body else []
+
+
+def _databases_airbyte_rag(card: Card, root: str, pg) -> int:
+    """(a): BASELINE #1's program fed by an Airbyte source and answered into Postgres:
+    the 20,000 docs arrive through ``pw.io.airbyte.read(execution_type="local")`` in two
+    incremental syncs (the second resumes from the first one's STATE), are embedded at
+    full MiniLM-L6 width and put into the 1M-row index; once every doc has reached the
+    doc subscriber, 64 queries are pushed one at a time through ``pw.io.python``, each
+    once the answer before it is committed on the server, answered as of now and written
+    by ``pw.io.postgres.write`` over the v3 wire; -> the forward kernel's launches."""
+    script = os.path.join(root, "docs_source.py")
+    with open(script, "w") as f:
+        f.write(_AIRBYTE_DOCS_SOURCE)
+    docs_file = os.path.join(root, "docs.jsonl")
+    corpus = [doc_text(i) for i in range(N_DOCS)]
+    with open(docs_file, "w") as f:
+        f.write("\n".join(json.dumps({"doc_id": i, "text": corpus[i]}) for i in range(N_DOCS)) + "\n")
+    config = os.path.join(root, "airbyte.json")
+    with open(config, "w") as f:
+        json.dump({"docs_file": docs_file, "per_sync": N_DOCS // DB_SYNCS}, f)
+
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    embed_calls, sizes = _count_embed_calls(embedder)
+    factory = _BulkKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    obs = {"docs": {}, "qembs": {}, "ingest_end_wall": 0.0, "arrivals": {}, "committed": {},
+           "failures": []}
+    ingest_done = threading.Event()
+    perf_counter, wall = time.perf_counter, time.time  # the callbacks' ``time`` shadows the module
+
+    def answered(qid: int) -> bool:
+        return any(r["qid"] == qid for r in pg.snapshot("answers"))
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            if not ingest_done.wait(timeout=DB_WAIT_S):
+                obs["failures"].append(f"{len(obs['docs'])} of {N_DOCS} docs arrived")
+                return
+            for qid in range(N_QUERIES):
+                t0 = perf_counter()
+                obs["arrivals"][qid] = t0
+                self.next(qid=qid, text=_bus_query_text(qid))
+                deadline = t0 + DB_WAIT_S
+                while not answered(qid):
+                    if perf_counter() > deadline:
+                        obs["failures"].append(f"query {qid} was not committed")
+                        return
+                    time.sleep(0.0005)
+                obs["committed"][qid] = perf_counter()
+
+    source = pw.io.airbyte.read(config, ["docs"], mode="streaming", execution_type="local",
+                                connector_command=[sys.executable, script],
+                                refresh_interval_ms=DB_REFRESH_MS)
+    docs = source.select(doc_id=pw.apply_with_type(lambda d: int(d.value["doc_id"]), int, pw.this.data),
+                         text=pw.apply_with_type(lambda d: d.value["text"], str, pw.this.data))
+    docs = docs.select(doc_id=pw.this.doc_id, emb=embedder(pw.this.text))
+    queries = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(qid=int, text=str),
+                                autocommit_duration_ms=None)
+    queries = queries.select(qid=pw.this.qid, qemb=embedder(pw.this.text))
+    res = DataIndex(docs, factory, docs.emb).query_as_of_now(queries, queries.qemb,
+                                                             number_of_matches=K)
+    answers = res.select(qid=pw.this.qid, ids=pw.this._pw_index_reply_ids,
+                         scores=pw.this._pw_index_reply_scores)
+
+    def on_doc(key, row, time, is_addition):
+        if is_addition:
+            obs["docs"][key] = (row["doc_id"], np.asarray(row["emb"], np.float32))
+            if len(obs["docs"]) == N_DOCS:
+                obs["ingest_end_wall"] = wall()
+                ingest_done.set()
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            obs["qembs"][row["qid"]] = np.asarray(row["qemb"], np.float32)
+
+    pw.io.subscribe(docs, on_change=on_doc)
+    pw.io.subscribe(res, on_change=on_answer)
+    pw.io.postgres.write(answers, _pg_settings(pg), table_name="answers")
+
+    errors: list = []
+    gc.collect()
+    torch.cuda.synchronize()
+    device_pipeline.PIPELINE.configure()
+    fa.KERNEL.launches = 0
+    stmts0, commits0 = len(pg.statements), pg.commits
+    t_run = time.perf_counter()
+    with _Syncs(DB_SYNCS) as syncs:
+        thread = _run_thread("databases-airbyte-run", errors)
+        try:
+            _wait_for(lambda: len(obs["committed"]) == N_QUERIES or bool(obs["failures"]), thread,
+                      timeout=2 * DB_WAIT_S)
+        finally:
+            syncs.stop.set()  # ends the Airbyte read; the query feed has returned
+            thread.join(DB_WAIT_S)
+    run_s = time.perf_counter() - t_run
+    if errors:
+        raise errors[0]
+    check(not thread.is_alive(), "airbyte_rag: the run did not end")
+    launches = fa.KERNEL.launches
+    torch.cuda.synchronize()
+    index = factory.built
+    rows = pg.snapshot("answers")
+    per_qid = collections.Counter(r["qid"] for r in rows)
+
+    # top-1 and recall@10 against exact f32 search on the card over the docs received and
+    # the bulk vectors
+    doc_keys = list(obs["docs"])
+    key_of_text = {repr(k): k for k in doc_keys}
+    key_of_doc = {doc_id: k for k, (doc_id, _e) in obs["docs"].items()}
+    mat = torch.cat([torch.from_numpy(np.stack([obs["docs"][k][1] for k in doc_keys])).to(factory.bulk.device),
+                     factory.bulk])
+    all_keys = doc_keys + list(range(N_DOCS, N_DOCS + N_BULK))
+    by_qid = {r["qid"]: r for r in rows}
+    qids = [q for q in range(N_QUERIES) if q in by_qid and q in obs["qembs"]]
+    top1, recalls = [], []
+    if qids:
+        q = torch.from_numpy(np.stack([obs["qembs"][x] for x in qids])).to(mat.device)
+        scores = (q @ mat.T) / (torch.linalg.vector_norm(q, dim=1, keepdim=True)
+                                * torch.linalg.vector_norm(mat, dim=1)[None, :]).clamp_min(1e-30)
+        exact = torch.topk(scores, K, dim=1).indices.cpu().numpy()
+        for x, row in zip(qids, exact):
+            hits = [key_of_text[t] if t.startswith("^") else int(t) for t in _pg_array(by_qid[x]["ids"])]
+            top1.append(bool(hits) and hits[0] == key_of_doc.get(x * 37 % N_DOCS))
+            recalls.append(len({all_keys[j] for j in row} & set(hits)) / K)
+    del mat
+    recall = float(np.mean(recalls)) if recalls else float("nan")
+    lat_ms = sorted(1e3 * (obs["committed"][q] - obs["arrivals"][q]) for q in obs["committed"])
+    first_ms = min((s["first_emitted_ms"] for s in syncs.syncs if s["first_emitted_ms"]), default=None)
+    ingest_s = obs["ingest_end_wall"] - first_ms / 1e3 if first_ms and obs["ingest_end_wall"] else float("nan")
+    card.emit(
+        "databases_airbyte_rag", model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded)",
+        capacity=index.capacity, live_rows=len(index), n_docs=len(obs["docs"]),
+        syncs=len(syncs.syncs), sync_s=[x["s"] for x in syncs.syncs],
+        sync_records=[x["records"] for x in syncs.syncs],
+        sync_states=[(x["state_in"], x["state_out"]) for x in syncs.syncs],
+        docs_per_s=N_DOCS / ingest_s if ingest_s > 0 else None, ingest_s=ingest_s, run_s=run_s,
+        answered=len(lat_ms), answer_p50_ms=lat_ms[len(lat_ms) // 2] if lat_ms else None,
+        answer_p95_ms=lat_ms[int(0.95 * len(lat_ms))] if lat_ms else None,
+        answer_ms_by_qid=[1e3 * (obs["committed"][q] - obs["arrivals"][q]) for q in sorted(obs["committed"])],
+        pg_rows=len(rows), pg_statements=len(pg.statements) - stmts0, pg_commits=pg.commits - commits0,
+        recall_at_10=recall, top1_own_doc=sum(top1), flash_launches=launches,
+        embed_calls=embed_calls[0], embedded_texts=sum(sizes),
+        index_rows_device_route=index.rows_device, index_rows_host_route=index.rows_host,
+        failures=obs["failures"],
+    )
+    check(not obs["failures"], f"airbyte_rag: {obs['failures']}")
+    check(len(obs["docs"]) == N_DOCS and sum(sizes) == N_DOCS + N_QUERIES,
+          f"airbyte_rag: {len(obs['docs'])} docs arrived, {sum(sizes)} texts embedded")
+    check([x["records"] for x in syncs.syncs] == [N_DOCS // DB_SYNCS] * DB_SYNCS
+          and syncs.syncs[0]["state_in"] is None
+          and syncs.syncs[1]["state_in"] == syncs.syncs[0]["state_out"] == {"cursor": N_DOCS // DB_SYNCS},
+          f"airbyte_rag: syncs {[(x['records'], x['state_in'], x['state_out']) for x in syncs.syncs]}")
+    check(per_qid == collections.Counter({q: 1 for q in range(N_QUERIES)})
+          and all(r["diff"] == 1 for r in rows), f"airbyte_rag: answer rows {sorted(per_qid.items())[:8]}")
+    check(len(top1) == N_QUERIES and all(top1), f"airbyte_rag: {sum(top1)} of {N_QUERIES} own docs at top-1")
+    check(recall == 1.0, f"airbyte_rag: recall@10 {recall} against exact f32 search")
+    check(index.rows_device == N_DOCS + N_BULK and index.rows_host == 0,
+          f"airbyte_rag: index routes {index.rows_device} device, {index.rows_host} host")
+    check(launches > 0 and launches == LAYERS * embed_calls[0],
+          f"airbyte_rag: flash launches {launches} != {LAYERS} x {embed_calls[0]} embed calls")
+    return launches
+
+
+def _fold_log(docs: list) -> dict:
+    """An update log's documents (``k``, ``s``, ``c``, ``time``, ``diff``) folded in
+    (time, diff) order -> {k: (k, sum's bits, count)}."""
+    state: dict = {}
+    for d in sorted(docs, key=lambda d: (d["time"], d["diff"])):
+        value = (d["k"], np.float64(d["s"]).view(np.int64).item(), d["c"])
+        if d["diff"] > 0:
+            state[d["k"]] = value
+        elif state.get(d["k"]) == value:
+            del state[d["k"]]
+    return state
+
+
+def _databases_iceberg_groupby(card: Card, root: str, pg, mongo, es, catalog) -> tuple[int, dict]:
+    """(b): buses (b)'s source table committed to an Iceberg table by an outside
+    ``IcebergWriter`` over the REST catalog (the start as one snapshot, each round as
+    one more), streamed by ``pw.io.iceberg.read`` into the card's groupby and kept live
+    in Postgres (the snapshot), MongoDB and Elasticsearch (the update logs); ->
+    (the segment kernels' launches, the leg's figures)."""
+    from pathway_tpu_torch.internals import dtype as dt
+    from pathway_tpu_torch.io.iceberg import IcebergReader, IcebergWriter, RestCatalog
+
+    rng = np.random.default_rng(SEED)
+    rows: dict[int, tuple[int, float]] = {}  # the source table: id -> (k, v)
+
+    def draw() -> tuple[int, float]:
+        return int(rng.integers(0, SQLITE_GROUPS)), float(rng.integers(-4000, 4000)) * 0.125
+
+    writer = IcebergWriter(None, ["id", "k", "v"], {"id": dt.INT, "k": dt.INT, "v": dt.FLOAT},
+                           catalog=RestCatalog(catalog.uri(), ["bench"], "t"))
+    t0 = time.perf_counter()
+    for rid in range(LAKE_ROWS):
+        rows[rid] = draw()
+        writer.on_change(None, (rid, *rows[rid]), 0, 1)
+    writer.on_time_end(0)
+    start_commit_s = time.perf_counter() - t0
+    next_id = LAKE_ROWS
+
+    class S(pw.Schema):
+        id: int = pw.column_definition(primary_key=True)
+        k: int
+        v: float
+
+    t = pw.io.iceberg.read(catalog.uri(), ["bench"], "t", schema=S, mode="streaming",
+                           autocommit_duration_ms=BUS_AUTOCOMMIT_MS)
+    g = t.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v), c=pw.reducers.count())
+    pw.io.postgres.write_snapshot(g, _pg_settings(pg), table_name="groups", primary_key=["k"])
+    pw.io.mongodb.write(g, f"mongodb://127.0.0.1:{mongo.port}", database="bench", collection="groups")
+    pw.io.elasticsearch.write(g, es.host(), pw.io.elasticsearch.ElasticSearchAuth.basic(*DB_ES_USER),
+                              index_name="groups")
+
+    def pg_state() -> dict:
+        return {r["k"]: (r["k"], np.float64(r["s"]).view(np.int64).item(), r["c"])
+                for r in pg.snapshot("groups")}
+
+    def wait_equal(want: dict, thread) -> bool:
+        return _wait_for(lambda: pg_state() == want, thread, timeout=DB_WAIT_S)
+
+    rounds: list[dict] = []
+    errors: list = []
+    device_ops.configure()
+    device_ops.reset_counters()
+    device_pipeline.PIPELINE.configure()
+    _zero_segment_launches()
+    pg0 = (len(pg.statements), pg.commits)
+    time_iceberg = _TimedPolls(IcebergReader)
+    with _KeptRunner() as kept, time_iceberg:
+        t0 = time.perf_counter()
+        thread = _run_thread("databases-iceberg-run", errors, lambda: _with_device_ops("1", pw.run))
+        try:
+            loaded = wait_equal(_groupby_expected(list(rows.values())), thread)
+            load_s = time.perf_counter() - t0
+            for r in range(LAKE_ROUNDS if loaded else 0):
+                picks = rng.choice(np.fromiter(rows, np.int64, len(rows)), 2 * LAKE_ROUND_ROWS,
+                                   replace=False)
+                for rid in picks[:LAKE_ROUND_ROWS].tolist():
+                    before, rows[rid] = rows[rid], draw()
+                    writer.on_change(None, (rid, *before), r + 1, -1)
+                    writer.on_change(None, (rid, *rows[rid]), r + 1, 1)
+                for rid in picks[LAKE_ROUND_ROWS:].tolist():
+                    writer.on_change(None, (rid, *rows.pop(rid)), r + 1, -1)
+                for rid in range(next_id, next_id + LAKE_ROUND_ROWS):
+                    rows[rid] = draw()
+                    writer.on_change(None, (rid, *rows[rid]), r + 1, 1)
+                next_id += LAKE_ROUND_ROWS
+                t_r = time.perf_counter()
+                writer.on_time_end(r + 1)
+                committed = time.perf_counter()
+                ok = wait_equal(_groupby_expected(list(rows.values())), thread)
+                rounds.append({"equal": ok, "s": time.perf_counter() - committed,
+                               "iceberg_commit_s": committed - t_r})
+                if not ok:
+                    break
+        finally:
+            time_iceberg.stop.set()  # ends the read: the run drains its last commit and stops
+            thread.join(DB_WAIT_S)
+        iceberg_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    check(not thread.is_alive(), "iceberg_groupby: the run did not end")
+    want = _groupby_expected(list(rows.values()))
+    final_pg = pg_state()
+    mongo_docs = mongo.snapshot("bench.groups")
+    es_docs = list(es.indices.get("groups", ()))
+    mongo_state, es_state = _fold_log(mongo_docs), _fold_log(es_docs)
+    by_kernel = _segment_launches()
+    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in kept.runners[0].scope.nodes
+              if hasattr(n, "routes")}
+    groupbys = [x for name, x in routes.items() if name.startswith("GroupbyNode")]
+    snapshots = len(catalog.tables["bench.t"]["snapshots"])
+    out = {"iceberg_s": iceberg_s, "pg_statements": len(pg.statements) - pg0[0],
+           "pg_commits": pg.commits - pg0[1], "mongo_inserts": mongo.commands.count("insert"),
+           "mongo_docs": len(mongo_docs), "es_bulk_requests": len(es.bulk_requests),
+           "es_docs": len(es_docs), "iceberg_snapshots": snapshots,
+           "catalog_requests": len(catalog.requests)}
+    card.emit("databases_iceberg_groupby", rows=LAKE_ROWS, groups=SQLITE_GROUPS, rounds=len(rounds),
+              round_rows=LAKE_ROUND_ROWS, start_commit_s=start_commit_s, load_s=load_s,
+              rows_per_s=LAKE_ROWS / load_s, round_s=[x["s"] for x in rounds],
+              round_iceberg_commit_s=[x["iceberg_commit_s"] for x in rounds],
+              rounds_equal=[x["equal"] for x in rounds], routes=routes, segment_launches=by_kernel,
+              iceberg_polls=len(time_iceberg.seconds), iceberg_polls_with_rows=len(time_iceberg.with_entries),
+              iceberg_poll_ms_with_rows=[1e3 * x for x in time_iceberg.with_entries],
+              final_groups=len(final_pg), mongo_equal=mongo_state == want, es_equal=es_state == want, **out)
+    check(loaded, "iceberg_groupby: Postgres after the start differs from NumPy's")
+    check(len(rounds) == LAKE_ROUNDS and all(x["equal"] for x in rounds), f"iceberg_groupby: rounds {rounds}")
+    check(final_pg == want, "iceberg_groupby: the final Postgres table differs from NumPy's")
+    check(mongo_state == want, f"iceberg_groupby: the Mongo log folds to {len(mongo_state)} groups, not NumPy's")
+    check(es_state == want, f"iceberg_groupby: the ES log folds to {len(es_state)} groups, not NumPy's")
+    check(snapshots == 1 + LAKE_ROUNDS, f"iceberg_groupby: {snapshots} snapshots")
+    check(len(groupbys) == 1 and groupbys[0]["device"] > LAKE_ROUNDS and groupbys[0]["host"] == 0
+          and groupbys[0]["rows"] == 0, f"iceberg_groupby: groupby routes {groupbys}")
+    check(all(by_kernel[k] > 0 for k in SEGMENT_PATH_KERNELS), f"iceberg_groupby: segment launches {by_kernel}")
+    return sum(by_kernel.values()), out
+
+
+def phase_databases(card: Card) -> dict:
+    """The databases and the lakehouse on the card, over in-process fake Postgres, Mongo,
+    Elasticsearch and Iceberg REST servers on local ports and an Airbyte source script:
+    (a) RAG fed by Airbyte and answered into Postgres, (b) an Iceberg table streamed into
+    the card's groupby and kept live in the three stores; -> the forward kernel's and the
+    segment reduction's launches."""
+    from pathway_tpu_torch.io._es_wire import FakeElasticsearchServer, auth_header_basic
+    from pathway_tpu_torch.io._iceberg_rest import FakeIcebergRestServer
+    from pathway_tpu_torch.io._mongo_wire import FakeMongoServer
+    from pathway_tpu_torch.io._pg_wire import FakePostgresServer
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="pw_databases_")
+    servers = []
+    threads_before = set(threading.enumerate())
+    try:
+        pg = FakePostgresServer(password=DB_PASSWORD, auth="scram-sha-256")
+        servers.append(pg)
+        mongo = FakeMongoServer()
+        servers.append(mongo)
+        es = FakeElasticsearchServer(auth_header=auth_header_basic(*DB_ES_USER))
+        servers.append(es)
+        catalog = FakeIcebergRestServer(os.path.join(root, "warehouse"))
+        servers.append(catalog)
+        t0 = time.perf_counter()
+        flash = _databases_airbyte_rag(card, root, pg)
+        airbyte_rag_s = time.perf_counter() - t0
+        peak_rag_gib = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        segment, lake = _databases_iceberg_groupby(card, root, pg, mongo, es, catalog)
+        iceberg_groupby_s = time.perf_counter() - t0
+    finally:
+        for srv in servers:
+            srv.close()
+        shutil.rmtree(root, ignore_errors=True)
+    leftover = [t.name for t in set(threading.enumerate()) - threads_before if t.name.startswith("fake-")]
+    torch.cuda.synchronize()
+    card.emit("databases", seconds=time.perf_counter() - t_phase, airbyte_rag_s=airbyte_rag_s,
+              iceberg_groupby_s=iceberg_groupby_s, peak_rag_device_gib=peak_rag_gib,
+              peak_device_gib=torch.cuda.max_memory_allocated() / 2**30, server_threads_left=leftover,
+              **lake)
+    check(not leftover, f"databases: server threads left after close: {leftover}")
+    return {"flash": flash, "segment": segment}
+
+
 def train_batch(n: int, vocab_size: int) -> ContrastiveBatch:
     """n (query, positive) pairs on the card, padded to SEQ_LEN: each positive is a
     generated doc, its query the doc's first 3-8 words."""
@@ -4325,7 +4788,8 @@ def phase_rag_evals(card: Card, chat, embedder: EncoderEmbedder) -> int:
     return launches
 
 
-N_OPS = 200_000  # rows of table_ops: device_ops_leg's size, as relational_engine
+#: rows of table_ops: half device_ops_leg's 200,000, cut so that the script keeps its time
+N_OPS = 100_000
 OPS_COMMITS = 20
 OPS_DEDUP_INSTANCES = 4096
 OPS_SORT_INSTANCES = 1024
@@ -4545,7 +5009,7 @@ def phase_table_ops(card: Card) -> int:
 
 # -- the temporal operators: Nexmark ------------------------------------------------------
 
-NEXMARK_EVENTS = 100_000
+NEXMARK_EVENTS = 50_000  # 100,000 until the databases phase came: cut for the script's time
 NEXMARK_COMMITS = 10
 NEXMARK_MS_PER_EVENT = 1  # 1,000 events/s of event time
 NEXMARK_WINDOW_MS = 10_000
@@ -4760,8 +5224,8 @@ def phase_temporal(card: Card) -> int:
     ``exactly_once_behavior``, so the buffer and freeze nodes are on the path) and 8
     (new users: a tumbling 10 s ``window_join`` of persons and auctions on person id ==
     seller), and an interval join of bids to their auction within 10 s after it, over
-    100,000 events of Beam's generator (1,000 events/s of event time, in event-time
-    order) as one streamed ``pw.run`` through ``pw.io.python`` in 10 commits of 10,000;
+    50,000 events of Beam's generator (1,000 events/s of event time, in event-time
+    order) as one streamed ``pw.run`` through ``pw.io.python`` in 10 commits of 5,000;
     the feed waits for each commit to reach the subscriber. Once on the host kernels
     (``PATHWAY_TPU_DEVICE_OPS=0``), then on the card; both runs' outputs must equal a
     plain Python computation exactly and each other, Q7 may retract nothing, and the
@@ -4820,7 +5284,7 @@ def phase_temporal(card: Card) -> int:
 
 # -- pw.iterate: PageRank -----------------------------------------------------------------
 
-GRAPH_SCALE = 12  # Graph500's smallest class is scale 26
+GRAPH_SCALE = 11  # Graph500's smallest class is scale 26; 12 until cut for the script's time
 GRAPH_EDGE_FACTOR = 16
 GRAPH_ABC = (0.57, 0.19, 0.19)
 PAGERANK_ROUNDS = 20
@@ -4936,7 +5400,7 @@ def _pagerank_run(u: np.ndarray, v: np.ndarray, n_first: int) -> dict:
 
 def phase_iterate(card: Card) -> int:
     """``pw.stdlib.graphs.pagerank`` (20 rounds at most) through one ``pw.run`` over a
-    Graph500 Kronecker graph of scale 12 (4,096 vertices, 65,536 edges; A = 0.57, B = C
+    Graph500 Kronecker graph of scale 11 (2,048 vertices, 32,768 edges; A = 0.57, B = C
     = 0.19, edge factor 16) fed as two commits of a StreamGenerator table: 90% of the
     edges, then the other 10%, which makes the iteration recompute and emit a delta.
     Once on the host kernels (``PATHWAY_TPU_DEVICE_OPS=0``), then on the card: the ranks
@@ -5569,7 +6033,8 @@ OPT_MODES = (
     ("forced", {"PATHWAY_TPU_OPTIMIZE": "1", "PATHWAY_TPU_DEVICE_OPS": "1"}),
     ("auto", {"PATHWAY_TPU_OPTIMIZE": "1", "PATHWAY_TPU_DEVICE_OPS": None}),
 )
-OPT_OPS_ROWS, OPT_OPS_COMMITS = N_OPS // 4, OPS_COMMITS // 4  # table_ops at a quarter of its depth
+#: table_ops at a quarter of device_ops_leg's depth (50,000 rows in 5 commits)
+OPT_OPS_ROWS, OPT_OPS_COMMITS = 50_000, OPS_COMMITS // 4
 
 
 class _TransferLedger:
@@ -5735,7 +6200,9 @@ def phase_optimizer(card: Card) -> int:
 
 PERSIST_MODES = ("PERSISTING", "OPERATOR_PERSISTING")
 PERSIST_RAG_FILES = 40  # N_DOCS in files of 500 docs
-PERSIST_WC_FILES = 100  # bench_dataflow.py wordcount's 1,000,000 words, 10,000 lines a file
+#: bench_dataflow.py wordcount's 10,000-line files, cut from its 1,000,000 words to 250,000 so
+#: that the script stays within its time with the databases phase
+PERSIST_WC_FILES = 25
 PERSIST_WC_LINES = 10_000
 PERSIST_WC_KEYS = 4096
 #: snapshot intervals: the 1.61 GB index's snapshot amortized over 30 s of commits, the
@@ -6056,7 +6523,7 @@ def _lazy_rows_snapshot(runner) -> dict:
 
 
 def _persist_wc_files() -> tuple[list, dict]:
-    """The word count's 100 files of 10,000 lines (a seeded draw over 4,096 words) and
+    """The word count's 25 files of 10,000 lines (a seeded draw over 4,096 words) and
     ``np.unique``'s counts of all of them."""
     ids = np.random.default_rng(SEED).integers(0, PERSIST_WC_KEYS, PERSIST_WC_FILES * PERSIST_WC_LINES)
     words, counts = np.unique(ids, return_counts=True)
@@ -6474,8 +6941,8 @@ def phase_persistence(card: Card) -> dict:
     operator snapshots the resumed run embeds only the docs after the snapshot, its
     index restored on the card equal to the snapshot's bit for bit.
     ``persistence_wordcount``: the Pathway persistence tutorial's plaintext -> groupby
-    count -> csv program at bench_dataflow.py::wordcount's size (1,000,000 words over
-    4,096 keys in 100 files of 10,000 lines), the groupby forced onto the card; the sink
+    count -> csv program at a quarter of bench_dataflow.py::wordcount's size (250,000 words
+    over 4,096 keys in 25 files of 10,000 lines), the groupby forced onto the card; the sink
     file resumed under one ``PATHWAY_RUN_ID`` folds to ``np.unique``'s counts, as the
     fault-free run's does; under operator snapshots no word is read twice. A fifth run
     of the word count kills it between two interval snapshots instead, and resumes it
@@ -6501,12 +6968,13 @@ def phase_persistence(card: Card) -> dict:
 
 #: the Python-branch reruns' depths (the kernel run of each comparison takes the same
 #: depth; the earlier phases run every workload at full depth with the kernels)
-NATIVE_OPS_ROWS, NATIVE_OPS_COMMITS = OPT_OPS_ROWS, OPT_OPS_COMMITS  # table_ops at a quarter
-NATIVE_NEXMARK_EVENTS, NATIVE_NEXMARK_COMMITS = NEXMARK_EVENTS // 5, 2  # 20,000 events
-NATIVE_GRAPH_SCALE = GRAPH_SCALE - 2  # PageRank over 1,024 vertices, 16,384 edges
+#: (halved, with the phases above, for the script's time)
+NATIVE_OPS_ROWS, NATIVE_OPS_COMMITS = 25_000, OPT_OPS_COMMITS  # table_ops at an eighth
+NATIVE_NEXMARK_EVENTS, NATIVE_NEXMARK_COMMITS = 10_000, 2
+NATIVE_GRAPH_SCALE = 9  # PageRank over 512 vertices, 8,192 edges
 NATIVE_SERVING_DOCS, NATIVE_SERVING_QUERIES = 4 * CHUNK, 8  # four paced commits of 256
 NATIVE_SERVING_CAPACITY = 1 << 12
-NATIVE_ROWS, NATIVE_ROWS_COMMITS = 20_000, 6  # engine_rows: rows a commit, commits
+NATIVE_ROWS, NATIVE_ROWS_COMMITS = 10_000, 6  # engine_rows: rows a commit, commits
 #: the host kernels each workload's path calls (every kernel with a caller in the port
 #: is on one of them; hash_tuples_batch and shard_values have none yet)
 NATIVE_PATHS = {
@@ -6758,6 +7226,7 @@ def main() -> int:
         return _overhead_child(sys.argv[2])
     if sys.argv[1:2] == ["--lockwatch-child"]:
         return _lockwatch_child(sys.argv[2:])
+    t_script = time.perf_counter()
     card = Card()
     card.emit("device", name=card.name, count=card.count, torch=torch.__version__,
               cuda=torch.version.cuda)
@@ -6794,6 +7263,7 @@ def main() -> int:
     watch = counted("watch", phase_watch, card, engine_docs_per_s)
     connectors = counted("connectors", phase_connectors, card)
     buses = counted("buses", phase_buses, card)
+    databases = counted("databases", phase_databases, card)
     train = counted("train", phase_train, card)
     image_embedder = ImageEmbedder("vit-b16", max_batch_size=IMAGE_BATCH, seed=SEED)
     vision = counted("vision_parity", phase_vision_parity, card, image_embedder)
@@ -6820,7 +7290,8 @@ def main() -> int:
                                "vector_store": vector_store, "rag": rag,
                                "rag_evals": rag_evals, "persistence": persistence["flash"],
                                "observability": observability["flash"], "watch": watch["flash"],
-                               "connectors": connectors["flash"], "buses": buses["flash"]}
+                               "connectors": connectors["flash"], "buses": buses["flash"],
+                               "databases": databases["flash"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
@@ -6833,7 +7304,9 @@ def main() -> int:
                                       "persistence": persistence["segment"],
                                       "observability": observability["segment"],
                                       "connectors": connectors["segment"],
-                                      "buses": buses["segment"]}
+                                      "buses": buses["segment"],
+                                      "databases": databases["segment"]}
+    card.emit("script", seconds=time.perf_counter() - t_script)
     print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)

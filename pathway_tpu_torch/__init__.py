@@ -24,9 +24,10 @@ groupby (``ops.segment_reduce``, ``csrc/segment_reduce.cu``), and the observabil
 planes: metrics, traces and profiles, the monitoring dashboard and HTTP endpoint
 (``pw.MonitoringLevel``, ``pw.run(with_http_server=True)``), the metrics history and
 its SLOs, OpenTelemetry spans (``pw.set_monitoring_config``) and the lock-order
-watcher. Entry points run on CUDA unless the caller passes ``device="cpu"``. The
-reference's names that are not ported yet raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+watcher, and the connectors of ``pw.io`` (with the licensed SharePoint source in
+``xpacks.connectors``, gated by ``pw.set_license_key``). Entry points run on CUDA unless
+the caller passes ``device="cpu"``. The reference's names that are not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from pathway_tpu_torch.internals import lockwatch as _lockwatch
@@ -79,6 +80,7 @@ from pathway_tpu_torch.internals.schema import (  # noqa: E402
 from pathway_tpu_torch.internals.table import JoinMode, Table  # noqa: E402
 from pathway_tpu_torch.internals.thisclass import left, right, this  # noqa: E402
 from pathway_tpu_torch.internals import udfs  # noqa: E402
+from pathway_tpu_torch.internals.config import set_license_key  # noqa: E402
 from pathway_tpu_torch.internals.udfs import UDF, udf  # noqa: E402
 from pathway_tpu_torch.internals.unported import module_getattr as _module_getattr  # noqa: E402
 from pathway_tpu_torch.models import Encoder, EncoderConfig, embed  # noqa: E402
@@ -117,7 +119,7 @@ __getattr__ = _module_getattr(__name__, {
         (
             "sql", "demo", "load_yaml", "export_table", "import_table", "AsyncTransformer",
             "LiveTable", "enable_interactive_mode", "stop_interactive_mode",
-            "PathwayConfig", "get_pathway_config", "set_license_key",
+            "PathwayConfig", "get_pathway_config",
         ),
         "8: the rest of the package",
     ),
@@ -184,6 +186,7 @@ __all__ = [
     "schema_from_csv",
     "schema_from_dict",
     "schema_from_types",
+    "set_license_key",
     "set_monitoring_config",
     "stdlib",
     "temporal",

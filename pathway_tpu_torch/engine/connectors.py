@@ -26,8 +26,9 @@ An :class:`InputDriver` may belong to a synchronization group (``io/_synchroniza
 an event whose sync column runs more than the group's ``max_difference`` ahead of the
 slowest member waits in its backlog, in order, until the group admits it. The readers
 over databases, message buses and object stores are in ``engine/storage.py``, and the
-Debezium parser in ``engine/formats.py``. Not ported yet: the databases (ROADMAP queue 1
-item 15) and the writers' rollback of a mesh to a common commit (item 14). :class:`BatchScheduleDriver` feeds ``pw.debug``'s ``StreamGenerator``.
+Debezium parser in ``engine/formats.py``. Not ported yet: the writers' rollback of a mesh
+to a common commit (ROADMAP queue 1 item 14). :class:`BatchScheduleDriver` feeds
+``pw.debug``'s ``StreamGenerator``.
 """
 
 from __future__ import annotations

@@ -22,9 +22,15 @@ Counterpart of the first part of ``pathway_tpu/engine/storage.py``:
   transport with ``seek`` is also moved past it); :class:`MessageQueueWriter` produces
   one message a change.
 
+- the database writers: :class:`SqlExecutor` is the statement seam (``execute(statement,
+  params)`` with ``$N`` placeholders, and ``commit``) that ``io/_pg_wire.py``'s
+  connection provides; :class:`PsqlWriter` runs one statement a change and commits at
+  the end of every engine commit (a per-commit transaction); :class:`ElasticsearchWriter`
+  indexes one document a change and flushes its client (one ``_bulk`` request) a
+  commit; :class:`MongoWriter` buffers a commit's documents into one ``insert_many``.
+
 ``DictObjectStore.list_objects`` hashes every object on every poll, as the reference
-does: its signature is the md5 of the bytes. The Postgres, Elasticsearch and Mongo
-writers wait for the databases (ROADMAP queue 1 item 15, third slice).
+does: its signature is the md5 of the bytes.
 """
 
 from __future__ import annotations
@@ -38,14 +44,18 @@ from pathway_tpu_torch.engine.value import Pointer
 
 __all__ = [
     "DictObjectStore",
+    "ElasticsearchWriter",
     "InMemoryTransport",
     "Message",
     "MessageQueueReader",
     "MessageQueueWriter",
     "MessageTransport",
+    "MongoWriter",
     "ObjectStoreClient",
     "ObjectStoreReader",
     "ObjectStoreWriter",
+    "PsqlWriter",
+    "SqlExecutor",
     "SqliteReader",
     "TransparentParser",
 ]
@@ -273,6 +283,83 @@ class MessageQueueWriter:
         flush = getattr(self.transport, "flush", None)
         if flush is not None:
             flush()
+
+    def on_end(self) -> None:
+        self.on_time_end(-1)
+
+
+# -- databases ------------------------------------------------------------------
+
+
+class SqlExecutor(Protocol):
+    """Runs one statement with ``$N``-style params (``io/_pg_wire.py``'s connection, or
+    ``io/postgres.py::psycopg2_adapter`` around a psycopg2 connection); a ``commit``
+    method, where there is one, ends the commit's transaction."""
+
+    def execute(self, statement: str, params: Sequence[Any]) -> None: ...
+
+
+class PsqlWriter:
+    """Postgres sink: one statement a change from a Psql formatter (``engine/formats.py``)
+    through an executor, and the executor's ``commit`` at the end of every engine commit,
+    so each commit is one transaction."""
+
+    def __init__(self, executor: Any, formatter: Any) -> None:
+        self.executor = executor
+        self.formatter = formatter
+
+    def on_change(self, key: Pointer, values: tuple, time: int, diff: int) -> None:
+        stmt, params = self.formatter.format(key, values, time, diff)
+        self.executor.execute(stmt, params)
+
+    def on_time_end(self, time: int) -> None:
+        commit = getattr(self.executor, "commit", None)
+        if commit is not None:
+            commit()
+
+    def on_end(self) -> None:
+        self.on_time_end(-1)
+
+
+class ElasticsearchWriter:
+    """Index one document a change (``client.index(index_name, document)``); a client
+    with ``flush`` (the bulk client) is flushed at the end of every commit, one
+    ``_bulk`` request a commit."""
+
+    def __init__(self, client: Any, index_name: str, formatter: Any) -> None:
+        self.client = client
+        self.index_name = index_name
+        self.formatter = formatter
+
+    def on_change(self, key: Pointer, values: tuple, time: int, diff: int) -> None:
+        self.client.index(self.index_name, self.formatter.format(key, values, time, diff))
+
+    def on_time_end(self, time: int) -> None:
+        flush = getattr(self.client, "flush", None)
+        if flush is not None:
+            flush()
+
+    def on_end(self) -> None:
+        self.on_time_end(-1)
+
+
+class MongoWriter:
+    """Buffer a commit's documents (row, ``time`` and ``diff``) and insert them with
+    one ``client.insert_many(collection, documents)`` at the commit's end."""
+
+    def __init__(self, client: Any, collection: str, formatter: Any) -> None:
+        self.client = client
+        self.collection = collection
+        self.formatter = formatter
+        self._batch: list[dict] = []
+
+    def on_change(self, key: Pointer, values: tuple, time: int, diff: int) -> None:
+        self._batch.append(self.formatter.format(key, values, time, diff))
+
+    def on_time_end(self, time: int) -> None:
+        if self._batch:
+            self.client.insert_many(self.collection, self._batch)
+            self._batch = []
 
     def on_end(self) -> None:
         self.on_time_end(-1)

@@ -3,15 +3,26 @@
 Counterpart of ``pathway_tpu/internals/config.py``: the worker topology
 (``PATHWAY_THREADS``, ``PATHWAY_PROCESSES``) and persistence (``PATHWAY_PERSISTENT_STORAGE``,
 ``PATHWAY_REPLAY_STORAGE``, ``PATHWAY_PERSISTENCE_MODE``, ``PATHWAY_SNAPSHOT_ACCESS``,
-``PATHWAY_CONTINUE_AFTER_REPLAY``). ``pw.run`` reads a fresh config per run, so
-environment changes between runs take effect.
+``PATHWAY_CONTINUE_AFTER_REPLAY``) and the license key (``PATHWAY_LICENSE_KEY``, or the
+key :func:`set_license_key` set in this context, which wins). ``pw.run`` reads a fresh
+config per run, so environment changes between runs take effect.
 """
 
 from __future__ import annotations
 
 import os
+from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Any
+
+_UNSET = object()
+#: the key ``set_license_key`` set in this context; unset: ``PATHWAY_LICENSE_KEY``
+_license_key: ContextVar[object] = ContextVar("license_key", default=_UNSET)
+
+
+def _current_license_key() -> str | None:
+    key = _license_key.get()
+    return os.environ.get("PATHWAY_LICENSE_KEY") if key is _UNSET else key
 
 
 def _env_int(name: str, default: int) -> int:
@@ -40,6 +51,7 @@ class PathwayConfig:
     persistent_storage: str | None = _env_field("PATHWAY_PERSISTENT_STORAGE")
     replay_storage: str | None = _env_field("PATHWAY_REPLAY_STORAGE")
     snapshot_access: str | None = _env_field("PATHWAY_SNAPSHOT_ACCESS")
+    license_key: str | None = field(default_factory=lambda: _current_license_key())
 
     @property
     def replay_config(self) -> Any:
@@ -64,3 +76,9 @@ class PathwayConfig:
 def get_pathway_config() -> PathwayConfig:
     """A fresh read of the environment."""
     return PathwayConfig()
+
+
+def set_license_key(key: str | None) -> None:
+    """Use ``key`` as the license key in this context, in place of
+    ``PATHWAY_LICENSE_KEY`` (None: no key, the free tier)."""
+    _license_key.set(key)

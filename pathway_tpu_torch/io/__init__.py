@@ -3,49 +3,62 @@
 ingress, the polling reader and the writer), ``logstash``, ``sqlite``, the object stores
 (``s3``, ``minio``, ``s3_csv``, ``pyfilesystem``, ``gdrive``), ``deltalake``, the
 input synchronization groups, and the message buses: ``kafka`` and ``redpanda`` over the
-Kafka wire, ``debezium``, ``nats`` and ``pubsub``. The databases, Iceberg and Airbyte
-raise ``NotImplementedError`` naming the ROADMAP item that ports them (item 15)."""
+Kafka wire, ``debezium``, ``nats`` and ``pubsub``, the databases (``postgres``,
+``mongodb``, ``elasticsearch``, ``bigquery``, ``slack``) and the lakehouse (``iceberg``,
+``airbyte``): every connector of the reference's ``pw.io``."""
 
-from pathway_tpu_torch.internals.unported import module_getattr
 from pathway_tpu_torch.io import (
+    airbyte,
+    bigquery,
     csv,
     debezium,
     deltalake,
+    elasticsearch,
     fs,
     gdrive,
     http,
+    iceberg,
     jsonlines,
     kafka,
     logstash,
     minio,
+    mongodb,
     nats,
     null,
     plaintext,
+    postgres,
     pubsub,
     pyfilesystem,
     python,
     redpanda,
     s3,
     s3_csv,
+    slack,
     sqlite,
 )
 from pathway_tpu_torch.io._subscribe import subscribe
 from pathway_tpu_torch.io._synchronization import register_input_synchronization_group
 
 __all__ = [
+    "airbyte",
+    "bigquery",
     "csv",
     "debezium",
     "deltalake",
+    "elasticsearch",
     "fs",
     "gdrive",
     "http",
+    "iceberg",
     "jsonlines",
     "kafka",
     "logstash",
     "minio",
+    "mongodb",
     "nats",
     "null",
     "plaintext",
+    "postgres",
     "pubsub",
     "pyfilesystem",
     "python",
@@ -53,11 +66,10 @@ __all__ = [
     "register_input_synchronization_group",
     "s3",
     "s3_csv",
+    "slack",
     "sqlite",
     "subscribe",
 ]
 
-#: the reference's connector modules (``pathway_tpu/io/``) not ported yet
-CONNECTORS = ("airbyte", "bigquery", "elasticsearch", "iceberg", "mongodb", "postgres", "slack")
-
-__getattr__ = module_getattr(__name__, dict.fromkeys(CONNECTORS, "15: the other connectors"))
+#: the reference's connector modules (``pathway_tpu/io/``) not ported yet: none
+CONNECTORS: tuple[str, ...] = ()

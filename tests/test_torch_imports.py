@@ -128,6 +128,20 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.io._nats_wire",
         "pathway_tpu_torch.io.nats",
         "pathway_tpu_torch.io.pubsub",
+        "pathway_tpu_torch.io._pg_wire",
+        "pathway_tpu_torch.io.postgres",
+        "pathway_tpu_torch.io._mongo_wire",
+        "pathway_tpu_torch.io.mongodb",
+        "pathway_tpu_torch.io._es_wire",
+        "pathway_tpu_torch.io.elasticsearch",
+        "pathway_tpu_torch.io.bigquery",
+        "pathway_tpu_torch.io.slack",
+        "pathway_tpu_torch.io._iceberg_rest",
+        "pathway_tpu_torch.io.iceberg",
+        "pathway_tpu_torch.io.airbyte",
+        "pathway_tpu_torch.internals.license",
+        "pathway_tpu_torch.xpacks.connectors",
+        "pathway_tpu_torch.xpacks.connectors.sharepoint",
     ):
         assert expected in names
 
@@ -153,7 +167,13 @@ def test_engine_api_imports_no_jax_and_touches_no_card():
             "         pw.io.pyfilesystem.read, pw.io.gdrive.read, pw.io.deltalake.read,",
             "         pw.io.register_input_synchronization_group, pw.persistence.Backend.s3,",
             "         pw.io.kafka.read, pw.io.kafka.write, pw.io.redpanda.read, pw.io.debezium.read,",
-            "         pw.io.nats.read, pw.io.nats.write, pw.io.pubsub.write]",
+            "         pw.io.nats.read, pw.io.nats.write, pw.io.pubsub.write,",
+            "         pw.io.postgres.write, pw.io.postgres.write_snapshot, pw.io.mongodb.write,",
+            "         pw.io.elasticsearch.write, pw.io.bigquery.write, pw.io.slack.send_alerts,",
+            "         pw.io.iceberg.read, pw.io.iceberg.write, pw.io.airbyte.read,",
+            "         pw.set_license_key]",
+            "from pathway_tpu_torch.xpacks.connectors import sharepoint",
+            "assert sharepoint.read",
             "assert 'aiohttp' not in sys.modules and 'pyarrow' not in sys.modules",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))",
             "assert not bad, bad",

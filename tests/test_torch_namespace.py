@@ -157,12 +157,14 @@ def test_getattr_shadows_no_submodule_on_first_import():
         "assert pw.stdlib.stateful.deduplicate\n"
         "from pathway_tpu_torch.io import csv\n"
         "assert pw.io.csv is csv and pw.persistence.Config\n"
+        "from pathway_tpu_torch.io import postgres\n"
+        "assert pw.io.postgres is postgres and pw.io.CONNECTORS == ()\n"
         "try:\n"
-        "    from pathway_tpu_torch.io import postgres\n"
+        "    from pathway_tpu_torch import sql\n"
         "except NotImplementedError as e:\n"
-        "    assert 'item 15' in str(e)\n"
+        "    assert 'item 8' in str(e)\n"
         "else:\n"
-        "    raise AssertionError('pw.io.postgres imported')\n"
+        "    raise AssertionError('pw.sql imported')\n"
     )
     env = {**os.environ, "PYTHONPATH": REPO}
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO, timeout=120)
