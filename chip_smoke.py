@@ -81,6 +81,18 @@ limit):
    subscriber's state must equal NumPy's answer, the groupby's commits and the inner
    join's batches must take the device route (the left join takes its row path, as in
    the JAX package).
+   sharded: workers in one process, ``pw.run(threads=N)``. (a) relational_engine's
+   program at 2 and 4 workers: the state must be NumPy's answer and the ``threads=1``
+   run's bits, every worker's groupby must reduce on the card; rows/s beside
+   ``threads=1``'s, the segment launches and the exchange's deliveries by plane (elided,
+   host, collective: 0, the device plane not being ported). (b) BASELINE #1's RAG at 2
+   workers, 4,096 docs and 32 queries, the index as engine_pipeline builds it: every doc
+   by the device route, every query answered once with its own doc at top-1, recall@10
+   >= 0.99 against exact f32 search over the vectors the index received, the forward's
+   launches per worker (each worker embeds its shard). (c) the persistence tutorial's
+   word count (100,000 words in 10 files) under operator snapshots at 2 workers over
+   half the files, resumed at 4 over all of them: the snapshot re-shards, the counts
+   are ``np.unique``'s and every worker's groupby runs on the card after the resume.
 8. main_path: MiniLM-L6 at full width (seeded weights) embeds 20,000 generated docs in
    256-doc commits into a 1,048,576-slot f32 index on the card, 980,000 seeded unit
    vectors are bulk-added so 1,000,000 rows are live, and 64 queries are embedded and
@@ -366,13 +378,14 @@ limit):
    filter, an inner join after retractions, 6 commits). The outputs must be equal, every
    kernel of the workload's path (``NATIVE_PATHS``) called with the kernels and none
    without; wall seconds, units/s and each kernel's calls and ns, both ways.
-24. The script line (the seconds since the script started), the native line (every
-   phase's host kernel calls and ns, and the both-ways
+24. The script line (the seconds since the script started, and each phase's), the
+   native line (every phase's host kernel calls and ns, and the both-ways
    comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
    forward's ``launches_by_path`` includes ``rag_evals``, ``persistence``,
-   ``observability``, ``watch``, ``connectors``, ``buses`` and ``databases``, the segment
-   reduction's ``table_ops``, ``temporal``, ``iterate``, ``optimizer``, ``persistence``,
-   ``observability``, ``connectors``, ``buses`` and ``databases``),
+   ``observability``, ``watch``, ``connectors``, ``buses``, ``databases`` and
+   ``sharded``, the segment reduction's ``table_ops``, ``temporal``, ``iterate``,
+   ``optimizer``, ``persistence``, ``observability``, ``connectors``, ``buses``,
+   ``databases`` and ``sharded``),
    the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
@@ -425,7 +438,9 @@ from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
 from pathway_tpu_torch.engine import expression as eex
 from pathway_tpu_torch.internals import metrics as pmetrics
 from pathway_tpu_torch.internals import profiling, tracing
-from pathway_tpu_torch.internals.runner import GraphRunner
+from pathway_tpu_torch.internals.runner import GraphRunner, ShardedGraphRunner
+from pathway_tpu_torch.engine.routing import EXCHANGE_STATS
+from pathway_tpu_torch.engine.sharded import ShardedScheduler
 from pathway_tpu_torch.models import (
     ContrastiveBatch,
     Encoder,
@@ -1110,7 +1125,8 @@ def _engine_program(embedder: EncoderEmbedder, corpus, n_docs: int, n_queries: i
     subscriber, so each batch is a commit of its own. Returns the observations (filled
     in while ``pw.run`` runs) and the function that runs it."""
     obs = {"docs": {}, "doc_times": set(), "answers": {}, "latencies": [], "timeouts": [],
-           "failures": [], "run_start": 0.0, "first_doc_seen": 0.0, "ingest_end": 0.0}
+           "failures": [], "run_start": 0.0, "first_doc_seen": 0.0, "ingest_end": 0.0,
+           "answer_events": collections.Counter()}
     ingest_done, answer_seen, batch_seen = threading.Event(), threading.Event(), threading.Event()
 
     class DocFeed(pw.io.python.ConnectorSubject):
@@ -1164,6 +1180,7 @@ def _engine_program(embedder: EncoderEmbedder, corpus, n_docs: int, n_queries: i
         if is_addition:
             obs["answers"][row["query_id"]] = (tuple(row["_pw_index_reply_ids"]),
                                                np.asarray(row["qemb"], np.float32))
+            obs["answer_events"][row["query_id"]] += 1
             answer_seen.set()
 
     perf_counter = time.perf_counter  # the callbacks' ``time`` argument shadows the module
@@ -5898,29 +5915,38 @@ def matcher_alone(card: Card) -> None:
 
 
 class _KeptRunner:
-    """Keeps the GraphRunner of the next ``pw.run``, to read its nodes' routes."""
+    """Keeps the runner (a GraphRunner, or the ShardedGraphRunner of ``threads`` > 1) of
+    the next ``pw.run``, to read its nodes' routes."""
 
     def __enter__(self):
         self.runners = []
-        self._run = GraphRunner.run
+        self._runs = {cls: cls.run for cls in (GraphRunner, ShardedGraphRunner)}
         kept = self.runners
 
-        def run(runner):
-            kept.append(runner)
-            return self._run(runner)
+        for cls, orig in self._runs.items():
+            def run(runner, *a, _orig=orig, **kw):
+                kept.append(runner)
+                return _orig(runner, *a, **kw)
 
-        GraphRunner.run = run
+            cls.run = run
         return self
 
     def __exit__(self, *exc):
-        GraphRunner.run = self._run
+        for cls, orig in self._runs.items():
+            cls.run = orig
 
 
-def _relational_engine_run() -> dict:
-    """One ``pw.run`` of relational_engine's program (see :func:`phase_relational_engine`)
-    under the environment as it stands: -> the subscriber's final state, NumPy's answer,
-    the run's seconds, the kept runner, the nodes' routes and the segment kernels'
-    launches."""
+def _worker_scopes(runner) -> list:
+    """The scopes of a kept runner: its workers' under ``threads`` > 1, else its own."""
+    return [w.scope for w in runner.workers] if hasattr(runner, "workers") else [runner.scope]
+
+
+def _relational_engine_run(threads: int = 1) -> dict:
+    """One ``pw.run(threads=threads)`` of relational_engine's program (see
+    :func:`phase_relational_engine`) under the environment as it stands: -> the
+    subscriber's final state, NumPy's answer, the run's seconds, the kept runner, the
+    nodes' routes (``w<worker>:`` before each name under ``threads`` > 1) and the
+    segment kernels' launches."""
 
     class Feed(pw.io.python.ConnectorSubject):
         def __init__(self, keys, vals) -> None:
@@ -5968,12 +5994,13 @@ def _relational_engine_run() -> dict:
     _zero_segment_launches()
     with _KeptRunner() as kept:
         t0 = time.perf_counter()
-        pw.run()
+        pw.run(threads=threads)
         run_s = time.perf_counter() - t0
     by_kernel = _segment_launches()
     runner = kept.runners[0]
-    routes = {type(n).__name__ + f"#{n.index}": dict(n.routes) for n in runner.scope.nodes
-              if hasattr(n, "routes")}
+    scopes = _worker_scopes(runner)
+    routes = {(f"w{w}:" if threads > 1 else "") + type(n).__name__ + f"#{n.index}": dict(n.routes)
+              for w, scope in enumerate(scopes) for n in scope.nodes if hasattr(n, "routes")}
     counts = np.bincount(a_k, minlength=N_DIM + 64)
     sums = np.bincount(a_k, weights=a_v, minlength=N_DIM + 64)
     want = [
@@ -5986,7 +6013,7 @@ def _relational_engine_run() -> dict:
             "routes": routes, "by_kernel": by_kernel, "rows": N_ENGINE * 5 // 4}
 
 
-def phase_relational_engine(card: Card) -> int:
+def phase_relational_engine(card: Card) -> tuple[int, list, float]:
     """One ``pw.run`` program through the Table API at device_ops_leg's size: a python
     connector (200,000 rows) into a groupby (sum and count), a left join with a
     1,024-row dimension table from ``pw.debug.table_from_rows``, a filter, and a
@@ -6019,7 +6046,224 @@ def phase_relational_engine(card: Card) -> int:
           f"join routes {joins}")
     check(all(by_kernel[k] > 0 for k in SEGMENT_PATH_KERNELS),
           f"relational_engine left a segment kernel unlaunched: {by_kernel}")
+    return launches, res["out"], res["rows"] / res["run_s"]
+
+
+# -- workers in one process: pw.run(threads=N) -------------------------------------------
+
+SHARDED_THREADS = (2, 4)  # (a)'s worker counts
+SHARDED_RAG_DOCS = 4096  # (b): BASELINE #1's RAG cut in depth only
+SHARDED_RAG_QUERIES = 32
+SHARDED_WC_FILES = 10  # (c): the word count's files; half before the stop, half after
+SHARDED_WC_LINES = 10_000
+
+
+def _exchange_since(mark: dict) -> dict:
+    """The exchange counters' movement since ``mark``, by plane; checks the invariant
+    ``elided + host + collective == repartitions`` and that no collective ran."""
+    d = {k: EXCHANGE_STATS[k] - mark[k] for k in ("elided", "host_deliveries",
+                                                   "collective_deliveries", "repartitions")}
+    check(d["elided"] + d["host_deliveries"] + d["collective_deliveries"] == d["repartitions"],
+          f"sharded: the exchange's planes do not add up: {d}")
+    check(d["collective_deliveries"] == 0 and d["repartitions"] > 0, f"sharded: exchange {d}")
+    return d
+
+
+class _WorkerLaunches:
+    """Counts the forward kernel's launches made inside each worker's operators during
+    the next sharded run (every node's ``process`` wrapped per worker)."""
+
+    def __enter__(self):
+        self.by_worker: list[int] = []
+        self._init = ShardedScheduler.__init__
+        counts = self.by_worker
+
+        def init(sched, scopes, *a, _orig=self._init, **kw):
+            _orig(sched, scopes, *a, **kw)
+            counts[:] = [0] * len(sched.scopes)
+            for w, scope in enumerate(sched.scopes):
+                for node in scope.nodes:
+                    process = node.process
+
+                    def counted(time_, _process=process, _w=w):
+                        before = fa.KERNEL.launches
+                        try:
+                            return _process(time_)
+                        finally:
+                            counts[_w] += fa.KERNEL.launches - before
+
+                    node.process = counted
+
+        ShardedScheduler.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        ShardedScheduler.__init__ = self._init
+
+
+class _AllKnnFactory(_KeptKnnFactory):
+    """Keeps every index it builds: a sharded run builds one, on worker 0, where the
+    index operator is pinned (the replicas build none, so hold none on the card)."""
+
+    def build(self) -> DeviceKnnIndex:
+        index = super().build()
+        self.all = getattr(self, "all", []) + [index]
+        return index
+
+
+def _sharded_relational(card: Card, base_out: list, base_rows_per_s: float) -> int:
+    """(a): relational_engine's program at 2 and 4 workers."""
+    launches = 0
+    for threads in SHARDED_THREADS:
+        mark = dict(EXCHANGE_STATS)
+        res = _with_device_ops("1", lambda: _relational_engine_run(threads))
+        planes = _exchange_since(mark)
+        by_kernel, routes = res["by_kernel"], res["routes"]
+        launches += sum(by_kernel.values())
+        groupbys = {name: r for name, r in routes.items() if "GroupbyNode" in name}
+        rows_per_s = res["rows"] / res["run_s"]
+        card.emit("sharded_relational", threads=threads, rows=N_ENGINE,
+                  second_stream=N_ENGINE // 4, out_rows=len(res["out"]),
+                  rows_per_s=rows_per_s, threads_1_rows_per_s=base_rows_per_s,
+                  over_threads_1=rows_per_s / base_rows_per_s, run_s=res["run_s"],
+                  segment_launches=by_kernel, exchange=planes, groupby_routes=groupbys,
+                  routes=routes)
+        check(res["out"] == res["want"],
+              f"sharded ({threads}): the subscriber's state differs from NumPy's answer")
+        check(res["out"] == base_out, f"sharded ({threads}): not the threads=1 run's bits")
+        check(len(groupbys) == threads and all(
+            r["device"] >= 1 and r["host"] == 0 and r["rows"] == 0 for r in groupbys.values()),
+            f"sharded ({threads}): groupby routes {groupbys}")
+        check(all(by_kernel[k] > 0 for k in SEGMENT_PATH_KERNELS),
+              f"sharded ({threads}) left a segment kernel unlaunched: {by_kernel}")
     return launches
+
+
+def _sharded_rag(card: Card) -> int:
+    """(b): BASELINE #1's RAG through ``pw.run(threads=2)``."""
+    corpus = [doc_text(i) for i in range(SHARDED_RAG_DOCS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    embed_calls, _sizes = _count_embed_calls(embedder)
+    factory = _AllKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    obs, _run = _engine_program(embedder, corpus, SHARDED_RAG_DOCS, SHARDED_RAG_QUERIES,
+                                factory, wait_s=300.0)
+    device_pipeline.PIPELINE.configure()
+    fa.KERNEL.launches = 0
+    mark = dict(EXCHANGE_STATS)
+    with _WorkerLaunches() as per_worker:
+        t0 = time.perf_counter()
+        pw.run(threads=2)
+        run_s = time.perf_counter() - t0
+    planes = _exchange_since(mark)
+    launches = fa.KERNEL.launches
+    index = factory.all[0]
+    recall, self_hit = _engine_recall(obs)
+    key_of = {doc_id: key for key, (doc_id, _e) in obs["docs"].items()}
+    top1 = [hits[:1] == (key_of.get(q * 37 % N_DOCS),) for q, (hits, _v) in obs["answers"].items()]
+    ingest_s = obs["ingest_end"] - obs["run_start"]
+    card.emit("sharded_rag", threads=2,
+              model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded, bf16)",
+              n_docs=len(obs["docs"]), n_queries=len(obs["answers"]), capacity=index.capacity,
+              answer_events=sum(obs["answer_events"].values()), top1_own_doc=sum(top1),
+              recall_at_10=recall, docs_per_s=SHARDED_RAG_DOCS / ingest_s if ingest_s > 0 else None,
+              run_s=run_s, flash_launches=launches, flash_launches_by_worker=per_worker.by_worker,
+              embed_calls=embed_calls[0], indexes_built=len(factory.all),
+              index_rows_device_route=index.rows_device, index_rows_host_route=index.rows_host,
+              exchange=planes, failures=obs["failures"])
+    check(not obs["failures"] and not obs["timeouts"], f"sharded rag: {obs['failures']}")
+    check(len(factory.all) == 1, f"sharded rag: {len(factory.all)} indexes built")
+    check(len(obs["docs"]) == SHARDED_RAG_DOCS, f"sharded rag: {len(obs['docs'])} docs arrived")
+    check(index.rows_device == SHARDED_RAG_DOCS and index.rows_host == 0,
+          f"sharded rag: index routes {index.rows_device} device, {index.rows_host} host")
+    check(sorted(obs["answer_events"]) == list(range(SHARDED_RAG_QUERIES))
+          and all(v == 1 for v in obs["answer_events"].values()),
+          f"sharded rag: answers {obs['answer_events']}")
+    check(len(top1) == SHARDED_RAG_QUERIES and all(top1),
+          f"sharded rag: {sum(top1)} of {SHARDED_RAG_QUERIES} own docs at top-1")
+    check(recall >= 0.99, f"sharded rag: recall@10 {recall}")
+    check(launches == LAYERS * embed_calls[0] and sum(per_worker.by_worker) == launches
+          and all(n > 0 for n in per_worker.by_worker),
+          f"sharded rag: forward launches {per_worker.by_worker} (total {launches}, "
+          f"{embed_calls[0]} embed calls)")
+    del factory, index, embedder
+    return launches
+
+
+def _sharded_wordcount(card: Card) -> int:
+    """(c): the persistence tutorial's word count under operator snapshots at 2 workers,
+    stopped at half its files and resumed at 4, which re-shards the snapshot."""
+    ids = np.random.default_rng(SEED).integers(0, PERSIST_WC_KEYS,
+                                               SHARDED_WC_FILES * SHARDED_WC_LINES)
+    words, counts = np.unique(ids, return_counts=True)
+    want = {f"w{w}": int(c) for w, c in zip(words.tolist(), counts.tolist())}
+    root = tempfile.mkdtemp(prefix="pw-sharded-")
+    indir, store = os.path.join(root, "in"), os.path.join(root, "store")
+    os.makedirs(indir)
+    launches, legs, state = 0, [], {}
+    try:
+        for leg, (threads, files) in enumerate(((2, range(0, SHARDED_WC_FILES // 2)),
+                                                (4, range(SHARDED_WC_FILES // 2, SHARDED_WC_FILES)))):
+            for f in files:
+                with open(os.path.join(indir, f"words{f:03d}.txt"), "w") as fh:
+                    part = ids[f * SHARDED_WC_LINES:(f + 1) * SHARDED_WC_LINES].tolist()
+                    fh.write("".join(f"w{x}\n" for x in part))
+            out_csv = os.path.join(root, f"out{leg}.csv")
+            lines = pw.io.plaintext.read(indir, mode="static", persistent_id="w")
+            cnt = lines.groupby(lines.data).reduce(word=lines.data, cnt=pw.reducers.count())
+            pw.io.csv.write(cnt, out_csv)
+            _zero_segment_launches()
+            mark = dict(EXCHANGE_STATS)
+
+            def run(threads=threads):
+                device_ops.configure()
+                with _KeptRunner() as kept:
+                    t0 = time.perf_counter()
+                    pw.run(threads=threads, persistence_config=_persist_config(
+                        store, "OPERATOR_PERSISTING", 0))
+                return kept.runners[0], time.perf_counter() - t0
+
+            runner, run_s = _with_device_ops("1", run)
+            planes = _exchange_since(mark)
+            by_kernel = _segment_launches()
+            launches += sum(by_kernel.values())
+            routes = [dict(n.routes) for sc in _worker_scopes(runner) for n in sc.nodes
+                      if type(n).__name__ == "GroupbyNode"]
+            state.update(_fold_csv(out_csv))
+            mgr = runner.snapshot_manager
+            legs.append({"threads": threads, "run_s": run_s, "routes": routes,
+                         "segment_launches": by_kernel, "exchange": planes,
+                         "restore_bytes": mgr.restore_bytes, "restore_s": mgr.restore_seconds,
+                         "snapshot_bytes": mgr.write_bytes[-1] if mgr.write_bytes else None})
+            check(len(routes) == threads and all(
+                r["device"] >= 1 and r["host"] == 0 and r["rows"] == 0 for r in routes),
+                f"sharded wordcount ({threads}): groupby routes {routes}")
+        card.emit("sharded_wordcount", words=int(len(ids)), keys=PERSIST_WC_KEYS,
+                  files=SHARDED_WC_FILES, legs=legs, distinct=len(state))
+        check(legs[0]["restore_bytes"] == 0 and legs[1]["restore_bytes"] > 0,
+              f"sharded wordcount: restores {[leg['restore_bytes'] for leg in legs]}")
+        check(state == want, "sharded wordcount: the counts differ from np.unique's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_sharded(card: Card, base_out: list, base_rows_per_s: float) -> dict:
+    """Workers in one process through ``pw.run(threads=N)``: (a) relational_engine's
+    program at 2 and 4 workers, its state NumPy's answer and the ``threads=1`` run's
+    bits, every worker's groupby on the card; (b) BASELINE #1's RAG at 2 workers, each
+    worker's embedder launching the forward kernel on its shard, the index (pinned to
+    worker 0) filled by the device route; (c) the word count under operator snapshots,
+    stopped at half at 2 workers and resumed at 4 (the snapshot re-sharded). The
+    exchange's planes are reported per run, with no collective delivery (the device
+    plane comes with ROADMAP queue 1 item 14's slice c)."""
+    t0 = time.perf_counter()
+    segment = _sharded_relational(card, base_out, base_rows_per_s)
+    flash = _sharded_rag(card)
+    segment += _sharded_wordcount(card)
+    card.emit("sharded", seconds=time.perf_counter() - t0, segment_launches=segment,
+              flash_launches=flash)
+    return {"segment": segment, "flash": flash}
 
 
 # -- the graph optimizer and measurement-driven placement --------------------------------
@@ -7233,10 +7477,13 @@ def main() -> int:
     phase_build(card)
     phase_native_build(card)
     by_phase: dict = {}  # phase -> the host kernels' calls and ns during it
+    phase_seconds: dict = {}  # phase -> its wall seconds
 
     def counted(name: str, fn, *args):
         mark = _NativeMark()
+        t_phase = time.perf_counter()
         result = fn(*args)
+        phase_seconds[name] = time.perf_counter() - t_phase
         hits, ns = mark.since()
         by_phase[name] = {"hit_counts": hits, "kernel_ns": ns}
         return result
@@ -7253,7 +7500,10 @@ def main() -> int:
     groupby_rows = rel_rows["groupby"]  # the observability phase's groupby commit
     del rel_rows
     gc.collect()
-    relational_engine = counted("relational_engine", phase_relational_engine, card)
+    relational_engine, engine_out, engine_rows_per_s = counted(
+        "relational_engine", phase_relational_engine, card)
+    sharded = counted("sharded", phase_sharded, card, engine_out, engine_rows_per_s)
+    del engine_out
     serving = counted("main_path", phase_main_path, card)
     engine, parity, engine_docs_per_s = counted("engine_pipeline", phase_engine_pipeline, card,
                                                 serving["docs_per_s"])
@@ -7291,7 +7541,7 @@ def main() -> int:
                                "rag_evals": rag_evals, "persistence": persistence["flash"],
                                "observability": observability["flash"], "watch": watch["flash"],
                                "connectors": connectors["flash"], "buses": buses["flash"],
-                               "databases": databases["flash"]}
+                               "databases": databases["flash"], "sharded": sharded["flash"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
@@ -7305,8 +7555,9 @@ def main() -> int:
                                       "observability": observability["segment"],
                                       "connectors": connectors["segment"],
                                       "buses": buses["segment"],
-                                      "databases": databases["segment"]}
-    card.emit("script", seconds=time.perf_counter() - t_script)
+                                      "databases": databases["segment"],
+                                      "sharded": sharded["segment"]}
+    card.emit("script", seconds=time.perf_counter() - t_script, phase_seconds=phase_seconds)
     print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
     print(card.smi, flush=True)

@@ -564,7 +564,8 @@ class ExternalIndexNode(Node):
     before the queries of the same commit are answered. Answers stick until their
     query row is deleted; a query of a live key again replaces its answer. An error or
     ``None`` payload (a vector, or the text of the BM25 index) is reported, not indexed,
-    under the JAX engine's message.
+    under the JAX engine's message. ``index`` is None on a sharded run's replicas
+    w > 0: the node is pinned to worker 0, and the others receive no row.
     """
 
     def __init__(
@@ -588,6 +589,8 @@ class ExternalIndexNode(Node):
 
     def op_state(self) -> dict:
         state = super().op_state()
+        if self.ext_index is None:
+            return state
         index_state = getattr(self.ext_index, "op_state", None)
         if index_state is None:
             # skipping it would resume with an empty index while the readers have moved

@@ -596,9 +596,39 @@ class ReindexNode(Node):
         return out.consolidate()
 
 
-class KeyFilterNode(Node):
+class InputMirrors:
+    """Input-state access for operators that peek at their inputs' state.
+
+    Under sharded execution an input replica's ``current`` holds the keys that replica
+    processed, which differ from this consumer's shard whenever an upstream reindex
+    changed the keys; so a sharded scope reads mirrors of its own, built from the
+    batches routed here by row key. A scope on one worker reads each input's complete
+    ``current`` directly, and its mirrors stay empty."""
+
+    def _init_mirrors(self) -> None:
+        self._mirrors: list[dict] = [{} for _ in self.inputs]
+
+    def _input_state(self, port: int) -> dict:
+        if self.scope.sharded:
+            return self._mirrors[port]
+        return self.inputs[port].current
+
+    def _absorb(self, port: int, batch: DeltaBatch) -> None:
+        if self.scope.sharded:
+            apply_batch_to_state(self._mirrors[port], batch)
+
+
+class KeyFilterNode(InputMirrors, Node):
     """intersect / subtract / restrict: keep the rows whose keys are (or are not) in
-    other tables' key sets."""
+    other tables' key sets.
+
+    It reads its inputs' state, so under sharding it reads its own mirrors, as the
+    zip does. The JAX package's node reads the input replicas' ``current`` there, which
+    misses every key another worker holds: a restrict by a table pinned to worker 0
+    (``DataIndex.query_as_of_now``'s replies) passes no row on the other workers, and a
+    sharded RAG run never answers. A deliberate difference (ROADMAP)."""
+
+    STATE_ATTRS = ("_mirrors",)
 
     def __init__(
         self, scope: "Scope", source: Node, others: Sequence[Node], mode: str
@@ -606,6 +636,7 @@ class KeyFilterNode(Node):
         super().__init__(scope, [source, *others], source.arity)
         assert mode in ("intersect", "subtract", "restrict")
         self.mode = mode
+        self._init_mirrors()
 
     def _member_in(self, key: Pointer, other_states: list[dict]) -> bool:
         if self.mode == "subtract":
@@ -613,20 +644,22 @@ class KeyFilterNode(Node):
         return all(key in s for s in other_states)
 
     def process(self, time: int) -> DeltaBatch:
-        source = self.inputs[0]
         src_batch = self.take(0)
+        self._absorb(0, src_batch)
         # membership deltas from the other sides
         affected: set[Pointer] = set()
         for port in range(1, len(self.inputs)):
-            for key, _row, _diff in self.take(port):
+            batch = self.take(port)
+            self._absorb(port, batch)
+            for key, _row, _diff in batch:
                 affected.add(key)
         out = DeltaBatch()
         handled: set[Pointer] = set()
         for key, _row, _diff in src_batch:
             handled.add(key)
         state = self.current
-        others = [o.current for o in self.inputs[1:]]
-        src_state = source.current if affected else None
+        others = [self._input_state(port) for port in range(1, len(self.inputs))]
+        src_state = self._input_state(0) if affected else None
         # keys whose membership may flip (and are not already being updated)
         for key in affected - handled:
             row = src_state.get(key)
@@ -655,22 +688,15 @@ class OverrideUniverseNode(Node):
         return self.take(0)
 
 
-class InputMirrors:
-    """Input-state access for operators that peek at their inputs' state. A scope on
-    one worker reads each input's complete ``current`` directly, so these operators'
-    snapshot state is their own ``current``; the sharded scopes that need own mirrors
-    are not ported yet."""
-
-    def _input_state(self, port: int) -> dict:
-        return self.inputs[port].current
-
-
 class ZipNode(InputMirrors, Node):
     """Zip same-universe tables into one storage (column concatenation): a row is
     emitted once every input holds the key."""
 
+    STATE_ATTRS = ("_mirrors",)
+
     def __init__(self, scope: "Scope", sources: Sequence[Node]) -> None:
         super().__init__(scope, list(sources), sum(s.arity for s in sources))
+        self._init_mirrors()
 
     def _combined(self, key: Pointer) -> tuple | None:
         parts = []
@@ -684,7 +710,9 @@ class ZipNode(InputMirrors, Node):
     def process(self, time: int) -> DeltaBatch:
         affected: set[Pointer] = set()
         for port in range(len(self.inputs)):
-            for key, _row, _diff in self.take(port):
+            batch = self.take(port)
+            self._absorb(port, batch)
+            for key, _row, _diff in batch:
                 affected.add(key)
         out = DeltaBatch()
         state = self.current
@@ -2113,7 +2141,7 @@ class IxNode(InputMirrors, Node):
     """Pointer-lookup join: for each input row, the source row its key column points
     to (ix)."""
 
-    STATE_ATTRS = ("forward", "reverse")
+    STATE_ATTRS = ("forward", "reverse", "_mirrors")
 
     def __init__(
         self,
@@ -2130,6 +2158,7 @@ class IxNode(InputMirrors, Node):
         self.strict = strict
         self.forward: dict[Pointer, Pointer] = {}  # input key -> source key
         self.reverse: dict[Pointer, set[Pointer]] = {}  # source key -> input keys
+        self._init_mirrors()
 
     def _lookup(self, key: Pointer, skey: Pointer | None) -> tuple | None:
         if skey is None:
@@ -2148,6 +2177,7 @@ class IxNode(InputMirrors, Node):
     def process(self, time: int) -> DeltaBatch:
         keys_batch = self.take(0)
         source_batch = self.take(1)
+        self._absorb(1, source_batch)
         out = DeltaBatch()
         # source-side changes: emit again the rows of the affected input keys
         affected_src: set[Pointer] = {key for key, _r, _d in source_batch}
@@ -2191,13 +2221,21 @@ class IxNode(InputMirrors, Node):
 class _KeyedMerge(InputMirrors, Node):
     """Two same-arity inputs merged per key; subclasses give the merged row."""
 
+    STATE_ATTRS = ("_mirrors",)
+
+    def __init__(self, scope: "Scope", inputs: Sequence[Node], arity: int) -> None:
+        super().__init__(scope, inputs, arity)
+        self._init_mirrors()
+
     def _effective(self, key: Pointer) -> tuple | None:
         raise NotImplementedError
 
     def process(self, time: int) -> DeltaBatch:
         affected: set[Pointer] = set()
         for port in (0, 1):
-            for key, _row, _diff in self.take(port):
+            batch = self.take(port)
+            self._absorb(port, batch)
+            for key, _row, _diff in batch:
                 affected.add(key)
         out = DeltaBatch()
         state = self.current
@@ -2365,6 +2403,10 @@ class Scope:
         self.nodes: list[Node] = []
         self.error_log_default = ErrorLogNode(self)
         self._error_log_stack: list[ErrorLogNode] = [self.error_log_default]
+        #: set by the sharded scheduler: a replica's ``current`` then holds one key
+        #: shard, so the operators that peek at their inputs' state (zip, ix, the
+        #: update merges, iterate) read mirrors of their own
+        self.sharded = False
 
     # -- error plumbing -----------------------------------------------------
 

@@ -12,13 +12,20 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
-from pathway_tpu_torch.engine.batch import DeltaBatch
+from pathway_tpu_torch.engine.batch import DeltaBatch, apply_batch_to_state
 from pathway_tpu_torch.engine.graph import Node, Scope
 
 
 class IterateNode(Node):
     """Recompute on change: ``compute(input_states) -> output_state`` runs the whole
-    fixed point over the inputs' key -> row states and returns the output table's."""
+    fixed point over the inputs' key -> row states and returns the output table's.
+
+    Under sharded execution the node is pinned to worker 0 and receives every batch,
+    while its local input replicas hold one key shard each; so a sharded scope folds
+    what the node receives into its own ``_input_states``, and a scope on one worker
+    reads the inputs' ``current``."""
+
+    STATE_ATTRS = ("_input_states",)
 
     def __init__(
         self,
@@ -29,17 +36,24 @@ class IterateNode(Node):
     ) -> None:
         super().__init__(scope, list(inputs), arity)
         self.compute = compute
+        self._input_states: list[dict] = [{} for _ in self.inputs]
 
     def process(self, time: int) -> DeltaBatch:
+        sharded = self.scope.sharded
         changed = False
         for port in range(len(self.inputs)):
-            if self.take(port):
+            batch = self.take(port)
+            if batch:
                 changed = True
+                if sharded:
+                    apply_batch_to_state(self._input_states[port], batch)
         out = DeltaBatch()
         if not changed:
             return out
         try:
-            new_state = self.compute([inp.current for inp in self.inputs])
+            new_state = self.compute(
+                self._input_states if sharded else [inp.current for inp in self.inputs]
+            )
         except Exception as e:  # noqa: BLE001 — the body's error goes to the error log
             self.report(None, f"iterate error: {e!r}")
             return out

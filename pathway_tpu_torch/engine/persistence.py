@@ -1,5 +1,5 @@
 """Engine persistence: backends, input-event journals, resumable drivers and operator
-snapshots, on one worker.
+snapshots.
 
 Counterpart of ``pathway_tpu/engine/persistence.py``. The journal of a persistent
 source is a sequence of pickled *segments*, one per commit that had events:
@@ -9,9 +9,12 @@ resumes from the last complete commit. Operator persistence
 (``PersistenceMode.OPERATOR_PERSISTING``) writes every node's state and every driver's
 position instead, at commit boundaries, and a restart restores them with no replay.
 
-The states of several workers (a sharded or distributed run) and their re-sharding
-onto another worker count come with those runners (ROADMAP queue 1 item 14): a
-snapshot of more than one worker, and the re-sharding entry points, raise naming it.
+An operator snapshot holds one state list per worker: a sharded run (workers in one
+process) writes each replica's, and a restart at another worker count re-splits them
+along the sharded scheduler's own routing (:func:`_reshard_worker_states`). The
+multi-process runner's parts, the re-sharding of a mesh's process snapshots, the ring
+of snapshots by commit time and the writer's rewind, come with that runner (ROADMAP
+queue 1 item 14) and raise naming it.
 """
 
 from __future__ import annotations
@@ -427,28 +430,23 @@ class OperatorSnapshotManager:
         inner._per_source_rows = dict(state.get("per_source", {}))
 
     @staticmethod
-    def _one_scope(scope: Any) -> Any:
-        if isinstance(scope, (list, tuple)):
-            if len(scope) != 1:
-                raise NotImplementedError(
-                    f"operator snapshots of {len(scope)} workers need the sharded "
-                    f"runner, which is not ported yet ({_ITEM_14})"
-                )
-            return scope[0]
-        return scope
+    def _scopes_of(scope: Any) -> list:
+        return list(scope) if isinstance(scope, (list, tuple)) else [scope]
 
     def snapshot(self, scope: Any, drivers: list, time: int) -> None:
+        """Write every node's state and every driver's position. ``scope`` is one scope
+        or the list of a sharded run's replicas, whose states are kept per worker."""
         t0 = _time.perf_counter()
-        scope = self._one_scope(scope)
+        scopes = self._scopes_of(scope)
         payload = {
             "format": STATE_FORMAT,
-            "sigs": [[type(n).__name__ for n in scope.nodes]],
-            "per_worker": [[self._packed(n.op_state()) for n in scope.nodes]],
+            "sigs": [[type(n).__name__ for n in s.nodes] for s in scopes],
+            "per_worker": [[self._packed(n.op_state()) for n in s.nodes] for s in scopes],
             "drivers": [self._packed_driver(self._driver_state(d)) for d in drivers],
             "time": time,
             # the graph optimizer's rewrites: state written under one plan (narrowed
             # arities, fused chains) is valid only under the same plan
-            "optimize": list(getattr(scope, "_pw_opt_fingerprint", [])),
+            "optimize": list(getattr(scopes[0], "_pw_opt_fingerprint", [])),
         }
         blob = pickle.dumps(payload, protocol=4)
         self.backend.write(self.name, blob)
@@ -485,7 +483,7 @@ class OperatorSnapshotManager:
                 f"multi-process runner, which is not ported yet ({_ITEM_14})"
             )
         t0 = _time.perf_counter()
-        scope = self._one_scope(scope)
+        scopes = self._scopes_of(scope)
         raw = self.backend.read(self.name)
         if not raw:
             return None
@@ -502,12 +500,7 @@ class OperatorSnapshotManager:
                 "journal"
             )
         sigs, per_worker = payload["sigs"], payload["per_worker"]
-        if len(per_worker) != 1:
-            raise NotImplementedError(
-                f"the operator snapshot holds {len(per_worker)} workers' states; "
-                f"re-sharding them onto one worker is not ported yet ({_ITEM_14})"
-            )
-        if [type(n).__name__ for n in scope.nodes] != sigs[0]:
+        if [type(n).__name__ for n in scopes[0].nodes] != sigs[0]:
             raise ValueError(
                 "operator snapshot does not match this graph (operator sequence changed "
                 "— this includes toggling the graph optimizer, which fuses stateless "
@@ -515,7 +508,7 @@ class OperatorSnapshotManager:
                 "persistence location or use input-journal persistence across code "
                 "changes"
             )
-        want = list(getattr(scope, "_pw_opt_fingerprint", []))
+        want = list(getattr(scopes[0], "_pw_opt_fingerprint", []))
         got = list(payload.get("optimize", []))
         if want != got:
             raise ValueError(
@@ -525,8 +518,21 @@ class OperatorSnapshotManager:
                 "layout or fusion boundary — rerun with the same PATHWAY_TPU_OPTIMIZE "
                 "setting, or clear the persistence location / replay an input journal"
             )
-        for node, state in zip(scope.nodes, per_worker[0]):
-            node.restore_op_state(state)
+        if len(per_worker) != len(scopes):
+            # another worker count: merge the old shards and split them again with the
+            # sharded scheduler's routing
+            per_worker = _reshard_worker_states(per_worker, scopes)
+        else:
+            for s, sig in zip(scopes, sigs):
+                if [type(n).__name__ for n in s.nodes] != sig:
+                    raise ValueError(
+                        "operator snapshot does not match this graph (operator sequence "
+                        "changed); clear the persistence location or use input-journal "
+                        "persistence across code changes"
+                    )
+        for s, states in zip(scopes, per_worker):
+            for node, state in zip(s.nodes, states):
+                node.restore_op_state(state)
         for driver, state in zip(drivers, payload["drivers"]):
             self._restore_driver(driver, state)
         self.restore_seconds = _time.perf_counter() - t0
@@ -535,9 +541,170 @@ class OperatorSnapshotManager:
 
 
 def _reshard_worker_states(per_worker: list[list[dict]], scopes: list) -> list[list[dict]]:
-    """Re-shard operator snapshots onto another worker count: comes with the sharded
-    runner."""
-    raise NotImplementedError(f"re-sharding operator snapshots is not ported yet ({_ITEM_14})")
+    """Re-shard operator snapshots onto another worker count.
+
+    Every node's state is merged over the old workers, then split along the routing the
+    sharded scheduler applies to live batches (``engine/sharded.py::partitioner``):
+    groupbys by grouping values, joins by join key, deduplicate by instance, pinned
+    operators whole to worker 0, sources whole on worker 0 and by row key on the
+    others, everything else by row key. A node whose other state has routing this
+    cannot rebuild raises; input-journal persistence changes worker counts for those.
+    A snapshot of one worker holds no input mirrors (an unsharded scope reads its
+    inputs' ``current``), so the mirrors and the iterate's input states are rebuilt
+    from the inputs' snapshot state, routed as the live batches would be. The states
+    are the unpickled snapshot's plain dicts (its packed Pointer keys are dicts again
+    once read)."""
+    from pathway_tpu_torch.engine.graph import (
+        DeduplicateNode,
+        GroupbyNode,
+        InputSession,
+        JoinNode,
+        StaticSource,
+    )
+    from pathway_tpu_torch.engine.sharded import _shard_of, partitioner
+
+    n_new = len(scopes)
+    # old worker 0 carried every node (its sink chains too), the others the shared
+    # graph; the new side has the same layout
+    nodes = scopes[0].nodes
+    n_nodes = min(len(nodes), len(per_worker[0]))
+
+    def merged_state(i: int) -> dict:
+        """One node's state, merged over the old workers."""
+        base = dict(per_worker[0][i])
+        for states in per_worker[1:]:
+            if i >= len(states):
+                continue
+            for attr, val in states[i].items():
+                cur = base.get(attr)
+                if isinstance(cur, dict) and isinstance(val, dict):
+                    base[attr] = {**cur, **val}
+                elif (
+                    isinstance(cur, list)
+                    and isinstance(val, list)
+                    and len(cur) == len(val)
+                    and all(isinstance(x, dict) for x in cur + val)
+                ):
+                    base[attr] = [{**a, **b} for a, b in zip(cur, val)]
+                # scalars (watermarks, flags): worker 0's copy stands
+        return base
+
+    def empty_like(state: dict) -> dict:
+        out = {}
+        for attr, val in state.items():
+            if isinstance(val, dict):
+                out[attr] = {}
+            elif isinstance(val, list) and all(isinstance(x, dict) for x in val):
+                out[attr] = [{} for _ in val]
+            else:
+                out[attr] = val
+        return out
+
+    def split_dict(d: dict, route) -> list[dict]:
+        parts: list[dict] = [{} for _ in range(n_new)]
+        for key, val in d.items():
+            parts[route(key, val)][key] = val
+        return parts
+
+    def by_key(key, _val) -> int:
+        return _shard_of(key, n_new)
+
+    position = {id(node): i for i, node in enumerate(nodes)}
+    merged_states: list[dict] = []
+
+    def routed_input(node, port: int) -> list[dict]:
+        """The state ``node`` received on ``port``, split as the live batches are."""
+        state = merged_states[position[id(node.inputs[port])]]["current"]
+        route = partitioner(node, port, n_new)
+        if route is None:  # pinned: worker 0 receives everything
+            return [dict(state)] + [{} for _ in range(1, n_new)]
+        return split_dict(state, route)
+
+    out: list[list[dict]] = [[] for _ in range(n_new)]
+    for i in range(n_nodes):
+        node = nodes[i]
+        merged = merged_state(i)
+        merged_states.append(merged)
+        shards = [empty_like(merged) for _ in range(n_new)]
+        if isinstance(node, (StaticSource, InputSession)):
+            # worker 0 keeps the whole source state, the others their key shards
+            shards[0]["current"] = dict(merged["current"])
+            for w in range(1, n_new):
+                shards[w]["current"] = {
+                    k: v for k, v in merged["current"].items() if _shard_of(k, n_new) == w
+                }
+        elif isinstance(node, GroupbyNode):
+            groups = split_dict(
+                merged["groups"], lambda _k, entry: _shard_of(tuple(entry[0]), n_new)
+            )
+            n_by = len(node.by_cols)
+            current = split_dict(
+                merged["current"], lambda _k, row: _shard_of(tuple(row[:n_by]), n_new)
+            )
+            for w in range(n_new):
+                shards[w]["groups"] = groups[w]
+                shards[w]["current"] = current[w]
+        elif isinstance(node, JoinNode):
+            for attr in ("left_arr", "right_arr"):
+                parts = split_dict(merged[attr], lambda jk, _v: _shard_of(jk, n_new))
+                for w in range(n_new):
+                    shards[w][attr] = parts[w]
+            lcols, rcols = node.left_on, node.right_on
+            l_arity = node.inputs[0].arity
+
+            def route_join_row(_k, row, lcols=lcols, rcols=rcols, l_arity=l_arity):
+                jk = tuple(row[c] for c in lcols)
+                if any(v is None for v in jk):
+                    # an unmatched right row (right and outer joins) has a None left
+                    # prefix: it lives where the right side's key routes it
+                    jk = tuple(row[l_arity + c] for c in rcols)
+                return _shard_of(jk, n_new)
+
+            parts = split_dict(merged["current"], route_join_row)
+            for w in range(n_new):
+                shards[w]["current"] = parts[w]
+        elif isinstance(node, DeduplicateNode):
+            icols = node.instance_cols
+            for attr in ("accepted", "current"):
+                parts = split_dict(
+                    merged[attr], lambda _k, row: _shard_of(tuple(row[c] for c in icols), n_new)
+                )
+                for w in range(n_new):
+                    shards[w][attr] = parts[w]
+        elif partitioner(node, 0, n_new) is None:
+            # a pinned operator: old worker 0 received every batch and holds its whole
+            # state, the others none (nor an external index's)
+            shards[0] = dict(per_worker[0][i])
+        else:
+            # key-routed: ``current`` and the input mirrors split by row key; any other
+            # populated state has routing this cannot rebuild
+            for attr, val in merged.items():
+                if attr in ("current", "_mirrors"):
+                    continue
+                if isinstance(val, (dict, list, set)) and val:
+                    raise ValueError(
+                        f"operator snapshot cannot be re-sharded: node "
+                        f"{type(node).__name__} carries {attr!r} state with unknown "
+                        f"routing; resume with the original worker count "
+                        f"({len(per_worker)}) or use input-journal persistence "
+                        "(PersistenceMode.PERSISTING) to change worker counts"
+                    )
+            parts = split_dict(merged["current"], by_key)
+            for w in range(n_new):
+                shards[w]["current"] = parts[w]
+            if isinstance(merged.get("_mirrors"), list):
+                mirror_parts = [split_dict(m, by_key) for m in merged["_mirrors"]]
+                for w in range(n_new):
+                    shards[w]["_mirrors"] = [mp[w] for mp in mirror_parts]
+        if len(per_worker) == 1:
+            for attr in ("_mirrors", "_input_states"):
+                if isinstance(merged.get(attr), list):
+                    parts = [routed_input(node, p) for p in range(len(node.inputs))]
+                    for w in range(n_new):
+                        shards[w][attr] = [part[w] for part in parts]
+        for w in range(n_new):
+            out[w].append(shards[w])
+    return out
 
 
 def reshard_process_snapshots(

@@ -4,10 +4,11 @@ Counterpart of ``pathway_tpu/internals/parse_graph.py``: sinks (``pw.io.subscrib
 register here; ``pw.run`` lowers everything they reach onto one engine scope and runs
 the streaming loop until every connector is done, under ``persistence_config`` (or the
 one the environment implies, ``PATHWAY_PERSISTENT_STORAGE`` and
-``PATHWAY_PERSISTENCE_MODE``) where one is given. One worker in one process: the
-sharded and distributed runners (ROADMAP queue 1 item 14) are not ported yet, nor are
-``debug`` and ``strict`` (the static analyzer, item 8), and a configuration that asks
-for them raises.
+``PATHWAY_PERSISTENCE_MODE``) where one is given. ``threads=N`` (or
+``PATHWAY_THREADS``) runs N workers in one process through the sharded runner
+(``internals/runner.py::ShardedGraphRunner``); more than one process (the distributed
+runner, ROADMAP queue 1 item 14), ``debug`` and ``strict`` (the static analyzer, item 8)
+are not ported yet, and a configuration that asks for them raises.
 
 A run watches itself as the JAX package's does: ``monitoring_level`` renders the live
 dashboard, ``with_http_server`` serves ``/metrics``, ``/timeseries``, ``/requests`` and
@@ -89,7 +90,7 @@ def run(
         MonitoringLevel,
         StatsMonitor,
     )
-    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.internals.runner import GraphRunner, ShardedGraphRunner
     from pathway_tpu_torch.internals.telemetry import (
         run_span,
         stop_beside_run,
@@ -105,14 +106,19 @@ def run(
     config = get_pathway_config()
     threads = kwargs.get("threads") or config.threads
     processes = kwargs.get("processes") or config.processes
-    if threads > 1 or processes > 1:
+    if processes > 1:
         raise NotImplementedError(
-            "more than one worker needs the sharded or distributed runner, which is "
-            "not ported yet (ROADMAP queue 1 item 14)"
+            "more than one process needs the distributed runner, which is not ported "
+            "yet (ROADMAP queue 1 item 14)"
         )
     if persistence_config is None:
         persistence_config = config.replay_config
-    runner = GraphRunner(persistence_config=persistence_config)
+    runner: GraphRunner
+    if threads > 1:
+        # workers in one process: a replica of the graph each, key-sharded exchange
+        runner = ShardedGraphRunner(threads, persistence_config=persistence_config)
+    else:
+        runner = GraphRunner(persistence_config=persistence_config)
     analysis_only = _analysis_runtime.enabled()
     if analysis_only:
         monitoring_level, with_http_server = None, False
@@ -163,11 +169,7 @@ def run(
         )
         try:
             with run_span(lambda: runner.scheduler):
-                for sink in G.sinks:
-                    node = runner.build(sink.table)
-                    driver = sink.attach(runner.scope, node)
-                    if driver is not None:
-                        runner.drivers.append(driver)
+                runner.attach_sinks()
                 runner.run()
             FLIGHT.record("run_end")
         except BaseException as exc:

@@ -161,8 +161,17 @@ def _pump_drivers(drivers: list, on_data: Callable[[], Any]) -> None:
 
 
 class GraphRunner:
-    def __init__(self, scope: Scope | None = None, persistence_config: Any = None) -> None:
+    def __init__(
+        self,
+        scope: Scope | None = None,
+        persistence_config: Any = None,
+        attach_drivers: bool = True,
+    ) -> None:
         self.scope = scope if scope is not None else Scope()
+        #: False on the sharded runner's replicas w > 0: their connector tables build
+        #: the input session only (worker 0 reads, and the exchange spreads the rows),
+        #: and their as-of-now index operators no index
+        self.attach_drivers = attach_drivers
         #: ``pw.persistence.Config`` or None; its backend's root also holds the UDFs'
         #: disk caches
         self.persistence = persistence_config
@@ -394,7 +403,9 @@ class GraphRunner:
 
         if kind == "input":
             # connector-backed table: the io layer supplies an attach function
-            node, driver = spec.params["attach"](scope)
+            node, driver = spec.params["attach"](scope, make_driver=self.attach_drivers)
+            if not self.attach_drivers:
+                return node
             sync_group = spec.params.get("sync_group")
             if sync_group is not None:
                 # io/_synchronization.py: membership is per run
@@ -553,7 +564,9 @@ class GraphRunner:
                 scope,
                 data_prep,
                 query_prep,
-                spec.params["factory"](),
+                # the node is pinned to worker 0 (engine/sharded.py::partition_rule): a
+                # replica w > 0 builds no index, which may hold device memory
+                spec.params["factory"]() if self.attach_drivers else None,
                 index_col=0,
                 query_col=0,
                 k=spec.params["k"],
@@ -880,7 +893,31 @@ class GraphRunner:
 
     # -- execution ----------------------------------------------------------
 
-    def run(self) -> Scheduler:
+    def attach_sinks(self) -> None:
+        """Build and attach every registered sink (the ``pw.run`` path)."""
+        from pathway_tpu_torch.internals import parse_graph
+
+        for sink in parse_graph.G.sinks:
+            driver = sink.attach(self.scope, self.build(sink.table))
+            if driver is not None:
+                self.drivers.append(driver)
+
+    def _wants_probe(self) -> bool:
+        monitor = self.monitor
+        return self.probe_stats or (
+            monitor is not None and getattr(monitor, "wants_operator_stats", True)
+        )
+
+    def _make_scheduler(self) -> Any:
+        return Scheduler(self.scope, probe=self._wants_probe())
+
+    @property
+    def _snapshot_target(self) -> Any:
+        """The scope whose state the operator snapshots keep (the sharded runner: its
+        replicas)."""
+        return self.scope
+
+    def run(self) -> Any:
         """Run to completion: with no connector, one static commit and the end;
         otherwise the static tables' rows as a first commit (time 0, empty when there
         is no static table), the streaming loop (poll the drivers, commit, until all of
@@ -903,12 +940,9 @@ class GraphRunner:
         the monitor wants operator stats, and the static commit and each streamed
         commit update the monitor's connector rows and commit count."""
         monitor = self.monitor
-        sched = Scheduler(
-            self.scope,
-            probe=self.probe_stats
-            or (monitor is not None and getattr(monitor, "wants_operator_stats", True)),
-        )
+        sched = self._make_scheduler()
         self.scheduler = sched
+        target = self._snapshot_target
         if monitor is not None:
             monitor.scheduler = sched
         try:
@@ -926,7 +960,7 @@ class GraphRunner:
                 sched.commit(statics=False)
             self.snapshot_manager = snapshot_mgr = self._operator_snapshot_manager()
             if snapshot_mgr is not None:
-                restored_time = snapshot_mgr.restore(self.scope, self.drivers)
+                restored_time = snapshot_mgr.restore(target, self.drivers)
                 if restored_time is not None:
                     # sink times stay monotonic across the restart
                     sched.time = max(sched.time, restored_time + 1)
@@ -951,7 +985,7 @@ class GraphRunner:
                 for driver in persistent:
                     driver.on_commit(time)
                 if snapshot_mgr is not None:
-                    snapshot_mgr.on_commit(self.scope, self.drivers, time)
+                    snapshot_mgr.on_commit(target, self.drivers, time)
                 self._on_monitor_commit(time, commit_started)
 
             _pump_drivers(self.drivers, on_data)
@@ -960,7 +994,7 @@ class GraphRunner:
             for driver in persistent:
                 driver.on_commit(sched.time)
             if snapshot_mgr is not None:
-                snapshot_mgr.snapshot(self.scope, self.drivers, sched.time)
+                snapshot_mgr.snapshot(target, self.drivers, sched.time)
             return sched
         finally:
             stop_event_loop()
@@ -974,3 +1008,71 @@ class GraphRunner:
             node._pw_observed = True
         self.run()
         return [node.snapshot() for node in nodes]
+
+
+class ShardedGraphRunner(GraphRunner):
+    """N logical workers in one process, each with a replica of the graph; batches move
+    between the replicas by co-location key (``engine/sharded.py``).
+
+    The connectors poll on worker 0, whose rows the exchange spreads; the sinks attach
+    on worker 0 only, after every shared node. :meth:`GraphRunner.run` drives it over
+    the sharded scheduler, with worker 0's drivers, and the operator snapshots keep
+    one state per worker; the free tier's worker cap is checked first."""
+
+    def __init__(self, n_workers: int, persistence_config: Any = None) -> None:
+        if n_workers < 1:
+            raise ValueError("n_workers must be >= 1")
+        from pathway_tpu_torch.internals.license import check_worker_count
+
+        check_worker_count(n_workers)
+        self.workers = [
+            GraphRunner(persistence_config=persistence_config, attach_drivers=(i == 0))
+            for i in range(n_workers)
+        ]
+        self.n = n_workers
+        super().__init__(self.workers[0].scope, persistence_config)
+        # the inputs read on worker 0
+        self.drivers = self.workers[0].drivers
+
+    def build(self, table: "Table") -> list[Node]:
+        return [w.build(table) for w in self.workers]
+
+    def _make_scheduler(self) -> Any:
+        from pathway_tpu_torch.engine.sharded import ShardedScheduler
+
+        return ShardedScheduler([w.scope for w in self.workers], probe=self._wants_probe())
+
+    @property
+    def _snapshot_target(self) -> Any:
+        return [w.scope for w in self.workers]
+
+    def capture(self, *tables: "Table") -> list[dict[Pointer, tuple]]:
+        """Run the graph that ``tables`` reach and return each one's final state,
+        merged over the workers."""
+        replicas = [self.build(t) for t in tables]
+        for reps in replicas:
+            for node in reps:
+                # read with no SubscribeNode: the optimizer leaves them intact
+                node._pw_observed = True
+        sched = self.run()
+        return [sched.merged_state(reps[0].index) for reps in replicas]
+
+    def attach_sinks(self) -> None:
+        _attach_sinks_on_primary(self.workers)
+
+
+def _attach_sinks_on_primary(workers: list) -> None:
+    """Build every registered sink's table on every worker (so the replicas stay
+    aligned by node index), then attach the sinks on worker 0's scope, whose sink nodes
+    come after every shared node: nodes past the shared graph exist on worker 0 only."""
+    from pathway_tpu_torch.internals import parse_graph
+
+    sinks = list(parse_graph.G.sinks)
+    nodes = [workers[0].build(s.table) for s in sinks]
+    for w in workers[1:]:
+        for s in sinks:
+            w.build(s.table)
+    for sink, node in zip(sinks, nodes):
+        driver = sink.attach(workers[0].scope, node)
+        if driver is not None:
+            workers[0].drivers.append(driver)

@@ -28,6 +28,8 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any
 
+from pathway_tpu_torch.io._pg_wire import _close_server
+
 # -- CRC32C (Castagnoli), table-driven ---------------------------------------
 
 _CRC32C_POLY = 0x82F63B78
@@ -472,6 +474,8 @@ class FakeKafkaBroker:
         self.bytes_sent = 0
         self._lock = threading.Lock()
         self._closing = threading.Event()
+        #: live sessions: (socket, thread)
+        self._sessions: list[tuple[socket.socket, threading.Thread]] = []
         self._thread = threading.Thread(
             target=self._accept_loop, name="fake-kafka", daemon=True
         )
@@ -480,11 +484,11 @@ class FakeKafkaBroker:
     # -- lifecycle ----------------------------------------------------------
 
     def close(self) -> None:
+        """Stop accepting, end every session and join the broker's threads."""
+        if self._closing.is_set():
+            return
         self._closing.set()
-        try:
-            self._srv.close()
-        except OSError:
-            pass
+        _close_server(self._srv, self._thread, self._sessions, self._lock)
 
     def __enter__(self) -> "FakeKafkaBroker":
         return self
@@ -498,9 +502,12 @@ class FakeKafkaBroker:
                 conn, _addr = self._srv.accept()
             except OSError:
                 return
-            threading.Thread(
-                target=self._serve_conn, args=(conn,), daemon=True
-            ).start()
+            thread = threading.Thread(
+                target=self._serve_conn, args=(conn,), name="fake-kafka-session", daemon=True
+            )
+            with self._lock:
+                self._sessions.append((conn, thread))
+            thread.start()
 
     def _serve_conn(self, conn: socket.socket) -> None:
         try:

@@ -27,6 +27,7 @@ import threading
 from typing import Any
 
 from pathway_tpu_torch.engine.storage import Message
+from pathway_tpu_torch.io._pg_wire import _close_server
 
 
 class NatsError(Exception):
@@ -302,14 +303,17 @@ class FakeNatsServer:
         self.port = self._srv.getsockname()[1]
         self._closing = False
         self._next_client = [0]
-        threading.Thread(target=self._serve, daemon=True).start()
+        #: live sessions: (socket, thread)
+        self._sessions: list[tuple[socket.socket, threading.Thread]] = []
+        self._thread = threading.Thread(target=self._serve, name="fake-nats", daemon=True)
+        self._thread.start()
 
     def close(self) -> None:
+        """Stop accepting, end every session and join the server's threads."""
+        if self._closing:
+            return
         self._closing = True
-        try:
-            self._srv.close()
-        except OSError:
-            pass
+        _close_server(self._srv, self._thread, self._sessions, self._lock)
 
     def _serve(self) -> None:
         while not self._closing:
@@ -320,9 +324,12 @@ class FakeNatsServer:
             with self._lock:
                 self._next_client[0] += 1
                 cid = self._next_client[0]
-            threading.Thread(
-                target=self._handle, args=(conn, cid), daemon=True
-            ).start()
+            thread = threading.Thread(
+                target=self._handle, args=(conn, cid), name="fake-nats-session", daemon=True
+            )
+            with self._lock:
+                self._sessions.append((conn, thread))
+            thread.start()
 
     def _handle(self, conn: socket.socket, cid: int) -> None:
         try:

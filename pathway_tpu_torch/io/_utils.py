@@ -68,11 +68,16 @@ def input_table(
     pk = schema.primary_key_columns()
     pk_indices = [column_names.index(p) for p in pk] if pk else None
 
-    def attach(scope: Scope):
+    def attach(scope: Scope, make_driver: bool = True):
         parser = make_parser(column_names)
         session = scope.input_session(
             len(all_names), upsert=getattr(parser, "session_type", "native") == "upsert"
         )
+        if not make_driver:
+            # a sharded replica (worker > 0) needs the session for the graph's shape
+            # but builds no reader: a reader may start threads or consume from a
+            # service, and only worker 0 reads
+            return session, None
         driver = InputDriver(
             session,
             make_reader(),

@@ -297,6 +297,28 @@ def _nats(pw):
     return _mod(pw, "io._nats_wire")
 
 
+def _new_threads(before: set, prefix: str) -> list:
+    """The live threads named ``prefix...`` that were not running at ``before``."""
+    return [t for t in threading.enumerate() if t not in before and t.name.startswith(prefix)]
+
+
+def test_fake_nats_server_stops_its_threads_on_close():
+    """``close()`` shuts every session's socket down and joins the accept and session
+    threads, even while clients still hold their connections open."""
+    nats = _nats(tpw)
+    before = set(threading.enumerate())
+    server = nats.FakeNatsServer()
+    conns = [nats.NatsConnection("127.0.0.1", server.port) for _ in range(3)]
+    conns[0].publish("a", b"1")
+    conns[0].flush()
+    assert len(_new_threads(before, "fake-nats")) == 4  # the accept loop and 3 sessions
+    server.close()
+    assert not _new_threads(before, "fake-nats")
+    server.close()  # a second close is a no-op
+    for conn in conns:
+        conn.sock.close()
+
+
 @pytest.mark.parametrize("client_pkg,server_pkg", [("torch", "jax"), ("jax", "torch")])
 def test_each_nats_connection_speaks_to_the_other_server(client_pkg, server_pkg):
     """Handshake, subscriptions with ``*`` and ``>`` wildcards, unsubscribe, verbose

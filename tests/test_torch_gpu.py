@@ -1022,3 +1022,64 @@ def test_a_metrics_scrape_shows_the_card_allocator(cuda):
              if la["device"] == "cuda:0"}
     assert stats == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
     del x
+
+
+def test_sharded_groupby_on_the_card_gives_the_one_worker_bits(cuda, monkeypatch):
+    """A count and sum groupby through ``pw.run(threads=2)`` with every batch on the card:
+    each worker's groupby reduces on the device, and the subscriber's state equals the
+    ``threads=1`` run's bit for bit."""
+    import pathway_tpu_torch as tpw
+    from pathway_tpu_torch.engine import device_ops as dops
+    from pathway_tpu_torch.engine.graph import GroupbyNode
+    from pathway_tpu_torch.internals import runner as trunner
+
+    monkeypatch.setenv("PATHWAY_TPU_DEVICE_OPS", "1")
+    rng = np.random.default_rng(21)
+    keys = rng.integers(0, 700, 30_000).tolist()
+    vals = (rng.integers(-4000, 4000, 30_000) * 0.125).tolist()
+
+    class Feed(tpw.io.python.ConnectorSubject):
+        def run(self):
+            for i, (k, v) in enumerate(zip(keys, vals)):
+                self.next(k=k, v=v)
+                if i % 10_000 == 9_999:
+                    time.sleep(0.2)  # the autocommit cuts the stream into commits
+
+    def run(threads: int):
+        kept = []
+        t = tpw.io.python.read(Feed(), schema=tpw.schema_from_types(k=int, v=float),
+                               autocommit_duration_ms=50)
+        g = t.groupby(tpw.this.k).reduce(tpw.this.k, s=tpw.reducers.sum(tpw.this.v),
+                                         c=tpw.reducers.count())
+        state = {}
+
+        def on_change(key, row, time, is_addition):
+            if is_addition:
+                state[key] = (row["k"], np.float64(row["s"]).view(np.int64).item(), row["c"])
+            else:
+                state.pop(key, None)
+
+        tpw.io.subscribe(g, on_change=on_change)
+        run_orig = trunner.ShardedGraphRunner.run if threads > 1 else trunner.GraphRunner.run
+
+        def keep(self, *a, **kw):
+            kept.append(self)
+            return run_orig(self, *a, **kw)
+
+        cls = trunner.ShardedGraphRunner if threads > 1 else trunner.GraphRunner
+        monkeypatch.setattr(cls, "run", keep)
+        tpw.run(threads=threads)
+        monkeypatch.setattr(cls, "run", run_orig)
+        workers = kept[0].workers if threads > 1 else [kept[0]]
+        routes = [n.routes for w in workers for n in w.scope.nodes if isinstance(n, GroupbyNode)]
+        return state, routes
+
+    dops.configure(device="cuda")
+    try:
+        one, one_routes = run(1)
+        two, two_routes = run(2)
+    finally:
+        dops.configure()
+    assert len(one) == len(set(keys)) and two == one
+    assert one_routes[0]["device"] >= 1
+    assert len(two_routes) == 2 and all(r["device"] >= 1 and r["rows"] == 0 for r in two_routes)

@@ -32,6 +32,12 @@ PACKAGES = {"torch": tpw, "jax": jpw}
 
 @pytest.fixture(autouse=True)
 def _clean():
+    """The CPU's device operators, empty graphs, and both packages' UDF cache roots as
+    they were (a persistent run routes them under its store)."""
+    from pathway_tpu.internals.udfs import caches as jcaches
+    from pathway_tpu_torch.internals.udfs import caches as tcaches
+
+    roots = (jcaches._udf_cache_root, tcaches._udf_cache_root)
     dops.configure(device="cpu")
     TG.clear()
     JG.clear()
@@ -39,6 +45,8 @@ def _clean():
     TG.clear()
     JG.clear()
     dops.configure()
+    jcaches.set_udf_cache_root(roots[0])
+    tcaches.set_udf_cache_root(roots[1])
 
 
 def _mod(pw, name: str):
@@ -96,6 +104,29 @@ def _settings(broker) -> dict:
 
 
 # -- wire primitives ----------------------------------------------------------------------
+
+
+def _new_threads(before: set, prefix: str) -> list:
+    """The live threads named ``prefix...`` that were not running at ``before``."""
+    return [t for t in threading.enumerate() if t not in before and t.name.startswith(prefix)]
+
+
+def test_fake_broker_stops_its_threads_on_close():
+    """``close()`` shuts every session's socket down and joins the accept and session
+    threads, even while clients still hold their connections open."""
+    wire = _wire(tpw)
+    before = set(threading.enumerate())
+    broker = wire.FakeKafkaBroker()
+    clients = [wire.KafkaWireClient(broker.host, broker.port) for _ in range(3)]
+    clients[0].produce("t", 0, [wire.WireRecord(b"v")])
+    for client in clients:
+        client.metadata(["t"])  # a round trip: the client's session thread serves it
+    assert len(_new_threads(before, "fake-kafka")) == 4  # the accept loop and 3 sessions
+    broker.close()
+    assert not _new_threads(before, "fake-kafka")
+    broker.close()  # a second close is a no-op
+    for client in clients:
+        client.sock.close()
 
 
 def test_crc32c_is_castagnoli_and_the_reference_crc():

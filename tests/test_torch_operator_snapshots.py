@@ -378,8 +378,8 @@ def _canon(v, tol_floats: bool = False):
 def _state(name: str, node) -> object:
     state = dict(node.op_state())
     for mirrors in ("_mirrors", "_input_states"):
-        # the JAX nodes' own copies of their inputs, kept for sharded scopes: empty on
-        # one worker, and not in the port until the sharded runner
+        # the nodes' own copies of their inputs, kept for sharded scopes: empty on one
+        # worker in both packages (the port's key filter keeps them too)
         assert not any(state.pop(mirrors, [])), mirrors
     return _canon(state, tol_floats=name == "ExternalIndexNode")
 

@@ -431,8 +431,16 @@ def test_strict_run_names_the_analyzer_s_item():
 )
 def test_unported_names_raise_naming_their_item(module, name, item):
     mod = importlib.import_module(module)
+    if (module, name) in PORTED_SINCE:
+        # ported since: the module defines the name, which raises no more
+        assert getattr(mod, name) is vars(mod)[name]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}\\b"):
         getattr(mod, name)
+
+
+#: names of the list above that a later slice ported
+PORTED_SINCE = {("pathway_tpu_torch.engine.sharded", "ShardedScheduler")}
 
 
 def test_partition_rule_matches_the_reference_on_every_node():

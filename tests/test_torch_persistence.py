@@ -365,16 +365,35 @@ def test_backends_and_refusals(tmp_path):
         Backend.s3("root")
     with pytest.raises(ImportError, match="blob client"):
         Backend.azure("root")
+    # workers in one process run; more than one process still raises naming item 14
+    tpw.run(threads=2)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        tpw.run(threads=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        tp._reshard_worker_states([], [])
+        tpw.run(processes=2)
+    # two workers' source states re-shard onto three: worker 0 holds the whole source,
+    # the others their row-key shards
+    graph = _mod(tpw, "engine.graph")
+    from pathway_tpu_torch.engine.routing import _shard_of
+
+    keys = [_mod(tpw, "engine.value").ref_scalar(i) for i in range(12)]
+    old = [[{"current": {}}, {"current": {k: (i,) for i, k in enumerate(keys[:7])}}],
+           [{"current": {}}, {"current": {k: (i + 7,) for i, k in enumerate(keys[7:])}}]]
+    news = []
+    for _ in range(3):
+        sc = graph.Scope()
+        sc.input_session(1)
+        news.append(sc)
+    split = tp._reshard_worker_states(old, news)
+    assert split[0][1]["current"] == {k: (i,) for i, k in enumerate(keys)}
+    for w in (1, 2):
+        assert split[w][1]["current"] == {k: (i,) for i, k in enumerate(keys)
+                                          if _shard_of(k, 3) == w}
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
         tp.reshard_process_snapshots(mem, 2, 1, 1, [], n_shared=0)
-    scope = _mod(tpw, "engine.graph").Scope()
+    # a snapshot of two workers' scopes restores into two
+    scope = graph.Scope()
     mgr = tp.OperatorSnapshotManager(mem)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        mgr.snapshot([scope, scope], [], 1)
+    mgr.snapshot([scope, scope], [], 1)
+    assert mgr.restore([graph.Scope(), graph.Scope()], []) == 1
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         tpw.run(strict=True)
 
