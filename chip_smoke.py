@@ -93,6 +93,23 @@ limit):
    word count (100,000 words in 10 files) under operator snapshots at 2 workers over
    half the files, resumed at 4 over all of them: the snapshot re-shards, the counts
    are ``np.unique``'s and every worker's groupby runs on the card after the resume.
+   processes: workers in several processes, each a fresh interpreter from
+   ``pathway_tpu_torch.cli.spawn`` (``--processes-child``) with its own CUDA context,
+   over the authenticated TCP mesh; every process writes its own kernel launches,
+   exchange planes and bytes on the wire. One 2-process mesh runs, one ``pw.run``
+   after another: (a) relational_engine's program at 2 x 1 and 2 x 2, process 0's sink
+   NumPy's answer and the ``threads=1`` run's bits, every process's groupby on the
+   card; (b) BASELINE #1's RAG (4,096 docs, 32 queries, the 1M-slot index on process 0
+   only), every query answered once with its own doc at top-1, recall@10 >= 0.99,
+   both processes launching the forward, every doc reaching the index once (process
+   1's as host rows); (c) the word count (100,000 words in 10 files, one a commit)
+   under operator snapshots. Two more meshes run (c) beside it: one with process 1
+   killed at commit 3 by a fault plan and recovered under the supervisor, fed the same
+   files in lockstep, one rescaled 2 -> 3 through ``cli rescale`` at commit 3 on files
+   of its own from the phase's start; each sink the fault-free run's (the rescaled one's after each
+   commit's partial counts are cancelled), the counts ``np.unique``'s, the leader's
+   metrics showing the recovery and the rescale, every groupby on the card after the
+   resume.
 8. main_path: MiniLM-L6 at full width (seeded weights) embeds 20,000 generated docs in
    256-doc commits into a 1,048,576-slot f32 index on the card, 980,000 seeded unit
    vectors are bulk-added so 1,000,000 rows are live, and 64 queries are embedded and
@@ -354,11 +371,12 @@ limit):
    (``chip_smoke.py --persistence-child``) that SIGKILLs itself after half its input
    files' commits and that commit's checkpoint, and resumed over the killed run's files
    and store. ``persistence_rag``: engine_pipeline's program (MiniLM-L6, DataIndex over
-   1,048,576 slots) with its 20,000 docs read from 40 JSON-lines files by
+   1,048,576 slots) with 10,000 docs read from 20 JSON-lines files by
    ``pw.io.jsonlines.read(persistent_id="docs")``, one file a commit, then 64 as-of-now
    queries; ``persistence_wordcount``: the Pathway persistence tutorial's
-   ``pw.io.plaintext.read`` -> groupby count -> ``pw.io.csv.write`` over 250,000 words
-   of 4,096 keys in 25 files, the groupby on the card. Checks: every doc stored once,
+   ``pw.io.plaintext.read`` -> groupby count -> ``pw.io.csv.write`` over 100,000 words
+   of 4,096 keys in 10 files, the groupby on the card (both cut from 20,000 docs and
+   250,000 words for the processes phase's time). Checks: every doc stored once,
    every query answered with the exact f32 search's hits, recall@10 against the
    fault-free run >= 0.99; under operator snapshots the restored index on the card and
    equal to the snapshot's bits, no doc embedded twice and no word read twice; the word
@@ -438,7 +456,11 @@ from pathway_tpu_torch.engine.reducers import ReducerKind, make_reducer
 from pathway_tpu_torch.engine import expression as eex
 from pathway_tpu_torch.internals import metrics as pmetrics
 from pathway_tpu_torch.internals import profiling, tracing
-from pathway_tpu_torch.internals.runner import GraphRunner, ShardedGraphRunner
+from pathway_tpu_torch.internals.runner import (
+    DistributedGraphRunner,
+    GraphRunner,
+    ShardedGraphRunner,
+)
 from pathway_tpu_torch.engine.routing import EXCHANGE_STATS
 from pathway_tpu_torch.engine.sharded import ShardedScheduler
 from pathway_tpu_torch.models import (
@@ -5920,7 +5942,8 @@ class _KeptRunner:
 
     def __enter__(self):
         self.runners = []
-        self._runs = {cls: cls.run for cls in (GraphRunner, ShardedGraphRunner)}
+        self._runs = {cls: cls.run for cls in (GraphRunner, ShardedGraphRunner,
+                                               DistributedGraphRunner)}
         kept = self.runners
 
         for cls, orig in self._runs.items():
@@ -6266,6 +6289,619 @@ def phase_sharded(card: Card, base_out: list, base_rows_per_s: float) -> dict:
     return {"segment": segment, "flash": flash}
 
 
+# -- workers in several processes: the TCP mesh ------------------------------------------
+
+PROC_WAIT_S = 420.0  # one mesh's deadline: past it every child exits and the phase fails
+PROC_RAG_DOCS = SHARDED_RAG_DOCS  # (b): the sharded phase's cut
+PROC_RAG_QUERIES = SHARDED_RAG_QUERIES
+PROC_WC_FILES = SHARDED_WC_FILES  # (c): 100,000 words in 10 files, one file a commit
+PROC_WC_LINES = SHARDED_WC_LINES
+PROC_KILL_AT_COMMIT = 3  # the fault plan kills process 1 after this commit's snapshot
+PROC_RESCALE_AFTER = 2  # the rescale 2 -> 3 is asked once this file reached the sink
+#: the script a mesh's processes run (``--processes-child``): this one
+PROC_CHILD_SCRIPT = os.path.abspath(__file__)
+_PROC_TOPOLOGY = ("PATHWAY_THREADS", "PATHWAY_PROCESSES", "PATHWAY_PROCESS_ID",
+                  "PATHWAY_FIRST_PORT", "PATHWAY_TPU_FAULT_PLAN", "PATHWAY_TPU_RECOVER",
+                  "PATHWAY_TPU_SUPERVISOR_DIR", "PATHWAY_TPU_RESHARD", "PATHWAY_RUN_ID")
+
+
+#: port ranges this script handed to meshes (several meshes start before any binds)
+_PORTS_TAKEN: set[int] = set()
+
+
+def _free_port_base(n: int) -> int:
+    """A base port such that base..base+n-1 are bindable now and not handed out before."""
+    for _ in range(64):
+        base = _free_port()
+        if base + n >= 65535 or _PORTS_TAKEN & set(range(base, base + n)):
+            continue
+        socks = []
+        try:
+            for i in range(n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + i))
+            _PORTS_TAKEN.update(range(base, base + n))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("no free port range")
+
+
+def _count_sent_bytes() -> list[int]:
+    """Count the bytes this process writes to sockets from now on (the mesh's frames:
+    the programs here open no other socket)."""
+    sent = [0]
+    sendall = socket.socket.sendall
+
+    def counted(sock, data, *a):
+        sent[0] += len(data)
+        return sendall(sock, data, *a)
+
+    socket.socket.sendall = counted
+    return sent
+
+
+def _process_started_at() -> float:
+    """This process's start on the wall clock (``/proc/self/stat``'s start time after
+    boot plus ``/proc/stat``'s boot time)."""
+    with open("/proc/self/stat") as fh:
+        ticks = int(fh.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as fh:
+        btime = next(int(line.split()[1]) for line in fh if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _proc_relational_stage(threads: int):
+    def stage(pid: int, args: list[str]) -> dict:
+        res = _relational_engine_run(threads)
+        rep = {"routes": res["routes"], "rows": res["rows"], "run_s": res["run_s"]}
+        if pid == 0:
+            rep.update(out=res["out"], want=res["want"])
+        return rep
+
+    return stage
+
+
+def _proc_rag_stage(pid: int, args: list[str]) -> dict:
+    corpus = [doc_text(i) for i in range(PROC_RAG_DOCS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    embed_calls, sizes = _count_embed_calls(embedder)
+    factory = _AllKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    obs, run = _engine_program(embedder, corpus, PROC_RAG_DOCS, PROC_RAG_QUERIES, factory,
+                               wait_s=300.0)
+    device_pipeline.PIPELINE.configure()
+    t0 = time.perf_counter()
+    run()
+    rep = {"run_s": time.perf_counter() - t0, "embed_calls": embed_calls[0],
+           "texts_embedded": sum(sizes), "indexes_built": len(getattr(factory, "all", []))}
+    if pid == 0:
+        index = factory.all[0]
+        recall, _self_hit = _engine_recall(obs)
+        key_of = {doc_id: key for key, (doc_id, _e) in obs["docs"].items()}
+        top1 = [hits[:1] == (key_of.get(q * 37 % N_DOCS),)
+                for q, (hits, _v) in obs["answers"].items()]
+        ingest_s = obs["ingest_end"] - obs["run_start"]
+        rep.update(n_docs=len(obs["docs"]), n_queries=len(obs["answers"]),
+                   answer_events=dict(obs["answer_events"]), top1_own_doc=sum(top1),
+                   recall_at_10=recall, docs_per_s=PROC_RAG_DOCS / ingest_s if ingest_s > 0 else None,
+                   capacity=index.capacity, index_rows_device=index.rows_device,
+                   index_rows_host=index.rows_host, failures=obs["failures"] + [
+                       f"query {q} timed out" for q in obs["timeouts"]])
+    return rep
+
+
+def _proc_wordcount_stage(pid: int, args: list[str]) -> dict:
+    indir, store, out_csv, stop = args
+    from pathway_tpu_torch.engine import connectors as _conn
+
+    orig = _conn.FsReader.poll
+
+    def paced(self):
+        entries, done = orig(self)
+        if not entries and os.path.exists(stop):
+            done = True
+        return entries, done
+
+    _conn.FsReader.poll = paced
+    try:
+        lines = pw.io.plaintext.read(indir, mode="streaming", persistent_id="w",
+                                     autocommit_duration_ms=PERSIST_AUTOCOMMIT_MS)
+        cnt = lines.groupby(lines.data).reduce(word=lines.data, cnt=pw.reducers.count())
+        pw.io.csv.write(cnt, out_csv)
+        with _KeptRunner() as kept:
+            t0 = time.perf_counter()
+            pw.run(persistence_config=_persist_config(store, "OPERATOR_PERSISTING", 0))
+            run_s = time.perf_counter() - t0
+    finally:
+        _conn.FsReader.poll = orig
+    rep = {"run_s": run_s}
+    if kept.runners and hasattr(kept.runners[0], "workers"):
+        rep["groupby_routes"] = [dict(n.routes) for sc in _worker_scopes(kept.runners[0])
+                                 for n in sc.nodes if type(n).__name__ == "GroupbyNode"]
+    if pid == 0 and not os.environ.get("PATHWAY_TPU_RESHARD"):
+        rep["metrics"] = pmetrics.render_snapshots({"": pmetrics.full_snapshot()})
+        rep["flight"] = [e for e in pmetrics.FLIGHT.snapshot()
+                         if e.get("kind") in ("recovery_done", "peer_dead", "quiesce")]
+    return rep
+
+
+_PROC_STAGES = {"relational1": _proc_relational_stage(1), "relational2": _proc_relational_stage(2),
+                "rag": _proc_rag_stage, "wordcount": _proc_wordcount_stage}
+
+
+def _processes_child(args: list[str]) -> int:
+    """One process of a mesh the processes phase spawned (``chip_smoke.py
+    --processes-child <outdir> <stage,...> [the word count's paths]``): runs each
+    stage's program through ``pw.run`` in turn (the topology comes from ``cli spawn``'s
+    environment; each ``pw.run`` builds its own mesh) and writes its own counts, read in
+    this process after the stage, to ``<outdir>/report-<stage>-p<id>.json``: the segment
+    and forward kernels' launches, the exchange's deliveries by plane, the bytes it
+    wrote to the mesh, the device its operators ran on, and its clock."""
+    outdir, stages = args[0], args[1].split(",")
+    main_at = time.time()
+    pid = int(os.environ["PATHWAY_PROCESS_ID"])
+    who = "reshard" if os.environ.get("PATHWAY_TPU_RESHARD") else f"p{pid}"
+    log = os.path.join(outdir, f"child-{who}-{os.environ.get('PATHWAY_TPU_RESTART_COUNT', '0')}"
+                               f"-{os.getpid()}.log")
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    if who != "reshard":  # the supervisor reads the re-shard helper's report on its stdout
+        os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    _child_watchdog(outdir)
+    go = os.environ.get("CHIP_SMOKE_GO")
+    while go and not os.path.exists(go):  # a mesh started ahead waits for its release
+        time.sleep(0.05)
+    sent = _count_sent_bytes()
+    for stage in stages:
+        _zero_segment_launches()
+        fa.KERNEL.launches = 0
+        mark, sent0, start_at = dict(EXCHANGE_STATS), sent[0], time.time()
+        rep = _PROC_STAGES[stage](pid, args[2:])
+        rep.update(process=pid, threads=int(os.environ.get("PATHWAY_THREADS", "1")),
+                   incarnation=int(os.environ.get("PATHWAY_TPU_RESTART_COUNT", "0")),
+                   process_started_at=_process_started_at(), main_at=main_at,
+                   stage_start_at=start_at, stage_end_at=time.time(),
+                   segment_launches=_segment_launches(), flash_launches=fa.KERNEL.launches,
+                   bytes_sent=sent[0] - sent0, device=str(device_ops.device()),
+                   exchange={k: EXCHANGE_STATS[k] - mark[k] for k in EXCHANGE_STATS})
+        path = os.path.join(outdir, f"report-{stage}-{who}.json")
+        with open(path + ".tmp", "w") as fh:
+            json.dump(rep, fh)
+        os.replace(path + ".tmp", path)
+    return 0
+
+
+class _ProcMesh:
+    """``pathway_tpu_torch.cli.spawn`` (the function behind ``python -m
+    pathway_tpu_torch.cli spawn``; called here, the launcher pays no import of its own)
+    of this script's ``--processes-child`` on a thread. Every child watches the mesh's
+    deadline (``CHIP_SMOKE_MESH_DEADLINE``, absolute) and ``<outdir>/abort``, and exits
+    124 at either; its output goes to ``<outdir>/child-<id>-<incarnation>.log``."""
+
+    def __init__(self, outdir: str, stages: str, processes: int, env: dict | None = None,
+                 args: tuple = (), port_span: int | None = None):
+        from pathway_tpu_torch.cli import spawn
+
+        os.makedirs(outdir, exist_ok=True)
+        self.outdir = outdir
+        base = dict(os.environ)
+        for name in _PROC_TOPOLOGY:
+            base.pop(name, None)
+        self.spawned_at = time.time()
+        self.t0 = time.perf_counter()
+        # the operators on the card for every batch, as the relational_engine phase runs
+        base.update(PATHWAY_TPU_DEVICE_OPS="1", PATHWAY_TPU_MESH_TIMEOUT="120",
+                    PATHWAY_TPU_RECOVER_DEADLINE="120",
+                    CHIP_SMOKE_MESH_DEADLINE=str(self.spawned_at + PROC_WAIT_S), **(env or {}))
+        self.rc: list = []
+        self.thread = threading.Thread(
+            target=lambda: self.rc.append(spawn(
+                sys.executable, [PROC_CHILD_SCRIPT, "--processes-child", outdir, stages, *args],
+                processes=processes,
+                first_port=_free_port_base(port_span or processes), env=base)),
+            name="chip-smoke-mesh", daemon=True)
+        self.thread.start()
+
+    def alive(self) -> bool:
+        return self.thread.is_alive()
+
+    def remaining(self) -> float:
+        return PROC_WAIT_S - (time.perf_counter() - self.t0)
+
+    def kill(self) -> None:
+        """Make every child exit now (its watchdog sees the abort file) and wait for
+        the launcher."""
+        open(os.path.join(self.outdir, "abort"), "w").close()
+        self.thread.join(timeout=60)
+
+    def tail(self) -> str:
+        out = []
+        for name in sorted(os.listdir(self.outdir)):
+            if name.startswith("child-"):
+                with open(os.path.join(self.outdir, name), "rb") as fh:
+                    out.append(f"--- {name}\n" + fh.read()[-1500:].decode(errors="replace"))
+        return "\n".join(out)
+
+    def wait(self, what: str) -> float:
+        """Wait for the mesh's end; -> its seconds. A non-zero exit or the deadline
+        fails the phase (the children exit at the deadline by themselves)."""
+        self.thread.join(timeout=max(0.1, self.remaining()) + 60)
+        self.done_at = time.time()
+        check(not self.thread.is_alive() and self.rc == [0],
+              f"processes {what}: the mesh exited {self.rc}:\n{self.tail()}")
+        return time.perf_counter() - self.t0
+
+    def reports(self, stage: str, n: int) -> list[dict]:
+        out = []
+        for p in range(n):
+            with open(os.path.join(self.outdir, f"report-{stage}-p{p}.json")) as fh:
+                out.append(json.load(fh))
+        return out
+
+    def clock(self, first: list[dict], last: list[dict]) -> dict:
+        """Where a mesh's wall went, from the processes' own stamps (``first``: the
+        first stage's reports, ``last``: the last's): each process's start after the
+        spawn, its imports (start to ``--processes-child``), its first stage's start,
+        and the mesh's end after the last report."""
+        return {f"p{r['process']}": {
+            "started_s": r["process_started_at"] - self.spawned_at,
+            "imports_s": r["main_at"] - r["process_started_at"],
+            "first_stage_s": r["stage_start_at"] - self.spawned_at} for r in first} | {
+            "exit_after_last_report_s": self.done_at - max(r["stage_end_at"] for r in last)}
+
+
+def _child_watchdog(outdir: str) -> None:
+    """Exit this process (124) once the mesh's deadline passed or the phase asked every
+    child to stop, so no process of a failed mesh outlives the phase."""
+    deadline = float(os.environ.get("CHIP_SMOKE_MESH_DEADLINE", "inf"))
+    abort = os.path.join(outdir, "abort")
+
+    def watch() -> None:
+        while time.time() < deadline and not os.path.exists(abort):
+            time.sleep(0.2)
+        print("chip_smoke: mesh deadline or abort: exiting 124", flush=True)
+        os._exit(124)
+
+    threading.Thread(target=watch, name="chip-smoke-watchdog", daemon=True).start()
+
+
+def _proc_planes(reports: list[dict]) -> dict:
+    """The mesh's deliveries by plane, per process: PWCF frames sent and received,
+    pickled row batches sent, the host deliveries, elided edges, the bytes written; no
+    collective delivery (slice c)."""
+    planes = {}
+    for r in reports:
+        ex = r["exchange"]
+        check(ex["elided"] + ex["host_deliveries"] + ex["collective_deliveries"]
+              == ex["repartitions"] and ex["collective_deliveries"] == 0,
+              f"processes: process {r['process']}'s planes {ex}")
+        planes[f"p{r['process']}"] = {
+            "pwcf_frames_sent": ex["columnar_frames_sent"],
+            "pwcf_frames_received": ex["columnar_frames_received"],
+            "pickled_row_batches_sent": ex["row_batches_sent"],
+            "host_deliveries": ex["host_deliveries"], "elided": ex["elided"],
+            "collective_deliveries": ex["collective_deliveries"], "bytes_sent": r["bytes_sent"]}
+    return planes
+
+
+def _processes_relational(card: Card, mesh: _ProcMesh, base_out: list,
+                          base_rows_per_s: float) -> int:
+    """(a): relational_engine's program at 2 x 1 and 2 x 2."""
+    launches = 0
+    for threads in (1, 2):
+        reps = mesh.reports(f"relational{threads}", 2)
+        out = [tuple(r) for r in reps[0]["out"]]
+        rows_per_s = reps[0]["rows"] / reps[0]["run_s"]
+        launches += sum(sum(r["segment_launches"].values()) for r in reps)
+        groupbys = {f"p{r['process']}:{name}": route for r in reps
+                    for name, route in r["routes"].items() if "GroupbyNode" in name}
+        card.emit("processes_relational", processes=2, threads=threads, rows=N_ENGINE,
+                  second_stream=N_ENGINE // 4, out_rows=len(out), rows_per_s=rows_per_s,
+                  threads_1_rows_per_s=base_rows_per_s,
+                  over_threads_1=rows_per_s / base_rows_per_s, run_s=reps[0]["run_s"],
+                  segment_launches={f"p{r['process']}": r["segment_launches"] for r in reps},
+                  planes=_proc_planes(reps), groupby_routes=groupbys,
+                  devices=[r["device"] for r in reps])
+        check(out == [tuple(r) for r in reps[0]["want"]],
+              f"processes 2 x {threads}: process 0's sink differs from NumPy's answer")
+        check(out == base_out, f"processes 2 x {threads}: not the threads=1 run's bits")
+        check(all(r["device"].startswith("cuda") for r in reps),
+              f"processes 2 x {threads}: devices {[r['device'] for r in reps]}")
+        check(len(groupbys) == 2 * threads and all(
+            g["device"] >= 1 and g["host"] == 0 and g["rows"] == 0 for g in groupbys.values()),
+            f"processes 2 x {threads}: groupby routes {groupbys}")
+        for r in reps:
+            check(all(r["segment_launches"][k] > 0 for k in SEGMENT_PATH_KERNELS),
+                  f"processes 2 x {threads}: process {r['process']} left a segment kernel "
+                  f"unlaunched: {r['segment_launches']}")
+    return launches
+
+
+def _processes_rag(card: Card, mesh: _ProcMesh) -> int:
+    """(b): BASELINE #1's RAG at 2 processes."""
+    reps = mesh.reports("rag", 2)
+    lead = reps[0]
+    flash = [r["flash_launches"] for r in reps]
+    card.emit("processes_rag", processes=2,
+              model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded, bf16)",
+              n_docs=lead["n_docs"], n_queries=lead["n_queries"], capacity=lead["capacity"],
+              answer_events=sum(lead["answer_events"].values()),
+              top1_own_doc=lead["top1_own_doc"], recall_at_10=lead["recall_at_10"],
+              docs_per_s=lead["docs_per_s"], run_s=lead["run_s"],
+              flash_launches_by_process=flash,
+              texts_embedded_by_process=[r["texts_embedded"] for r in reps],
+              embed_calls_by_process=[r["embed_calls"] for r in reps],
+              indexes_built_by_process=[r["indexes_built"] for r in reps],
+              index_rows_device_route=lead["index_rows_device"],
+              index_rows_host_route=lead["index_rows_host"], planes=_proc_planes(reps),
+              failures=lead["failures"])
+    check(not lead["failures"], f"processes rag: {lead['failures']}")
+    check([r["indexes_built"] for r in reps] == [1, 0],
+          f"processes rag: indexes built {[r['indexes_built'] for r in reps]}")
+    check(lead["n_docs"] == PROC_RAG_DOCS, f"processes rag: {lead['n_docs']} docs arrived")
+    check(lead["index_rows_device"] + lead["index_rows_host"] == PROC_RAG_DOCS,
+          f"processes rag: the index took {lead['index_rows_device']} rows by the device "
+          f"route and {lead['index_rows_host']} by the host route")
+    check(sorted(int(q) for q in lead["answer_events"]) == list(range(PROC_RAG_QUERIES))
+          and all(v == 1 for v in lead["answer_events"].values()),
+          f"processes rag: answers {lead['answer_events']}")
+    check(lead["top1_own_doc"] == PROC_RAG_QUERIES,
+          f"processes rag: {lead['top1_own_doc']} of {PROC_RAG_QUERIES} own docs at top-1")
+    check(lead["recall_at_10"] >= 0.99, f"processes rag: recall@10 {lead['recall_at_10']}")
+    check(all(n > 0 for n in flash)
+          and all(r["flash_launches"] == LAYERS * r["embed_calls"] for r in reps),
+          f"processes rag: forward launches {flash}, embed calls "
+          f"{[r['embed_calls'] for r in reps]}")
+    return sum(flash)
+
+
+def _proc_wc_files() -> tuple[list[list[str]], dict]:
+    """The word count's files: 10,000 words each over 4,096 keys, and a marker word of
+    its own per file that shows it reached the sink; -> (files, np.unique's counts)."""
+    ids = np.random.default_rng(SEED).integers(0, PERSIST_WC_KEYS, PROC_WC_FILES * PROC_WC_LINES)
+    files = [[f"w{x}" for x in ids[f * PROC_WC_LINES:(f + 1) * PROC_WC_LINES].tolist()]
+             + [f"file{f}"] for f in range(PROC_WC_FILES)]
+    words, counts = np.unique(np.array([w for f in files for w in f]), return_counts=True)
+    return files, dict(zip(words.tolist(), counts.tolist()))
+
+
+def _proc_wc_paths(root: str, tag: str, indir: str = "in") -> tuple:
+    """(input dir, store, sink, stop file). Runs whose sinks are compared line for line
+    read one input directory (``<root>/in``): a row's key hashes its file's path, and
+    the key routes the row, so the partial counts a sink sees within a commit are the
+    same only over one path."""
+    base = os.path.join(root, tag)
+    os.makedirs(base, exist_ok=True)
+    return (os.path.join(root, indir), os.path.join(base, "store"),
+            os.path.join(base, "out.csv"), os.path.join(base, "stop"))
+
+
+def _proc_feed(runs: list, files: list, mid=None) -> None:
+    """Feed the word-count runs (``(mesh, paths, tag)`` each, one input directory)
+    one file a commit, in lockstep: file k goes in once file k-1's marker reached
+    every run's sink, so every run cuts the same commits; ``mid=(k, fn)`` calls
+    ``fn()`` once file k's marker arrived everywhere; then every run's stop file ends
+    its stream."""
+    indir = runs[0][1][0]
+    shutil.rmtree(indir, ignore_errors=True)
+    os.makedirs(indir)
+    try:
+        for k, words in enumerate(files):
+            # written beside the input directory and moved in whole
+            nxt = indir + ".next"
+            with open(nxt, "w") as fh:
+                fh.write("".join(f"{w}\n" for w in words))
+            os.replace(nxt, os.path.join(indir, f"f{k:03d}.txt"))
+            marker = f"\nfile{k},".encode()
+            for mesh, paths, tag in runs:
+                while not _has_marker(paths[2], marker):
+                    check(mesh.alive() and mesh.remaining() > 0,
+                          f"processes wordcount {tag}: file {k} never reached the sink:\n"
+                          f"{mesh.tail()}")
+                    time.sleep(0.02)
+            if mid is not None and k == mid[0]:
+                mid[1]()
+        for _mesh, paths, _tag in runs:
+            open(paths[3], "w").close()
+    except BaseException:
+        for mesh, _paths, _tag in runs:
+            mesh.kill()
+        raise
+
+
+def _has_marker(path: str, marker: bytes) -> bool:
+    try:
+        with open(path, "rb") as fh:
+            return marker in fh.read()
+    except FileNotFoundError:
+        return False
+
+
+def _consolidated_sink(sink: bytes) -> list:
+    """The sink's updates with each commit's own insert-and-retract pairs cancelled:
+    (word, count, commit time) -> the sum of its diffs, the non-zero ones, sorted. A
+    group whose rows reach it from several workers in one commit emits a partial count
+    and retracts it in the same commit; which partials appear depends on the number of
+    workers, the consolidated updates do not."""
+    net: dict = collections.Counter()
+    for line in sink.decode().splitlines()[1:]:
+        word, cnt, t, diff = line.rsplit(",", 3)
+        net[(word, int(cnt), int(t))] += int(diff)
+    return sorted((k, d) for k, d in net.items() if d)
+
+
+def _family(text: str, family: str) -> float:
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith(family) and not line.startswith("#"))
+
+
+def _processes_wordcount(card: Card, runs: dict) -> int:
+    """(c)'s checks: ``runs`` maps fault_free, killed and rescaled to (mesh, paths)."""
+    _files, want = _proc_wc_files()
+
+    def sink_of(run) -> bytes:
+        with open(run[1][2], "rb") as fh:
+            return fh.read()
+
+    canonical = sorted(sink_of(runs["fault_free"]).splitlines())
+    consolidated = _consolidated_sink(sink_of(runs["fault_free"]))
+    launches, legs = 0, {}
+    for name, run in runs.items():
+        mesh = run[0]
+        sink = sink_of(run)
+        reps = mesh.reports("wordcount", 3 if name == "rescaled" else 2)
+        metrics = reps[0]["metrics"]
+        legs[name] = {
+            "processes": len(reps), "run_s": reps[0]["run_s"], "sink_lines": len(canonical),
+            "canonical_equal": sorted(sink.splitlines()) == canonical,
+            "consolidated_equal": _consolidated_sink(sink) == consolidated,
+            "counts_equal_np_unique": _fold_csv(run[1][2]) == want,
+            "recoveries": _family(metrics, "pathway_mesh_recoveries_total"),
+            "rescales": _family(metrics, "pathway_mesh_rescales_total"),
+            "rescale_s": _family(metrics, "pathway_mesh_rescale_seconds_sum"),
+            "recover_s": [e.get("wall_s") for e in reps[0]["flight"]
+                          if e["kind"] == "recovery_done"],
+            "incarnations": [r["incarnation"] for r in reps],
+            "segment_launches": {f"p{r['process']}": r["segment_launches"] for r in reps},
+            "groupby_routes": {f"p{r['process']}": r.get("groupby_routes") for r in reps},
+            "planes": _proc_planes(reps)}
+        if name != "fault_free":
+            legs[name]["mesh_wall_s"] = mesh.done_at - mesh.spawned_at
+            legs[name]["clock"] = mesh.clock(reps, reps)
+        launches += sum(sum(r["segment_launches"].values()) for r in reps)
+    card.emit("processes_wordcount", words=PROC_WC_FILES * PROC_WC_LINES,
+              keys=PERSIST_WC_KEYS, files=PROC_WC_FILES, kill_at_commit=PROC_KILL_AT_COMMIT,
+              rescale_after_file=PROC_RESCALE_AFTER, legs=legs)
+    for name, leg in legs.items():
+        # at 2 processes throughout, the sorted lines are the fault-free run's; the
+        # rescaled run's commits after the rescale run on 3 workers, whose partial counts
+        # differ, so it is held to the consolidated updates
+        check(leg["consolidated_equal"] and (leg["canonical_equal"] or name == "rescaled"),
+              f"processes wordcount {name}: not the fault-free sink")
+        check(leg["counts_equal_np_unique"], f"processes wordcount {name}: counts differ "
+              "from np.unique's")
+        for p, routes in leg["groupby_routes"].items():
+            check(routes and all(r["device"] >= 1 and r["host"] == 0 and r["rows"] == 0
+                                 for r in routes),
+                  f"processes wordcount {name}: {p}'s groupby routes {routes}")
+    # process 1 was restarted (a second restart happens when the leader's kill request
+    # for the dead worker reaches the supervisor after its first restart, as in the
+    # JAX package)
+    check(legs["killed"]["recoveries"] >= 1 and legs["killed"]["incarnations"][0] == 0
+          and legs["killed"]["incarnations"][1] >= 1,
+          f"processes wordcount killed: recoveries {legs['killed']['recoveries']}, "
+          f"incarnations {legs['killed']['incarnations']}")
+    check(legs["rescaled"]["rescales"] >= 1,
+          f"processes wordcount rescaled: rescales {legs['rescaled']['rescales']}")
+    return launches
+
+
+def phase_processes(card: Card, base_out: list, base_rows_per_s: float) -> dict:
+    """Workers in several processes, each a fresh interpreter spawned by
+    ``pathway_tpu_torch.cli.spawn`` with its own CUDA context on the card, the batches
+    exchanged over the authenticated TCP mesh. A mesh of 2 processes runs, one
+    ``pw.run`` after another: (a) relational_engine's program at 2 x 1 and 2 x 2,
+    process 0's sink NumPy's answer and the ``threads=1`` run's bits, every process's
+    groupby on the card by its own segment launches; (b) BASELINE #1's RAG, the index
+    on process 0 only, both processes launching the forward kernel; (c) the word count
+    under operator snapshots, fault-free. A second mesh runs (c) with process 1 killed
+    at commit 3 and recovered under the supervisor: it starts with the first (its
+    imports overlap the first's stages), waits until the first's word count starts,
+    and the two take the same files in lockstep, so the killed run's sink is the
+    fault-free run's line for line. A third mesh, rescaled 2 -> 3 through ``cli
+    rescale`` at commit 3, runs from the start beside them on files of its own (its
+    rows hash another path, so it is held to the fault-free sink's consolidated
+    updates). Every process writes its own counts; nothing is inferred."""
+    from pathway_tpu_torch.cli import rescale as cli_rescale
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pw-processes-")
+    meshes: list = []
+    try:
+        go = os.path.join(root, "go")
+        sup_dir = os.path.join(root, "sup")
+        paths = {"fault_free": _proc_wc_paths(root, "fault_free"),
+                 "killed": _proc_wc_paths(root, "killed"),
+                 "rescaled": _proc_wc_paths(root, "rescaled", indir="in-rescaled")}
+        plan = json.dumps({"seed": SEED, "faults": [
+            {"type": "kill", "process": 1, "at_commit": PROC_KILL_AT_COMMIT}]})
+        files = _proc_wc_files()[0]
+        meshes.append(_ProcMesh(os.path.join(root, "mesh"),
+                                "relational1,relational2,rag,wordcount", 2,
+                                args=paths["fault_free"]))
+        meshes.append(_ProcMesh(os.path.join(root, "killed"), "wordcount", 2,
+                                args=paths["killed"], env={
+                                    "PATHWAY_TPU_RECOVER": "1", "PATHWAY_TPU_FAULT_PLAN": plan,
+                                    "CHIP_SMOKE_GO": go}))
+        meshes.append(_ProcMesh(os.path.join(root, "rescaled"), "wordcount", 2,
+                                args=paths["rescaled"], port_span=3, env={
+                                    "PATHWAY_TPU_RECOVER": "1",
+                                    "PATHWAY_TPU_SUPERVISOR_DIR": sup_dir}))
+        main, killed, rescaled = meshes
+
+        def request() -> None:
+            """Ask for the rescale and wait until the mesh runs at 3 (the supervisor
+            took the request and removed its quiesce marker), so the later files reach
+            the new mesh."""
+            check(cli_rescale(3, supervisor_dir=sup_dir) == 0, "processes: cli rescale refused")
+            while any(os.path.exists(os.path.join(sup_dir, f)) for f in ("rescale", "quiesce")):
+                check(rescaled.alive() and rescaled.remaining() > 0,
+                      "processes: the rescale never ended")
+                time.sleep(0.02)
+
+        feed_errors: list = []
+
+        def feed_rescaled() -> None:
+            try:
+                _proc_feed([(rescaled, paths["rescaled"], "rescaled")], files,
+                           mid=(PROC_RESCALE_AFTER, request))
+            except BaseException as exc:  # noqa: BLE001 — raised on the phase's thread
+                feed_errors.append(exc)
+
+        feeder = threading.Thread(target=feed_rescaled, name="chip-smoke-feed", daemon=True)
+        feeder.start()
+        # the killed mesh starts its word count with the first mesh's, after the
+        # relational and RAG stages
+        while not os.path.exists(os.path.join(main.outdir, "report-rag-p0.json")):
+            check(main.alive() and main.remaining() > 0,
+                  f"processes: the first mesh ended early:\n{main.tail()}")
+            time.sleep(0.05)
+        open(go, "w").close()
+        _proc_feed([(main, paths["fault_free"], "fault_free"), (killed, paths["killed"], "killed")],
+                   files)
+        feeder.join(timeout=max(0.1, rescaled.remaining()))
+        if feed_errors:
+            raise feed_errors[0]
+        check(not feeder.is_alive(), "processes: the rescaled run's feed never ended")
+        wall_s = main.wait("relational, rag and wordcount")
+        killed.wait("wordcount killed")
+        rescaled.wait("wordcount rescaled")
+        card.emit("processes_mesh", stages="relational 2 x 1, relational 2 x 2, rag, wordcount",
+                  wall_s=wall_s, clock=main.clock(main.reports("relational1", 2),
+                                                  main.reports("wordcount", 2)),
+                  stage_s={s: main.reports(s, 2)[0]["stage_end_at"]
+                           - main.reports(s, 2)[0]["stage_start_at"]
+                           for s in ("relational1", "relational2", "rag", "wordcount")})
+        segment = _processes_relational(card, main, base_out, base_rows_per_s)
+        flash = _processes_rag(card, main)
+        segment += _processes_wordcount(card, {"fault_free": (main, paths["fault_free"]),
+                                               "killed": (killed, paths["killed"]),
+                                               "rescaled": (rescaled, paths["rescaled"])})
+    finally:
+        for mesh in meshes:
+            if mesh.alive():
+                mesh.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    card.emit("processes", seconds=time.perf_counter() - t0, segment_launches=segment,
+              flash_launches=flash)
+    return {"segment": segment, "flash": flash}
+
+
 # -- the graph optimizer and measurement-driven placement --------------------------------
 
 #: optimizer_stats() of earlier phases' graphs, for the optimizer phase's report
@@ -6443,10 +7079,14 @@ def phase_optimizer(card: Card) -> int:
 # -- persistence: killed and resumed ------------------------------------------------------
 
 PERSIST_MODES = ("PERSISTING", "OPERATOR_PERSISTING")
-PERSIST_RAG_FILES = 40  # N_DOCS in files of 500 docs
+#: BASELINE #1's docs, cut from N_DOCS (20,000) to half for the script's time with the
+#: processes phase
+PERSIST_RAG_DOCS = N_DOCS // 2
+PERSIST_RAG_FILES = 20  # PERSIST_RAG_DOCS in files of 500 docs
 #: bench_dataflow.py wordcount's 10,000-line files, cut from its 1,000,000 words to 250,000 so
-#: that the script stays within its time with the databases phase
-PERSIST_WC_FILES = 25
+#: that the script stays within its time with the databases phase, and to 100,000 with the
+#: processes phase
+PERSIST_WC_FILES = 10
 PERSIST_WC_LINES = 10_000
 PERSIST_WC_KEYS = 4096
 #: snapshot intervals: the 1.61 GB index's snapshot amortized over 30 s of commits, the
@@ -6616,7 +7256,7 @@ def _persist_config(store: str, mode: str, interval_ms: int):
 
 
 def _persist_rag_files() -> list:
-    per = N_DOCS // PERSIST_RAG_FILES
+    per = PERSIST_RAG_DOCS // PERSIST_RAG_FILES
     return [
         (f"docs{f:03d}.jsonl",
          "".join(json.dumps({"doc_id": i, "text": doc_text(i)}) + "\n"
@@ -6660,7 +7300,7 @@ def _persist_rag_run(paced: _Paced, store: str, mode: str, embedder, qembedder,
             for i in range(N_QUERIES):
                 answer_seen.clear()
                 t0 = time.perf_counter()
-                self.next(query_id=i, text=doc_text(i * 37 % N_DOCS))
+                self.next(query_id=i, text=doc_text(i * 37 % PERSIST_RAG_DOCS))
                 if answer_seen.wait(timeout=PERSIST_WAIT_S):
                     obs["latencies"].append(time.perf_counter() - t0)
                 else:
@@ -6669,7 +7309,7 @@ def _persist_rag_run(paced: _Paced, store: str, mode: str, embedder, qembedder,
 
     def after_all() -> None:
         deadline = time.monotonic() + PERSIST_WAIT_S
-        while len(factory.built.key_to_slot) < N_DOCS:
+        while len(factory.built.key_to_slot) < PERSIST_RAG_DOCS:
             if time.monotonic() > deadline:
                 paced.failures.append("the index never held every doc")
                 return
@@ -6767,7 +7407,7 @@ def _lazy_rows_snapshot(runner) -> dict:
 
 
 def _persist_wc_files() -> tuple[list, dict]:
-    """The word count's 25 files of 10,000 lines (a seeded draw over 4,096 words) and
+    """The word count's 10 files of 10,000 lines (a seeded draw over 4,096 words) and
     ``np.unique``'s counts of all of them."""
     ids = np.random.default_rng(SEED).integers(0, PERSIST_WC_KEYS, PERSIST_WC_FILES * PERSIST_WC_LINES)
     words, counts = np.unique(ids, return_counts=True)
@@ -6949,7 +7589,7 @@ def _rag_checks(run: dict, mode: str) -> tuple[dict, dict]:
         worst = max(worst, err)
         answered_exact &= err <= DIST_TOL
     checks = {
-        "docs_stored_once": len(keys) == N_DOCS and valid == N_DOCS,
+        "docs_stored_once": len(keys) == PERSIST_RAG_DOCS and valid == PERSIST_RAG_DOCS,
         "every_query_answered": len(obs["answers"]) == N_QUERIES and not obs["timeouts"],
         "hits_are_exact_f32_top_k": answered_exact,
     }
@@ -6976,7 +7616,7 @@ def _persistence_rag(card: Card, base: str) -> int:
         ff = _persist_rag_run(paced, os.path.join(root, f"store-ff-{mode}"), mode, embedder, qembedder)
         ff_checks, ff_vectors = _rag_checks(ff, mode)
         ff_stats = _persistence_stats(ff["runner"], paced)
-        ff_docs_per_s = N_DOCS / (ff["obs"]["ingest_end"] - paced.t_start)
+        ff_docs_per_s = PERSIST_RAG_DOCS / (ff["obs"]["ingest_end"] - paced.t_start)
         ff_breakdown = _snapshot_breakdown(ff)
         ff_run_s, ff_failures = ff["run_s"], paced.failures
         if fault_free is None:
@@ -6993,7 +7633,7 @@ def _persistence_rag(card: Card, base: str) -> int:
         rs_checks, rs_vectors = _rag_checks(rs, mode)
         rs_stats = _persistence_stats(rs["runner"], paced)
         index = rs["index"]
-        new_docs = N_DOCS - watch.get("docs", 0)
+        new_docs = PERSIST_RAG_DOCS - watch.get("docs", 0)
         rs_docs_per_s = rs["docs_embedded"] / max(rs["obs"]["ingest_end"] - paced.t_start, 1e-9)
         # recall@10 against the fault-free run, and how many stored rows are the same bits
         ff_answers, ff_vecs = fault_free
@@ -7015,7 +7655,7 @@ def _persistence_rag(card: Card, base: str) -> int:
             checks.update(
                 restored_index_bit_equal_to_snapshot=bool(restored_bits),
                 restored_index_on_card=watch.get("device", "").startswith("cuda"),
-                no_doc_embedded_twice=child["docs_embedded"] + rs["docs_embedded"] == N_DOCS,
+                no_doc_embedded_twice=child["docs_embedded"] + rs["docs_embedded"] == PERSIST_RAG_DOCS,
                 resumed_embedded_only_new_docs=rs["docs_embedded"] == new_docs,
                 new_docs_by_device_route=index.rows_device == new_docs and index.rows_host == 0)
             fields.update(restored_docs=watch.get("docs"), upload_s=watch.get("upload_s"),
@@ -7023,15 +7663,15 @@ def _persistence_rag(card: Card, base: str) -> int:
                           index_rows_host_route=index.rows_host)
             del watch["clone"], watch["snapshot"]
         else:
-            checks.update(replayed_docs_embedded_again=rs["docs_embedded"] == N_DOCS,
-                          docs_by_device_route=index.rows_device == N_DOCS and index.rows_host == 0)
+            checks.update(replayed_docs_embedded_again=rs["docs_embedded"] == PERSIST_RAG_DOCS,
+                          docs_by_device_route=index.rows_device == PERSIST_RAG_DOCS and index.rows_host == 0)
         lat_ms = sorted(1e3 * x for x in rs["obs"]["latencies"])
         failures = ff_failures + paced.failures
         card.emit(
             "persistence", program="persistence_rag", mode=mode,
             source=f"BASELINE #1 (bench.py::pipeline_leg) with its docs read from "
                    f"{PERSIST_RAG_FILES} JSON-lines files",
-            docs=N_DOCS, files=PERSIST_RAG_FILES, kill_after_file=kill_after,
+            docs=PERSIST_RAG_DOCS, files=PERSIST_RAG_FILES, kill_after_file=kill_after,
             fault_free_docs_per_s=ff_docs_per_s, resumed_docs_per_s=rs_docs_per_s,
             fault_free=ff_stats, fault_free_run_s=ff_run_s, child_s=child_s, child=child,
             fault_free_snapshot_parts=ff_breakdown, resumed_snapshot_parts=_snapshot_breakdown(rs),
@@ -7179,14 +7819,14 @@ def phase_persistence(card: Card) -> dict:
     run's files and store. The fault-free and resumed runs run here, so their kernel
     launches are counted. ``persistence_rag``: BASELINE #1's streaming RAG (MiniLM-L6
     bf16 through the flash forward kernel, DataIndex over 1,048,576 slots, k = 10) fed
-    20,000 docs from 40 JSON-lines files one file a commit, then 64 as-of-now queries;
+    10,000 docs from 20 JSON-lines files one file a commit, then 64 as-of-now queries;
     every doc stored once, every query answered with the exact f32 search's hits over
     the vectors the index holds, recall@10 against the fault-free run >= 0.99; under
     operator snapshots the resumed run embeds only the docs after the snapshot, its
     index restored on the card equal to the snapshot's bit for bit.
     ``persistence_wordcount``: the Pathway persistence tutorial's plaintext -> groupby
-    count -> csv program at a quarter of bench_dataflow.py::wordcount's size (250,000 words
-    over 4,096 keys in 25 files of 10,000 lines), the groupby forced onto the card; the sink
+    count -> csv program at a tenth of bench_dataflow.py::wordcount's size (100,000 words
+    over 4,096 keys in 10 files of 10,000 lines), the groupby forced onto the card; the sink
     file resumed under one ``PATHWAY_RUN_ID`` folds to ``np.unique``'s counts, as the
     fault-free run's does; under operator snapshots no word is read twice. A fifth run
     of the word count kills it between two interval snapshots instead, and resumes it
@@ -7470,6 +8110,8 @@ def main() -> int:
         return _overhead_child(sys.argv[2])
     if sys.argv[1:2] == ["--lockwatch-child"]:
         return _lockwatch_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--processes-child"]:
+        return _processes_child(sys.argv[2:])
     t_script = time.perf_counter()
     card = Card()
     card.emit("device", name=card.name, count=card.count, torch=torch.__version__,
@@ -7503,6 +8145,7 @@ def main() -> int:
     relational_engine, engine_out, engine_rows_per_s = counted(
         "relational_engine", phase_relational_engine, card)
     sharded = counted("sharded", phase_sharded, card, engine_out, engine_rows_per_s)
+    processes = counted("processes", phase_processes, card, engine_out, engine_rows_per_s)
     del engine_out
     serving = counted("main_path", phase_main_path, card)
     engine, parity, engine_docs_per_s = counted("engine_pipeline", phase_engine_pipeline, card,
@@ -7541,7 +8184,8 @@ def main() -> int:
                                "rag_evals": rag_evals, "persistence": persistence["flash"],
                                "observability": observability["flash"], "watch": watch["flash"],
                                "connectors": connectors["flash"], "buses": buses["flash"],
-                               "databases": databases["flash"], "sharded": sharded["flash"]}
+                               "databases": databases["flash"], "sharded": sharded["flash"],
+                               "processes": processes["flash"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}
@@ -7556,7 +8200,8 @@ def main() -> int:
                                       "connectors": connectors["segment"],
                                       "buses": buses["segment"],
                                       "databases": databases["segment"],
-                                      "sharded": sharded["segment"]}
+                                      "sharded": sharded["segment"],
+                                      "processes": processes["segment"]}
     card.emit("script", seconds=time.perf_counter() - t_script, phase_seconds=phase_seconds)
     print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
     print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)

@@ -26,9 +26,10 @@ An :class:`InputDriver` may belong to a synchronization group (``io/_synchroniza
 an event whose sync column runs more than the group's ``max_difference`` ahead of the
 slowest member waits in its backlog, in order, until the group admits it. The readers
 over databases, message buses and object stores are in ``engine/storage.py``, and the
-Debezium parser in ``engine/formats.py``. Not ported yet: the writers' rollback of a mesh
-to a common commit (ROADMAP queue 1 item 14). :class:`BatchScheduleDriver` feeds
-``pw.debug``'s ``StreamGenerator``.
+Debezium parser in ``engine/formats.py``. A :class:`FileWriter` rewinds to a commit
+(:meth:`FileWriter.rewind_to`) when a mesh of processes rolls back to a common commit,
+so a recovered or rescaled run writes each commit once. :class:`BatchScheduleDriver`
+feeds ``pw.debug``'s ``StreamGenerator``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import os
 import queue
 import random
 import time as _time
+import weakref as _weakref
 from typing import Any, Callable, Sequence
 
 from pathway_tpu_torch.engine import device_pipeline
@@ -607,6 +609,11 @@ class DsvFormatter(Formatter):
         return self._row(out)
 
 
+#: every live FileWriter of this process: the multi-process runner rewinds them all
+#: when the mesh rolls back
+FILE_WRITERS: "_weakref.WeakSet[FileWriter]" = _weakref.WeakSet()
+
+
 class FileWriter:
     """Line-oriented file sink.
 
@@ -632,6 +639,7 @@ class FileWriter:
                 self._file.write(header + "\n")
             self._header_end = self._file.tell()
             self._commit_offsets: dict[int, int] = {}
+        FILE_WRITERS.add(self)
 
     def _try_resume(self) -> bool:
         """Reopen an existing sink file when the sidecar shows it belongs to this run
@@ -690,12 +698,28 @@ class FileWriter:
             self._persist_offsets()
 
     def rewind_to(self, time: int) -> None:
-        """Truncate what was written after commit ``time``: the rollback of a mesh to
-        a common commit, which comes with the distributed runner."""
-        raise NotImplementedError(
-            "FileWriter.rewind_to (a mesh's rollback to a common commit) is not ported "
-            "yet (ROADMAP queue 1 item 14)"
-        )
+        """Truncate everything written after commit ``time`` (``-1``: back to the
+        header), so the commits a mesh rolled back land once when they are driven
+        again. Nothing happens when no later commit reached this sink; a boundary that
+        fell off the trail raises ``ValueError``."""
+        if self._file.closed:
+            return
+        if time < 0:
+            offset = self._header_end
+        elif time in self._commit_offsets:
+            offset = self._commit_offsets[time]
+        else:
+            if not any(t > time for t in self._commit_offsets):
+                return
+            raise ValueError(
+                f"sink {self.path}: cannot rewind to commit {time} — its boundary "
+                f"offset is no longer tracked (trail keeps {self._OFFSET_TRAIL} commits)"
+            )
+        self._file.flush()
+        self._file.truncate(offset)
+        self._file.seek(offset)
+        self._commit_offsets = {t: o for t, o in self._commit_offsets.items() if t <= time}
+        self._persist_offsets()
 
     def on_end(self) -> None:
         if not self._file.closed:

@@ -30,7 +30,7 @@ next staging, ``drain_until`` or ``drain``; only ``reset`` drops it. Each bounda
 drain first decays the residency plane's resident batches
 (``device_residency.decay_resident_batches``; none on one card). :meth:`stats` reports
 the device operators and the residency plane beside the pipeline; the collective
-exchange is absent until the sharded runners (ROADMAP queue 1 item 14). With tracing
+exchange is absent until ROADMAP queue 1 item 14, slice c. With tracing
 on (``PATHWAY_TPU_TRACE=1``) the controller reads the last traced commit's critical
 path, and a staging blocked on the in-flight limit records a ``device-backpressure``
 span (``cat="wait"``, the queue-wait bucket); with tracing off it reads none.

@@ -6,10 +6,10 @@ there). In the JAX package this plane keeps the sharded exchange's outputs on th
 device between a device operator and the next (``DeviceResidentColumns``), so a
 groupby on the card feeding a join on the card pays no copy to the host and back at
 the seam between them. Such batches are made in one place only, the collective
-exchange of the sharded scheduler, which needs one device per shard; the port runs one
-scope on one card, so nothing here produces or consumes them. ``DeviceResidentColumns``
-and the collective exchange come with the sharded runners (ROADMAP queue 1 item 14)
-and raise ``NotImplementedError`` until then.
+exchange of the sharded scheduler, which needs one device per shard; the port's
+exchange has its host planes only, so nothing here produces or consumes them.
+``DeviceResidentColumns`` and the collective exchange come with ROADMAP queue 1 item 14,
+slice c, and raise ``NotImplementedError`` until then.
 
 What one card has:
 
@@ -211,5 +211,5 @@ def reset_counters() -> None:
 
 
 __getattr__ = module_getattr(__name__, dict.fromkeys(
-    ("DeviceResidentColumns",), "14: the sharded and distributed runners"
+    ("DeviceResidentColumns",), "14, slice c: the collective exchange"
 ))

@@ -12,9 +12,10 @@ position instead, at commit boundaries, and a restart restores them with no repl
 An operator snapshot holds one state list per worker: a sharded run (workers in one
 process) writes each replica's, and a restart at another worker count re-splits them
 along the sharded scheduler's own routing (:func:`_reshard_worker_states`). The
-multi-process runner's parts, the re-sharding of a mesh's process snapshots, the ring
-of snapshots by commit time and the writer's rewind, come with that runner (ROADMAP
-queue 1 item 14) and raise naming it.
+multi-process runner keeps one snapshot per process (``operator-snapshot-p<id>``) with
+a ring of the last few commits (``retain``, ``restore(at_time=...)``), so a mesh rolls
+back to a commit every process still holds; :func:`reshard_process_snapshots` rewrites
+a quiesced mesh's snapshots for another process count.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ import numpy as np
 
 from pathway_tpu_torch.engine.batch import Columns
 from pathway_tpu_torch.engine.value import Pointer
-
-_ITEM_14 = "ROADMAP queue 1 item 14"
 
 
 class PersistenceBackend:
@@ -369,10 +368,11 @@ class OperatorSnapshotManager:
     optimizer's fingerprint are checked at restore, and a mismatch raises.
     ``snapshot_interval_ms=0`` snapshots at every commit; an interval amortizes the
     cost of a large state over commits, and a final snapshot is taken at the end of a
-    run whatever the interval. The ring of the last ``retain`` snapshots, addressable
-    by commit time (``retain > 1``, ``restore(at_time=...)``), serves the rollback of
-    several processes to a common commit, and raises naming ROADMAP queue 1 item 14
-    until that runner is ported.
+    run whatever the interval. With ``retain > 1`` each snapshot is also written as
+    ``<name>-t<time>`` and the last ``retain`` of them stay addressable by commit time
+    (``restore(at_time=...)``): the multi-process runner rolls every process back to a
+    commit they all still hold. A time that fell off the ring is blanked (the backends
+    have no delete, and an empty blob reads as absent).
 
     ``write_seconds`` and ``write_bytes`` hold each write's seconds and size (pickling
     included); ``restore_seconds`` and ``restore_bytes`` the restore's."""
@@ -387,11 +387,9 @@ class OperatorSnapshotManager:
         self.backend = backend
         self.interval = snapshot_interval_ms / 1000.0
         self.name = name
-        if retain != 1:
-            raise NotImplementedError(
-                f"a ring of {retain} operator snapshots serves the multi-process "
-                f"runner, which is not ported yet ({_ITEM_14})"
-            )
+        #: how many commit-boundary snapshots stay addressable by time
+        self.retain = max(1, int(retain))
+        self._ring: list[int] = []
         self._last_write = 0.0
         self.write_seconds: list[float] = []
         self.write_bytes: list[int] = []
@@ -450,6 +448,12 @@ class OperatorSnapshotManager:
         }
         blob = pickle.dumps(payload, protocol=4)
         self.backend.write(self.name, blob)
+        if self.retain > 1:
+            self.backend.write(f"{self.name}-t{time}", blob)
+            if time not in self._ring:
+                self._ring.append(time)
+            while len(self._ring) > self.retain:
+                self.backend.write(f"{self.name}-t{self._ring.pop(0)}", b"")
         self._last_write = _time.monotonic()
         self.write_seconds.append(_time.perf_counter() - t0)
         self.write_bytes.append(len(blob))
@@ -476,16 +480,26 @@ class OperatorSnapshotManager:
     def restore(self, scope: Any, drivers: list, at_time: int | None = None) -> int | None:
         """Restore node and driver state; returns the snapshot's commit time when one
         was found and applied (the scheduler resumes after it, so sink times stay
-        monotonic), else None. ``at_time`` (a ring entry) raises naming item 14."""
-        if at_time is not None:
-            raise NotImplementedError(
-                f"restoring the snapshot of commit {at_time} from a ring serves the "
-                f"multi-process runner, which is not ported yet ({_ITEM_14})"
-            )
+        monotonic), else None.
+
+        ``at_time`` picks a ring entry (``retain > 1``); the latest snapshot serves when
+        it carries that time, and a time held by neither raises ``ValueError``."""
         t0 = _time.perf_counter()
         scopes = self._scopes_of(scope)
         raw = self.backend.read(self.name)
+        if at_time is not None and raw:
+            try:
+                latest = int(pickle.loads(raw).get("time", 0))
+            except Exception:  # noqa: BLE001 — a corrupt latest: read the ring entry
+                latest = None
+            if latest != at_time:
+                raw = self.backend.read(f"{self.name}-t{at_time}")
         if not raw:
+            if at_time is not None:
+                raise ValueError(
+                    f"no operator snapshot at commit time {at_time} under "
+                    f"{self.name!r} (ring retains {self.retain})"
+                )
             return None
         try:
             payload = pickle.loads(raw)
@@ -716,8 +730,133 @@ def reshard_process_snapshots(
     *,
     n_shared: int,
 ) -> dict:
-    """Rewrite an N-process mesh's snapshots for M processes: comes with the
-    distributed runner's rescale."""
-    raise NotImplementedError(
-        f"re-sharding a mesh's process snapshots is not ported yet ({_ITEM_14})"
-    )
+    """Rewrite the per-process operator snapshots of an N-process mesh for an
+    M-process mesh (the state step of ``MeshSupervisor.rescale``).
+
+    Every process of a quiesced mesh left ``operator-snapshot-p<pid>`` at the same
+    commit. They are merged into the global list of worker states (global worker id =
+    ``pid * threads + scope index``, the mesh's numbering), split again by
+    :func:`_reshard_worker_states`, through the routing the live exchange uses, and
+    written as one snapshot (and its ring entry) per new process. The snapshots of
+    processes past the new count are blanked, so a later scale-out cannot resume from
+    them. ``scopes`` are the calling process's own worker scopes (scope 0 whole, with
+    the sink chain; the others up to ``n_shared``). Returns a report: the sizes, the
+    commit time, the source rows and the count of keys that change owner
+    (``engine/routing.py::reshard_moves``)."""
+    from pathway_tpu_torch.engine.graph import InputSession, StaticSource
+    from pathway_tpu_torch.engine.routing import reshard_moves
+
+    if old_processes < 1 or new_processes < 1:
+        raise ValueError("process counts must be >= 1")
+
+    def _load(name: str) -> dict | None:
+        raw = backend.read(name)
+        if not raw:
+            return None
+        try:
+            return pickle.loads(raw)
+        except Exception:  # noqa: BLE001 — a truncated or corrupt snapshot: none
+            return None
+
+    payloads: list[dict] = []
+    for p in range(old_processes):
+        payload = _load(f"operator-snapshot-p{p}")
+        if payload is None:
+            raise ValueError(
+                f"rescale: no operator snapshot for process {p} "
+                f"(expected {old_processes} quiesced snapshots)"
+            )
+        payloads.append(payload)
+    for p, payload in enumerate(payloads):
+        fmt = payload.get("format", 1)
+        if fmt != STATE_FORMAT:
+            raise ValueError(
+                f"rescale: process {p} snapshot has state format {fmt}; "
+                f"this build writes format {STATE_FORMAT}"
+            )
+    t_common = min(int(pl.get("time", 0)) for pl in payloads)
+    for p, payload in enumerate(payloads):
+        if int(payload.get("time", 0)) != t_common:
+            ring = _load(f"operator-snapshot-p{p}-t{t_common}")
+            if ring is None:
+                raise ValueError(
+                    f"rescale: process {p} has no snapshot at the common commit "
+                    f"time {t_common} (ring rotated?)"
+                )
+            payloads[p] = ring
+    base = payloads[0]
+    fp = list(base.get("optimize", []))
+    for p, payload in enumerate(payloads[1:], start=1):
+        if list(payload.get("optimize", [])) != fp:
+            raise ValueError(
+                f"rescale: process {p} snapshot was written under a different "
+                "graph-optimizer plan than process 0"
+            )
+    if list(getattr(scopes[0], "_pw_opt_fingerprint", [])) != fp:
+        raise ValueError(
+            "rescale: snapshots were written under a different graph-optimizer plan "
+            "than this process applies — rerun with the same PATHWAY_TPU_OPTIMIZE "
+            "setting"
+        )
+    full_sig = [type(n).__name__ for n in scopes[0].nodes]
+    if base["sigs"][0] != full_sig:
+        raise ValueError(
+            "rescale: operator snapshot does not match this graph (operator sequence "
+            "changed); clear the persistence location instead of rescaling across "
+            "code changes"
+        )
+    shared_sig = full_sig[:n_shared]
+    for p, payload in enumerate(payloads[1:], start=1):
+        if payload["sigs"][0][: len(shared_sig)] != shared_sig:
+            raise ValueError(
+                f"rescale: process {p} snapshot does not match the shared graph prefix"
+            )
+
+    global_per_worker: list[list[dict]] = []
+    for payload in payloads:
+        global_per_worker.extend(payload["per_worker"])
+    virtual = [scopes[0]] * (new_processes * threads)
+    new_per_worker = _reshard_worker_states(global_per_worker, virtual)
+
+    # the volume moved: old worker 0 mirrors every source row, so its keys are the rows
+    src_keys: list = []
+    for i, node in enumerate(scopes[0].nodes[:n_shared]):
+        if isinstance(node, (StaticSource, InputSession)) and i < len(global_per_worker[0]):
+            cur = global_per_worker[0][i].get("current")
+            if isinstance(cur, dict):
+                src_keys.extend(cur.keys())
+    moved = reshard_moves(src_keys, old_processes * threads, new_processes * threads)
+
+    for q in range(new_processes):
+        states = new_per_worker[q * threads:(q + 1) * threads]
+        if q == 0:
+            sigs = [[type(n).__name__ for n in s.nodes] for s in scopes]
+            states = [states[0]] + [st[:n_shared] for st in states[1:]]
+            drivers = base.get("drivers", [])
+        else:
+            sigs = [list(shared_sig) for _ in range(threads)]
+            states = [st[:n_shared] for st in states]
+            drivers = []
+        blob = pickle.dumps(
+            {
+                "format": STATE_FORMAT,
+                "sigs": sigs,
+                "per_worker": states,
+                "drivers": drivers,
+                "time": t_common,
+                "optimize": fp,
+            },
+            protocol=4,
+        )
+        backend.write(f"operator-snapshot-p{q}", blob)
+        backend.write(f"operator-snapshot-p{q}-t{t_common}", blob)
+    for q in range(new_processes, old_processes):
+        backend.write(f"operator-snapshot-p{q}", b"")
+    return {
+        "old_processes": old_processes,
+        "new_processes": new_processes,
+        "threads": threads,
+        "time": t_common,
+        "source_rows": len(src_keys),
+        "moved_keys": moved,
+    }

@@ -1,7 +1,8 @@
 """Env-driven runtime configuration, trimmed to what ``pw.run`` reads.
 
 Counterpart of ``pathway_tpu/internals/config.py``: the worker topology
-(``PATHWAY_THREADS``, ``PATHWAY_PROCESSES``) and persistence (``PATHWAY_PERSISTENT_STORAGE``,
+(``PATHWAY_THREADS``, ``PATHWAY_PROCESSES``, ``PATHWAY_PROCESS_ID``,
+``PATHWAY_FIRST_PORT``) and persistence (``PATHWAY_PERSISTENT_STORAGE``,
 ``PATHWAY_REPLAY_STORAGE``, ``PATHWAY_PERSISTENCE_MODE``, ``PATHWAY_SNAPSHOT_ACCESS``,
 ``PATHWAY_CONTINUE_AFTER_REPLAY``) and the license key (``PATHWAY_LICENSE_KEY``, or the
 key :func:`set_license_key` set in this context, which wins). ``pw.run`` reads a fresh
@@ -46,6 +47,9 @@ def _env_bool_field(name: str, default: str = "false"):
 class PathwayConfig:
     threads: int = field(default_factory=lambda: _env_int("PATHWAY_THREADS", 1))
     processes: int = field(default_factory=lambda: _env_int("PATHWAY_PROCESSES", 1))
+    process_id: str = _env_field("PATHWAY_PROCESS_ID", "0")
+    #: process i of a mesh listens on ``first_port + i``
+    first_port: int = field(default_factory=lambda: _env_int("PATHWAY_FIRST_PORT", 10000))
     continue_after_replay: bool = _env_bool_field("PATHWAY_CONTINUE_AFTER_REPLAY", "true")
     persistence_mode: str = _env_field("PATHWAY_PERSISTENCE_MODE", "persisting")
     persistent_storage: str | None = _env_field("PATHWAY_PERSISTENT_STORAGE")

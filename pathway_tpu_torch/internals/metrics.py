@@ -36,8 +36,9 @@ Families the port reports: the connectors' ``pathway_connector_entries_total``,
 ``pathway_device_knn_queries_total``; the residency plane's transfer and event
 counters; the pull collectors' ``pathway_native_kernel_*``, ``pathway_optimizer_*`` and
 ``pathway_device_ops_*``; the profiler's ``pathway_profile_*`` and
-``pathway_device_memory_bytes``. The mesh families (recoveries, retries, epochs,
-elections, rescales) come with the distributed runner (ROADMAP queue 1 item 14).
+``pathway_device_memory_bytes``; the mesh's families (``pathway_mesh_*``: recoveries,
+send retries, epochs, fenced frames, elections, rescales, receive backpressure), which
+``engine/distributed.py`` and ``DistributedGraphRunner`` report.
 """
 
 from __future__ import annotations

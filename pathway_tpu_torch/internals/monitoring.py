@@ -9,8 +9,9 @@ port and exposition:
   host without ``rich`` raises ``ImportError`` there);
 - :meth:`StatsMonitor.prometheus_text` renders one exposition of three layers: the
   unlabelled local series, this process's full registry snapshot under
-  ``worker="<process_id>"``, and every mesh snapshot in ``mesh_snapshots`` (empty
-  until the distributed runner feeds it, ROADMAP queue 1 item 14);
+  ``worker="<process_id>"``, and every mesh snapshot in ``mesh_snapshots`` (on
+  process 0 of a mesh, the followers' snapshots that ``DistributedGraphRunner`` feeds
+  it as they arrive on the round frames; empty in one process);
 - :class:`MonitoringHttpServer` serves it on port 20000 + ``PATHWAY_PROCESS_ID``
   (``/`` and ``/metrics``), with ``/timeseries`` (the history ring and SLO specs of
   ``internals/timeseries.py``), ``/requests`` (the request ring) and ``/profile`` (the

@@ -6,9 +6,14 @@ the streaming loop until every connector is done, under ``persistence_config`` (
 one the environment implies, ``PATHWAY_PERSISTENT_STORAGE`` and
 ``PATHWAY_PERSISTENCE_MODE``) where one is given. ``threads=N`` (or
 ``PATHWAY_THREADS``) runs N workers in one process through the sharded runner
-(``internals/runner.py::ShardedGraphRunner``); more than one process (the distributed
-runner, ROADMAP queue 1 item 14), ``debug`` and ``strict`` (the static analyzer, item 8)
-are not ported yet, and a configuration that asks for them raises.
+(``internals/runner.py::ShardedGraphRunner``); ``processes=N`` (or
+``PATHWAY_PROCESSES``, with ``PATHWAY_PROCESS_ID`` and ``PATHWAY_FIRST_PORT``, as
+``python -m pathway_tpu_torch.cli spawn`` sets them) runs this process as one member of
+a mesh of N through the distributed runner (``DistributedGraphRunner``): process 0
+coordinates and holds the sinks, and the others force ``MonitoringLevel.NONE`` (each
+keeps its own Prometheus endpoint, 20000 + ``PATHWAY_PROCESS_ID`` by default).
+``debug`` and ``strict`` (the static analyzer, ROADMAP queue 1 item 8) are not ported
+yet, and a configuration that asks for them raises.
 
 A run watches itself as the JAX package's does: ``monitoring_level`` renders the live
 dashboard, ``with_http_server`` serves ``/metrics``, ``/timeseries``, ``/requests`` and
@@ -90,7 +95,11 @@ def run(
         MonitoringLevel,
         StatsMonitor,
     )
-    from pathway_tpu_torch.internals.runner import GraphRunner, ShardedGraphRunner
+    from pathway_tpu_torch.internals.runner import (
+        DistributedGraphRunner,
+        GraphRunner,
+        ShardedGraphRunner,
+    )
     from pathway_tpu_torch.internals.telemetry import (
         run_span,
         stop_beside_run,
@@ -106,15 +115,23 @@ def run(
     config = get_pathway_config()
     threads = kwargs.get("threads") or config.threads
     processes = kwargs.get("processes") or config.processes
-    if processes > 1:
-        raise NotImplementedError(
-            "more than one process needs the distributed runner, which is not ported "
-            "yet (ROADMAP queue 1 item 14)"
-        )
     if persistence_config is None:
         persistence_config = config.replay_config
-    runner: GraphRunner
-    if threads > 1:
+    runner: Any
+    if processes > 1:
+        # the same program in every process, a key-sharded exchange over TCP
+        runner = DistributedGraphRunner(
+            threads,
+            processes,
+            int(config.process_id),
+            first_port=config.first_port,
+            persistence_config=persistence_config,
+        )
+        if int(config.process_id) != 0:
+            # the live dashboard is process 0's; the Prometheus endpoint stays per
+            # process
+            monitoring_level = MonitoringLevel.NONE
+    elif threads > 1:
         # workers in one process: a replica of the graph each, key-sharded exchange
         runner = ShardedGraphRunner(threads, persistence_config=persistence_config)
     else:
@@ -165,7 +182,7 @@ def run(
             runner.probe_stats = True
         FLIGHT.record(
             "run_start", threads=threads, processes=processes,
-            process_id=int(os.environ.get("PATHWAY_PROCESS_ID", "0")),
+            process_id=int(config.process_id),
         )
         try:
             with run_span(lambda: runner.scheduler):

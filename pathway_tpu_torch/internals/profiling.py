@@ -27,9 +27,10 @@ Every payload carries :func:`device_counters`: the kernel ns of both kernel plan
 the card's allocator (``torch.cuda.memory_stats``, keyed ``cuda:<i>``), read only once
 this process has a CUDA context, so a scrape never makes one. The JAX package's
 compile-cache and live-array gauges have no torch counterpart and are left out
-(ROADMAP: deliberate differences). The mesh half (:meth:`SampleProfiler.absorb`,
-:meth:`~SampleProfiler.prune`, the epoch fence) is ported as the module has it; its
-callers come with the distributed runner (ROADMAP queue 1 item 14).
+(ROADMAP: deliberate differences). The mesh half: a follower's payload rides its round
+frames to the leader, which :meth:`SampleProfiler.absorb` s it; the mesh's recovery and
+rescale paths :meth:`~SampleProfiler.prune` dead or out-of-width peers; the mesh's resync
+raises the epoch fence (``engine/distributed.py``, ``DistributedGraphRunner``).
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ static and connector-backed input tables, ``select`` (UDF columns included),
 ``interval_join``, ``asof_join`` and ``asof_now_join`` specs) and ``pw.iterate``'s
 ``iterate_param``, ``iterate_result`` and ``table_transform``. The row transformers'
 spec raises ``NotImplementedError`` naming its ROADMAP item (queue 1 item 8).
+:class:`ShardedGraphRunner` runs workers in one process and
+:class:`DistributedGraphRunner` in several, over the TCP mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from pathway_tpu_torch.internals import expression as pex
 from pathway_tpu_torch.internals.desugaring import substitute
 from pathway_tpu_torch.internals.expression import ColumnExpression, ColumnReference
 from pathway_tpu_torch.internals import metrics as _metrics
+from pathway_tpu_torch.internals import profiling as _profiling
+from pathway_tpu_torch.internals import timeseries as _timeseries
 from pathway_tpu_torch.internals import tracing as _tracing
 from pathway_tpu_torch.internals.udfs.caches import set_udf_cache_root
 from pathway_tpu_torch.internals.udfs.executors import make_kw_fn as _make_kw_fn
@@ -113,10 +117,14 @@ def _observe_commit_latency(stamp: float | None, commit_started: float, rows_bef
     _INGEST_LATENCY.observe_n(max(0.0, _time.monotonic() - origin), rows)
 
 
-def _pump_drivers(drivers: list, on_data: Callable[[], Any]) -> None:
+def _pump_drivers(
+    drivers: list, on_data: Callable[[], Any], on_idle: Callable[[], Any] | None = None
+) -> None:
     """The streaming poll loop: poll every connector driver, let rows gather in the
     input sessions, and call ``on_data()`` (which commits) when a driver's autocommit
-    deadline expires or a driver finishes; back off exponentially when idle.
+    deadline expires or a driver finishes; back off exponentially when idle, calling
+    ``on_idle()`` after each idle sleep (the mesh coordinator's liveness checks, pings
+    and rescale requests).
 
     The autocommit window (``autocommit_duration_ms`` on each connector) keeps
     commits coarse: committing on every poll turns a fast feed into thousands of tiny
@@ -158,6 +166,8 @@ def _pump_drivers(drivers: list, on_data: Callable[[], Any]) -> None:
             continue
         idle_spins += 1
         _time.sleep(min(0.001 * idle_spins, 0.05))
+        if on_idle is not None:
+            on_idle()
 
 
 class GraphRunner:
@@ -1061,10 +1071,12 @@ class ShardedGraphRunner(GraphRunner):
         _attach_sinks_on_primary(self.workers)
 
 
-def _attach_sinks_on_primary(workers: list) -> None:
+def _attach_sinks_on_primary(workers: list, attach: bool = True) -> int:
     """Build every registered sink's table on every worker (so the replicas stay
     aligned by node index), then attach the sinks on worker 0's scope, whose sink nodes
-    come after every shared node: nodes past the shared graph exist on worker 0 only."""
+    come after every shared node: nodes past the shared graph exist on worker 0 only.
+    ``attach=False`` (a follower process of a mesh) builds the tables and attaches
+    nothing. Returns the shared graph's length."""
     from pathway_tpu_torch.internals import parse_graph
 
     sinks = list(parse_graph.G.sinks)
@@ -1072,7 +1084,724 @@ def _attach_sinks_on_primary(workers: list) -> None:
     for w in workers[1:]:
         for s in sinks:
             w.build(s.table)
-    for sink, node in zip(sinks, nodes):
-        driver = sink.attach(workers[0].scope, node)
-        if driver is not None:
-            workers[0].drivers.append(driver)
+    n_shared = len(workers[0].scope.nodes)
+    if attach:
+        for sink, node in zip(sinks, nodes):
+            driver = sink.attach(workers[0].scope, node)
+            if driver is not None:
+                workers[0].drivers.append(driver)
+    return n_shared
+
+
+class DistributedGraphRunner:
+    """Workers in several processes: the same program runs in ``processes``
+    processes, which exchange key-sharded batches over the TCP mesh
+    (``engine/distributed.py``); counterpart of ``DistributedGraphRunner`` in
+    ``pathway_tpu/internals/runner.py``.
+
+    Every process holds ``threads`` local replicas of the graph; total workers =
+    threads x processes. Process 0 is the coordinator: the connector drivers poll
+    there, the input journal and the sinks live there, and it broadcasts the commit
+    and finish commands. Every process keeps the persistence config and, under
+    ``OPERATOR_PERSISTING``, its own snapshot manager
+    (``operator-snapshot-p<id>``, a ring of 3 commits), so the mesh can roll back to
+    a commit all of them hold. A follower's replicas build no connector driver and no
+    external index (the index operator is pinned to worker 0 of process 0).
+
+    Under ``PATHWAY_TPU_RECOVER=1`` with operator snapshots, a lost follower is
+    restarted by the supervisor and the mesh rolls back to its snapshot; a lost
+    leader is replaced through an election among the survivors. Otherwise a lost peer
+    fail-stops the run. ``PATHWAY_TPU_RESHARD=<old count>`` makes the process a
+    one-shot helper that re-shards a quiesced mesh's snapshots for ``processes``
+    processes and exits (``MeshSupervisor.rescale``)."""
+
+    def __init__(
+        self,
+        threads: int,
+        processes: int,
+        process_id: int,
+        first_port: int = 10000,
+        persistence_config: Any = None,
+    ) -> None:
+        if processes < 2:
+            raise ValueError("DistributedGraphRunner needs processes >= 2")
+        if not 0 <= process_id < processes:
+            raise ValueError(
+                f"PATHWAY_PROCESS_ID={process_id} out of range for {processes} processes"
+            )
+        from pathway_tpu_torch.internals.license import check_worker_count
+
+        check_worker_count(threads * processes)
+        self.threads = threads
+        self.processes = processes
+        self.process_id = process_id
+        self.first_port = first_port
+        self.persistence = persistence_config
+        primary = process_id == 0
+        self.workers = [
+            GraphRunner(
+                persistence_config=persistence_config if primary else None,
+                attach_drivers=primary and i == 0,
+            )
+            for i in range(threads)
+        ]
+        self.monitor: Any = None
+        self.probe_stats = False
+        self.scheduler: Any = None
+        self._epoch = 0
+
+    def build(self, table: "Table") -> list[Node]:
+        return [w.build(table) for w in self.workers]
+
+    def attach_sinks(self) -> None:
+        """Build every sink's table on every local replica (the node indices agree
+        across processes); attach the sinks on process 0 only."""
+        self.n_shared = _attach_sinks_on_primary(self.workers, attach=self.process_id == 0)
+
+    def run(self) -> Any:
+        from pathway_tpu_torch.engine.distributed import DistributedScheduler, MeshTransport
+
+        if os.environ.get("PATHWAY_TPU_RESHARD"):
+            return self._reshard_snapshots(int(os.environ["PATHWAY_TPU_RESHARD"]))
+        transport = MeshTransport(self.process_id, self.processes, self.first_port)
+        try:
+            sched = DistributedScheduler(
+                [w.scope for w in self.workers],
+                self.process_id,
+                self.processes,
+                transport,
+                n_shared=getattr(self, "n_shared", len(self.workers[0].scope.nodes)),
+                # followers always probe: the snapshots they piggyback carry per-operator
+                # series for the leader's /metrics
+                probe=(
+                    self.monitor is not None
+                    and getattr(self.monitor, "wants_operator_stats", True)
+                )
+                or self.probe_stats
+                or self.process_id != 0,
+            )
+            self.scheduler = sched
+            if self.monitor is not None:
+                self.monitor.scheduler = sched
+                # the leader's endpoint renders the followers' snapshots as they arrive
+                self.monitor.mesh_snapshots = sched.mesh_metrics
+            if self.process_id == 0:
+                sched.announce_topology()
+                self._coordinate(sched, transport)
+            else:
+                sched.receive_topology()
+                self._follow(sched, transport)
+            return sched
+        finally:
+            transport.close()
+            stop_event_loop()
+
+    # -- rescale -------------------------------------------------------------
+
+    def _reshard_snapshots(self, old_processes: int) -> None:
+        """Re-shard the mesh's per-process operator snapshots from ``old_processes``
+        to ``self.processes`` processes, in a helper process between the quiesced old
+        mesh and the relaunched new one. The graph is built (the program ran up to
+        ``pw.run``), and the optimizer plan the mesh applies is applied here too, so
+        the node classes match the snapshots' signatures. Prints the report as a
+        ``PATHWAY_RESHARD_JSON`` line for the supervisor."""
+        import json as _json
+
+        from pathway_tpu_torch.engine.persistence import reshard_process_snapshots
+        from pathway_tpu_torch.optimize import optimize_scopes
+
+        if self.persistence is None:
+            raise RuntimeError(
+                "PATHWAY_TPU_RESHARD requires persistence "
+                "(PersistenceMode.OPERATOR_PERSISTING)"
+            )
+        scopes = [w.scope for w in self.workers]
+        n_shared = getattr(self, "n_shared", len(scopes[0].nodes))
+        protected = set()
+        for node in scopes[0].nodes[:n_shared]:
+            for consumer, _port in node.consumers:
+                if consumer.index >= n_shared:
+                    protected.add(node.index)
+        optimize_scopes(scopes, n_shared=n_shared, protected=protected)
+        report = reshard_process_snapshots(
+            self.persistence.backend,
+            old_processes,
+            self.processes,
+            self.threads,
+            scopes,
+            n_shared=n_shared,
+        )
+        _metrics.FLIGHT.record("reshard", **report)
+        print("PATHWAY_RESHARD_JSON " + _json.dumps(report), flush=True)
+        return None
+
+    # -- fault tolerance ----------------------------------------------------
+
+    def _note_epoch(self) -> None:
+        _metrics.REGISTRY.gauge(
+            "pathway_mesh_epoch",
+            "current mesh recovery epoch (bumped by every recovery or "
+            "leader election; frames from older epochs are fenced)",
+        ).set(self._epoch)
+
+    def _report_rescale_metrics(self) -> None:
+        """A leader relaunched by ``MeshSupervisor.rescale`` carries the supervisor's
+        rescale stamps in its environment: report them on this process's registry, so
+        the leader's ``/metrics`` shows the rescale history."""
+        try:
+            rescales = int(os.environ.get("PATHWAY_TPU_RESCALED", "0"))
+        except ValueError:
+            rescales = 0
+        if rescales <= 0:
+            return
+        _metrics.REGISTRY.counter(
+            "pathway_mesh_rescales_total",
+            "completed N->M mesh rescales (quiesce + re-shard + relaunch)",
+        ).inc(rescales)
+        try:
+            wall = float(os.environ.get("PATHWAY_TPU_RESCALE_WALL_S", ""))
+        except ValueError:
+            wall = None
+        if wall is not None:
+            _metrics.REGISTRY.histogram(
+                "pathway_mesh_rescale_seconds",
+                "wall time of the most recent rescale, quiesce request to relaunch",
+                buckets=(0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0),
+            ).observe(wall)
+
+    def _snapshot_manager(self) -> OperatorSnapshotManager | None:
+        """This process's operator snapshot manager, or None without
+        ``OPERATOR_PERSISTING``: each process snapshots its own replicas under a name
+        of its own and keeps a ring of 3 commits."""
+        if self.persistence is None or (
+            getattr(self.persistence, "persistence_mode", None)
+            != PersistenceMode.OPERATOR_PERSISTING
+        ):
+            return None
+        return OperatorSnapshotManager(
+            self.persistence.backend,
+            getattr(self.persistence, "snapshot_interval_ms", 0),
+            name=f"operator-snapshot-p{self.process_id}",
+            retain=3,
+        )
+
+    @staticmethod
+    def _recovery_enabled(snapshot_mgr: Any) -> bool:
+        """Recovery needs both ``PATHWAY_TPU_RECOVER`` and operator snapshots;
+        everything else fail-stops."""
+        return snapshot_mgr is not None and os.environ.get(
+            "PATHWAY_TPU_RECOVER", ""
+        ).lower() in ("1", "true", "yes")
+
+    @staticmethod
+    def _recover_deadline() -> float:
+        try:
+            return max(1.0, float(os.environ.get("PATHWAY_TPU_RECOVER_DEADLINE", "60")))
+        except ValueError:
+            return 60.0
+
+    @staticmethod
+    def _fault_plan() -> Any:
+        if not os.environ.get("PATHWAY_TPU_FAULT_PLAN"):
+            return None
+        from pathway_tpu_torch.engine.faults import active_plan
+
+        return active_plan()
+
+    @staticmethod
+    def _request_kill(peer: int) -> None:
+        """Ask the MeshSupervisor (if one launched this mesh) to SIGKILL a peer
+        suspected hung, so its death and restart take over; without a supervisor the
+        caller fail-stops at the re-establish deadline."""
+        sup_dir = os.environ.get("PATHWAY_TPU_SUPERVISOR_DIR")
+        if not sup_dir:
+            return
+        try:
+            with open(os.path.join(sup_dir, f"kill-{peer}"), "w") as fh:
+                fh.write(str(os.getpid()))
+        except OSError:
+            pass
+
+    @staticmethod
+    def _rewind_sinks(to_time: int) -> None:
+        """Truncate the file sinks past the rollback point, so the commits driven
+        again land once. Callback sinks (``pw.io.subscribe``) cannot rewind: they see
+        the commits driven again at least once."""
+        from pathway_tpu_torch.engine.connectors import FILE_WRITERS
+
+        for writer in list(FILE_WRITERS):
+            writer.rewind_to(to_time)
+
+    def _recover_mesh(
+        self, sched: Any, transport: Any, snapshot_mgr: Any, dead_peer: int, drivers: list
+    ) -> None:
+        """The leader's recovery: park the survivors, have the dead worker restarted
+        (by the supervisor), re-mesh, run the handshake again, roll every process back
+        to the restarted worker's snapshot and resync the links."""
+        t0 = _time.monotonic()
+        self._epoch += 1
+        epoch = self._epoch
+        self._note_epoch()
+        _metrics.FLIGHT.record("peer_dead", peer=dead_peer, time=sched.time, epoch=epoch)
+        _metrics.FLIGHT.dump(f"peer {dead_peer} lost (leader view)")
+        # after the dump, which names the trace in flight; the dead incarnation's
+        # snapshot and spans leave the aggregated /metrics
+        _tracing.TRACER.drop()
+        sched.mesh_metrics.pop(dead_peer, None)
+        sched.trace_peer_spans.pop(dead_peer, None)
+        _profiling.PROFILER.prune(dead=(dead_peer,))
+        _timeseries.STORE.prune_workers(dead={str(dead_peer)})
+        _metrics.FLIGHT.record("recovery_start", peer=dead_peer, epoch=epoch)
+        deadline = self._recover_deadline()
+        for peer in sorted(sched._outbox):
+            if peer == dead_peer or peer in transport.dead_peers:
+                continue
+            transport.send(peer, ("cmd", "recover", dead_peer, epoch))
+        # a hung (not dead) worker must die before its restart can bind the port
+        self._request_kill(dead_peer)
+        detect_s = _time.monotonic() - t0
+        transport.reestablish(dead_peer, deadline=deadline)
+        sched.reannounce_to(dead_peer)
+        frame = transport.recv(dead_peer, timeout=deadline)
+        if not (isinstance(frame, tuple) and frame and frame[0] == "rejoin"):
+            raise RuntimeError(
+                f"process 0: expected the restarted worker {dead_peer}'s rejoin frame, "
+                f"got {frame!r}"
+            )
+        rejoin_time = int(frame[1])
+        if rejoin_time < 0:
+            raise RuntimeError(
+                f"process 0: restarted worker {dead_peer} has no operator snapshot to "
+                "resume from (it died before its first commit boundary); cold-starting "
+                "one worker of a warm mesh would diverge state — fail-stop"
+            )
+        transport.broadcast(("cmd", "rollback", rejoin_time, epoch))
+        sched.rollback(rejoin_time, snapshot_mgr, drivers)
+        self._rewind_sinks(rejoin_time)
+        sched.resync(epoch)
+        _metrics.REGISTRY.counter(
+            "pathway_mesh_recoveries_total",
+            "mesh-wide recoveries completed after a worker loss",
+        ).inc(1)
+        _metrics.FLIGHT.record(
+            "recovery_done",
+            peer=dead_peer,
+            epoch=epoch,
+            to_time=rejoin_time,
+            detect_s=round(detect_s, 6),
+            wall_s=round(_time.monotonic() - t0, 6),
+        )
+        _metrics.FLIGHT.dump(f"peer {dead_peer} recovered (leader view)")
+
+    # -- the two run loops --------------------------------------------------
+
+    def _coordinate(self, sched: Any, transport: Any) -> None:
+        from pathway_tpu_torch.engine.distributed import RECV_TIMEOUT, PeerLostError
+
+        w0 = self.workers[0]
+        drivers = list(w0.drivers)
+        persistent = [d for d in drivers if isinstance(d, PersistentDriver)]
+        for d in persistent:
+            d.replay()
+        snapshot_mgr = self._snapshot_manager()
+        recovery = self._recovery_enabled(snapshot_mgr)
+        fault_plan = self._fault_plan()
+        self._report_rescale_metrics()
+        common = -1
+        if snapshot_mgr is not None:
+            # the startup rejoin: every follower's latest snapshot time, the whole mesh
+            # rolled back to the oldest, then a barrier (a cold start takes the same
+            # path with -1). The rejoin frames carry each survivor's epoch: a leader
+            # restarted after a failover resumes above them, or the survivors' fences
+            # would reject its rollback as a zombie's.
+            times = [snapshot_mgr.latest_time()]
+            peer_epochs = [0]
+            for peer in sorted(sched._outbox):
+                frame = transport.recv(peer)
+                if not (isinstance(frame, tuple) and frame and frame[0] == "rejoin"):
+                    raise RuntimeError(
+                        f"process 0: expected peer {peer}'s rejoin frame, got {frame!r}"
+                    )
+                times.append(frame[1])
+                peer_epochs.append(int(frame[2]) if len(frame) >= 3 else 0)
+            common = min((t if t is not None else -1) for t in times)
+            self._epoch = max([self._epoch] + peer_epochs) + 1
+            self._note_epoch()
+            transport.broadcast(("cmd", "rollback", common, self._epoch))
+            sched.fence.admit("rollback", self._epoch)
+            sched.rollback(common, snapshot_mgr, drivers)
+            # the resumed sink files may hold commits newer than the last common
+            # snapshot (a cold restart lost them)
+            self._rewind_sinks(common)
+            sched.resync(self._epoch)
+        quiesce_path = None
+        sup_dir = os.environ.get("PATHWAY_TPU_SUPERVISOR_DIR")
+        if sup_dir and snapshot_mgr is not None:
+            quiesce_path = os.path.join(sup_dir, "quiesce")
+
+        def maybe_quiesce(committed_time: int | None) -> None:
+            """A rescale request from the supervisor: stop at a commit boundary, take
+            a snapshot of it on every process and exit with the quiesce code."""
+            if quiesce_path is None or not os.path.exists(quiesce_path):
+                return
+            from pathway_tpu_torch.engine.supervisor import EXIT_QUIESCED
+
+            try:
+                if committed_time is None:
+                    # an idle stream: every polled row is committed, so the state is
+                    # the last commit's (an empty commit here would shift the later
+                    # commit times off the uninterrupted run's)
+                    committed_time = sched.time - 1
+                transport.broadcast(("cmd", "quiesce", committed_time))
+            except PeerLostError:
+                # a peer died mid-quiesce: recovery runs, and the marker stays for
+                # the next boundary
+                return
+            snapshot_mgr.snapshot(sched.scopes, drivers, committed_time)
+            _metrics.FLIGHT.record("quiesce", time=committed_time, process=self.process_id)
+            _metrics.FLIGHT.dump("quiesced for rescale")
+            raise SystemExit(EXIT_QUIESCED)
+
+        if common < 0:
+            # a fresh start: the barrier commit (static sources) is time 0. A mesh
+            # resumed from a common snapshot skips it, or every later commit time
+            # would shift off the uninterrupted run's.
+            transport.broadcast(("cmd", "commit"))
+            barrier_time = sched.commit_local()
+            if snapshot_mgr is not None:
+                # followers snapshot every commit, this one too; so does the leader,
+                # or a worker lost before the first data commit would roll back to a
+                # boundary the leader cannot restore
+                device_pipeline.drain_until(barrier_time)
+                snapshot_mgr.on_commit(sched.scopes, drivers, barrier_time)
+        last_sign_of_life = _time.monotonic()
+
+        def on_data() -> None:
+            nonlocal last_sign_of_life
+            started = _time.monotonic()
+            try:
+                transport.raise_if_peer_dead()
+                stamp, sources = _take_ingest_stamp(drivers)
+                rows_before = _OUT_ROWS.value
+                # begun before the broadcast: the context rides the first round's
+                # frames, so the followers adopt it at the commit's start
+                ctx = _tracing.TRACER.begin(sched.time, origin_mono=stamp, sources=sources)
+                transport.broadcast(("cmd", "commit"))
+                time = sched.commit_local()
+            except PeerLostError as exc:
+                if not recovery or exc.peer is None or exc.peer == 0:
+                    raise
+                self._recover_mesh(sched, transport, snapshot_mgr, exc.peer, drivers)
+                return  # the rolled-back commit is driven again at the next poll
+            if ctx is not None:
+                _tracing.TRACER.end(time, peer_spans=dict(sched.trace_peer_spans))
+                sched.trace_peer_spans.clear()
+            _observe_commit_latency(stamp, started, rows_before)
+            if persistent or snapshot_mgr is not None:
+                # exactly once: the checkpoint of commit N waits for N's device work
+                device_pipeline.drain_until(time)
+            for d in persistent:
+                d.on_commit(time)
+            if snapshot_mgr is not None:
+                snapshot_mgr.on_commit(sched.scopes, drivers, time)
+            if fault_plan is not None:
+                fault_plan.on_commit(self.process_id, time)
+            if self.monitor is not None:
+                w0.monitor = self.monitor
+                w0._sync_monitor_connectors()
+                self.monitor.on_commit(time, started)
+            last_sign_of_life = started
+            maybe_quiesce(time)
+
+        # pings must come well inside the followers' receive timeout
+        ping_every = min(30.0, RECV_TIMEOUT / 2.0)
+
+        def on_idle() -> None:
+            nonlocal last_sign_of_life
+            try:
+                transport.raise_if_peer_dead()
+            except PeerLostError as exc:
+                if not recovery or exc.peer is None or exc.peer == 0:
+                    raise
+                self._recover_mesh(sched, transport, snapshot_mgr, exc.peer, drivers)
+                last_sign_of_life = _time.monotonic()
+                return
+            maybe_quiesce(None)
+            if _time.monotonic() - last_sign_of_life > ping_every:
+                transport.broadcast(("cmd", "ping"))
+                last_sign_of_life = _time.monotonic()
+
+        _pump_drivers(drivers, on_data, on_idle)
+        transport.broadcast(("cmd", "finish"))
+        sched.finish_local()
+        _tracing.TRACER.export()  # the leader holds the assembled mesh traces
+        for d in persistent:
+            d.on_commit(sched.time)
+        if snapshot_mgr is not None:
+            snapshot_mgr.snapshot(sched.scopes, drivers, sched.time)
+
+    def _follow(self, sched: Any, transport: Any) -> None:
+        from pathway_tpu_torch.engine.distributed import PeerLostError
+
+        snapshot_mgr = self._snapshot_manager()
+        recovery = self._recovery_enabled(snapshot_mgr)
+        fault_plan = self._fault_plan()
+        deadline = self._recover_deadline()
+        if snapshot_mgr is not None:
+            latest = snapshot_mgr.latest_time()
+            transport.send(0, ("rejoin", latest if latest is not None else -1, self._epoch))
+        while True:
+            try:
+                frame = transport.recv(0)
+            except PeerLostError:
+                # the leader died or hung: dump forensics and, with recovery on, elect
+                # an interim leader and rejoin the restarted one
+                self._leader_failover(sched, transport, snapshot_mgr)
+                continue
+            kind = frame[0]
+            if kind != "cmd":
+                raise RuntimeError(
+                    f"process {self.process_id}: expected a coordinator command, got "
+                    f"{kind!r}"
+                )
+            cmd = frame[1]
+            if cmd == "ping":
+                # answered, so the leader's suspicion clock sees an idle live follower
+                transport.heartbeat(0)
+                continue
+            if cmd == "commit":
+                try:
+                    time = sched.commit_local()
+                except PeerLostError as exc:
+                    if exc.peer == 0 or 0 in transport.dead_peers:
+                        self._leader_failover(sched, transport, snapshot_mgr)
+                        continue
+                    if not recovery or exc.peer is None:
+                        raise
+                    try:
+                        self._park_for_recovery(sched, transport, exc.peer)
+                    except PeerLostError as parked:
+                        # the leader died while this survivor waited for its command
+                        if parked.peer == 0 or 0 in transport.dead_peers:
+                            self._leader_failover(sched, transport, snapshot_mgr)
+                        else:
+                            raise
+                    continue
+                if snapshot_mgr is not None:
+                    # exactly once: this worker's snapshot of commit N waits for N's
+                    # device work
+                    device_pipeline.drain_until(time)
+                    snapshot_mgr.on_commit(sched.scopes, [], time)
+                if fault_plan is not None:
+                    fault_plan.on_commit(self.process_id, time)
+            elif cmd == "recover":
+                # a peer died and this follower was idle (a parked one consumed the
+                # command already); the fence makes duplicates no-ops
+                if not sched.fence.admit("recover", frame[3]):
+                    continue
+                dead = frame[2]
+                _metrics.FLIGHT.record("peer_dead", peer=dead, time=sched.time, epoch=frame[3])
+                _metrics.FLIGHT.dump(f"peer {dead} lost (survivor view)")
+                transport.reestablish(dead, deadline=deadline)
+                _metrics.FLIGHT.record("recovery_remesh", peer=dead, epoch=frame[3])
+            elif cmd == "rollback":
+                # a rollback run twice would deadlock in resync: a zombie's or a
+                # duplicated command is fenced
+                if not sched.fence.admit("rollback", frame[3]):
+                    continue
+                self._epoch = max(self._epoch, int(frame[3]))
+                self._note_epoch()
+                sched.rollback(frame[2], snapshot_mgr, [])
+                sched.resync(frame[3])
+            elif cmd == "quiesce":
+                from pathway_tpu_torch.engine.supervisor import EXIT_QUIESCED
+
+                if snapshot_mgr is not None:
+                    snapshot_mgr.snapshot(sched.scopes, [], frame[2])
+                _metrics.FLIGHT.record("quiesce", time=frame[2], process=self.process_id)
+                _metrics.FLIGHT.dump("quiesced for rescale")
+                raise SystemExit(EXIT_QUIESCED)
+            elif cmd == "finish":
+                sched.finish_local()
+                if snapshot_mgr is not None:
+                    snapshot_mgr.snapshot(sched.scopes, [], sched.time)
+                return
+            else:
+                raise RuntimeError(f"unknown coordinator command {cmd!r}")
+
+    def _leader_failover(self, sched: Any, transport: Any, snapshot_mgr: Any) -> None:
+        """A follower's response to losing the leader (process 0).
+
+        Every survivor dumps its flight ring first. With recovery off, that is all:
+        fail-stop, and the supervisor reports ``EXIT_LEADER_LOST``. With recovery on,
+        the survivors elect the lowest live rank as interim leader
+        (:func:`elect_leader`, epoch-stamped); it asks the supervisor to kill the old
+        leader (a hung one must die before its successor can bind the port) and
+        gathers the survivors' metrics snapshots. Everyone then re-meshes toward the
+        restarted process 0, runs the topology handshake again and sends an
+        epoch-stamped rejoin; the restarted leader rolls the mesh back to the last
+        common commit above the survivors' epoch, so a frame a zombie ex-leader
+        flushes is fenced. A survivor lost during the window fail-stops at the
+        election deadline."""
+        from pathway_tpu_torch.engine.distributed import PeerLostError, elect_leader
+
+        recovery = self._recovery_enabled(snapshot_mgr)
+        last_seen = getattr(transport, "last_seen", {}).get(0)
+        _metrics.FLIGHT.record(
+            "leader_dead",
+            process=self.process_id,
+            time=sched.time,
+            epoch=self._epoch,
+            recovery=recovery,
+            detect_s=None if last_seen is None else round(_time.monotonic() - last_seen, 6),
+        )
+        _metrics.FLIGHT.dump("leader (process 0) lost")
+        _tracing.TRACER.drop()  # after the dump, which names the trace
+        if not recovery:
+            raise PeerLostError(
+                f"process {self.process_id}: leader (process 0) lost and recovery is "
+                "disabled — fail-stop (flight ring dumped)",
+                peer=0,
+            )
+        t0 = _time.monotonic()
+        deadline = self._recover_deadline()
+        end = t0 + deadline
+        survivors = sorted(
+            p for p in range(self.processes) if p != 0 and p not in transport.dead_peers
+        )
+        epoch = self._epoch + 1
+        interim = elect_leader(survivors)
+        others = [p for p in survivors if p != self.process_id]
+        latest = snapshot_mgr.latest_time()
+        latest = -1 if latest is None else latest
+        if self.process_id == interim:
+            # the interim leader aggregates /metrics from a clean slate
+            sched.prune_mesh_metrics(dead=(0,))
+            for peer in others:
+                transport.send(peer, ("elect", epoch, interim))
+            rejoin_times = [latest]
+            for peer in others:
+                # the survivor's ack, past any round or abort debris on the link
+                while True:
+                    remaining = max(0.1, end - _time.monotonic())
+                    frame = transport.recv(peer, timeout=remaining)
+                    if (
+                        isinstance(frame, tuple)
+                        and len(frame) >= 4
+                        and frame[0] == "elect-ack"
+                        and frame[1] == epoch
+                    ):
+                        break
+                rejoin_times.append(frame[2])
+                if frame[3] is not None:
+                    peer_profile = frame[3].pop("__profile__", None)
+                    if peer_profile is not None:
+                        _profiling.PROFILER.absorb(peer, peer_profile)
+                    sched.mesh_metrics[peer] = frame[3]
+            self._request_kill(0)
+            _metrics.REGISTRY.counter(
+                "pathway_mesh_elections_total",
+                "leader elections completed after losing process 0",
+            ).inc(1)
+            _metrics.REGISTRY.histogram(
+                "pathway_mesh_election_seconds",
+                "leader-loss detection to election-complete wall time",
+                buckets=(0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0),
+            ).observe(_time.monotonic() - t0)
+            _metrics.FLIGHT.record(
+                "election_done",
+                interim=interim,
+                epoch=epoch,
+                survivors=survivors,
+                rollback_target=min(rejoin_times),
+                wall_s=round(_time.monotonic() - t0, 6),
+            )
+        else:
+            while True:
+                remaining = end - _time.monotonic()
+                if remaining <= 0:
+                    raise PeerLostError(
+                        f"process {self.process_id}: no election from interim leader "
+                        f"{interim} within {deadline:g}s of losing the leader — "
+                        "fail-stop",
+                        peer=interim,
+                    )
+                try:
+                    frame = transport.recv(interim, timeout=min(remaining, 1.0))
+                except PeerLostError:
+                    if interim in transport.dead_peers:
+                        raise  # the interim died too
+                    continue  # a poll timeout: wait on
+                if (
+                    isinstance(frame, tuple)
+                    and len(frame) >= 3
+                    and frame[0] == "elect"
+                    and frame[1] > self._epoch
+                ):
+                    epoch = int(frame[1])
+                    break
+            transport.send(interim, ("elect-ack", epoch, latest, sched._metrics_snapshot()))
+        self._epoch = epoch
+        self._note_epoch()
+        sched.fence.admit("elect", epoch)
+        # re-mesh toward the restarted process 0 and run the startup handshake again;
+        # the follow loop takes the rollback from there
+        transport.reestablish(0, deadline=max(1.0, end - _time.monotonic()))
+        sched.receive_topology()
+        transport.send(0, ("rejoin", latest, self._epoch))
+        _metrics.FLIGHT.record(
+            "leader_failover_done",
+            process=self.process_id,
+            epoch=self._epoch,
+            wall_s=round(_time.monotonic() - t0, 6),
+        )
+        _metrics.FLIGHT.dump("leader failover complete")
+
+    def _park_for_recovery(self, sched: Any, transport: Any, dead_peer: int) -> None:
+        """A survivor whose peer died mid-commit: dump forensics, then wait on the
+        leader's link (with backoff, within the deadline) for its recover command and
+        re-mesh toward the restarted worker; the follow loop takes the rollback."""
+        import random as _random
+
+        from pathway_tpu_torch.engine.distributed import PeerLostError
+
+        _metrics.FLIGHT.record("peer_dead", peer=dead_peer, time=sched.time)
+        _metrics.FLIGHT.dump(f"peer {dead_peer} lost (survivor view)")
+        _tracing.TRACER.drop()  # after the dump, which names the trace
+        _metrics.FLIGHT.record("recovery_parked", peer=dead_peer)
+        deadline = self._recover_deadline()
+        end = _time.monotonic() + deadline
+        wait = 0.05
+        frame = sched._pending_recover
+        sched._pending_recover = None
+        while True:
+            if frame is not None:
+                if (
+                    isinstance(frame, tuple)
+                    and len(frame) >= 4
+                    and frame[0] == "cmd"
+                    and frame[1] == "recover"
+                ):
+                    # a recover of an epoch already handled is fenced; a fresh one
+                    # advances the fence, so the idle path does not run it again
+                    if sched.fence.admit("recover", frame[3]):
+                        break
+                    frame = None
+                    continue
+                frame = None  # commit or round debris of the aborted exchange
+            remaining = end - _time.monotonic()
+            if remaining <= 0:
+                raise PeerLostError(
+                    f"process {self.process_id}: no recovery command within "
+                    f"{deadline:g}s of losing peer {dead_peer} — fail-stop",
+                    peer=dead_peer,
+                )
+            try:
+                frame = transport.recv(0, timeout=min(remaining, wait))
+            except PeerLostError:
+                if 0 in transport.dead_peers:
+                    raise  # the leader itself is gone
+                frame = None  # a poll timeout: wait on
+            wait = min(wait * 2, 1.0) * (0.75 + 0.5 * _random.random())
+        transport.reestablish(frame[2], deadline=deadline)
+        _metrics.FLIGHT.record("recovery_remesh", peer=frame[2], epoch=frame[3])

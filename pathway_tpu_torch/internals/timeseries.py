@@ -24,9 +24,10 @@ collector, say), stops ticking, and :meth:`TelemetryLoop.stop` (so ``stop_loop``
 ``pw.run`` calls) raises it on the caller's thread; the JAX package swallows it and
 ticks on (ROADMAP: deliberate differences). The read tier's replica snapshots, which
 the JAX package's tick reads from the serving stream server, wait for the serving
-tier (ROADMAP queue 1 item 8); :meth:`TimeSeriesStore.ingest_read_tier` and
-:meth:`TimeSeriesStore.prune_workers` are ported whole but have no caller until the
-serving tier and the distributed runners (item 14).
+tier (ROADMAP queue 1 item 8); :meth:`TimeSeriesStore.ingest_read_tier` is ported whole
+but has no caller until then. :meth:`TimeSeriesStore.prune_workers` is called by the
+mesh's recovery and rescale paths (``engine/distributed.py``, ``DistributedGraphRunner``),
+and the tick keeps the mesh snapshots of workers inside the mesh's width.
 """
 
 from __future__ import annotations

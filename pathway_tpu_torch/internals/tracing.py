@@ -36,11 +36,12 @@ device operators record their ns on the pipeline's completion thread, so that ti
 land in a later commit's window.
 
 The mesh half (:meth:`TraceRecorder.ctx_frame`, :meth:`~TraceRecorder.adopt`,
-:meth:`~TraceRecorder.take_spans`, peer spans in :meth:`~TraceRecorder.end`) and the
-request half (:class:`RequestTrace`, :meth:`~TraceRecorder.begin_request`,
-:meth:`~TraceRecorder.record_query`, the header helpers) are ported as the module has
-them; their callers come with the distributed runner and the serving tier (ROADMAP
-queue 1 items 14 and 8).
+:meth:`~TraceRecorder.take_spans`, peer spans in :meth:`~TraceRecorder.end`) is called by
+the mesh's exchange rounds (``engine/distributed.py``): the leader's context rides the
+round frames, the followers adopt it and ship their spans back. The request half
+(:class:`RequestTrace`, :meth:`~TraceRecorder.begin_request`,
+:meth:`~TraceRecorder.record_query`, the header helpers) is ported as the module has it;
+its callers come with the serving tier (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations

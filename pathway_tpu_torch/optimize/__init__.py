@@ -77,8 +77,9 @@ def optimize_scopes(
     ``scopes[0]`` is the primary (decision) scope and every rewrite is replayed on the
     others by node index. ``n_shared`` bounds the region the scopes share (the primary
     may carry extra trailing sink nodes); ``protected`` adds node indices whose
-    consumers the caller cannot see. The port runs one scope on one card; the
-    multi-scope form is kept for the sharded runners (ROADMAP queue 1 item 14).
+    consumers the caller cannot see (the multi-process scheduler's producers whose
+    sink consumers live on process 0 only). The sharded and distributed schedulers
+    call the multi-scope form.
 
     Returns the runtime exchange-elision set of ``(producer_index, consumer_index,
     port)`` triples.

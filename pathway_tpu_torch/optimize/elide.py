@@ -10,10 +10,10 @@ producers, whose out-specs do not depend on arity), and fusion only renames edge
 - an edge inside a chain leaves the runtime set: the exchange it crossed has been fused
   away (it still counts in ``optimizer_stats()["exchanges_elided"]``).
 
-In the JAX package the sharded and distributed schedulers read the returned
-``(producer_index, consumer_index, port)`` set at delivery time. The port's one-card
-scheduler has no exchange, so its marks reach only the optimizer's fingerprint and
-stats; the schedulers that would read them are ROADMAP queue 1 item 14.
+The sharded and distributed schedulers (``engine/sharded.py``,
+``engine/distributed.py``) read the returned ``(producer_index, consumer_index, port)``
+set at delivery time, as the JAX package's do. The one-worker scheduler has no
+exchange, so there the marks reach only the optimizer's fingerprint and stats.
 """
 
 from __future__ import annotations

@@ -16,9 +16,9 @@ Chain-aware placement: the pass links adjacent eligible operators
 (:meth:`PlacementPolicy.link`); the residency plane reports what each host
 materialization at a consumer's seam cost (:meth:`PlacementPolicy.record_seam`), and
 ``choose()`` credits that cost to the device side when a linked neighbour sits on the
-card and residency is on. On one card nothing stays resident between operators (the
-resident batches come with the sharded exchange, ROADMAP queue 1 item 14), so no seam
-is recorded there and the credit is 0; the machinery is kept whole.
+card and residency is on. Nothing stays resident between operators yet (the resident
+batches come with the collective exchange, ROADMAP queue 1 item 14, slice c), so no
+seam is recorded and the credit is 0; the machinery is kept whole.
 
 The pass is annotation-only on purpose: it runs even on graphs the rewriting passes
 skip, and it costs one cached environment check when ``PATHWAY_TPU_DEVICE_OPS=0``.

@@ -1083,3 +1083,73 @@ def test_sharded_groupby_on_the_card_gives_the_one_worker_bits(cuda, monkeypatch
     assert len(one) == len(set(keys)) and two == one
     assert one_routes[0]["device"] >= 1
     assert len(two_routes) == 2 and all(r["device"] >= 1 and r["rows"] == 0 for r in two_routes)
+
+
+_MESH_GROUPBY = """
+import json, os, sys
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.ops import segment_reduce as sr
+
+rng = np.random.default_rng(22)
+rows = [(int(k), float(v)) for k, v in zip(rng.integers(0, 700, 30_000),
+                                          rng.integers(-4000, 4000, 30_000) * 0.125)]
+t = pw.debug.table_from_rows(pw.schema_from_types(k=int, v=float), rows)
+g = t.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v), c=pw.reducers.count())
+state = {}
+
+
+def on_change(key, row, time, is_addition):
+    if is_addition:
+        state[row["k"]] = (np.float64(row["s"]).view(np.int64).item(), row["c"])
+    else:
+        state.pop(row["k"], None)
+
+
+pw.io.subscribe(g, on_change=on_change)
+for k in sr.KERNELS.values():
+    k.launches = 0
+pw.run()
+pid = os.environ["PATHWAY_PROCESS_ID"]
+with open(os.path.join(sys.argv[1], f"p{pid}.json"), "w") as fh:
+    json.dump({"launches": {n: k.launches for n, k in sr.KERNELS.items()},
+               "state": {str(k): v for k, v in state.items()}}, fh)
+"""
+
+
+def test_two_process_groupby_reduces_on_the_card_in_each_process(cuda, tmp_path):
+    """A count and sum groupby spawned as 2 processes (``cli spawn``) with every batch on
+    the card: each process reports its own segment launches, both above 0, and process
+    0's state equals ``np.bincount``'s, bit for bit (the values are exact in float64)."""
+    import json
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+
+    prog = tmp_path / "prog.py"
+    prog.write_text(_MESH_GROUPBY)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        base = s.getsockname()[1]
+    env = dict(os.environ, PATHWAY_TPU_DEVICE_OPS="1",
+               PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    proc = subprocess.Popen([sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "-n", "2",
+                             "--first-port", str(base), sys.executable, str(prog), str(tmp_path)],
+                            env=env, start_new_session=True)
+    try:
+        assert proc.wait(timeout=240) == 0
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    reports = [json.loads((tmp_path / f"p{p}.json").read_text()) for p in (0, 1)]
+    assert all(sum(r["launches"].values()) > 0 for r in reports), reports
+    rng = np.random.default_rng(22)
+    k = rng.integers(0, 700, 30_000)
+    v = rng.integers(-4000, 4000, 30_000) * 0.125
+    sums, counts = np.bincount(k, weights=v, minlength=700), np.bincount(k, minlength=700)
+    want = {str(i): [np.float64(sums[i]).view(np.int64).item(), int(counts[i])]
+            for i in range(700) if counts[i]}
+    assert reports[0]["state"] == want and reports[1]["state"] == {}

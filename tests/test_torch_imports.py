@@ -142,6 +142,10 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.internals.license",
         "pathway_tpu_torch.xpacks.connectors",
         "pathway_tpu_torch.xpacks.connectors.sharepoint",
+        "pathway_tpu_torch.engine.faults",
+        "pathway_tpu_torch.engine.distributed",
+        "pathway_tpu_torch.engine.supervisor",
+        "pathway_tpu_torch.cli",
     ):
         assert expected in names
 
@@ -174,6 +178,10 @@ def test_engine_api_imports_no_jax_and_touches_no_card():
             "         pw.set_license_key]",
             "from pathway_tpu_torch.xpacks.connectors import sharepoint",
             "assert sharepoint.read",
+            "from pathway_tpu_torch.cli import main, rescale, spawn",
+            "from pathway_tpu_torch.engine.distributed import DistributedScheduler, MeshTransport",
+            "from pathway_tpu_torch.engine.supervisor import MeshSupervisor",
+            "from pathway_tpu_torch.internals.runner import DistributedGraphRunner",
             "assert 'aiohttp' not in sys.modules and 'pyarrow' not in sys.modules",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pathway_tpu'))",
             "assert not bad, bad",

@@ -456,5 +456,24 @@ def test_file_writer_resumes_under_its_run_id(tmp_path, monkeypatch):
     resumed, fresh = texts[0]
     assert [json.loads(ln)["x"] for ln in resumed.splitlines()] == [1, 3]
     assert fresh == ""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        tc.FileWriter(tmp_path / "r.jsonl", tc.JsonLinesFormatter(), ["x"]).rewind_to(0)
+    # a mesh's rollback rewinds the writer to a commit in both packages, to the same
+    # bytes and the same sidecar
+    rewound = []
+    for conn in (tc, jc):
+        path = tmp_path / f"r-{conn.__name__.split('.')[0]}.jsonl"
+        w = conn.FileWriter(path, conn.JsonLinesFormatter(), ["x"])
+        assert w in conn.FILE_WRITERS
+        for t in range(1, 5):
+            w.on_change(tpw.ref_scalar(t), (t,), t, 1)
+            w.on_time_end(t)
+        w.rewind_to(2)
+        w.rewind_to(7)  # nothing after 7 reached it
+        w.on_change(tpw.ref_scalar(9), (9,), 3, 1)
+        w.on_time_end(3)
+        with pytest.raises(ValueError, match="no longer tracked"):
+            w.rewind_to(0)
+        w.on_end()
+        sidecar = json.loads((tmp_path / (path.name + ".pw-offsets")).read_text())
+        rewound.append((path.read_text(), sidecar["offsets"]))
+    assert rewound[0] == rewound[1]
+    assert [json.loads(ln)["x"] for ln in rewound[0][0].splitlines()] == [1, 2, 9]

@@ -666,19 +666,31 @@ def test_truncated_snapshot_is_a_cold_start(tmp_path):
 
 
 def test_snapshot_ring_raises_naming_the_multi_process_runner():
-    """The ring of snapshots by commit time serves the multi-process rollback: its
-    entry points raise naming item 14, and one worker's snapshot is unaffected."""
+    """The ring of snapshots by commit time, which the multi-process rollback reads:
+    with ``retain=3`` the last three commits restore by time and an older one raises;
+    without a ring only the latest commit restores by time, and one worker's snapshot
+    is unaffected."""
     from pathway_tpu_torch.engine.graph import Scope
     from pathway_tpu_torch.engine.persistence import MemoryBackend, OperatorSnapshotManager
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        OperatorSnapshotManager(MemoryBackend(), retain=3)
-    mgr = OperatorSnapshotManager(MemoryBackend())
+    ring = OperatorSnapshotManager(MemoryBackend(), retain=3)
     scope = Scope()
-    scope.input_session(1)
+    session = scope.input_session(1)
+    for t in range(1, 5):
+        session.current[tpw.ref_scalar(t)] = (t,)
+        ring.snapshot(scope, [], t)
+    for t in (2, 3, 4):
+        restored = Scope()
+        node = restored.input_session(1)
+        assert ring.restore(restored, [], at_time=t) == t
+        assert sorted(v for (v,) in node.current.values()) == list(range(1, t + 1))
+    with pytest.raises(ValueError, match="no operator snapshot at commit time 1"):
+        ring.restore(scope, [], at_time=1)
+    mgr = OperatorSnapshotManager(MemoryBackend())
     mgr.snapshot(scope, [], 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mgr.restore(scope, [], at_time=2)
+    with pytest.raises(ValueError, match="no operator snapshot at commit time 1"):
+        mgr.restore(scope, [], at_time=1)
+    assert mgr.restore(scope, [], at_time=2) == 2
     assert mgr.latest_time() == 2 and mgr.restore(scope, []) == 2
 
 

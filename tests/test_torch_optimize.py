@@ -427,6 +427,11 @@ def test_strict_run_names_the_analyzer_s_item():
         ("pathway_tpu_torch.analysis.shards", "run_pass", "8"),
         ("pathway_tpu_torch.engine.sharded", "ShardedScheduler", "14"),
         ("pathway_tpu_torch.engine.device_residency", "DeviceResidentColumns", "14"),
+        ("pathway_tpu_torch.engine.distributed", "DistributedScheduler", "14"),
+        ("pathway_tpu_torch.engine.distributed", "MeshTransport", "14"),
+        ("pathway_tpu_torch.engine.supervisor", "MeshSupervisor", "14"),
+        ("pathway_tpu_torch.internals.runner", "DistributedGraphRunner", "14"),
+        ("pathway_tpu_torch.engine.persistence", "reshard_process_snapshots", "14"),
     ],
 )
 def test_unported_names_raise_naming_their_item(module, name, item):
@@ -440,7 +445,14 @@ def test_unported_names_raise_naming_their_item(module, name, item):
 
 
 #: names of the list above that a later slice ported
-PORTED_SINCE = {("pathway_tpu_torch.engine.sharded", "ShardedScheduler")}
+PORTED_SINCE = {
+    ("pathway_tpu_torch.engine.sharded", "ShardedScheduler"),
+    ("pathway_tpu_torch.engine.distributed", "DistributedScheduler"),
+    ("pathway_tpu_torch.engine.distributed", "MeshTransport"),
+    ("pathway_tpu_torch.engine.supervisor", "MeshSupervisor"),
+    ("pathway_tpu_torch.internals.runner", "DistributedGraphRunner"),
+    ("pathway_tpu_torch.engine.persistence", "reshard_process_snapshots"),
+}
 
 
 def test_partition_rule_matches_the_reference_on_every_node():

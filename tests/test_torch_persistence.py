@@ -365,10 +365,20 @@ def test_backends_and_refusals(tmp_path):
         Backend.s3("root")
     with pytest.raises(ImportError, match="blob client"):
         Backend.azure("root")
-    # workers in one process run; more than one process still raises naming item 14
+    # workers in one process run; more than one process makes this process a member of
+    # a mesh (its run spied on here: no peer is listening), with its topology
     tpw.run(threads=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+    from pathway_tpu_torch.internals import runner as trunner
+
+    made = []
+    run = trunner.DistributedGraphRunner.run
+    trunner.DistributedGraphRunner.run = lambda self: made.append(
+        (self.threads, self.processes, self.process_id, self.first_port))
+    try:
         tpw.run(processes=2)
+    finally:
+        trunner.DistributedGraphRunner.run = run
+    assert made == [(1, 2, 0, 10000)]
     # two workers' source states re-shard onto three: worker 0 holds the whole source,
     # the others their row-key shards
     graph = _mod(tpw, "engine.graph")
@@ -387,8 +397,11 @@ def test_backends_and_refusals(tmp_path):
     for w in (1, 2):
         assert split[w][1]["current"] == {k: (i,) for i, k in enumerate(keys)
                                           if _shard_of(k, 3) == w}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+    # a mesh's snapshots re-shard only when every old process left one
+    with pytest.raises(ValueError, match="no operator snapshot for process 0"):
         tp.reshard_process_snapshots(mem, 2, 1, 1, [], n_shared=0)
+    with pytest.raises(ValueError, match="process counts must be >= 1"):
+        tp.reshard_process_snapshots(mem, 0, 1, 1, [], n_shared=0)
     # a snapshot of two workers' scopes restores into two
     scope = graph.Scope()
     mgr = tp.OperatorSnapshotManager(mem)

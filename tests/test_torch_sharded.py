@@ -444,7 +444,8 @@ def test_pw_run_threads_with_two_sinks(tmp_path, threads):
 
 def test_pathway_threads_variable_runs_the_sharded_runner(tmp_path, monkeypatch):
     """``PATHWAY_THREADS`` picks the sharded runner as ``threads=`` does; processes above
-    1 still raise naming the distributed runner's item."""
+    1 pick the distributed runner, with the threads and the process id of the
+    environment (its run spied on: no peer is listening)."""
     from pathway_tpu_torch.internals import runner as trunner
 
     made = []
@@ -462,8 +463,12 @@ def test_pathway_threads_variable_runs_the_sharded_runner(tmp_path, monkeypatch)
         {row["word"]: row["cnt"]} if is_addition else {}))
     tpw.run()
     assert made == [2] and out == FINAL_COUNTS
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        tpw.run(processes=2)
+    meshes = []
+    monkeypatch.setattr(trunner.DistributedGraphRunner, "run", lambda self: meshes.append(
+        (self.threads, self.processes, self.process_id, len(self.workers))))
+    monkeypatch.setenv("PATHWAY_PROCESS_ID", "1")
+    tpw.run(processes=2)
+    assert meshes == [(2, 2, 1, 2)]
 
 
 def test_operator_persistence_accepted_multiworker():
