@@ -85,7 +85,7 @@ limit):
    program at 2 and 4 workers: the state must be NumPy's answer and the ``threads=1``
    run's bits, every worker's groupby must reduce on the card; rows/s beside
    ``threads=1``'s, the segment launches and the exchange's deliveries by plane (elided,
-   host, collective: 0, the device plane not being ported). (b) BASELINE #1's RAG at 2
+   host, collective: 0, since auto mode needs one card per shard). (b) BASELINE #1's RAG at 2
    workers, 4,096 docs and 32 queries, the index as engine_pipeline builds it: every doc
    by the device route, every query answered once with its own doc at top-1, recall@10
    >= 0.99 against exact f32 search over the vectors the index received, the forward's
@@ -110,6 +110,23 @@ limit):
    commit's partial counts are cancelled), the counts ``np.unique``'s, the leader's
    metrics showing the recovery and the rescale, every groupby on the card after the
    resume.
+   collective: the device collective exchange (``engine/collective_exchange.py``). (a)
+   its swap kernel (``csrc/bucket_swap.cu``) alone at 2^20 rows over 4 destinations,
+   the order from ``columnar_shards`` on seeded keys (uniform, all rows to one
+   destination), rows of 17, 40 and 64 bytes, bit for bit against its plain version;
+   CUDA-event medians of 20 launches of the kernel, the plain version and
+   ``index_select``, beside the byte bound ``(2 n W + 4 n) / 3.35 TB/s``. (b)
+   relational_engine's program with ``PATHWAY_TPU_COLLECTIVE_EXCHANGE=1`` (the shards
+   share the card), ``PATHWAY_TPU_DEVICE_OPS=1`` and ``PATHWAY_TPU_DEVICE_RESIDENCY=1`` at
+   2 and 4 workers, then at 2 with residency off: the state NumPy's answer and the
+   ``threads=1`` run's bits, collective deliveries and the planes adding up, no
+   residency decline, the swap launched once an exchange by its own counter, no
+   resident batch left, every worker's groupby on the card; rows/s beside the sharded
+   phase's host planes, the exchanges' bytes and ns, declined batches, the resident
+   batches, materializations and device key twins consumed, h2d and d2h bytes, and the
+   rows, row width and copy word of every swap (b) made. The largest swap of (b), its
+   payload and order copied on the card, is then held against the plain version bit for
+   bit and timed as (a) is: the kernels line's row is that shape.
 8. main_path: MiniLM-L6 at full width (seeded weights) embeds 20,000 generated docs in
    256-doc commits into a 1,048,576-slot f32 index on the card, 980,000 seeded unit
    vectors are bulk-added so 1,000,000 rows are live, and 64 queries are embedded and
@@ -398,12 +415,13 @@ limit):
    without; wall seconds, units/s and each kernel's calls and ns, both ways.
 24. The script line (the seconds since the script started, and each phase's), the
    native line (every phase's host kernel calls and ns, and the both-ways
-   comparisons), the kernels line (the three flash kernels and ``segment_reduce``; the
+   comparisons), the kernels line (the three flash kernels, ``segment_reduce`` and
+   ``bucket_swap``, whose ``launches_by_path`` is the collective phase's (b); the
    forward's ``launches_by_path`` includes ``rag_evals``, ``persistence``,
    ``observability``, ``watch``, ``connectors``, ``buses``, ``databases`` and
    ``sharded``, the segment reduction's ``table_ops``, ``temporal``, ``iterate``,
    ``optimizer``, ``persistence``, ``observability``, ``connectors``, ``buses``,
-   ``databases`` and ``sharded``),
+   ``databases``, ``sharded``, ``collective`` and ``processes``),
    the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 
 Every graph runs through the port's optimizer (``pathway_tpu_torch.optimize``) before
@@ -448,6 +466,7 @@ import torch
 from pathway_tpu_torch import _build, native
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
 from pathway_tpu_torch.engine import device as hd
+from pathway_tpu_torch.engine import collective_exchange as cx
 from pathway_tpu_torch.engine import device_ops, device_pipeline, device_residency
 from pathway_tpu_torch.engine.batch import Columns
 from pathway_tpu_torch.engine.device import TRANSFERS, device_batches_held, lazy_rows
@@ -461,7 +480,7 @@ from pathway_tpu_torch.internals.runner import (
     GraphRunner,
     ShardedGraphRunner,
 )
-from pathway_tpu_torch.engine.routing import EXCHANGE_STATS
+from pathway_tpu_torch.engine.routing import EXCHANGE_STATS, columnar_shards
 from pathway_tpu_torch.engine.sharded import ShardedScheduler
 from pathway_tpu_torch.models import (
     ContrastiveBatch,
@@ -484,6 +503,7 @@ from pathway_tpu_torch.models import (
 from pathway_tpu_torch.ops import flash_attention as fa
 from pathway_tpu_torch.optimize import optimizer_stats
 from pathway_tpu_torch.optimize.placement import POLICY, PlacementPolicy
+from pathway_tpu_torch.ops import bucket_swap as bs
 from pathway_tpu_torch.ops import segment_reduce as sr
 from pathway_tpu_torch.stdlib.indexing import DataIndex, DeviceKnnFactory
 from pathway_tpu_torch.xpacks.llm import (
@@ -1892,11 +1912,62 @@ def _overhead_child(kind: str) -> int:
     return 0
 
 
-def _overhead_gate(kind: str) -> dict:
-    """One gate's reading from a child process (as the JAX package's gates run theirs)."""
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--overhead-gate", kind],
-                         capture_output=True, text=True, timeout=600, check=True)
-    return json.loads(out.stdout.strip().splitlines()[-1])
+class _Ahead:
+    """A child of this script started ahead of the part of a phase that reads it: it
+    imports the package, then waits for its go file (``CHIP_SMOKE_GO``), so that its
+    start-up overlaps the parent's work; released, it runs and prints its reading as
+    its last line. :meth:`close` stops it wherever it is."""
+
+    def __init__(self, args: list[str], env: dict | None = None) -> None:
+        self.dir = tempfile.mkdtemp(prefix="pw_ahead_")
+        self.go = os.path.join(self.dir, "go")
+        self._out = open(os.path.join(self.dir, "out"), "w+")
+        self._err = open(os.path.join(self.dir, "err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *args],
+            env=dict(os.environ if env is None else env, CHIP_SMOKE_GO=self.go),
+            stdout=self._out, stderr=self._err, text=True)
+
+    def run(self, timeout: float = 600.0) -> tuple[int, str, str, float]:
+        """Release the child and wait for its end -> (its return code, its output, its
+        errors, its seconds from the release to its end)."""
+        t0 = time.perf_counter()
+        open(self.go, "w").close()
+        try:
+            rc = self.proc.wait(timeout=timeout)
+            seconds = time.perf_counter() - t0
+            self._out.seek(0)
+            self._err.seek(0)
+            return rc, self._out.read(), self._err.read(), seconds
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._out.close()
+        self._err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _await_go(go: str, timeout: float = 1200.0) -> None:
+    """In a child started ahead: wait for the parent's release (give up past
+    ``timeout``: the parent is gone)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            sys.exit(4)
+        time.sleep(0.05)
+
+
+def _overhead_gate(kind: str, ahead: "_Ahead | None" = None) -> dict:
+    """One gate's reading from a child process (as the JAX package's gates run theirs):
+    the child started ahead, or one started now."""
+    child = ahead or _Ahead(["--overhead-gate", kind])
+    rc, out, err, _seconds = child.run()
+    check(rc == 0, f"overhead gate {kind}: exit {rc}: {err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def _observability_flight(card: Card, out: str) -> dict:
@@ -1962,19 +2033,25 @@ def phase_observability(card: Card, untraced_docs_per_s: float, groupby_rows: li
     kernels' launches."""
     t_phase = time.perf_counter()
     out = tempfile.mkdtemp(prefix="pw_observability_")
+    # the gates' children start now and wait, so their imports overlap (a) and (b)
+    gates = {kind: _Ahead(["--overhead-gate", kind]) for kind in ("trace", "profile")}
     try:
         flash = _observability_traced_run(card, untraced_docs_per_s, out)
         segment = _observability_device_bucket(card, groupby_rows)
-        trace_gate = _overhead_gate("trace")
-        profile_gate = _overhead_gate("profile")
+        t_gates = time.perf_counter()
+        trace_gate = _overhead_gate("trace", gates["trace"])
+        profile_gate = _overhead_gate("profile", gates["profile"])
         if profile_gate["overhead_pct"] > OBS_GATE_PCT:
             # the sampler steals time only through the GIL: one reading past the gate
             # is retried, as the JAX package's profile gate does
             profile_gate = dict(_overhead_gate("profile"), retried_after=profile_gate)
+        gates_s = time.perf_counter() - t_gates
         flight = _observability_flight(card, out)
     finally:
+        for child in gates.values():
+            child.close()
         shutil.rmtree(out, ignore_errors=True)
-    card.emit("observability", seconds=time.perf_counter() - t_phase,
+    card.emit("observability", seconds=time.perf_counter() - t_phase, gates_s=gates_s,
               chain=OBS_CHAIN, trace_overhead=dict(trace_gate, sample=OBS_OVERHEAD_SAMPLE),
               profile_overhead=profile_gate, flight=flight)
     check(trace_gate["overhead_pct"] <= OBS_GATE_PCT, f"trace overhead {trace_gate}")
@@ -2294,20 +2371,27 @@ def _lockwatch_child(args: list[str]) -> int:
     return 0
 
 
-def _lockwatch_children(card: Card, out: str) -> dict:
-    """(c): the watched and the plain child, one after the other; -> their readings."""
-    got = {}
+def _start_lockwatch_children(out: str) -> dict:
+    """The watched and the plain child of (c), started ahead: each imports the package
+    (the watched one installing the watcher first) and waits for its release."""
+    children = {}
     for mode in ("watched", "plain"):
         d = os.path.join(out, mode)
         os.makedirs(d)
         env = dict(os.environ, PATHWAY_TPU_LOCKWATCH="1" if mode == "watched" else "0",
                    PATHWAY_TPU_LOCKWATCH_DIR=d)
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--lockwatch-child", d],
-                              env=env, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0, f"lockwatch {mode} child exit {proc.returncode}: {proc.stderr[-4000:]}")
-        got[mode] = dict(json.loads(proc.stdout.strip().splitlines()[-1]), process_s=wall,
+        children[mode] = (d, _Ahead(["--lockwatch-child", d], env=env))
+    return children
+
+
+def _lockwatch_children(card: Card, children: dict) -> dict:
+    """(c): the watched and the plain child, released one after the other; -> their
+    readings."""
+    got = {}
+    for mode, (d, child) in children.items():
+        rc, stdout, stderr, wall = child.run()
+        check(rc == 0, f"lockwatch {mode} child exit {rc}: {stderr[-4000:]}")
+        got[mode] = dict(json.loads(stdout.strip().splitlines()[-1]), process_s=wall,
                          reports=[n for n in os.listdir(d) if n.startswith("pathway_lockwatch_cycle_p")])
     w, p = got["watched"], got["plain"]
     same = {q: w["answers"].get(q) == ids for q, ids in p["answers"].items()}
@@ -2340,17 +2424,24 @@ def phase_watch(card: Card, engine_docs_per_s: float) -> dict:
     processes. -> the forward kernel's launches in (a)."""
     t_phase = time.perf_counter()
     out = tempfile.mkdtemp(prefix="pw_watch_")
+    # the gate's and the lock-order children start now and wait, so their imports
+    # overlap (a)
+    gate = _Ahead(["--overhead-gate", "metrics"])
+    ahead = _start_lockwatch_children(out)
     try:
         flash = _watch_main_run(card, engine_docs_per_s, out)
         t_gate = time.perf_counter()
-        metrics_gate = _overhead_gate("metrics")
+        metrics_gate = _overhead_gate("metrics", gate)
         if metrics_gate["overhead_pct"] > OBS_GATE_PCT:
             metrics_gate = dict(_overhead_gate("metrics"), retried_after=metrics_gate)
         gate_s = time.perf_counter() - t_gate
         t_lock = time.perf_counter()
-        children = _lockwatch_children(card, out)
+        children = _lockwatch_children(card, ahead)
         lock_s = time.perf_counter() - t_lock
     finally:
+        gate.close()
+        for _d, child in ahead.values():
+            child.close()
         shutil.rmtree(out, ignore_errors=True)
     card.emit("watch", seconds=time.perf_counter() - t_phase, gate_s=gate_s, lockwatch_s=lock_s,
               chain=OBS_CHAIN, metrics_overhead=metrics_gate,
@@ -6081,14 +6172,16 @@ SHARDED_WC_FILES = 10  # (c): the word count's files; half before the stop, half
 SHARDED_WC_LINES = 10_000
 
 
-def _exchange_since(mark: dict) -> dict:
+def _exchange_since(mark: dict, collective: bool = False) -> dict:
     """The exchange counters' movement since ``mark``, by plane; checks the invariant
-    ``elided + host + collective == repartitions`` and that no collective ran."""
+    ``elided + host + collective == repartitions``, and that the collective ran
+    (``collective``) or did not."""
     d = {k: EXCHANGE_STATS[k] - mark[k] for k in ("elided", "host_deliveries",
                                                    "collective_deliveries", "repartitions")}
     check(d["elided"] + d["host_deliveries"] + d["collective_deliveries"] == d["repartitions"],
           f"sharded: the exchange's planes do not add up: {d}")
-    check(d["collective_deliveries"] == 0 and d["repartitions"] > 0, f"sharded: exchange {d}")
+    check((d["collective_deliveries"] > 0) is collective and d["repartitions"] > 0,
+          f"sharded: exchange {d}")
     return d
 
 
@@ -6134,9 +6227,10 @@ class _AllKnnFactory(_KeptKnnFactory):
         return index
 
 
-def _sharded_relational(card: Card, base_out: list, base_rows_per_s: float) -> int:
-    """(a): relational_engine's program at 2 and 4 workers."""
-    launches = 0
+def _sharded_relational(card: Card, base_out: list, base_rows_per_s: float) -> tuple[int, dict]:
+    """(a): relational_engine's program at 2 and 4 workers -> the segment launches and
+    the rows/s at each worker count."""
+    launches, rates = 0, {}
     for threads in SHARDED_THREADS:
         mark = dict(EXCHANGE_STATS)
         res = _with_device_ops("1", lambda: _relational_engine_run(threads))
@@ -6144,7 +6238,7 @@ def _sharded_relational(card: Card, base_out: list, base_rows_per_s: float) -> i
         by_kernel, routes = res["by_kernel"], res["routes"]
         launches += sum(by_kernel.values())
         groupbys = {name: r for name, r in routes.items() if "GroupbyNode" in name}
-        rows_per_s = res["rows"] / res["run_s"]
+        rows_per_s = rates[threads] = res["rows"] / res["run_s"]
         card.emit("sharded_relational", threads=threads, rows=N_ENGINE,
                   second_stream=N_ENGINE // 4, out_rows=len(res["out"]),
                   rows_per_s=rows_per_s, threads_1_rows_per_s=base_rows_per_s,
@@ -6159,7 +6253,7 @@ def _sharded_relational(card: Card, base_out: list, base_rows_per_s: float) -> i
             f"sharded ({threads}): groupby routes {groupbys}")
         check(all(by_kernel[k] > 0 for k in SEGMENT_PATH_KERNELS),
               f"sharded ({threads}) left a segment kernel unlaunched: {by_kernel}")
-    return launches
+    return launches, rates
 
 
 def _sharded_rag(card: Card) -> int:
@@ -6278,15 +6372,224 @@ def phase_sharded(card: Card, base_out: list, base_rows_per_s: float) -> dict:
     worker's embedder launching the forward kernel on its shard, the index (pinned to
     worker 0) filled by the device route; (c) the word count under operator snapshots,
     stopped at half at 2 workers and resumed at 4 (the snapshot re-sharded). The
-    exchange's planes are reported per run, with no collective delivery (the device
-    plane comes with ROADMAP queue 1 item 14's slice c)."""
+    exchange's planes are reported per run, with no collective delivery: in auto mode
+    the device collective needs one card per shard (the ``collective`` phase forces
+    it). -> the launches, and (a)'s rows/s by worker count."""
     t0 = time.perf_counter()
-    segment = _sharded_relational(card, base_out, base_rows_per_s)
+    segment, rates = _sharded_relational(card, base_out, base_rows_per_s)
     flash = _sharded_rag(card)
     segment += _sharded_wordcount(card)
     card.emit("sharded", seconds=time.perf_counter() - t0, segment_launches=segment,
               flash_launches=flash)
-    return {"segment": segment, "flash": flash}
+    return {"segment": segment, "flash": flash, "rows_per_s": rates}
+
+
+# -- the collective exchange: the repartition on the card -------------------------------
+
+COLL_ROWS = 1 << 20  # (a): bench_dataflow.py's N, rounded to 2^20
+COLL_DESTS = 4
+COLL_WIDTHS = (17, 40, 64)  # key | bool; key | diff | int64 | float64; key | diff | 5 x 8
+COLL_TIMED = 20  # launches a reading takes the median of
+COLL_THREADS = (2, 4)  # (b)'s worker counts, residency on; then the first with it off
+COLL_ENV = {"PATHWAY_TPU_COLLECTIVE_EXCHANGE": "1", "PATHWAY_TPU_DEVICE_OPS": "1",
+            "PATHWAY_TPU_DEVICE_RESIDENCY": "1"}
+
+
+def _median_event_ms(fn, reps: int = COLL_TIMED, warmup: int = 3) -> float:
+    """The median of ``reps`` launches of ``fn``, each between its own CUDA events."""
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in events]))
+
+
+def _swap_bound_ms(n: int, width: int) -> float:
+    """The swap's byte bound: the payload read once, the order (int32) read once, the
+    output written once, at the card's memory rate."""
+    return 1e3 * (2 * n * width + 4 * n) / HBM_BYTES_PER_S
+
+
+def _collective_kernel(card: Card) -> dict:
+    """(a): the swap alone at 2^20 rows over 4 destinations, the order from the port's
+    ``columnar_shards`` on seeded keys (uniform, and all rows to one destination),
+    against its plain version bit for bit; CUDA-event medians of the kernel, the plain
+    version and ``index_select`` (the library call, timed only), beside the byte bound."""
+    rng = np.random.default_rng(SEED)
+    keys = {"uniform": rng.integers(0, N_DIM + 64, COLL_ROWS),
+            "all_to_one": np.full(COLL_ROWS, 7, np.int64)}
+    shapes, worst = {}, 0
+    for dist, k in keys.items():
+        cols = Columns(COLL_ROWS, [k], kbytes=np.zeros((COLL_ROWS, 16), np.uint8))
+        shards = columnar_shards(("cols", [0]), cols, COLL_DESTS)
+        counts = np.bincount(shards, minlength=COLL_DESTS)
+        check(dist != "all_to_one" or int(counts.max()) == COLL_ROWS, f"swap {dist}: {counts}")
+        perm = torch.from_numpy(np.argsort(shards, kind="stable").astype(np.int32)).cuda()
+        for width in COLL_WIDTHS:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + width)
+            payload = torch.randint(0, 256, (COLL_ROWS, width), dtype=torch.uint8,
+                                    device="cuda", generator=gen)
+            before = bs.BUCKET_SWAP.launches
+            got = bs.bucket_swap(payload, perm)
+            plain = bs.bucket_swap_reference(payload, perm)
+            torch.cuda.synchronize()
+            err = int((got.int() - plain.int()).abs().max())
+            worst = max(worst, err)
+            row = {"ms": _median_event_ms(lambda: bs.bucket_swap(payload, perm)),
+                   "plain_ms": _median_event_ms(lambda: bs.bucket_swap_reference(payload, perm)),
+                   "library_ms": _median_event_ms(lambda: torch.index_select(payload, 0, perm)),
+                   "bound_ms": _swap_bound_ms(COLL_ROWS, width), "bound_by": "bytes",
+                   "word_bytes": bs.word_bytes(width, payload.data_ptr(), got.data_ptr()),
+                   "dest_rows": counts.tolist()}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            shapes[f"{dist}_w{width}"] = row
+            card.emit("collective_kernel", rows=COLL_ROWS, destinations=COLL_DESTS, width=width,
+                      dist=dist, max_abs_err=err, tol=0, bits_equal_plain=err == 0,
+                      launched=bs.BUCKET_SWAP.launches > before, **row)
+            check(err == 0 and torch.equal(got, plain), f"bucket_swap {dist} W={width}: bits differ")
+            del payload, got, plain
+    return {"max_abs_err": worst, "shapes": shapes}
+
+
+class _SwapLog:
+    """Stands in for the exchange's swap during (b): calls the real wrapper (one launch
+    a call, counted by the kernel's own counter), and records each call's rows, row width
+    and copy word; keeps copies, on the card, of the largest call's payload and order."""
+
+    def __init__(self) -> None:
+        self.calls: collections.Counter = collections.Counter()
+        self.kept: tuple | None = None
+
+    def __call__(self, payload: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+        out = bs.bucket_swap(payload, perm)
+        width = int(payload.shape[1])
+        self.calls[(int(perm.numel()), width,
+                    bs.word_bytes(width, payload.data_ptr(), out.data_ptr()))] += 1
+        if self.kept is None or perm.numel() > self.kept[1].numel():
+            self.kept = (payload.clone(), perm.clone())
+        return out
+
+    def shapes(self) -> list:
+        return [{"rows": rows, "width": width, "word_bytes": word, "calls": calls}
+                for (rows, width, word), calls in sorted(self.calls.items())]
+
+
+def _collective_captured(card: Card, log: _SwapLog) -> dict:
+    """The largest swap (b) made, replayed on copies of its payload and order: the kernel
+    against its plain version bit for bit, and timed as in (a) -> the kernels line's
+    numbers."""
+    check(log.kept is not None, "collective: (b) made no swap to replay")
+    payload, perm = log.kept
+    n, width = int(perm.numel()), int(payload.shape[1])
+    got = bs.bucket_swap(payload, perm)
+    plain = bs.bucket_swap_reference(payload, perm)
+    torch.cuda.synchronize()
+    err = int((got.int() - plain.int()).abs().max()) if n else 0
+    row = {"ms": _median_event_ms(lambda: bs.bucket_swap(payload, perm)),
+           "plain_ms": _median_event_ms(lambda: bs.bucket_swap_reference(payload, perm)),
+           "library_ms": _median_event_ms(lambda: torch.index_select(payload, 0, perm)),
+           "bound_ms": _swap_bound_ms(n, width), "bound_by": "bytes",
+           "word_bytes": bs.word_bytes(width, payload.data_ptr(), got.data_ptr())}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    card.emit("collective_captured", rows=n, width=width, max_abs_err=err, tol=0,
+              bits_equal_plain=err == 0, **row)
+    check(err == 0 and torch.equal(got, plain), f"bucket_swap on (b)'s payload: bits differ")
+    log.kept = None
+    return dict(row, rows=n, width=width, max_abs_err=err)
+
+
+def _collective_run(threads: int, residency: str, log: _SwapLog) -> dict:
+    """relational_engine's program at ``threads`` workers with the collective and the
+    device operators forced and residency ``residency``, its swaps through ``log`` ->
+    the run's readings, with the swaps' shapes."""
+    cx.reset_counters()
+    device_residency.reset_counters()
+    mark = dict(EXCHANGE_STATS)
+    before = bs.BUCKET_SWAP.launches
+    env = dict(COLL_ENV, PATHWAY_TPU_DEVICE_RESIDENCY=residency)
+    log.calls.clear()
+    cx.bucket_swap = log
+    try:
+        res = _with_env(env, lambda: _relational_engine_run(threads))
+    finally:
+        cx.bucket_swap = bs.bucket_swap
+    live = device_residency.live_resident_batches()
+    res.update(planes=_exchange_since(mark, collective=True), collective=cx.stats(),
+               residency=device_residency.stats(), swap_launches=bs.BUCKET_SWAP.launches - before,
+               live_after=live, swap_shapes=log.shapes())
+    return res
+
+
+def phase_collective(card: Card, base_out: list, base_rows_per_s: float,
+                     host_rows_per_s: dict) -> dict:
+    """The device collective exchange (``engine/collective_exchange.py``): (a) its swap
+    kernel alone; (b) relational_engine's program through ``pw.run(threads=N)`` with
+    the collective forced (its shards share the card), the device operators forced and
+    residency on, at 2 and 4 workers, then at 2 with residency off. Each run: the state
+    NumPy's answer and ``threads=1``'s bits, collective deliveries and the planes adding
+    up, no residency decline, the swap launched once an exchange (its own counter), no
+    resident batch left, every worker's groupby on the card; rows/s beside the host
+    planes' (the sharded phase's, same call), the exchanges' bytes and ns, the resident
+    batches, the transfer ledger, and the rows, width and copy word of every swap. Then
+    (b)'s largest swap replayed against the plain version. -> the kernels line's row (at
+    that swap's shape) and (b)'s segment launches."""
+    t0 = time.perf_counter()
+    alone = _collective_kernel(card)
+    device_ops.configure()
+    bs.BUCKET_SWAP.launches = 0  # the main path's count: (b)'s runs only
+    runs, segment, log = {}, 0, _SwapLog()
+    for threads, residency in [(t, "1") for t in COLL_THREADS] + [(COLL_THREADS[0], "0")]:
+        res = _collective_run(threads, residency, log)
+        segment += sum(res["by_kernel"].values())
+        routes = res["routes"]
+        groupbys = {name: r for name, r in routes.items() if "GroupbyNode" in name}
+        joins = {name: r for name, r in routes.items() if "JoinNode" in name}
+        rows_per_s = res["rows"] / res["run_s"]
+        events, resident = res["collective"]["events"], res["residency"]
+        tag = f"{threads}{'' if residency == '1' else '_residency_off'}"
+        runs[tag] = {"rows_per_s": rows_per_s, "swap_launches": res["swap_launches"]}
+        card.emit("collective_engine", threads=threads, residency=residency == "1",
+                  rows=N_ENGINE, second_stream=N_ENGINE // 4, out_rows=len(res["out"]),
+                  rows_per_s=rows_per_s, host_planes_rows_per_s=host_rows_per_s[threads],
+                  over_host_planes=rows_per_s / host_rows_per_s[threads],
+                  threads_1_rows_per_s=base_rows_per_s, run_s=res["run_s"],
+                  exchange=res["planes"], exchanges=events["exchanges"],
+                  declined_non_codeable=events["declined_non_codeable"],
+                  bytes=res["collective"]["bytes_total"], ns=res["collective"]["ns_total"],
+                  swap_launches=res["swap_launches"], swap_shapes=res["swap_shapes"],
+                  residency_events=resident["events"],
+                  h2d=resident["h2d"], d2h=resident["d2h"], bytes_saved=resident["bytes_saved"],
+                  live_resident_after=res["live_after"], segment_launches=res["by_kernel"],
+                  groupby_routes=groupbys, join_routes=joins)
+        check(res["out"] == res["want"], f"collective ({tag}): the state differs from NumPy's")
+        check(res["out"] == base_out, f"collective ({tag}): not the threads=1 run's bits")
+        check(resident["events"]["declines"] == 0,
+              f"collective ({tag}): residency declines {resident['events']}")
+        check(res["swap_launches"] == events["exchanges"] == res["planes"]["collective_deliveries"],
+              f"collective ({tag}): {res['swap_launches']} swap launches, {events}, {res['planes']}")
+        check(res["live_after"] == 0, f"collective ({tag}): {res['live_after']} resident batches left")
+        check((resident["events"]["resident_batches"] > 0) is (residency == "1"),
+              f"collective ({tag}): residency {resident['events']}")
+        check(len(groupbys) == threads and all(
+            r["device"] >= 1 and r["host"] == 0 and r["rows"] == 0 for r in groupbys.values()),
+            f"collective ({tag}): groupby routes {groupbys}")
+    launches = bs.BUCKET_SWAP.launches
+    check(launches > 0, "collective: the swap kernel was never launched")
+    captured = _collective_captured(card, log)
+    seconds = time.perf_counter() - t0
+    card.emit("collective", seconds=seconds, swap_launches=launches, segment_launches=segment,
+              runs=runs)
+    row = {"name": "bucket_swap", "route": "cuda",
+           "source": "pathway_tpu_torch/csrc/bucket_swap.cu",
+           "replaces": "pathway_tpu/engine/collective_exchange.py:375",
+           **captured, "max_abs_err": max(alone["max_abs_err"], captured["max_abs_err"]),
+           "shapes": alone["shapes"]}
+    return dict(row, launches=launches, launches_by_path={"collective": launches}), segment
 
 
 # -- workers in several processes: the TCP mesh ------------------------------------------
@@ -6573,7 +6876,7 @@ def _child_watchdog(outdir: str) -> None:
 def _proc_planes(reports: list[dict]) -> dict:
     """The mesh's deliveries by plane, per process: PWCF frames sent and received,
     pickled row batches sent, the host deliveries, elided edges, the bytes written; no
-    collective delivery (slice c)."""
+    collective delivery (auto mode: a card per shard, which one card has not)."""
     planes = {}
     for r in reports:
         ex = r["exchange"]
@@ -6921,8 +7224,8 @@ class _TransferLedger:
     """The bytes of the device operators' upload and fetch tensors, counted from the
     arrays they are handed and return, beside the residency plane's own ledger: the
     segment reduction uploads ``[1 + columns, rows]`` int64 and fetches ``[columns,
-    groups]`` int64 (the count is a column); the matcher uploads both key arrays and
-    fetches both index arrays."""
+    groups]`` int64 (the count is a column); the matcher uploads both key arrays (less a
+    side's device twin) and fetches both index arrays."""
 
     def __enter__(self):
         self.h2d = self.d2h = 0
@@ -6936,11 +7239,12 @@ class _TransferLedger:
             ledger.d2h += live * n_groups * 8
             return ledger._dispatch(inverse, diffs, vals, n_groups)
 
-        def match(la, ra):
-            out = ledger._match(la, ra)
-            # the swapped call comes back through this wrapper, and is counted there
+        def match(la, ra, la_dev=None, ra_dev=None):
+            out = ledger._match(la, ra, la_dev, ra_dev)
+            # the swapped call comes back through this wrapper, and is counted there; a
+            # device key twin is not uploaded
             if len(la) and len(ra) and len(ra) <= len(la):
-                ledger.h2d += la.nbytes + ra.nbytes
+                ledger.h2d += (la_dev is None) * la.nbytes + (ra_dev is None) * ra.nbytes
                 ledger.d2h += out[0].nbytes + out[1].nbytes
             return out
 
@@ -8106,6 +8410,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--persistence-child"]:
         return _persistence_child(sys.argv[2:])
+    if sys.argv[1:2] in (["--overhead-gate"], ["--lockwatch-child"]) and os.environ.get("CHIP_SMOKE_GO"):
+        _await_go(os.environ["CHIP_SMOKE_GO"])  # started ahead: imports done, wait
     if sys.argv[1:2] == ["--overhead-gate"]:
         return _overhead_child(sys.argv[2])
     if sys.argv[1:2] == ["--lockwatch-child"]:
@@ -8145,6 +8451,8 @@ def main() -> int:
     relational_engine, engine_out, engine_rows_per_s = counted(
         "relational_engine", phase_relational_engine, card)
     sharded = counted("sharded", phase_sharded, card, engine_out, engine_rows_per_s)
+    collective, collective_segment = counted("collective", phase_collective, card, engine_out,
+                                             engine_rows_per_s, sharded["rows_per_s"])
     processes = counted("processes", phase_processes, card, engine_out, engine_rows_per_s)
     del engine_out
     serving = counted("main_path", phase_main_path, card)
@@ -8201,10 +8509,11 @@ def main() -> int:
                                       "buses": buses["segment"],
                                       "databases": databases["segment"],
                                       "sharded": sharded["segment"],
+                                      "collective": collective_segment,
                                       "processes": processes["segment"]}
     card.emit("script", seconds=time.perf_counter() - t_script, phase_seconds=phase_seconds)
     print(json.dumps({"native": {"by_phase": by_phase, "both_ways": native_paths}}), flush=True)
-    print(json.dumps({"kernels": [fwd, *bwd, relational]}), flush=True)
+    print(json.dumps({"kernels": [fwd, *bwd, relational, collective]}), flush=True)
     print(card.smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

@@ -177,7 +177,9 @@ class CudaKernel:
         self._fn = None
         self._lib: ctypes.CDLL | None = None
 
-    def __call__(self, *args) -> None:
+    def bind(self) -> None:
+        """Build (if needed) and load the library, and bind the entry point; raises if
+        the build fails. Called by the first launch, or ahead of it."""
         if self._fn is None:
             self._lib = load(self.source)
             fn = getattr(self._lib, self.symbol)
@@ -187,6 +189,9 @@ class CudaKernel:
             err_fn.argtypes = [ctypes.c_int]
             err_fn.restype = ctypes.c_char_p
             self._fn = fn
+
+    def __call__(self, *args) -> None:
+        self.bind()
         err = self._fn(*args)
         if err != 0:
             reason = self._lib.pt_cuda_error_string(err).decode()

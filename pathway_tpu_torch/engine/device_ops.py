@@ -15,7 +15,9 @@ card, on the columnar delta batches' arrays (+1/-1 diffs included):
   torch ops on the card (:func:`match_pairs`): stable sort, ``searchsorted`` left and
   right, ``repeat_interleave`` and ``cumsum``, with the same swap rule (the smaller
   side is the sorted haystack) and the same emission order (probe index ascending,
-  then build index ascending), so its pairs are the host matcher's, pair for pair.
+  then build index ascending), so its pairs are the host matcher's, pair for pair. A
+  join side that the collective exchange delivered resident carries a device twin of
+  its int64 key column, which the matcher consumes in place of the upload.
 
 The host kernels stay the spec. The weights (``col.astype(int64) * diffs``, ``col *
 diffs``) are computed on the host with NumPy, so their rounding is the spec's; the card
@@ -279,22 +281,27 @@ def _pairs_on_card(la_d: torch.Tensor, ra_d: torch.Tensor):
     return l_idx, order[starts + offs]
 
 
-def _match_pairs_device(la: np.ndarray, ra: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+def _match_pairs_device(
+    la: np.ndarray,
+    ra: np.ndarray,
+    la_dev: "torch.Tensor | None" = None,
+    ra_dev: "torch.Tensor | None" = None,
+) -> tuple[np.ndarray, np.ndarray]:
     """``graph._match_join_pairs`` in torch ops on :func:`device`: the same swap rule,
     stable sort and emission arithmetic, so the pair sequence is the host matcher's.
-    Two points wait for the card: the pair count (:func:`_pairs_on_card`) and the copy
-    of the two index arrays back to the host."""
+    ``la_dev`` / ``ra_dev`` are device twins of the same code arrays (a resident
+    exchange delivery's int64 key column), consumed in place of the upload. Two points
+    wait for the card: the pair count (:func:`_pairs_on_card`) and the copy of the two
+    index arrays back to the host."""
     empty = np.empty(0, np.int64)
     if len(la) == 0 or len(ra) == 0:
         return empty, empty
     if len(ra) > len(la):
-        r_idx, l_idx = _match_pairs_device(ra, la)
+        r_idx, l_idx = _match_pairs_device(ra, la, ra_dev, la_dev)
         return l_idx, r_idx
     dev = device()
-    la_d = torch.from_numpy(la).to(dev)
-    _dres.record_h2d(la.nbytes)
-    ra_d = torch.from_numpy(ra).to(dev)
-    _dres.record_h2d(ra.nbytes)
+    la_d = _on_device(la, la_dev, dev)
+    ra_d = _on_device(ra, ra_dev, dev)
     pairs = _pairs_on_card(la_d, ra_d)
     if pairs is None:
         return empty, empty
@@ -303,14 +310,33 @@ def _match_pairs_device(la: np.ndarray, ra: np.ndarray) -> tuple[np.ndarray, np.
     return l_out, r_out
 
 
+def _on_device(codes: np.ndarray, twin: "torch.Tensor | None", dev: torch.device) -> torch.Tensor:
+    """The codes on ``dev``: their device twin, counted as saved, else an upload."""
+    if twin is not None:
+        _dres.record_saved(codes.nbytes)
+        _dres.RESIDENCY_STATS["device_consumes"] += 1
+        return twin
+    _dres.record_h2d(codes.nbytes)
+    return torch.from_numpy(codes).to(dev)
+
+
 def match_pairs(
-    l_arrays: "list[np.ndarray]", r_arrays: "list[np.ndarray]"
+    l_arrays: "list[np.ndarray]",
+    r_arrays: "list[np.ndarray]",
+    l_dev: "torch.Tensor | None" = None,
+    r_dev: "torch.Tensor | None" = None,
 ) -> tuple[np.ndarray, np.ndarray] | None:
     """The device pair matcher over dtype-unified join-key columns: ``(l_idx,
     r_idx)``, or ``None`` when a column has no int64 code view (NaN floats, strings,
     objects); the batch then takes the host matcher. Multi-column keys reduce to joint
     codes with the host factorization the NumPy path uses, so only the matcher runs on
-    the card."""
+    the card.
+
+    ``l_dev`` / ``r_dev``: device twins of single-column keys (a resident exchange
+    delivery). A twin replaces the upload only when the code array the matcher would
+    upload *is* the host array it twins (``_as_match_codes`` returns contiguous int64
+    input itself); any cast or copy would change what the twin must equal, so the twin
+    is dropped and the codes uploaded."""
     from pathway_tpu_torch.engine.graph import _as_match_codes
 
     t0 = _time.perf_counter_ns()
@@ -320,14 +346,19 @@ def match_pairs(
     rc = [_as_match_codes(a) for a in r_arrays]
     if any(c is None for c in rc):
         return None
+    la_dev = ra_dev = None
     if len(lc) == 1:
         la, ra = lc[0], rc[0]
+        if l_dev is not None and la is l_arrays[0]:
+            la_dev = l_dev
+        if r_dev is not None and ra is r_arrays[0]:
+            ra_dev = r_dev
     else:
         nl = len(lc[0])
         both = [np.concatenate([lcol, rcol]) for lcol, rcol in zip(lc, rc)]
         _first, inverse = _host.factorize_multi(both)
         la = np.ascontiguousarray(inverse[:nl], np.int64)
         ra = np.ascontiguousarray(inverse[nl:], np.int64)
-    out = _match_pairs_device(la, ra)
+    out = _match_pairs_device(la, ra, la_dev, ra_dev)
     record_kernel("match_pairs", _time.perf_counter_ns() - t0)
     return out

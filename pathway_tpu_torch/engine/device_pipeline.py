@@ -28,9 +28,9 @@ device work has retired. Here:
 boundary. A failure on the completion thread is raised on the scheduler thread at the
 next staging, ``drain_until`` or ``drain``; only ``reset`` drops it. Each boundary and
 drain first decays the residency plane's resident batches
-(``device_residency.decay_resident_batches``; none on one card). :meth:`stats` reports
-the device operators and the residency plane beside the pipeline; the collective
-exchange is absent until ROADMAP queue 1 item 14, slice c. With tracing
+(``device_residency.decay_resident_batches``). :meth:`stats` reports the device
+operators, the collective exchange and the residency plane beside the pipeline. With
+tracing
 on (``PATHWAY_TPU_TRACE=1``) the controller reads the last traced commit's critical
 path, and a staging blocked on the in-flight limit records a ``device-backpressure``
 span (``cat="wait"``, the queue-wait bucket); with tracing off it reads none.
@@ -43,6 +43,7 @@ import threading
 import time as _time
 from collections import deque
 
+from pathway_tpu_torch.engine import collective_exchange as _collective
 from pathway_tpu_torch.engine import device as _device
 from pathway_tpu_torch.engine import device_ops as _dops
 from pathway_tpu_torch.engine import device_residency as _dres
@@ -410,9 +411,8 @@ class DevicePipeline:
 
     def stats(self) -> dict:
         """Roll-up for a bench's JSON line, with the device planes beside the pipe:
-        the device operators' engagement and calls, the residency plane's transfer
-        ledger, and ``collective_exchange`` as None (absent until ROADMAP queue 1 item
-        14)."""
+        the device operators' engagement and calls, the collective exchange's
+        engagement and events, and the residency plane's transfer ledger."""
         return {
             "enabled": async_enabled(),
             "inflight": self.inflight(),
@@ -426,7 +426,10 @@ class DevicePipeline:
             ),
             "controller": self.controller.stats(),
             "device_ops": {"enabled": _dops.enabled(), "hit_counts": _dops.hit_counts()},
-            "collective_exchange": None,
+            "collective_exchange": {
+                "enabled": _collective.enabled(),
+                "events": dict(_collective.COLLECTIVE_STATS),
+            },
             "device_residency": _dres.stats(),
         }
 

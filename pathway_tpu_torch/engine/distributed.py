@@ -19,11 +19,11 @@ a row lands on the same worker whichever transport carries it.
   dtypes travel as PWCF frames (:func:`encode_columns_frame`), byte for byte the JAX
   package's; object columns (embeddings, Json, tuples) travel as pickled row entries.
 
-Not ported here: the device collective that the JAX package tries before the host
-gather when every destination worker is in this process (ROADMAP queue 1 item 14,
-slice c; ``EXCHANGE_STATS["collective_deliveries"]`` stays 0), and the serving tier's
-hooks in :meth:`DistributedScheduler.resync` and :meth:`DistributedScheduler.rollback`
-(the snapshot stream's epoch and the read store's truncation, ROADMAP queue 1 item 8).
+A columnar batch whose destination workers are all in this process is first offered
+to the device collective (``engine/collective_exchange.py``), as in the JAX package; a
+decline falls through to the host gather. Not ported here: the serving tier's hooks in
+:meth:`DistributedScheduler.resync` and :meth:`DistributedScheduler.rollback` (the
+snapshot stream's epoch and the read store's truncation, ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ from typing import Any, Sequence
 
 import numpy as np
 
+from pathway_tpu_torch.engine import collective_exchange as _collective
 from pathway_tpu_torch.engine.batch import Columns, DeltaBatch, columnarize_entries
 from pathway_tpu_torch.engine.device import VECTOR_THRESHOLD
 from pathway_tpu_torch.engine.graph import (
@@ -1301,14 +1302,33 @@ class DistributedScheduler:
         performed — when some shard must go remote but the payload cannot
         frame-encode, so the caller's row path handles the whole batch.
 
-        The JAX package first offers a batch whose destinations are all in
-        this process to its device collective; that plane is ROADMAP queue 1
-        item 14, slice c, so every batch takes the host gather here."""
+        When every destination worker is in this process, the batch is first
+        offered to the device collective; a decline falls through to the host
+        split below. Destinations in other processes keep the TCP plane."""
         cols = out.columns
         workers = np.unique(shards).tolist()
         any_remote = any(
             self._owner(w)[0] != self.process_id for w in workers
         )
+        if not any_remote:
+            cparts = _collective.exchange(
+                cons_idx, cols, shards, self.n_workers, consumer=consumer
+            )
+            if cparts is not None:
+                EXCHANGE_STATS["collective_deliveries"] += 1
+                EXCHANGE_STATS["repartitions"] += 1
+                for worker, part in enumerate(cparts):
+                    if part is None:
+                        continue
+                    _process, scope_idx = self._owner(worker)
+                    batch = DeltaBatch.from_columns(
+                        part,
+                        consolidated=out._consolidated,
+                        insert_only=out._insert_only,
+                    )
+                    batch._raw_insert_only = out._raw_insert_only
+                    self.scopes[scope_idx].nodes[cons_idx].push(port, batch)
+                return True
         if any_remote:
             if not _frame_encodable(cols):
                 return False

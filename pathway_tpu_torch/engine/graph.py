@@ -754,13 +754,18 @@ class _JoinSide:
     unified-dtype casts and the NaN screen are cached per side and key column, so
     probing a long-lived block pays them once."""
 
-    __slots__ = ("n", "jks", "kb", "cols", "_jk_int", "_jk_f64", "_nan")
+    __slots__ = ("n", "jks", "kb", "cols", "dev_jks", "_jk_int", "_jk_f64", "_nan")
 
-    def __init__(self, n, jks, kb, cols) -> None:
+    def __init__(self, n, jks, kb, cols, dev_jks=None) -> None:
         self.n = n
         self.jks = jks
         self.kb = kb
         self.cols = cols
+        #: device twins of the join-key arrays (one per key column), set only when the
+        #: batch arrived resident with a single int64 key column: the device matcher
+        #: consumes them in place of an upload, in the commit that delivered the batch
+        #: (they are dropped before the side is kept as a block)
+        self.dev_jks = dev_jks
         self._jk_int: dict[int, np.ndarray] = {}
         self._jk_f64: dict[int, Any] = {}  # False = not representable
         self._nan: dict[int, bool] = {}
@@ -818,6 +823,18 @@ def _unify_join_col(a: "_JoinSide", b: "_JoinSide", i: int):
             return None
         return a2, b2
     return None
+
+
+def _twins(l: "_JoinSide", r: "_JoinSide", uni) -> tuple:
+    """The device key twins the matcher may consume for a unified pair of sides: a
+    side's twin when its unified key array *is* the array the twin mirrors (a cast or
+    copy in the unification drops it)."""
+    return tuple(
+        side.dev_jks[0]
+        if side.dev_jks is not None and arrays[0] is side.jks[0]
+        else None
+        for side, arrays in ((l, uni[0]), (r, uni[1]))
+    )
 
 
 def _unify_join_keys(a: "_JoinSide", b: "_JoinSide"):
@@ -1044,7 +1061,18 @@ class JoinNode(Node):
                 return None
             if not batch._insert_only and not _keys_unique(kb, n):
                 return None
-            return _JoinSide(n, jks, kb, list(payload.cols))
+            # a resident delivery with a single int64 key column gives the matcher a
+            # device twin of it (int64 only: the float codes normalise bits, and the
+            # matcher checks the identity of what it would upload anyway)
+            dev_jks = None
+            if (
+                len(on_cols) == 1
+                and jks[0].dtype == np.int64
+                and getattr(payload, "resident", None) is not None
+                and payload.resident()
+            ):
+                dev_jks = [payload.device_column(on_cols[0])]
+            return _JoinSide(n, jks, kb, list(payload.cols), dev_jks=dev_jks)
         entries = batch.entries
         kern = _native.get()
         if kern is not None:
@@ -1128,7 +1156,7 @@ class JoinNode(Node):
             use_device = POLICY.choose("join", self.index, match_rows)
         matches = []
         for (l, r), uni in zip(plan, unified):
-            got = _dops.match_pairs(*uni) if use_device else None
+            got = _dops.match_pairs(*uni, *_twins(l, r, uni)) if use_device else None
             if got is None:  # placed on the host, or a key has no int64 code view
                 self.routes["host"] += 1
                 l_idx, r_idx = _match_join_pairs_multi(*uni)
@@ -1141,7 +1169,9 @@ class JoinNode(Node):
             POLICY.record(
                 "join", self.index, use_device, match_rows, _walltime.perf_counter_ns() - t0_ns
             )
-        # every screen passed: commit the block appends, then emit
+        # every screen passed: commit the block appends, then emit. A twin serves this
+        # commit's probes only: a kept block holds no device memory
+        ls.dev_jks = rs.dev_jks = None
         if ls.n:
             self._blocks_left.append(ls)
         if rs.n:

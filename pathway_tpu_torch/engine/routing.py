@@ -12,8 +12,8 @@ raises on data it cannot route.
 The digests go through the host kernels (``native/enginecore.cpp``'s ``shard_values``
 and ``hash_tuples_batch``); ``PATHWAY_TPU_DISABLE_NATIVE=1`` runs their plain versions
 over :func:`hash_values_batch`, and a kernel that bails hands the call to the same plain
-version. The exchange plane that moves the routed parts between devices is not ported
-yet (ROADMAP queue 1 item 14, slice c), so ``collective_deliveries`` stays 0.
+version. The schedulers move the routed parts by a host gather, or on the device through
+``engine/collective_exchange.py`` (``collective_deliveries``).
 """
 
 from __future__ import annotations

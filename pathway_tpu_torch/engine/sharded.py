@@ -15,10 +15,11 @@ owns it:
 - everything else: by row key.
 
 Sources are read whole on worker 0 and enter the exchange there. The delivery planes
-are the reference's, less the device collective (ROADMAP queue 1 item 14, slice c):
-an edge the optimizer proved redundant skips routing, a pinned consumer takes the whole
-batch on worker 0, a columnar batch is split by a host gather, and a row batch by its
-entries. ``routing.EXCHANGE_STATS`` counts each decision once. The row transformers'
+are the reference's: an edge the optimizer proved redundant skips routing, a pinned
+consumer takes the whole batch on worker 0, a columnar batch may move through the
+device collective (``engine/collective_exchange.py``) or else is split by a host
+gather, and a row batch by its entries. ``routing.EXCHANGE_STATS`` counts each
+decision once. The row transformers'
 ``RecomputeNode``, which the reference pins to worker 0, is not ported yet (item 8),
 so it is absent from the pinned kinds below.
 """
@@ -32,6 +33,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from pathway_tpu_torch.engine import collective_exchange as _collective
 from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine.batch import DeltaBatch, columnarize_entries
 from pathway_tpu_torch.engine.device import VECTOR_THRESHOLD
@@ -220,9 +222,8 @@ class ShardedScheduler:
         The planes, in the order they are decided (each adds one to one plane's counter
         and to ``repartitions``): 1. an elided edge pushes the batch to ``worker``'s
         replica unrouted; 2. a pinned consumer takes the whole batch on worker 0; 3. a
-        columnar batch splits by a host gather; 4. a row batch splits by its entries.
-        The reference's device collective, tried before the gather, comes with ROADMAP
-        queue 1 item 14's slice c."""
+        columnar batch may move through the device collective, whose decline falls
+        through to 4. the host gather split; 5. a row batch splits by its entries."""
         elided = self._elided
         for consumer, port in self.scopes[0].nodes[producer.index].consumers:
             if (producer.index, consumer.index, port) in elided:
@@ -241,14 +242,24 @@ class ShardedScheduler:
             if out._entries is None and out.columns is not None:
                 shards = self._columnar_shards(consumer, port, out)
                 if shards is not None:
-                    EXCHANGE_STATS["host_deliveries"] += 1
+                    cparts = _collective.exchange(
+                        consumer.index, out.columns, shards, self.n, consumer=consumer
+                    )
+                    plane = "host_deliveries" if cparts is None else "collective_deliveries"
+                    EXCHANGE_STATS[plane] += 1
                     EXCHANGE_STATS["repartitions"] += 1
                     for w in range(self.n):
-                        idx = np.flatnonzero(shards == w)
-                        if not len(idx):
-                            continue
+                        if cparts is not None:
+                            cols = cparts[w]
+                            if cols is None:
+                                continue
+                        else:
+                            idx = np.flatnonzero(shards == w)
+                            if not len(idx):
+                                continue
+                            cols = out.columns.gather(idx)
                         part = DeltaBatch.from_columns(
-                            out.columns.gather(idx),
+                            cols,
                             consolidated=out._consolidated,
                             insert_only=out._insert_only,
                         )

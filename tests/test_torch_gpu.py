@@ -1153,3 +1153,136 @@ def test_two_process_groupby_reduces_on_the_card_in_each_process(cuda, tmp_path)
     want = {str(i): [np.float64(sums[i]).view(np.int64).item(), int(counts[i])]
             for i in range(700) if counts[i]}
     assert reports[0]["state"] == want and reports[1]["state"] == {}
+
+
+# -- the collective exchange's swap ------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", [16, 17, 28, 40, 64])
+@pytest.mark.parametrize(
+    "n,dist", [(1, "uniform"), (1 << 20, "uniform"), (1 << 20, "all_to_one"), (5000, "uniform"),
+               (0, "empty")],
+)
+def test_bucket_swap_kernel_matches_plain_version(cuda, width, n, dist):
+    """The swap gathers rows by the stable argsort of their destinations: bit for bit
+    ``index_select``, with the widest copy each width allows (W = 17: bytes)."""
+    from pathway_tpu_torch.ops import bucket_swap as bs
+
+    rng = np.random.default_rng(width + n)
+    payload = torch.from_numpy(rng.integers(0, 256, (n, width), dtype=np.uint8)).to(cuda)
+    shards = np.full(n, 3) if dist == "all_to_one" else rng.integers(0, 4, n)
+    perm = torch.from_numpy(np.argsort(shards, kind="stable").astype(np.int32)).to(cuda)
+    before = bs.BUCKET_SWAP.launches
+    got = bs.bucket_swap(payload, perm)
+    torch.cuda.synchronize()
+    assert got.shape == (n, width) and got.device == payload.device
+    assert torch.equal(got, bs.bucket_swap_reference(payload, perm))
+    assert bs.BUCKET_SWAP.launches == before + (1 if n else 0)
+
+
+def test_bucket_swap_takes_unaligned_row_slices(cuda):
+    """A resident batch's rows are a slice of the swap's output: a slice at an odd row
+    of a 40-byte matrix starts 8-byte aligned only, and the kernel copies 8 bytes."""
+    from pathway_tpu_torch.ops import bucket_swap as bs
+
+    rng = np.random.default_rng(1)
+    whole = torch.from_numpy(rng.integers(0, 256, (1001, 40), dtype=np.uint8)).to(cuda)
+    part = whole[1:]
+    assert part.data_ptr() % 16 == 8
+    perm = torch.from_numpy(rng.permutation(1000).astype(np.int32)).to(cuda)
+    assert torch.equal(bs.bucket_swap(part, perm), part.index_select(0, perm))
+    with pytest.raises(TypeError):
+        bs.bucket_swap(part, perm.long())
+
+
+def test_collective_exchange_on_the_card_matches_the_host_path(cuda, monkeypatch):
+    """A 4-worker groupby through the forced collective with its shards on the card:
+    the same state bits as the host gather, the swap launched once an exchange, every
+    resident batch decayed at the commit boundary."""
+    from pathway_tpu_torch.engine import collective_exchange as cx
+    from pathway_tpu_torch.engine import device_ops as dops
+    from pathway_tpu_torch.engine import device_residency as dres
+    from pathway_tpu_torch.engine.graph import Scope
+    from pathway_tpu_torch.engine.reducers import CountReducer, SumReducer
+    from pathway_tpu_torch.engine.sharded import ShardedScheduler
+    from pathway_tpu_torch.engine.value import ref_scalar
+    from pathway_tpu_torch.ops import bucket_swap as bs
+
+    def run(flag: str):
+        monkeypatch.setenv("PATHWAY_TPU_COLLECTIVE_EXCHANGE", flag)
+        monkeypatch.setenv("PATHWAY_TPU_DEVICE_RESIDENCY", flag)
+        monkeypatch.setenv("PATHWAY_TPU_DEVICE_OPS", "1")
+        scopes, aggs = [], []
+        for w in range(4):
+            sc = Scope()
+            sess = sc.input_session(3)
+            agg = sc.group_by_table(sess, by_cols=[0],
+                                    reducers=[(SumReducer(), [1]), (SumReducer(), [2]),
+                                              (CountReducer(), [])])
+            agg._device_ops_eligible = "groupby"
+            scopes.append(sc)
+            aggs.append(agg)
+            if w == 0:
+                feed = sess
+        sched = ShardedScheduler(scopes)
+        for c in range(3):
+            for i in range(5000):
+                feed.insert(ref_scalar(c * 5000 + i), (i % 97, i, i * 0.25))
+            sched.commit()
+            assert dres.live_resident_batches() == 0
+        merged = {}
+        for agg in aggs:
+            merged.update({int(k): repr(v) for k, v in agg.current.items()})
+        return merged
+
+    dops.configure(device="cuda")
+    cx.reset_counters()
+    dres.reset_counters()
+    try:
+        host = run("0")
+        before = bs.BUCKET_SWAP.launches
+        card = run("1")
+    finally:
+        dops.configure()
+    assert card == host and len(host) == 97
+    assert cx.COLLECTIVE_STATS["exchanges"] == bs.BUCKET_SWAP.launches - before > 0
+    assert dres.RESIDENCY_STATS["declines"] == 0
+    assert dres.RESIDENCY_STATS["resident_batches"] > 0
+    cx.reset_counters()
+    dres.reset_counters()
+
+
+@pytest.mark.parametrize("residency", ["0", "1"])
+def test_a_swap_that_fails_on_the_card_raises(cuda, monkeypatch, residency):
+    """The kernel's entry point reporting a CUDA error: the forced exchange raises on the
+    card tensors, with no exchange counted, no launch counted and nothing fetched to the
+    host in its place."""
+    from pathway_tpu_torch.engine import collective_exchange as cx
+    from pathway_tpu_torch.engine import device_ops as dops
+    from pathway_tpu_torch.engine import device_residency as dres
+    from pathway_tpu_torch.engine.batch import Columns
+    from pathway_tpu_torch.ops import bucket_swap as bs
+
+    class Consumer:
+        _device_ops_eligible = "groupby"
+        index = 5
+
+    monkeypatch.setenv("PATHWAY_TPU_COLLECTIVE_EXCHANGE", "1")
+    monkeypatch.setenv("PATHWAY_TPU_DEVICE_RESIDENCY", residency)
+    dops.configure(device="cuda")
+    try:
+        bs.BUCKET_SWAP.bind()
+        monkeypatch.setattr(bs.BUCKET_SWAP, "_fn", lambda *args: 1)  # cudaErrorInvalidValue
+        cx.reset_counters()
+        dres.reset_counters()
+        before = bs.BUCKET_SWAP.launches
+        cols = Columns(5000, [np.arange(5000)], kbytes=np.zeros((5000, 16), np.uint8))
+        with pytest.raises(RuntimeError, match="pt_bucket_swap did not launch"):
+            cx.exchange(0, cols, np.arange(5000) % 4, 4, consumer=Consumer())
+    finally:
+        dops.configure()
+    assert bs.BUCKET_SWAP.launches == before
+    assert cx.COLLECTIVE_STATS["exchanges"] == 0
+    assert dres.stats()["d2h"]["events"] == 0 and dres.RESIDENCY_STATS["declines"] == 0
+    cx.reset_counters()
+    dres.reset_counters()

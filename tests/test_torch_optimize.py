@@ -452,6 +452,7 @@ PORTED_SINCE = {
     ("pathway_tpu_torch.engine.supervisor", "MeshSupervisor"),
     ("pathway_tpu_torch.internals.runner", "DistributedGraphRunner"),
     ("pathway_tpu_torch.engine.persistence", "reshard_process_snapshots"),
+    ("pathway_tpu_torch.engine.device_residency", "DeviceResidentColumns"),
 }
 
 

@@ -12,7 +12,9 @@ async transformer, item 8, and the row transformer of the parametrized file, who
 goes under ``PATHWAY_TPU_VERIFY_ELISION=1`` (each elided delivery is routed again and
 must stay on its worker) and checks the exchange's invariant
 ``elided + host_deliveries + collective_deliveries == repartitions``, with no collective
-delivery (the device plane comes with item 14's slice c).
+delivery: ``PATHWAY_TPU_COLLECTIVE_EXCHANGE`` is unset here, and in auto mode the device
+collective engages only on a mesh of one CUDA device per shard, which the CPU has not
+(its forced mode is ``tests/test_torch_collective_exchange.py``'s).
 """
 
 from __future__ import annotations
