@@ -333,6 +333,27 @@ limit):
    - cos within 1e-5; neighbours closer than that may trade places) and every doc takes
    the device route. A profiled run of 768 docs gives the device's idle share in
    commits.
+15b. serving: the serving tier, three legs. (a) ``VectorStoreServer.run_server(
+   threaded=True)`` on a free port over the vector store phase's BGE-base embedder, its
+   3,000 docs and a 4,096-slot index; once ``/v1/statistics`` counts every doc, 8 client
+   threads send 32 ``VectorStoreClient.query`` calls (each a doc's own text, k = 10):
+   request p50/p95, docs/s, 12 forward launches per embed call, every answer the exact
+   f32 search's over the vectors the index received, ``/v1/inputs`` answered, the port
+   closed after ``stop``. (b) ``PATHWAY_TPU_SERVING=1``: engine_pipeline's MiniLM-L6
+   program with a groupby beside it through ``pw.run`` into the 1,048,576-slot index,
+   8,192 docs in 16 commits, while 8 client threads POST ``/serving/query`` (vectors of
+   docs already delivered) and ``/serving/lookup`` (the groupby): every answer stamped
+   ``(seq, commit_time)`` and equal to the exact f32 search over the docs the index held
+   at that commit (ties aside, scores within 1e-5), every lookup the host count at that
+   commit, no 5xx, fewer batched searches than queries, no snapshot alive after the
+   store is cleared and the device memory back; p50/p95, queries per dispatch, the
+   result cache's hits, ``publish_ms`` per commit, peak memory. (c) the read tier at
+   65,536 slots (cut in depth: every stream frame copies the whole index to the host):
+   a ``cli replica`` child (``chip_smoke.py --replica-child``, started ahead) and the
+   federation front on the worker, 2,048 docs in 4 commits; the replica's answers at
+   the worker's commit agree with the worker's (the replica searches on the host), the
+   front routes to the replica, and once the replica is killed falls back to the
+   scatter with no 5xx; the replica's lag, each frame's MiB and seconds.
 16. rag: ``AdaptiveRAGQuestionAnswerer`` over the same store program with the decode
    phase's chat (the Mistral-7B shape): 4 prompts in one commit, whose expansion loops
    run at once on the async executor's worker threads; every prompt must be answered,
@@ -418,8 +439,8 @@ limit):
    comparisons), the kernels line (the three flash kernels, ``segment_reduce`` and
    ``bucket_swap``, whose ``launches_by_path`` is the collective phase's (b); the
    forward's ``launches_by_path`` includes ``rag_evals``, ``persistence``,
-   ``observability``, ``watch``, ``connectors``, ``buses``, ``databases`` and
-   ``sharded``, the segment reduction's ``table_ops``, ``temporal``, ``iterate``,
+   ``observability``, ``watch``, ``connectors``, ``buses``, ``databases``,
+   ``sharded``, ``vector_store_server``, ``serving_tier`` and ``serving_read_tier``, the segment reduction's ``table_ops``, ``temporal``, ``iterate``,
    ``optimizer``, ``persistence``, ``observability``, ``connectors``, ``buses``,
    ``databases``, ``sharded``, ``collective`` and ``processes``),
    the ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
@@ -444,6 +465,7 @@ import io
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -464,6 +486,7 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch import _build, native
+from pathway_tpu_torch import serving as pserving
 from pathway_tpu_torch.engine import DeviceKnnIndex, HostKnnIndex
 from pathway_tpu_torch.engine import device as hd
 from pathway_tpu_torch.engine import collective_exchange as cx
@@ -513,9 +536,11 @@ from pathway_tpu_torch.xpacks.llm import (
     EncoderEmbedder,
     ImageEmbedder,
     PipelineChat,
+    VectorStoreClient,
     VectorStoreServer,
     prompt_chat_single_qa,
 )
+from pathway_tpu_torch.serving import result_cache as pserving_cache
 from pathway_tpu_torch.xpacks.llm.llms import EOS_ID
 from pathway_tpu_torch.xpacks.llm._tokenizer import HashTokenizer, pad_to_buckets
 
@@ -4919,6 +4944,721 @@ def phase_rag_evals(card: Card, chat, embedder: EncoderEmbedder) -> int:
 
 
 #: rows of table_ops: half device_ops_leg's 200,000, cut so that the script keeps its time
+# -- serving: run_server, the snapshot read plane and its read tier ---------------------
+
+SERVE_CLIENTS = 8  # client threads in each leg
+SERVE_VS_QUERIES = 32  # (a): VectorStoreClient.query calls in all, each a doc's own text
+SERVE_DOCS = 8192  # (b): MiniLM-L6 docs into the CAPACITY-slot index ...
+SERVE_PACE = 512  # ... in commits of 512 docs each (and (c)'s)
+SERVE_BUCKETS = 64  # (b)'s groupby: the docs counted by doc_id % 64, read by /serving/lookup
+SERVE_CLIENT_GAP_S = 0.2  # (b): each client's pause between its rounds (a query asked twice
+# and a lookup); closed-loop clients (no pause) took ~250 requests/s and held ingest to
+# 117 docs/s on the H100's host (PERF.md §6)
+SERVE_TIER_CAPACITY = 1 << 16  # (c): cut in depth, since payload() copies the whole index
+SERVE_TIER_DOCS = 2048
+SERVE_TIER_QUERIES = 32
+SERVE_WAIT_S = 120.0  # every wait of the phase: past it the phase fails
+SERVE_HTTP_S = 30.0  # every HTTP call's timeout
+
+
+def _serve_post(port: int, path: str, payload: dict) -> tuple[int, dict, bytes, float]:
+    """POST JSON -> (status, headers, body, seconds); an error status is returned, a
+    refused or timed-out connection raises."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_HTTP_S)
+    try:
+        conn.request("POST", path, body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read(), time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _serve_health(port: int) -> dict:
+    code, body, _s = _http_get(port, "/serving/health")
+    return json.loads(body) if code == 200 else {}
+
+
+def _embed_recorder(embedder: EncoderEmbedder) -> tuple[list[int], list]:
+    """Wrap ``embedder.embed_batch``: count its calls as ``_count_embed_calls`` does and
+    keep each call's texts and output rows -> ([calls], [(texts, rows), ...]); ``del
+    embedder.embed_batch`` undoes it."""
+    calls, records = [0], []
+    embed_batch = embedder.embed_batch
+
+    def recorded(texts):
+        calls[0] += math.ceil(len(texts) / CHUNK)
+        out = embed_batch(texts)
+        records.append((list(texts), out))
+        return out
+
+    embedder.embed_batch = recorded
+    return calls, records
+
+
+def _host_rows(records: list) -> dict:
+    """text -> its embedding as a host f32 vector, from ``_embed_recorder``'s records."""
+    out = {}
+    for texts, rows in records:
+        host = rows.float().cpu().numpy()
+        for text, vec in zip(texts, host):
+            out.setdefault(text, vec)
+    return out
+
+
+def _pctl(xs: list, q: float):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def _serving_run_server(card: Card, embedder: EncoderEmbedder) -> dict:
+    """(a) ``VectorStoreServer.run_server(threaded=True)`` at BASELINE #2's width: the
+    vector store phase's 3,000 docs, BGE-base embedder and 4,096-slot index on the card,
+    served over REST on a free port; 8 client threads send 32 ``VectorStoreClient.query``
+    calls in all, each a doc's own text with k = 10, once ``/v1/statistics`` counts
+    every doc. The statistics' count is a reduce with no grouping key, which the groupby
+    keeps on its row path (its columnar state, and so the segment reduction, needs a key
+    column): the leg records the segment kernels' launches, and expects none."""
+    corpus = [doc_text(i) for i in range(VS_DOCS)]
+    calls, records = _embed_recorder(embedder)
+
+    class DocFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            for i in range(VS_DOCS):
+                self.next(data=corpus[i], _metadata={"path": f"/d/{i}"})
+
+    docs = pw.io.python.read(DocFeed(), schema=pw.schema_from_types(data=str, _metadata=dict),
+                             autocommit_duration_ms=100)
+    store = VectorStoreServer(docs, embedder=embedder, index_capacity=VS_CAPACITY)
+    factory = _KeptKnnFactory(dimensions=embedder.get_embedding_dimension(), capacity=VS_CAPACITY)
+    store.index.factory = factory
+    port = _free_port_base(1)
+    client = VectorStoreClient(port=port)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    device_pipeline.PIPELINE.configure()
+    device_ops.reset_counters()
+    fa.KERNEL.launches = 0
+    _zero_segment_launches()
+    failures: list = []
+    latencies: list = []
+    answers: dict = {}
+    t0 = time.perf_counter()
+    handle = store.run_server(port=port, threaded=True)
+    try:
+        count = None
+        while time.perf_counter() - t0 < SERVE_WAIT_S:
+            stats = client.get_vectorstore_statistics()
+            count = stats.get("count") if isinstance(stats, dict) else None
+            if count == VS_DOCS:
+                break
+            time.sleep(0.02)
+        ingest_s = time.perf_counter() - t0
+        n_doc_records = len(records)
+        todo = list(range(SERVE_VS_QUERIES))
+        lock = threading.Lock()
+
+        def client_thread() -> None:
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    i = todo.pop(0)
+                query = corpus[(i * 53) % VS_DOCS]
+                tq = time.perf_counter()
+                try:
+                    answers[i] = client.query(query, k=K)
+                    latencies.append(time.perf_counter() - tq)
+                except Exception as e:  # noqa: BLE001 — a failed request fails the phase below
+                    failures.append(f"query {i}: {e!r}")
+
+        threads = [threading.Thread(target=client_thread, name=f"vs-client-{c}")
+                   for c in range(SERVE_CLIENTS)]
+        tq0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SERVE_WAIT_S)
+        query_wall_s = time.perf_counter() - tq0
+        inputs = client._post("/v1/inputs", {})
+        final_stats = client.get_vectorstore_statistics()
+    finally:
+        handle.stop(timeout=SERVE_WAIT_S)
+        del embedder.embed_batch
+    run_s = time.perf_counter() - t0
+    launches = fa.KERNEL.launches
+    segment = _segment_launches()
+    groupby_calls = device_ops.hit_counts()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=2).close()
+        closed = False
+    except OSError:
+        closed = True
+    index = factory.built
+    vectors = _host_rows(records[:n_doc_records])
+    qvectors = _host_rows(records[n_doc_records:])
+    chunks = {f"/d/{i}": (corpus[i], vectors[corpus[i]]) for i in range(VS_DOCS) if corpus[i] in vectors}
+    checks = []
+    for i, result in sorted(answers.items()):
+        query = corpus[(i * 53) % VS_DOCS]
+        checks.append(_check_answer(result, query, qvectors[query], chunks))
+    lat_ms = [1e3 * x for x in latencies]
+    card.emit(
+        "serving_run_server",
+        model=f"{BGE} (hidden 768, 12 layers, 12 heads of 64, bf16, seeded)",
+        n_docs=VS_DOCS, capacity=index.capacity, clients=SERVE_CLIENTS,
+        n_queries=len(answers), ingest_s=ingest_s, docs_per_s=VS_DOCS / ingest_s,
+        docs_per_s_note="first request of the run to the first /v1/statistics counting every doc",
+        run_s=run_s, query_wall_s=query_wall_s, queries_per_s=len(answers) / query_wall_s,
+        request_p50_ms=_pctl(lat_ms, 0.5), request_p95_ms=_pctl(lat_ms, 0.95),
+        top1_self_retrieval=float(np.mean([c["top1_own_doc"] for c in checks])) if checks else None,
+        answers_order_exact=sum(c["order_exact"] for c in checks),
+        max_dist_err_vs_exact=max((c["max_dist_err_vs_exact"] for c in checks), default=None),
+        statistics=final_stats, inputs=len(inputs) if isinstance(inputs, list) else inputs,
+        embed_calls=calls[0], flash_launches=launches, statistics_segment_launches=segment,
+        groupby_device_calls=groupby_calls, index_rows_device_route=index.rows_device,
+        index_rows_host_route=index.rows_host, peak_device_gib=peak_gib,
+        port_closed_after_stop=closed, failures=failures,
+    )
+    check(not failures, f"run_server: {failures}")
+    check(count == VS_DOCS and final_stats == {"count": VS_DOCS},
+          f"run_server: /v1/statistics counted {final_stats}")
+    check(isinstance(inputs, list) and len(inputs) == VS_DOCS, "run_server: /v1/inputs")
+    check(len(answers) == SERVE_VS_QUERIES and all(c["k"] == K for c in checks),
+          f"run_server: {len(answers)} answers of {[c['k'] for c in checks]} hits")
+    check(all(c["top1_own_doc"] for c in checks), "run_server: a query's top-1 is not its own doc")
+    check(all(c["texts_match_paths"] for c in checks), "run_server: a hit's text and path disagree")
+    check(all(c["order_within_ties"] for c in checks),
+          "run_server: an answer is not the exact f32 search's top-k")
+    check(all(c["max_dist_err_vs_exact"] <= DIST_TOL and c["max_dist_err_vs_own_vector"] <= DIST_TOL
+              for c in checks), f"run_server: dist off 1 - cos by more than {DIST_TOL}")
+    check(launches > 0 and launches == embedder.config.layers * calls[0],
+          f"run_server: {launches} forward launches for {calls[0]} embed calls")
+    check(index.rows_device == VS_DOCS and index.rows_host == 0,
+          f"run_server index routes: {index.rows_device} device, {index.rows_host} host")
+    check(closed and not handle.thread.is_alive(), "run_server: the port is open after stop")
+    check(device_batches_held() == 0, "device batches held after run_server")
+    return {"flash": launches}
+
+
+def _serving_program(embedder, corpus, n_docs: int, factory, release: threading.Event):
+    """The main path's program with a groupby beside it: docs (``doc_id``, text) through
+    the python connector (100 ms autocommit) in commits of ``SERVE_PACE`` docs, each
+    pushed once the one before reached the doc subscriber; the embedder UDF and
+    ``DataIndex`` into ``factory``'s index (an as-of-now query input held open, so that
+    the run and its servers live until ``release``); and the docs counted by
+    ``doc_id % SERVE_BUCKETS``. Returns the observations and the function that runs it."""
+    obs = {"docs": {}, "keys": [], "failures": [], "run_start": 0.0, "ingest_end": 0.0}
+    delivered, batch_seen = threading.Event(), threading.Event()
+    obs["delivered"] = delivered
+
+    class DocFeed(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            obs["run_start"] = time.perf_counter()
+            for start in range(0, n_docs, SERVE_PACE):
+                batch_seen.clear()
+                for i in range(start, min(n_docs, start + SERVE_PACE)):
+                    self.next(doc_id=i, text=corpus[i])
+                if not batch_seen.wait(timeout=SERVE_WAIT_S):
+                    obs["failures"].append(f"docs {start}.. never reached the subscriber")
+                    return
+
+    class Hold(pw.io.python.ConnectorSubject):
+        def run(self) -> None:
+            if not release.wait(timeout=4 * SERVE_WAIT_S):
+                obs["failures"].append("the run was never released")
+
+    docs = pw.io.python.read(DocFeed(), schema=pw.schema_from_types(doc_id=int, text=str),
+                             autocommit_duration_ms=100)
+    docs = docs.select(doc_id=pw.this.doc_id, bucket=pw.this.doc_id % SERVE_BUCKETS,
+                       emb=embedder(pw.this.text))
+    held = pw.io.python.read(Hold(), schema=pw.schema_from_types(query_id=int, text=str),
+                             autocommit_duration_ms=None)
+    queries = held.select(query_id=pw.this.query_id, qemb=embedder(pw.this.text))
+    res = DataIndex(docs, factory, docs.emb).query_as_of_now(queries, queries.qemb,
+                                                             number_of_matches=K)
+    counts = docs.groupby(docs.bucket).reduce(bucket=docs.bucket, cnt=pw.reducers.count())
+    perf_counter = time.perf_counter  # the callbacks' ``time`` argument shadows the module
+
+    def on_doc(key, row, time, is_addition):
+        if is_addition:
+            obs["docs"][repr(key)] = (row["doc_id"], np.asarray(row["emb"], np.float32), time)
+            obs["keys"].append(repr(key))
+            n = len(obs["keys"])
+            if n % SERVE_PACE == 0 or n == n_docs:
+                batch_seen.set()
+            if n == n_docs:
+                obs["ingest_end"] = perf_counter()
+                delivered.set()
+
+    pw.io.subscribe(docs, on_change=on_doc)
+    pw.io.subscribe(res, on_change=lambda *a, **k: None)
+    pw.io.subscribe(counts, on_change=lambda *a, **k: None)
+    return obs, pw.run
+
+
+class _PublishLog:
+    """Times ``STORE.publish`` (host wall, and the card's time between CUDA events
+    recorded around it on the default stream: the read views' clones) and keeps every
+    snapshot it published, to check after the leg that none outlives it."""
+
+    def __init__(self) -> None:
+        self.wall_ms: list[float] = []
+        self.events: list = []
+        self.snapshots: list = []
+        self._publish = pserving.STORE.publish
+
+        def timed(scopes, time_):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            snap = self._publish(scopes, time_)
+            end.record()
+            self.wall_ms.append(1e3 * (time.perf_counter() - t0))
+            self.events.append((start, end))
+            self.snapshots.append(snap)
+            return snap
+
+        pserving.STORE.publish = timed
+
+    def close(self) -> dict:
+        del pserving.STORE.publish
+        torch.cuda.synchronize()
+        device_ms = [s.elapsed_time(e) for s, e in self.events]
+        return {"commits": len(self.wall_ms), "publish_ms_p50": _pctl(self.wall_ms, 0.5),
+                "publish_ms_max": max(self.wall_ms, default=None),
+                "publish_device_ms_p50": _pctl(device_ms, 0.5),
+                "publish_device_ms_max": max(device_ms, default=None)}
+
+
+def _exact_hits(index: dict, qvec: np.ndarray, commit_time: int, k: int):
+    """The exact f32 cosine search over the docs the index held at ``commit_time`` ->
+    (keys in rank order, their cosines, the (k+1)-th cosine)."""
+    n = int(np.searchsorted(index["times"], commit_time, side="right"))
+    keys, mat = index["keys"][:n], index["mat"][:n]
+    cos = (mat @ qvec) / np.maximum(index["norms"][:n] * np.linalg.norm(qvec), np.float32(1e-30))
+    order = np.argsort(-cos, kind="stable")
+    cos = cos[order].astype(np.float64)
+    return [keys[j] for j in order[:k]], cos[:k], cos[k] if len(order) > k else -math.inf
+
+
+def _hits_agree(hits: list, exact_keys: list, exact_cos, next_cos, tol: float = DIST_TOL) -> dict:
+    """One answer's ``[[repr(key), score], ...]`` against the exact search: the same keys
+    in the same order where neighbours' scores differ by more than ``tol`` (closer ones
+    are a tie either search may order either way, as is the k-th against the (k+1)-th),
+    and each score within ``tol`` of the exact cosine."""
+    keys = [h[0] for h in hits]
+    scores = np.array([h[1] for h in hits], np.float64)
+    n = min(len(keys), len(exact_keys))
+    ties_only = bool(len(keys) == len(exact_keys) and all(
+        a == b or abs(float(exact_cos[i]) - float(scores[i])) <= tol
+        for i, (a, b) in enumerate(zip(keys, exact_keys))
+    ) and (set(keys) == set(exact_keys) or abs(float(exact_cos[-1]) - float(next_cos)) <= tol))
+    err = float(np.abs(scores[:n] - exact_cos[:n]).max()) if n else 0.0
+    return {"order_exact": keys == exact_keys, "within_ties": ties_only, "max_score_err": err}
+
+
+def _doc_matrix(obs: dict) -> dict:
+    """The delivered docs in commit order (keys, vectors, norms, commit times)."""
+    keys = sorted(obs["docs"], key=lambda k: obs["docs"][k][2])
+    mat = np.stack([obs["docs"][k][1] for k in keys])
+    return {"keys": np.array(keys, dtype=object), "mat": mat, "norms": np.linalg.norm(mat, axis=1),
+            "times": np.array([obs["docs"][k][2] for k in keys])}
+
+
+def _serving_read_plane(card: Card) -> dict:
+    """(b) The snapshot read plane at the main path's width under
+    ``PATHWAY_TPU_SERVING=1``: the MiniLM-L6 program of the engine pipeline phase with a
+    groupby beside it, through ``pw.run`` into a 1,048,576-slot index on the card, 8,192
+    docs in 16 commits; meanwhile 8 client threads POST ``/serving/query`` with the
+    vectors of docs already delivered (each twice in a row, so a repeat may hit the
+    result cache) and ``/serving/lookup`` of the groupby, each client pausing
+    ``SERVE_CLIENT_GAP_S`` between its rounds. Every answer is held to the
+    exact f32 search over the docs the index held at the commit its stamp names, and
+    every lookup to the host count at that commit."""
+    corpus = [doc_text(i) for i in range(SERVE_DOCS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    for b in (8, 64, CHUNK):
+        embedder.embed_batch(corpus[:b])
+    calls, _sizes = _count_embed_calls(embedder)
+    factory = _KeptKnnFactory(dimensions=DIM, capacity=CAPACITY)
+    release = threading.Event()
+    obs, run = _serving_program(embedder, corpus, SERVE_DOCS, factory, release)
+    env = {"PATHWAY_TPU_SERVING": "1", "PATHWAY_TPU_SERVING_PORT_BASE": str(_free_port_base(1)),
+           "PATHWAY_TPU_SERVING_STREAM_PORT_BASE": str(_free_port_base(1)),
+           "PATHWAY_TPU_SERVING_FEDERATION": None, "PATHWAY_PROCESS_ID": None,
+           "PATHWAY_TPU_RESULT_CACHE": "1"}
+    port = int(env["PATHWAY_TPU_SERVING_PORT_BASE"])
+    records: list = []
+    stats_seen: dict = {}
+
+    def clients() -> None:
+        deadline = time.perf_counter() + 2 * SERVE_WAIT_S
+        while pserving.STORE.latest() is None and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        with pserving.STORE.acquire_latest() as snap:
+            gpos = [p for p, e in snap._entries() if e["node"] == "GroupbyNode"][-1]
+
+        def one(c: int) -> None:
+            rng = np.random.default_rng(SEED + c)
+            after = 0
+            while after < 8 and time.perf_counter() < deadline:
+                if obs["delivered"].is_set():
+                    after += 1
+                key = obs["keys"][int(rng.integers(len(obs["keys"])))]
+                vec = obs["docs"][key][1]
+                for _repeat in range(2):
+                    try:
+                        status, headers, body, s = _serve_post(
+                            port, "/serving/query", {"vector": vec.tolist(), "k": K})
+                        records.append(("query", key, vec, status, headers, body, s))
+                    except OSError as e:
+                        records.append(("query", key, vec, None, {}, repr(e).encode(), 0.0))
+                try:
+                    status, headers, body, s = _serve_post(port, "/serving/lookup", {"node": gpos})
+                    records.append(("lookup", None, None, status, headers, body, s))
+                except OSError as e:
+                    records.append(("lookup", None, None, None, {}, repr(e).encode(), 0.0))
+                time.sleep(SERVE_CLIENT_GAP_S)
+
+        threads = [threading.Thread(target=one, args=(c,), name=f"serving-client-{c}")
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(2 * SERVE_WAIT_S)
+        code, body, _s = _http_get(port, "/serving/stats")
+        stats_seen.update(json.loads(body) if code == 200 else {"status": code})
+        release.set()
+
+    def leg() -> dict:
+        errors: list = []
+        gc.collect()
+        torch.cuda.synchronize()
+        before_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        device_pipeline.PIPELINE.configure()
+        fa.KERNEL.launches = 0
+        log = _PublishLog()
+        cache_before = dict(pserving_cache.CACHE.stats())
+        t0 = time.perf_counter()
+        reader = _run_thread("serving-clients", errors, clients)
+        try:
+            try:
+                run()
+            finally:
+                release.set()
+                reader.join(2 * SERVE_WAIT_S)
+        finally:
+            publish = log.close()
+        run_s = time.perf_counter() - t0
+        launches = fa.KERNEL.launches
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        server_after = pserving.query_server()
+        pserving.STORE.clear()
+        alive = sum(not s.closed for s in log.snapshots)
+        index = factory.built
+        index_bytes = sum(x.numel() * x.element_size() for x in index.state)
+        del factory.built, index
+        gc.collect()
+        torch.cuda.synchronize()
+        after_bytes = torch.cuda.memory_allocated()
+        return {"errors": errors, "run_s": run_s, "launches": launches, "peak_gib": peak_gib,
+                "publish": publish, "alive": alive, "server_after": server_after,
+                "before_bytes": before_bytes, "after_bytes": after_bytes, "index_bytes": index_bytes,
+                "cache_before": cache_before, "published": len(log.snapshots)}
+
+    try:
+        out = _with_env(env, leg)
+    finally:
+        del embedder.embed_batch
+    check(not out["errors"], f"serving read plane: {out['errors']}")
+    docs = _doc_matrix(obs)
+    queries = [r for r in records if r[0] == "query"]
+    lookups = [r for r in records if r[0] == "lookup"]
+    bad_status = sorted({r[3] for r in records if r[3] != 200}, key=str)
+    unstamped, agree, self_top1, lookup_ok = 0, [], 0, 0
+    commits_seen = set()
+    for _kind, key, vec, status, _h, body, _s in queries:
+        if status != 200:
+            continue
+        answer = json.loads(body)
+        snap = answer.get("snapshot")
+        if not snap or "seq" not in snap or "commit_time" not in snap:
+            unstamped += 1
+            continue
+        commits_seen.add(snap["commit_time"])
+        exact = _exact_hits(docs, vec, snap["commit_time"], K)
+        agree.append(_hits_agree(answer["hits"][0], *exact))
+        if obs["docs"][key][2] <= snap["commit_time"]:
+            self_top1 += answer["hits"][0][0][0] == key
+    times = np.array([d[2] for d in obs["docs"].values()])
+    buckets = np.array([d[0] % SERVE_BUCKETS for d in obs["docs"].values()])
+    for _kind, _key, _vec, status, _h, body, _s in lookups:
+        if status != 200:
+            continue
+        answer = json.loads(body)
+        snap = answer.get("snapshot")
+        if not snap:
+            unstamped += 1
+            continue
+        b, n = np.unique(buckets[times <= snap["commit_time"]], return_counts=True)
+        got = sorted(tuple(row) for row in answer["rows"].values())
+        lookup_ok += got == sorted(zip(b.tolist(), n.tolist()))
+    self_expected = sum(
+        1 for r in queries if r[3] == 200 and json.loads(r[5]).get("snapshot")
+        and obs["docs"][r[1]][2] <= json.loads(r[5])["snapshot"]["commit_time"])
+    lat_ms = [1e3 * r[6] for r in records if r[3] == 200]
+    batch = stats_seen.get("batch", {})
+    cache = stats_seen.get("cache", {})
+    ingest_s = obs["ingest_end"] - obs["run_start"]
+    card.emit(
+        "serving_read_plane",
+        model="all-MiniLM-L6-v2 (hidden 384, 6 layers, 12 heads, seeded)",
+        n_docs=len(obs["docs"]), capacity=CAPACITY, doc_commits=len(set(times.tolist())),
+        clients=SERVE_CLIENTS, queries=len(queries), lookups=len(lookups),
+        statuses=sorted(collections.Counter(str(r[3]) for r in records).items()),
+        commits_answered_at=len(commits_seen), docs_per_s=SERVE_DOCS / ingest_s, run_s=out["run_s"],
+        request_p50_ms=_pctl(lat_ms, 0.5), request_p95_ms=_pctl(lat_ms, 0.95),
+        answers_order_exact=sum(a["order_exact"] for a in agree),
+        answers_within_ties=sum(a["within_ties"] for a in agree),
+        max_score_err_vs_exact=max((a["max_score_err"] for a in agree), default=None),
+        own_doc_top1=self_top1, own_doc_top1_expected=self_expected,
+        lookups_equal_host_count=lookup_ok,
+        dispatches=batch.get("dispatches"), batched_queries=batch.get("queries"),
+        queries_per_dispatch=(batch.get("queries") / batch["dispatches"]) if batch.get("dispatches") else None,
+        cache_hits=cache.get("hits"), cache_misses=cache.get("misses"), cache=cache,
+        publish=out["publish"], published_snapshots=out["published"],
+        snapshots_alive_after_stop=out["alive"], peak_device_gib=out["peak_gib"],
+        device_gib_before_run=out["before_bytes"] / 2**30,
+        device_gib_after_clear=out["after_bytes"] / 2**30, index_gib=out["index_bytes"] / 2**30,
+        embed_calls=calls[0], flash_launches=out["launches"], failures=obs["failures"],
+    )
+    check(not obs["failures"], f"serving read plane: {obs['failures']}")
+    check(len(obs["docs"]) == SERVE_DOCS, f"{len(obs['docs'])} of {SERVE_DOCS} docs arrived")
+    check(not bad_status, f"serving read plane: statuses {bad_status} (a timeout is None)")
+    check(queries and lookups and unstamped == 0, f"serving read plane: {unstamped} unstamped answers")
+    check(all(a["within_ties"] and a["max_score_err"] <= DIST_TOL for a in agree),
+          "serving read plane: an answer is not the exact f32 search's at its commit")
+    check(self_top1 == self_expected, f"serving read plane: own doc top-1 {self_top1} of {self_expected}")
+    check(lookup_ok == len(lookups), f"serving read plane: {lookup_ok} of {len(lookups)} lookups "
+                                     "equal the host count at their commit")
+    check(batch.get("dispatches") and batch["dispatches"] < batch.get("queries", 0),
+          f"serving read plane: {batch} (the batcher packed nothing)")
+    check(out["publish"]["commits"] >= SERVE_DOCS // SERVE_PACE, f"published {out['publish']}")
+    check(out["server_after"] is None, "serving read plane: the query server outlived pw.run")
+    check(out["alive"] == 0, f"{out['alive']} snapshots alive after stop_server and clear")
+    check(out["after_bytes"] <= out["before_bytes"] + (64 << 20),
+          f"device memory {out['after_bytes']} after the leg, {out['before_bytes']} before")
+    check(out["launches"] > 0 and out["launches"] == LAYERS * calls[0],
+          f"serving read plane: {out['launches']} forward launches for {calls[0]} embed calls")
+    check(device_batches_held() == 0, "device batches held after the serving read plane")
+    return {"flash": out["launches"]}
+
+
+def _frame_log() -> tuple[dict, callable]:
+    """Time and size each snapshot-stream frame the worker sends, and each
+    ``ReadSnapshot.payload`` (the view's fetch to the host) -> (the log, undo)."""
+    from pathway_tpu_torch.engine import distributed
+    from pathway_tpu_torch.serving import snapshot as snapshot_mod
+
+    log = {"frames": [], "payload_s": []}
+    send, payload = distributed.send_stream_frame, snapshot_mod.ReadSnapshot.payload
+
+    def timed_send(sock, frame, secret=None):
+        t0 = time.perf_counter()
+        body = pickle.dumps(frame, protocol=pickle.HIGHEST_PROTOCOL)
+        send(sock, frame, secret)
+        log["frames"].append((frame[0], len(body), time.perf_counter() - t0))
+
+    def timed_payload(self):
+        t0 = time.perf_counter()
+        out = payload(self)
+        log["payload_s"].append(time.perf_counter() - t0)
+        return out
+
+    distributed.send_stream_frame = timed_send
+    snapshot_mod.ReadSnapshot.payload = timed_payload
+
+    def undo() -> None:
+        distributed.send_stream_frame = send
+        snapshot_mod.ReadSnapshot.payload = payload
+
+    return log, undo
+
+
+def _serving_read_tier(card: Card, replica: "_Ahead", rport: int, sport: int) -> dict:
+    """(c) The read tier at 65,536 slots (cut in depth: ``payload()`` copies the whole
+    index to the host for every frame, ~100 MB here against ~1.6 GB at 2^20 slots): one
+    ``cli replica`` process, started ahead and subscribed to the worker's snapshot
+    stream, and the federation front on the worker (``PATHWAY_TPU_SERVING_FEDERATION=1``,
+    routing to that replica). 2,048 docs in 4 commits; then 32 doc vectors asked of the
+    worker, the replica and the front; then the replica is killed and the front asked
+    again."""
+    corpus = [doc_text(i) for i in range(SERVE_TIER_DOCS)]
+    embedder = EncoderEmbedder("all-MiniLM-L6-v2", max_len=SEQ_LEN, max_batch_size=CHUNK,
+                               seq_bucket_min=SEQ_LEN, seed=SEED)
+    for b in (8, 64, CHUNK):
+        embedder.embed_batch(corpus[:b])
+    calls, _sizes = _count_embed_calls(embedder)
+    factory = DeviceKnnFactory(dimensions=DIM, capacity=SERVE_TIER_CAPACITY)
+    release = threading.Event()
+    obs, run = _serving_program(embedder, corpus, SERVE_TIER_DOCS, factory, release)
+    wport, fport = _free_port_base(1), _free_port_base(1)
+    env = {"PATHWAY_TPU_SERVING": "1", "PATHWAY_TPU_SERVING_PORT_BASE": str(wport),
+           "PATHWAY_TPU_SERVING_STREAM_PORT_BASE": str(sport),
+           "PATHWAY_TPU_SERVING_FEDERATION": "1", "PATHWAY_TPU_FEDERATION_PORT": str(fport),
+           "PATHWAY_TPU_REPLICAS": f"127.0.0.1:{rport}", "PATHWAY_PROCESS_ID": None,
+           "PATHWAY_TPU_RESULT_CACHE": "0"}
+    seen: dict = {"worker": [], "replica": [], "front": [], "fallback": [], "failures": []}
+
+    def readers() -> None:
+        if not obs["delivered"].wait(timeout=2 * SERVE_WAIT_S):
+            seen["failures"].append("the docs were never delivered")
+            return
+        final = max(d[2] for d in obs["docs"].values())
+        deadline = time.perf_counter() + SERVE_WAIT_S
+        health = {}
+        while time.perf_counter() < deadline:
+            # the worker's latest commit may follow the last doc's (the doc feed's end)
+            latest = _serve_health(wport).get("commit_time")
+            health = _serve_health(rport)
+            cut = health.get("cut_commit_time")
+            if cut is not None and latest is not None and cut >= max(final, latest):
+                break
+            time.sleep(0.05)
+        seen["replica_health"] = health
+        seen["converged_s"] = time.perf_counter() - obs["ingest_end"]
+        keys = obs["keys"][:: max(1, len(obs["keys"]) // SERVE_TIER_QUERIES)][:SERVE_TIER_QUERIES]
+        for key in keys:
+            payload = {"vector": obs["docs"][key][1].tolist(), "k": K}
+            for where, port in (("worker", wport), ("replica", rport), ("front", fport)):
+                status, _h, body, s = _serve_post(port, "/serving/query", payload)
+                seen[where].append((key, status, json.loads(body) if status == 200 else body, s))
+        replica.proc.kill()  # the replica dies: the front falls back to the scatter
+        replica.proc.wait()
+        for key in keys:
+            payload = {"vector": obs["docs"][key][1].tolist(), "k": K}
+            try:
+                status, _h, body, s = _serve_post(fport, "/serving/query", payload)
+                seen["fallback"].append((key, status, json.loads(body) if status == 200 else body, s))
+            except OSError as e:
+                seen["fallback"].append((key, None, repr(e), 0.0))
+        release.set()
+
+    def leg() -> dict:
+        errors: list = []
+        frames, undo = _frame_log()
+        fa.KERNEL.launches = 0
+        device_pipeline.PIPELINE.configure()
+        open(replica.go, "w").close()  # the replica subscribes as the worker starts
+        t0 = time.perf_counter()
+        reader = _run_thread("serving-tier-readers", errors, readers)
+        try:
+            try:
+                run()
+            finally:
+                release.set()
+                reader.join(2 * SERVE_WAIT_S)
+        finally:
+            undo()
+            pserving.STORE.clear()
+        return {"errors": errors, "frames": frames, "run_s": time.perf_counter() - t0,
+                "launches": fa.KERNEL.launches}
+
+    try:
+        out = _with_env(env, leg)
+    finally:
+        del embedder.embed_batch
+        replica.close()
+    check(not out["errors"] and not seen["failures"], f"read tier: {out['errors']} {seen['failures']}")
+    final = max(d[2] for d in obs["docs"].values())
+    docs = _doc_matrix(obs)
+    same, agree_worker, fronts_ok, fallback_ok, commit_apart = 0, [], 0, 0, 0
+    for (key, ws, wa, _s1), (_k2, rs, ra, _s2), (_k3, fs, fa_, _s3) in zip(
+            seen["worker"], seen["replica"], seen["front"]):
+        if ws != 200 or rs != 200 or fs != 200:
+            continue
+        exact = _exact_hits(docs, obs["docs"][key][1], wa["snapshot"]["commit_time"], K)
+        agree_worker.append(_hits_agree(wa["hits"][0], *exact))
+        # the replica searches on the host (exact f32), the worker on the card: the two
+        # answers at one commit agree outside ties, each score within DIST_TOL
+        rep = _hits_agree(ra["hits"][0], *exact)
+        common = {h[0]: h[1] for h in wa["hits"][0]}
+        score_gap = max((abs(common[h[0]] - h[1]) for h in ra["hits"][0] if h[0] in common),
+                        default=0.0)
+        commit_apart += ra["snapshot"]["commit_time"] != wa["snapshot"]["commit_time"]
+        same += (ra["snapshot"]["commit_time"] == wa["snapshot"]["commit_time"] >= final
+                 and rep["within_ties"] and rep["max_score_err"] <= DIST_TOL
+                 and score_gap <= DIST_TOL)
+        fronts_ok += fa_["snapshot"].get("route") == "replica" and fa_["hits"] == ra["hits"]
+    for (key, ws, wa, _s), (_k, fs, fa_, _s2) in zip(seen["worker"], seen["fallback"]):
+        fallback_ok += (fs == 200 and fa_["snapshot"].get("route") == "scatter"
+                        and fa_["hits"] == wa["hits"])
+    snaps = [f for f in out["frames"]["frames"] if f[0] == "snap"]
+    health = seen.get("replica_health", {})
+    n = len(seen["worker"])
+    card.emit(
+        "serving_read_tier",
+        n_docs=len(obs["docs"]), capacity=SERVE_TIER_CAPACITY, final_commit=final,
+        queries=n, replica_equal_to_worker=same, replica_at_another_commit=commit_apart,
+        worker_within_ties_of_exact=sum(
+            a["within_ties"] for a in agree_worker),
+        front_routed_to_replica=fronts_ok, front_fallback_scatter_equal=fallback_ok,
+        fallback_statuses=sorted(collections.Counter(str(f[1]) for f in seen["fallback"]).items()),
+        replica_lag_s=health.get("lag_s"), replica_converged_after_ingest_s=seen.get("converged_s"),
+        frames=len(snaps), frame_mib=[b / 2**20 for _k, b, _s in snaps],
+        frame_s=[s for _k, _b, s in snaps], payload_s=out["frames"]["payload_s"],
+        run_s=out["run_s"], embed_calls=calls[0], flash_launches=out["launches"],
+        failures=obs["failures"],
+    )
+    check(not obs["failures"], f"read tier: {obs['failures']}")
+    check((health.get("cut_commit_time") or -1) >= final,
+          f"the replica never reached commit {final}: {health}")
+    check(n == SERVE_TIER_QUERIES and same == n, f"read tier: {same} of {n} replica answers equal the worker's")
+    check(all(a["within_ties"] and a["max_score_err"] <= DIST_TOL for a in agree_worker)
+          and len(agree_worker) == n, "read tier: a worker answer is not the exact search's")
+    check(fronts_ok == n, f"read tier: {fronts_ok} of {n} front answers came from the replica")
+    check(fallback_ok == n, f"read tier: {fallback_ok} of {n} answers after the kill were the "
+                            f"worker's scatter: {seen['fallback'][:2]}")
+    check(snaps, "read tier: no snapshot frame was sent")
+    check(out["launches"] > 0 and out["launches"] == LAYERS * calls[0],
+          f"read tier: {out['launches']} forward launches for {calls[0]} embed calls")
+    return {"flash": out["launches"]}
+
+
+def phase_serving(card: Card, bge: EncoderEmbedder) -> dict:
+    """The serving tier: (a) ``VectorStoreServer.run_server`` at BASELINE #2's width
+    over the vector store phase's warmed BGE-base embedder, (b) the snapshot read plane
+    at the main path's width, (c) its read tier (a ``cli replica`` process and the
+    federation front) at 65,536 slots. The replica starts ahead, so its imports overlap
+    (a) and (b)."""
+    rport, sport = _free_port_base(1), _free_port_base(1)
+    replica = _Ahead(["--replica-child", "--port", str(rport), "--replica-id", "0",
+                      "--sources", f"127.0.0.1:{sport}", "--max-staleness-s", "600"])
+    try:
+        t0 = time.perf_counter()
+        a = _serving_run_server(card, bge)
+        t1 = time.perf_counter()
+        b = _serving_read_plane(card)
+        t2 = time.perf_counter()
+        c = _serving_read_tier(card, replica, rport, sport)
+        t3 = time.perf_counter()
+    finally:
+        replica.close()
+    card.emit("serving", seconds={"run_server": t1 - t0, "read_plane": t2 - t1, "read_tier": t3 - t2})
+    return {"vector_store_server": a["flash"], "serving_tier": b["flash"],
+            "serving_read_tier": c["flash"]}
+
+
 N_OPS = 100_000
 OPS_COMMITS = 20
 OPS_DEDUP_INSTANCES = 4096
@@ -8410,8 +9150,13 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--persistence-child"]:
         return _persistence_child(sys.argv[2:])
-    if sys.argv[1:2] in (["--overhead-gate"], ["--lockwatch-child"]) and os.environ.get("CHIP_SMOKE_GO"):
+    if sys.argv[1:2] in (["--overhead-gate"], ["--lockwatch-child"], ["--replica-child"]) \
+            and os.environ.get("CHIP_SMOKE_GO"):
         _await_go(os.environ["CHIP_SMOKE_GO"])  # started ahead: imports done, wait
+    if sys.argv[1:2] == ["--replica-child"]:
+        from pathway_tpu_torch.cli import main as cli_main
+
+        return cli_main(["replica", *sys.argv[2:]])
     if sys.argv[1:2] == ["--overhead-gate"]:
         return _overhead_child(sys.argv[2])
     if sys.argv[1:2] == ["--lockwatch-child"]:
@@ -8474,6 +9219,7 @@ def main() -> int:
     chat = counted("decode", phase_decode, card)
     counted("chat_engine", phase_chat_engine, card, chat)
     bge, vector_store = counted("vector_store", phase_vector_store, card)
+    serving_tier = counted("serving", phase_serving, card, bge)
     rag = counted("rag", phase_rag, card, chat, bge)
     rag_evals = counted("rag_evals", phase_rag_evals, card, chat, bge)
     del chat, bge
@@ -8493,7 +9239,10 @@ def main() -> int:
                                "observability": observability["flash"], "watch": watch["flash"],
                                "connectors": connectors["flash"], "buses": buses["flash"],
                                "databases": databases["flash"], "sharded": sharded["flash"],
-                               "processes": processes["flash"]}
+                               "processes": processes["flash"],
+                               "vector_store_server": serving_tier["vector_store_server"],
+                               "serving_tier": serving_tier["serving_tier"],
+                               "serving_read_tier": serving_tier["serving_read_tier"]}
     for row in bwd:
         row["launches"] = train[row["name"]]
         row["launches_by_path"] = {"train": train[row["name"]]}

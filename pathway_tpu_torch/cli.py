@@ -14,9 +14,15 @@ Counterpart of ``pathway_tpu/cli.py``:
   quiesces it at a commit boundary, re-shards the operator snapshots and relaunches.
 
 Every process is a fresh interpreter (``subprocess.Popen``): nothing is forked from a
-process that may hold a CUDA context. The other subcommands (``analyze``, ``replica``,
-``federation``, ``stats``, ``trace``, ``profile``) raise ``NotImplementedError`` naming
-ROADMAP queue 1 item 8.
+process that may hold a CUDA context.
+
+- ``replica`` runs a read-only serving replica subscribed to a mesh's snapshot streams
+  (``serving/replica.py::main``), and ``federation`` a federation front over the
+  workers' query servers and replica pools (``serving/federation.py::main``), each
+  until SIGTERM or SIGINT.
+
+The other subcommands (``analyze``, ``stats``, ``trace``, ``profile``) raise
+``NotImplementedError`` naming ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import uuid
 from typing import Sequence
 
 #: subcommands of the JAX package's command line that are not ported yet
-UNPORTED_COMMANDS = ("analyze", "replica", "federation", "stats", "trace", "profile")
+UNPORTED_COMMANDS = ("analyze", "stats", "trace", "profile")
 
 
 def spawn(
@@ -160,6 +166,39 @@ def main(argv: Sequence[str] | None = None) -> int:
     )
     p_rescale.add_argument("target_processes", type=int)
 
+    p_replica = sub.add_parser(
+        "replica",
+        help="run a read-only serving replica subscribed to a mesh's "
+        "snapshot streams (scales query capacity without widening "
+        "ingest)",
+    )
+    p_replica.add_argument("--port", type=int, default=None)
+    p_replica.add_argument("--replica-id", type=int, default=0)
+    p_replica.add_argument(
+        "--sources", default=None,
+        help="host:port list of worker stream endpoints (default: "
+        "derive from --width and the 22000+pid port scheme)",
+    )
+    p_replica.add_argument("--width", type=int, default=None)
+    p_replica.add_argument("--host", default="127.0.0.1")
+    p_replica.add_argument("--max-staleness-s", type=float, default=None)
+
+    p_fed = sub.add_parser(
+        "federation",
+        help="run a federation front: one read endpoint scattering to "
+        "worker query servers and round-robining replica pools",
+    )
+    p_fed.add_argument("--port", type=int, default=None)
+    p_fed.add_argument(
+        "--workers", default=None,
+        help="comma list of worker query ports (default: derive from "
+        "PATHWAY_PROCESSES and the 21000+pid port scheme)",
+    )
+    p_fed.add_argument(
+        "--replicas", default=None,
+        help="replica count or host:port list (default: none)",
+    )
+
     for name in UNPORTED_COMMANDS:
         p = sub.add_parser(name, help="not ported yet (ROADMAP queue 1 item 8)")
         p.add_argument("rest", nargs=argparse.REMAINDER)
@@ -175,6 +214,32 @@ def main(argv: Sequence[str] | None = None) -> int:
         )
     if args.command == "rescale":
         return rescale(args.target_processes, supervisor_dir=args.supervisor_dir)
+    if args.command == "replica":
+        from pathway_tpu_torch.serving import replica as _replica
+
+        replica_args = []
+        if args.port is not None:
+            replica_args += ["--port", str(args.port)]
+        replica_args += ["--replica-id", str(args.replica_id)]
+        if args.sources:
+            replica_args += ["--sources", args.sources]
+        if args.width is not None:
+            replica_args += ["--width", str(args.width)]
+        replica_args += ["--host", args.host]
+        if args.max_staleness_s is not None:
+            replica_args += ["--max-staleness-s", str(args.max_staleness_s)]
+        return _replica.main(replica_args)
+    if args.command == "federation":
+        from pathway_tpu_torch.serving import federation as _federation
+
+        fed_args = []
+        if args.port is not None:
+            fed_args += ["--port", str(args.port)]
+        if args.workers:
+            fed_args += ["--workers", args.workers]
+        if args.replicas:
+            fed_args += ["--replicas", args.replicas]
+        return _federation.main(fed_args)
     if args.command == "spawn-from-env":
         spawn_args = os.environ.get("PATHWAY_SPAWN_ARGS", "")
         if not spawn_args:

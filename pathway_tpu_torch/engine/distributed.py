@@ -21,9 +21,10 @@ a row lands on the same worker whichever transport carries it.
 
 A columnar batch whose destination workers are all in this process is first offered
 to the device collective (``engine/collective_exchange.py``), as in the JAX package; a
-decline falls through to the host gather. Not ported here: the serving tier's hooks in
-:meth:`DistributedScheduler.resync` and :meth:`DistributedScheduler.rollback` (the
-snapshot stream's epoch and the read store's truncation, ROADMAP queue 1 item 8).
+decline falls through to the host gather. Under ``PATHWAY_TPU_SERVING=1``,
+:meth:`DistributedScheduler.resync` raises the snapshot stream's epoch and
+:meth:`DistributedScheduler.rollback` truncates the read store (and with it the result
+cache) and fans the rollback out to the replicas (``pathway_tpu_torch/serving``).
 """
 
 from __future__ import annotations
@@ -261,7 +262,7 @@ class EpochFence:
 
 # -- snapshot-stream wire protocol (read tier) -----------------------------
 #
-# The serving read tier (its replicas come with ROADMAP queue 1 item 8)
+# The serving read tier (pathway_tpu_torch/serving/stream.py + replica.py)
 # ships commit-stamped ReadSnapshot payloads from each worker to read-
 # only replica processes over the SAME wire format as exchange frames:
 # length prefix, HMAC-SHA256 over (length || payload), pickled body.
@@ -1876,8 +1877,13 @@ class DistributedScheduler:
         _profiling.PROFILER.epoch = max(
             _profiling.PROFILER.epoch, int(epoch)
         )
-        # the JAX package also raises the serving tier's snapshot-stream
-        # epoch here (ROADMAP queue 1 item 8)
+        from pathway_tpu_torch import serving as _serving
+
+        if _serving.enabled():
+            # the snapshot stream rises in lockstep too: replicas fence
+            # out any ``snap`` frame a zombie publisher stamped before
+            # this barrier
+            _serving.set_stream_epoch(int(epoch))
         peers = sorted(self._outbox)
         for peer in peers:
             self.transport.send(peer, ("sync", epoch))
@@ -1911,8 +1917,17 @@ class DistributedScheduler:
             to_time=to_time,
             resumed_time=self.time,
         )
-        # the JAX package also truncates the serving tier's read store and
-        # fans the rollback out to its replicas here (ROADMAP queue 1 item 8)
+        from pathway_tpu_torch import serving as _serving
+
+        if _serving.enabled():
+            # readers must never observe commits the mesh rolled back past:
+            # truncate() also invalidates the commit-stamped result cache
+            # above ``to_time`` (commit times are re-used with different
+            # content after recovery), and stream_truncate() fans the same
+            # command out to every subscribed replica as an epoch-fenced
+            # ``snap-rollback``
+            _serving.STORE.truncate(to_time)
+            _serving.stream_truncate(to_time)
 
     # -- monitoring surface parity ----------------------------------------
 

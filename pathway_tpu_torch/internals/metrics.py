@@ -25,7 +25,8 @@ raises (``PATHWAY_TPU_FLIGHT_DIR`` picks the directory, ``PATHWAY_TPU_FLIGHT_EVE
 the ring size); events and dumps carry the id of the sampled trace in flight
 (:func:`set_trace_id_provider`, registered by ``internals/tracing.py``).
 :class:`RequestLog` is the read tier's per-request ring (``PATHWAY_TPU_REQUEST_TRACE_RING``),
-whose writers come with the serving tier (ROADMAP queue 1 item 8).
+written by the serving tier's handlers (``pathway_tpu_torch/serving``): one wide event
+per traced request.
 
 Families the port reports: the connectors' ``pathway_connector_entries_total``,
 ``_batches_total`` and ``_retries_total``; ``pathway_output_rows_total`` and

@@ -19,8 +19,9 @@ port and exposition:
 
 ``pw.run(monitoring_level=pw.MonitoringLevel.ALL, with_http_server=True)`` wires all
 three; the endpoint stays scrapeable for the lifetime of the run. The read tier's
-replica snapshots, which the JAX package's exposition adds under ``worker="r<id>"``,
-wait for the serving tier (item 8). A route that raises in a handler thread (a card
+replicas render under ``worker="r<id>"`` while they are subscribed to this process's
+snapshot stream (the serving import is read with no ``try`` around it, where the
+reference falls back to no stream on any error). A route that raises in a handler thread (a card
 error read by a pull collector, say) closes that connection, as in the JAX package,
 and the server keeps the first such exception: :meth:`MonitoringHttpServer.stop`
 raises it on the caller's thread (ROADMAP: deliberate differences).
@@ -265,6 +266,15 @@ class StatsMonitor:
             if width is not None and peer >= width:
                 continue
             snaps[str(peer)] = self.mesh_snapshots[peer]
+        # read-tier replicas piggyback their registries over the snapshot
+        # stream; they render under worker="r<id>" (a namespace integer peer
+        # ids never collide with) and leave the exposition when they disconnect
+        from pathway_tpu_torch import serving as _serving
+
+        stream = _serving.stream_server()
+        if stream is not None:
+            for rid, rsnap in sorted(stream.replica_metrics_snapshot().items()):
+                snaps[f"r{rid}"] = rsnap
         return _metrics.render_snapshots(snaps)
 
 

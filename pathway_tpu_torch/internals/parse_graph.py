@@ -18,9 +18,14 @@ yet, and a configuration that asks for them raises.
 A run watches itself as the JAX package's does: ``monitoring_level`` renders the live
 dashboard, ``with_http_server`` serves ``/metrics``, ``/timeseries``, ``/requests`` and
 ``/profile`` on ``monitoring_server_port`` (default 20000 + ``PATHWAY_PROCESS_ID``),
-the timeseries loop records the registry's history and evaluates the SLOs whenever the
-endpoint runs or ``PATHWAY_TPU_TIMESERIES`` / ``PATHWAY_TPU_SLO`` ask for it, the
-telemetry sampler and OpenTelemetry spans run under ``set_monitoring_config`` or
+and with ``PATHWAY_TPU_SERVING=1`` the snapshot read plane's query server (with its
+snapshot stream, and on process 0 under ``PATHWAY_TPU_SERVING_FEDERATION=1`` the
+federation front) answers on ``21000 + PATHWAY_PROCESS_ID`` for the lifetime of the
+run; a bind failure raises. ``_keep_http_server=True`` leaves that server and the
+monitoring endpoint running after the run, for the caller to stop. The timeseries
+loop records the registry's history and evaluates the SLOs whenever the endpoint runs
+or ``PATHWAY_TPU_TIMESERIES`` / ``PATHWAY_TPU_SLO`` ask for it, the telemetry sampler
+and OpenTelemetry spans run under ``set_monitoring_config`` or
 ``PATHWAY_PROCESS_METRICS``, and the sampling profiler under ``PATHWAY_TPU_PROFILE=1``
 (its document exported at the end). The run records ``run_start``, ``run_end`` or
 ``run_error`` in the flight recorder, whose ring is dumped to ``PATHWAY_TPU_FLIGHT_DIR``
@@ -84,6 +89,7 @@ def run(
 
     The background threads are stopped, the device pipeline's completion thread is
     reaped and the graph cleared afterwards, whether the run ends or raises."""
+    from pathway_tpu_torch import serving as _serving
     from pathway_tpu_torch.analysis import runtime as _analysis_runtime
     from pathway_tpu_torch.engine import device_pipeline
     from pathway_tpu_torch.internals import profiling as _profiling
@@ -106,7 +112,9 @@ def run(
         telemetry_enabled,
     )
 
-    unported = sorted(k for k, v in kwargs.items() if v and k not in ("threads", "processes"))
+    unported = sorted(
+        k for k, v in kwargs.items() if v and k not in ("threads", "processes", "_keep_http_server")
+    )
     if unported:
         raise NotImplementedError(
             f"pw.run options {unported} are not ported yet (the static analyzer behind "
@@ -137,6 +145,8 @@ def run(
     else:
         runner = GraphRunner(persistence_config=persistence_config)
     analysis_only = _analysis_runtime.enabled()
+    # the endpoints outlive the run (a caller that reads them after it, and stops them)
+    keep_servers = bool(kwargs.get("_keep_http_server"))
     if analysis_only:
         monitoring_level, with_http_server = None, False
     # (what, stop) of each background part this run started, stopped in this order
@@ -158,7 +168,14 @@ def run(
                 stops.append(("dashboard", monitor.stop))
                 if with_http_server:
                     http_server = MonitoringHttpServer(monitor, port=monitoring_server_port)
-                    stops.append(("http", http_server.stop))
+                    if not keep_servers:
+                        stops.append(("http", http_server.stop))
+        if _serving.enabled() and not analysis_only:
+            # the serving plane is per process: every mesh member answers queries from
+            # its own shard's snapshots on 21000 + process_id; a bind failure raises
+            _serving.start_server()
+            if not keep_servers:
+                stops.append(("serving", _serving.stop_server))
         if not analysis_only:
             # strictly opt-in (PATHWAY_TPU_PROFILE=1): unset, a boolean test, no thread
             if _profiling.PROFILER.maybe_start():

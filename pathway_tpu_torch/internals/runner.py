@@ -23,6 +23,7 @@ import os
 import time as _time
 from typing import TYPE_CHECKING, Any, Callable, Sequence
 
+from pathway_tpu_torch import serving as _serving
 from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine import expression as eex
 from pathway_tpu_torch.engine import temporal
@@ -955,10 +956,14 @@ class GraphRunner:
         target = self._snapshot_target
         if monitor is not None:
             monitor.scheduler = sched
+        scopes = target if isinstance(target, list) else [target]
         try:
             if not self.drivers:
                 t0 = _time.monotonic()
                 sched.run_static()
+                if _serving.enabled():
+                    device_pipeline.drain_until(sched.time)
+                    _serving.publish_on_commit(scopes, sched.time)
                 self._on_monitor_commit(0, t0)
                 return sched
             persistent = [d for d in self.drivers if isinstance(d, PersistentDriver)]
@@ -988,14 +993,20 @@ class GraphRunner:
                 _metrics.FLIGHT.record("commit", time=time)
                 if ctx is not None:
                     _tracing.TRACER.end(time)
-                if persistent or snapshot_mgr is not None:
+                serving = _serving.enabled()
+                if persistent or snapshot_mgr is not None or serving:
                     # exactly once: the checkpoint of commit N waits for N's staged
-                    # device work
+                    # device work (a read snapshot sits on the same seam: all of
+                    # commit N, none of N+1)
                     device_pipeline.drain_until(time)
                 for driver in persistent:
                     driver.on_commit(time)
                 if snapshot_mgr is not None:
                     snapshot_mgr.on_commit(target, self.drivers, time)
+                if serving:
+                    # one snapshot over every worker's scope: reads merge the
+                    # key-sharded views back into the synchronous answer
+                    _serving.publish_on_commit(scopes, time)
                 self._on_monitor_commit(time, commit_started)
 
             _pump_drivers(self.drivers, on_data)
@@ -1497,13 +1508,18 @@ class DistributedGraphRunner:
                 _tracing.TRACER.end(time, peer_spans=dict(sched.trace_peer_spans))
                 sched.trace_peer_spans.clear()
             _observe_commit_latency(stamp, started, rows_before)
-            if persistent or snapshot_mgr is not None:
+            serving = _serving.enabled()
+            if persistent or snapshot_mgr is not None or serving:
                 # exactly once: the checkpoint of commit N waits for N's device work
                 device_pipeline.drain_until(time)
             for d in persistent:
                 d.on_commit(time)
             if snapshot_mgr is not None:
                 snapshot_mgr.on_commit(sched.scopes, drivers, time)
+            if serving:
+                # the leader publishes its own shard, the followers theirs in
+                # _follow; a rollback's republication truncates stale views
+                _serving.publish_on_commit(sched.scopes, time)
             if fault_plan is not None:
                 fault_plan.on_commit(self.process_id, time)
             if self.monitor is not None:
@@ -1587,11 +1603,15 @@ class DistributedGraphRunner:
                         else:
                             raise
                     continue
-                if snapshot_mgr is not None:
+                serving = _serving.enabled()
+                if snapshot_mgr is not None or serving:
                     # exactly once: this worker's snapshot of commit N waits for N's
                     # device work
                     device_pipeline.drain_until(time)
-                    snapshot_mgr.on_commit(sched.scopes, [], time)
+                    if snapshot_mgr is not None:
+                        snapshot_mgr.on_commit(sched.scopes, [], time)
+                    if serving:
+                        _serving.publish_on_commit(sched.scopes, time)
                 if fault_plan is not None:
                     fault_plan.on_commit(self.process_id, time)
             elif cmd == "recover":

@@ -22,10 +22,10 @@ history of every registry family:
 The loop keeps the first exception a tick raises (a card error read by a pull
 collector, say), stops ticking, and :meth:`TelemetryLoop.stop` (so ``stop_loop``, which
 ``pw.run`` calls) raises it on the caller's thread; the JAX package swallows it and
-ticks on (ROADMAP: deliberate differences). The read tier's replica snapshots, which
-the JAX package's tick reads from the serving stream server, wait for the serving
-tier (ROADMAP queue 1 item 8); :meth:`TimeSeriesStore.ingest_read_tier` is ported whole
-but has no caller until then. :meth:`TimeSeriesStore.prune_workers` is called by the
+ticks on (ROADMAP: deliberate differences). The tick also records the snapshots the
+read tier's replicas piggyback on the serving stream server (``worker="r<id>"``,
+through :meth:`TimeSeriesStore.ingest_read_tier` as well), read with no ``try`` around
+the serving import, where the reference falls back to no stream on any error. :meth:`TimeSeriesStore.prune_workers` is called by the
 mesh's recovery and rescale paths (``engine/distributed.py``, ``DistributedGraphRunner``),
 and the tick keeps the mesh snapshots of workers inside the mesh's width.
 """
@@ -688,6 +688,17 @@ class TelemetryLoop:
                 continue  # dead-incarnation filter, as prometheus_text
             if isinstance(peer_snap, dict):
                 self.store.ingest_snapshot(peer_snap, str(peer), t=now)
+        # read-tier replicas ride the snapshot stream under "r<id>"
+        # labels; SnapshotStreamServer._drop_subscriber prunes their
+        # ring series on disconnect (string ids bypass the width filter)
+        from pathway_tpu_torch import serving as _serving
+
+        stream = _serving.stream_server()
+        if stream is not None:
+            for rid, rsnap in sorted(stream.replica_metrics_snapshot().items()):
+                if isinstance(rsnap, dict):
+                    self.store.ingest_snapshot(rsnap, f"r{rid}", t=now)
+                    self.store.ingest_read_tier(rsnap, f"r{rid}", t=now)
         self.sentinel.evaluate(self.store, now=now)
 
     def _run(self) -> None:

@@ -40,8 +40,9 @@ The mesh half (:meth:`TraceRecorder.ctx_frame`, :meth:`~TraceRecorder.adopt`,
 the mesh's exchange rounds (``engine/distributed.py``): the leader's context rides the
 round frames, the followers adopt it and ship their spans back. The request half
 (:class:`RequestTrace`, :meth:`~TraceRecorder.begin_request`,
-:meth:`~TraceRecorder.record_query`, the header helpers) is ported as the module has it;
-its callers come with the serving tier (ROADMAP queue 1 item 8).
+:meth:`~TraceRecorder.record_query`, the header helpers) is called by the serving
+tier (``pathway_tpu_torch/serving``): the query server's handlers begin, adopt and end
+a request's trace, and its micro-batcher records each batched search.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 rerankers, the decoder chat), the remote chats over an injected client, the
 tokenizers, and the RAG document pipeline (parsers, splitters, ``DocumentStore``,
 ``VectorStoreServer``, the question answerers) and its evaluation harness
-(``rag_evals``). The REST servers (``servers``) are not ported yet, and raise
-``NotImplementedError`` naming ROADMAP queue 1 item 8."""
+(``rag_evals``), and the REST servers (``servers``: ``DocumentStoreServer``, the
+question answerers' ``QARestServer``), which ``VectorStoreServer.run_server`` runs."""
 
 from pathway_tpu_torch.xpacks.llm import (
     embedders,
@@ -53,13 +53,10 @@ from pathway_tpu_torch.xpacks.llm.rerankers import (
     LLMReranker,
     rerank_topk_filter,
 )
-from pathway_tpu_torch.internals.unported import module_getattr
 from pathway_tpu_torch.xpacks.llm.vector_store import (
     VectorStoreClient,
     VectorStoreServer,
 )
-
-__getattr__ = module_getattr(__name__, {"servers": "8: the serving tier"})
 
 __all__ = [
     "AdaptiveRAGQuestionAnswerer",

@@ -19,8 +19,10 @@ f32 pixels' bytes), normalised there (``normalize_u8``, where the JAX package fu
 into the jitted forward) and embedded by the ViT of ``models/vision.py``, the batch
 padded to a power of two of at least 8.
 
-The remote embedders (``OpenAIEmbedder``, ``LiteLLMEmbedder``, ``GeminiEmbedder``) are
-not ported yet, and raise ``NotImplementedError`` naming ROADMAP queue 1 item 8.
+The remote embedders (``OpenAIEmbedder``, ``LiteLLMEmbedder``, ``GeminiEmbedder``) run
+as the reference's do, over an injected ``client(model=..., input=text)`` (sync or
+async) on the async executor: the package makes no network call of its own, and one
+with no client raises ``ValueError``. Their vectors are host f32 arrays.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from __future__ import annotations
 import hashlib
 import io
 import os
-from typing import Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -36,8 +38,13 @@ import torch
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.engine import device_pipeline
 from pathway_tpu_torch.engine.device import lazy_rows
-from pathway_tpu_torch.internals.udfs import UDF, CacheStrategy, batch_executor
-from pathway_tpu_torch.internals.unported import module_getattr
+from pathway_tpu_torch.internals.udfs import (
+    UDF,
+    AsyncRetryStrategy,
+    CacheStrategy,
+    async_executor,
+    batch_executor,
+)
 from pathway_tpu_torch.models.hf_import import load_sentence_transformer
 from pathway_tpu_torch.models.transformer import (
     Encoder,
@@ -61,11 +68,6 @@ from pathway_tpu_torch.xpacks.llm._tokenizer import (
     pad_to_buckets,
 )
 from pathway_tpu_torch.xpacks.llm.llms import _checkpoint_digest
-
-__getattr__ = module_getattr(__name__, dict.fromkeys(
-    ("OpenAIEmbedder", "LiteLLMEmbedder", "GeminiEmbedder"),
-    "8: the remote embedders, over an injected client",
-))
 
 _ENCODER_PRESETS = {
     "all-MiniLM-L6-v2": "minilm_l6",
@@ -326,3 +328,66 @@ class ImageEmbedder(UDF):
 
     def get_embedding_dimension(self) -> int:
         return self.config.out_dim
+
+
+class _RemoteEmbedder(UDF):
+    """A remote embedder behind ``client(model=..., input=text, **client_kwargs)``,
+    which may return the vector or an awaitable of it; the vector is taken as host
+    f32. Runs on the async executor (``capacity`` calls at once, ``timeout`` seconds a
+    call), with the optional cache and retry strategies; the cache name is the class
+    and the model."""
+
+    def __init__(
+        self,
+        model: str,
+        client: Callable[..., Any] | None = None,
+        *,
+        capacity: int | None = None,
+        timeout: float | None = None,
+        cache_strategy: CacheStrategy | None = None,
+        retry_strategy: AsyncRetryStrategy | None = None,
+        **client_kwargs: Any,
+    ) -> None:
+        self.model = model
+        self.kwargs = client_kwargs
+        if client is None:
+            raise ValueError(
+                f"{type(self).__name__} needs an async `client` callable "
+                "(no network egress here); use xpacks.llm.mocks.fake_embeddings_model "
+                "for offline runs"
+            )
+
+        async def call(text: str) -> Any:
+            result = client(model=self.model, input=str(text), **self.kwargs)
+            if hasattr(result, "__await__"):
+                result = await result
+            return np.asarray(result, np.float32)
+
+        super().__init__(
+            call,
+            executor=async_executor(capacity=capacity, timeout=timeout),
+            cache_strategy=cache_strategy,
+            retry_strategy=retry_strategy,
+            cache_name=f"{type(self).__name__}:{model}",
+        )
+
+
+class OpenAIEmbedder(_RemoteEmbedder):
+    """Reference: embedders.py:85."""
+
+    def __init__(self, model: str = "text-embedding-3-small", **kw: Any):
+        super().__init__(model, **kw)
+
+
+class LiteLLMEmbedder(_RemoteEmbedder):
+    """Reference: embedders.py:180."""
+
+    def __init__(self, model: str = "", **kw: Any):
+        super().__init__(model, **kw)
+
+
+class GeminiEmbedder(_RemoteEmbedder):
+    """Reference: embedders.py:330."""
+
+    def __init__(self, model: str = "models/text-embedding-004", **kw: Any):
+        super().__init__(model, **kw)

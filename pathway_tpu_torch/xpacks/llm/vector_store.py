@@ -2,9 +2,9 @@
 
 Counterpart of ``pathway_tpu/xpacks/llm/vector_store.py``: a ``DocumentStore`` with a
 mandatory embedder and KNN retrieval on the card (docs -> parse -> split -> embed ->
-index). ``run_server`` (the REST endpoints ``/v1/retrieve``, ``/v1/statistics``,
-``/v1/inputs``) needs the HTTP servers of ``servers.py``, which are not ported yet
-(ROADMAP queue 1 item 8); the client speaks to any server with those endpoints.
+index). ``run_server`` serves the REST endpoints ``/v1/retrieve``, ``/v1/statistics``
+and ``/v1/inputs`` through ``servers.py``'s ``DocumentStoreServer``; the client speaks
+to any server with those endpoints.
 """
 
 from __future__ import annotations
@@ -49,10 +49,18 @@ class VectorStoreServer(DocumentStore):
         threaded: bool = False,
         with_cache: bool = False,
     ) -> Any:
-        """Serve /v1/retrieve, /v1/statistics and /v1/inputs over REST."""
-        raise NotImplementedError(
-            "the REST servers (servers.py) are not ported yet (ROADMAP queue 1 item 8)"
-        )
+        """Serve /v1/retrieve, /v1/statistics and /v1/inputs over REST. Returns the
+        ``ServerHandle``: with ``threaded=True`` the run goes on in a thread, and
+        ``handle.stop()`` closes the port and ends it."""
+        from pathway_tpu_torch.xpacks.llm.servers import DocumentStoreServer
+
+        server = DocumentStoreServer(host, port, self)
+        return server.run(threaded=threaded, with_cache=with_cache)
+
+
+#: seconds a client call waits for its answer before it raises (the reference's waits
+#: forever)
+_TIMEOUT_S = 60.0
 
 
 class VectorStoreClient:
@@ -67,7 +75,7 @@ class VectorStoreClient:
             data=json.dumps(payload).encode(),
             headers={"Content-Type": "application/json"},
         )
-        with urllib.request.urlopen(req) as resp:
+        with urllib.request.urlopen(req, timeout=_TIMEOUT_S) as resp:
             return json.loads(resp.read())
 
     def query(self, query: str, k: int = 3) -> list[dict]:

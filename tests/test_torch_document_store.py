@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -246,14 +248,29 @@ def test_vector_store_server_is_a_knn_store():
                                        **({"device": "cpu"} if llm is tllm else {}))
         answers.append(_dicts(pw, server.retrieve_query(_query_table(pw, COLUMNS["filters"]))))
     _assert_same_hits(answers[0], answers[1], KNN_DIST_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        server_port = tllm.VectorStoreServer(
-            tpw.debug.table_from_rows(tpw.schema_from_types(data=str), [("x",)]),
-            embedder=tllm.mocks.FakeEmbedder(4), device="cpu",
-        )
-        server_port.run_server()
-    client = tllm.VectorStoreClient(port=1)
-    assert client.base == jllm.VectorStoreClient(port=1).base == "http://127.0.0.1:1"
+    # run_server serves the same store over REST: /v1/retrieve answers as
+    # retrieve_query does, and stop() closes the port
+    TG.clear()
+    schema = tpw.schema_from_types(data=str, _metadata=dict)
+    served = tllm.VectorStoreServer(tpw.debug.table_from_rows(schema, _docs(6)),
+                                    embedder=tllm.mocks.FakeEmbedder(12), index_capacity=8,
+                                    device="cpu")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    handle = served.run_server(port=port, threaded=True)
+    client = tllm.VectorStoreClient(port=port)
+    try:
+        deadline = time.monotonic() + WAIT_S
+        while (hits := client.query(_text(3), k=2)) == [] and time.monotonic() < deadline:
+            time.sleep(0.05)  # the docs' first commit has not landed yet
+    finally:
+        handle.stop()
+    assert [h["text"] for h in hits] == [_text(3), hits[1]["text"]] and len(hits) == 2
+    with pytest.raises(OSError):
+        socket.create_connection(("127.0.0.1", port), timeout=2).close()
+    assert client.base == jllm.VectorStoreClient(port=port).base == f"http://127.0.0.1:{port}"
 
 
 # -- the slice as a whole: a streaming run over the port's encoder ---------------------

@@ -528,7 +528,7 @@ def test_rescale_request_file_roundtrip(tmp_path, monkeypatch):
     assert (sup_dir / RESCALE_REQUEST).read_text().strip() == "3"
 
 
-@pytest.mark.parametrize("command", ["analyze", "replica", "federation", "stats", "trace", "profile"])
+@pytest.mark.parametrize("command", ["analyze", "stats", "trace", "profile"])
 def test_unported_cli_commands_name_item_8(command):
     from pathway_tpu_torch.cli import main as cli_main
 

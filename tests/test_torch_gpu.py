@@ -1286,3 +1286,77 @@ def test_a_swap_that_fails_on_the_card_raises(cuda, monkeypatch, residency):
     assert dres.stats()["d2h"]["events"] == 0 and dres.RESIDENCY_STATS["declines"] == 0
     cx.reset_counters()
     dres.reset_counters()
+
+
+# -- the serving tier's read views on the card -----------------------------------------
+
+
+def _serving_index_scope(cuda, dim: int, capacity: int, n: int, seed: int):
+    """A scope whose ``ExternalIndexNode`` holds a ``DeviceKnnIndex`` on the card with
+    ``n`` seeded rows, committed once -> (scope, index input, scheduler, index, rng)."""
+    from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+    from pathway_tpu_torch.engine.graph import Scheduler, Scope
+    from pathway_tpu_torch.engine.value import ref_scalar
+
+    rng = np.random.default_rng(seed)
+    sc = Scope()
+    index_in, query_in = sc.input_session(arity=1), sc.input_session(arity=1)
+    index = DeviceKnnIndex(dim=dim, capacity=capacity, device=cuda)
+    ExternalIndexNode(sc, index_in, query_in, index, index_col=0, query_col=0, k=10)
+    sched = Scheduler(sc)
+    for i in range(n):
+        index_in.insert(ref_scalar(i), (rng.standard_normal(dim).astype(np.float32),))
+    sched.commit()
+    return sc, index_in, sched, index, rng
+
+
+def test_read_view_on_card_equals_the_live_search(cuda):
+    """A published snapshot's KNN view on the card answers as the live index did at its
+    commit, bit for bit, holds tensors of its own on the card, and does not move when
+    the live index is written in place after it."""
+    from pathway_tpu_torch.engine.value import ref_scalar
+    from pathway_tpu_torch.serving.snapshot import SnapshotStore
+
+    sc, index_in, sched, index, rng = _serving_index_scope(cuda, 64, 4096, 3000, 11)
+    queries = list(rng.standard_normal((16, 64)).astype(np.float32))
+    store = SnapshotStore(depth=2)
+    store.publish([sc], sched.time)
+    live = index.search(queries, 10)
+    bits = lambda rows: [[(int(k), np.float32(s).view(np.int32).item()) for k, s in r] for r in rows]  # noqa: E731
+    with store.acquire_latest() as snap:
+        view = snap.views[0][sc.nodes.index(next(n for n in sc.nodes if hasattr(n, "ext_index")))]["knn"]
+        assert all(t.device.type == "cuda" for t in view.state)
+        assert all(a.data_ptr() != b.data_ptr() for a, b in zip(view.state, index.state))
+        assert bits(snap.search(queries, 10)) == bits(live)
+        for i in range(0, 3000, 3):
+            index_in.insert(ref_scalar(10_000 + i), (queries[i % 16],))
+        sched.commit()
+        assert bits(index.search(queries, 10)) != bits(live)
+        assert bits(snap.search(queries, 10)) == bits(live)
+
+
+def test_a_cleared_store_gives_its_card_memory_back(cuda):
+    """Each publication clones the index on the card; a cleared store, once the last
+    reader's pin is released, gives every byte of its views back."""
+    from pathway_tpu_torch.engine.value import ref_scalar
+    from pathway_tpu_torch.serving.snapshot import SnapshotStore
+
+    sc, index_in, sched, index, rng = _serving_index_scope(cuda, 384, 1 << 15, 1000, 12)
+    view_bytes = sum(t.numel() * t.element_size() for t in index.state)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    store = SnapshotStore(depth=3)
+    for c in range(5):
+        index_in.insert(ref_scalar(20_000 + c), (rng.standard_normal(384).astype(np.float32),))
+        store.publish([sc], sched.commit())
+    held = store.acquire_latest()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - base >= 3 * view_bytes  # the ring of three
+    store.clear()
+    assert not held.closed
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - base >= view_bytes  # the reader's pin
+    held.release()
+    assert held.closed
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= base

@@ -146,6 +146,14 @@ def test_every_module_is_listed():
         "pathway_tpu_torch.engine.distributed",
         "pathway_tpu_torch.engine.supervisor",
         "pathway_tpu_torch.cli",
+        "pathway_tpu_torch.serving",
+        "pathway_tpu_torch.serving.snapshot",
+        "pathway_tpu_torch.serving.result_cache",
+        "pathway_tpu_torch.serving.server",
+        "pathway_tpu_torch.serving.stream",
+        "pathway_tpu_torch.serving.replica",
+        "pathway_tpu_torch.serving.federation",
+        "pathway_tpu_torch.xpacks.llm.servers",
     ):
         assert expected in names
 

@@ -124,11 +124,26 @@ def test_every_xpack_name_is_ported_or_names_its_item(module, name):
 
 
 def test_the_remote_embedders_and_the_servers_name_item_8():
-    for code in ("from pathway_tpu_torch.xpacks.llm.embedders import OpenAIEmbedder",
-                 "from pathway_tpu_torch.xpacks.llm import servers",
-                 "import pathway_tpu_torch.xpacks.llm as x; x.servers"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            exec(code, {})
+    """Item 8's serving slice ported these names: the remote embedders and every
+    class of ``servers`` import under the reference's names, and none raises."""
+    import pathway_tpu.xpacks.llm.embedders as jemb
+    import pathway_tpu.xpacks.llm.servers as jservers
+    import pathway_tpu_torch.xpacks.llm.embedders as temb
+    import pathway_tpu_torch.xpacks.llm.servers as tservers
+
+    for name in ("OpenAIEmbedder", "LiteLLMEmbedder", "GeminiEmbedder"):
+        ours, theirs = getattr(temb, name), getattr(jemb, name)
+        assert issubclass(ours, tpw.UDF)
+        with pytest.raises(ValueError, match="needs an async `client`"):
+            ours()
+        with pytest.raises(ValueError, match="needs an async `client`"):
+            theirs()
+    for name in ("ServerHandle", "BaseRestServer", "DocumentStoreServer", "QARestServer",
+                 "QASummaryRestServer"):
+        assert getattr(tservers, name).__name__ == getattr(jservers, name).__name__
+    import pathway_tpu_torch.xpacks.llm as x
+
+    assert x.servers is tservers
 
 
 def test_the_names_reference_programs_call_first():
